@@ -1,0 +1,23 @@
+"""back2future_tpu_torch — the PyTorch + CUDA port of back2future_tpu.
+
+The JAX package (`back2future_tpu`) stays the reference; every module
+here mirrors its counterpart there and is tested against it on the CPU.
+This package imports `torch` and never `jax` or `flax`; framework-free
+helpers (`back2future_tpu.config`, `.data`, `.api` pre/post-processing)
+are reused by import.
+
+Layering, from the entry point down to the device:
+  api       — init() / FlowEstimator: host pre/post-processing, the
+              serving forward under torch.inference_mode()
+  models    — nn.Modules: PWCNet (multi-frame PWC + occlusion head),
+              Conv/ConvUnit/Decoder, and the flax-params bridge
+  ops       — NHWC tensor ops: pyramid resampling (plain torch), the
+              multi-frame cost volume and the bilinear warp, each a
+              hand-written CUDA kernel on CUDA tensors and a plain torch
+              twin on CPU tensors (`ops.plain_ops()` forces the twins)
+  runtime   — nvcc build of csrc/*.cu into one shared library, loaded
+              with ctypes; per-kernel launch counters
+  csrc      — the CUDA C++ kernels (sm_90a)
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,133 @@
+"""Library inference API: `init(...) -> FlowEstimator`, the port of
+back2future_tpu/api.py (the reference's library mode, back2future.lua:47-130).
+
+The numpy pre- and post-processing is the JAX package's own, reused by
+import (it is framework-free): frames are channel-stacked,
+ImageNet-normalised and snapped DOWN to the /64 grid; the finest-level
+flow is nearest-resized back with u scaled by W/W64 and v by H/H64, and
+the occlusion softmax is thresholded at OCC_THRESHOLD. The returned flow
+is in raw network units (multiply by `flownet_factor`, 20, for pixels).
+
+The forward runs under `torch.inference_mode()` with
+`with_warped=False`: the image warps feed only the training losses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from back2future_tpu.api import (  # noqa: F401  (OCC_THRESHOLD re-exported)
+    OCC_THRESHOLD, _postprocess_results, _preprocess_triplets, _round_down_64,
+)
+from back2future_tpu.data.augment import color_normalize
+from back2future_tpu.data.resample import resize
+
+from .models import PWCConfig, PWCNet, load_flax_params
+from .models.pwc import DTYPES
+
+Results = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+
+def _numpy(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    return None if t is None else t.float().cpu().numpy()
+
+
+class FlowEstimator:
+    """compute_flow over one PWCNet on one device."""
+
+    def __init__(self, net: PWCNet, device: torch.device):
+        self.net = net.eval()
+        self.config: PWCConfig = net.cfg
+        self.device = device
+
+    def _finest(self, outputs) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        g = outputs[0]
+        return _numpy(g["flow"]), _numpy(g["occ"])
+
+    def __call__(self, *ims: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """compute_flow (back2future.lua:47-95): one (H, W, 3) image in
+        [0,1] per model frame. Returns (flow (H,W,2) float32 raw network
+        units, fwd_occ (H,W) bool, bwd_occ (H,W) bool)."""
+        flows, fwd_occs, bwd_occs = self.compute_flow_batch(
+            *(np.asarray(im, np.float32)[None] for im in ims))
+        return flows[0], fwd_occs[0], bwd_occs[0]
+
+    def compute_flow_batch(self, *frame_stacks) -> Results:
+        """One argument per model frame, each (B, H, W, 3) (or a list of
+        (H, W, 3) images) in [0,1]; one forward serves the whole batch.
+        Returns (flows (B,H,W,2), fwd_occs (B,H,W), bwd_occs (B,H,W))."""
+        imgs, n, height, width = _preprocess_triplets(frame_stacks, self.config.frames)
+        with torch.inference_mode():
+            x = torch.from_numpy(imgs).to(self.device)
+            flow, occ = self._finest(self.net(x, with_warped=False))
+        return _postprocess_results(flow, occ, n, height, width)
+
+    def compute_flow_video(self, frames) -> Results:
+        """`frames` is a whole (N, H, W, 3) sequence in [0,1] (or a list of
+        (H, W, 3) images), N >= frames. Results for all N-F+1 sliding
+        F-frame windows, each equal to compute_flow on that window, with
+        every frame's feature pyramid computed once. Window t covers
+        frames[t:t+F], flow at its reference (centre) frame."""
+        F = self.config.frames
+        arr = (np.asarray(frames, np.float32) if isinstance(frames, np.ndarray)
+               else np.stack([np.asarray(f, np.float32) for f in frames]))
+        if arr.ndim != 4 or arr.shape[-1] != 3:
+            raise ValueError(f"expected (N, H, W, 3) video frames, got {arr.shape}")
+        if arr.shape[0] < F:
+            raise ValueError(f"need at least frames={F} video frames, got "
+                             f"{arr.shape[0]}")
+        arr = color_normalize(arr)
+        n, height, width = arr.shape[:3]
+        fine_h, fine_w = _round_down_64(height), _round_down_64(width)
+        if (fine_h, fine_w) != (height, width):
+            arr = np.stack([resize(im, fine_h, fine_w, "bilinear") for im in arr])
+        w = n - F + 1
+        with torch.inference_mode():
+            frames_t = torch.from_numpy(arr).to(self.device)
+            cs_all = self.net.pyramid(frames_t)
+            cs = {f: {l: feat[f - 1:f - 1 + w] for l, feat in cs_all.items()}
+                  for f in range(1, F + 1)}
+            x = torch.cat([frames_t[f - 1:f - 1 + w] for f in range(1, F + 1)], dim=-1)
+            flow, occ = self._finest(self.net.from_pyramids(x, cs, with_warped=False))
+        return _postprocess_results(flow, occ, w, height, width)
+
+
+def init(model: Optional[Tuple[dict, PWCConfig]] = None, device="cuda",
+         dtype: str = "", seed: int = 0) -> FlowEstimator:
+    """Build a FlowEstimator on `device`.
+
+    `model` is either
+      * a (params, PWCConfig) pair: `params` a flax-named tree of numpy
+        arrays (models.bridge), `PWCConfig` the port's; or
+      * None: random weights from `torch.Generator().manual_seed(seed)`,
+        the flagship 3-frame config (frames 3, levels 7, win 9, skip 2).
+
+    `dtype` ("bfloat16" / "float32") overrides the compute dtype; the
+    default is the config's own, and bfloat16 for random weights.
+    `device` "cuda" with no card raises.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init(device='cuda'): no CUDA device is available")
+    if dtype and dtype not in DTYPES:
+        raise ValueError(f"dtype must be 'bfloat16' or 'float32', got {dtype!r}")
+    generator = torch.Generator().manual_seed(seed)
+    if model is None:
+        config = PWCConfig(dtype=DTYPES[dtype or "bfloat16"])
+        net = PWCNet(config, generator=generator)
+    elif isinstance(model, tuple) and len(model) == 2:
+        params, config = model
+        if not isinstance(config, PWCConfig):
+            raise TypeError(f"expected the port's PWCConfig, got {type(config)}")
+        if dtype:
+            config = dataclasses.replace(config, dtype=DTYPES[dtype])
+        net = PWCNet(config, generator=generator)
+        load_flax_params(net, params)
+    else:
+        raise TypeError("model must be None or a (params, PWCConfig) pair; "
+                        "checkpoint paths are not supported by the port yet")
+    return FlowEstimator(net.to(device), device)

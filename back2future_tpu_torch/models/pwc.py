@@ -1,0 +1,363 @@
+"""Multi-frame PWC network (torch nn.Module, NHWC).
+
+Counterpart of back2future_tpu/models/pwc.py, itself a rebuild of the
+reference graph (models/pwc.lua:87-508): a shared-weight conv feature
+pyramid per frame, and per pyramid level (coarsest -> finest computed
+level) forward/backward multi-frame cost volumes, an occlusion decoder
+with channel softmax, flow decoder(s), bilinear warping of features (for
+the next level) and of the image pyramids (for the photometric losses).
+
+Output: list of per-level dicts, FINEST first (models/pwc.lua:458-489):
+  {"flow": (B,h,w,2), "flow_past": (B,h,w,2)|None, "occ": (B,h,w,2)|None,
+   "warped": [(B,h,w,3) for each non-reference frame, frame order],
+   "flow_scale": float}
+
+`forward(x, with_warped=False)` skips the image warps and returns
+"warped": [] — what the compiled JAX serving program computes, since XLA
+drops those warps as dead code when only flow and occlusion are read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn as nn
+
+from ..ops import (
+    avg_pool2, cost_volume_multi, spatial_softmax, upsample_bilinear2x,
+    upsample_nearest2x, warp_bilinear,
+)
+from .layers import ConvUnit, Decoder
+
+# d = 16 (models/pwc.lua:29); feature dims per level (models/pwc.lua:89)
+_D = 16
+_FEAT_MAPS = (3, _D, _D * 2, _D * 4, _D * 6, _D * 8, _D * 12)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class PWCConfig:
+    frames: int = 3
+    levels: int = 7
+    win: int = 9              # -pwc_ws
+    skip: int = 2             # -pwc_skip
+    siamese: int = 1          # -pwc_siamese
+    two_frame: int = 0
+    flownet_factor: float = 20.0
+    rescale_flow: int = 0
+    residual: int = 0         # -residual
+    occ_input: int = 0
+    sum_cvs: bool = False     # -pwc_sum_cvs
+    past_flow: bool = False
+    dtype: torch.dtype = torch.float32
+    reference_grads: bool = True
+
+    @property
+    def ref(self) -> int:
+        """1-indexed reference frame (models/pwc.lua:130-133)."""
+        return 1 if self.frames == 2 else (self.frames + 1) // 2
+
+    @property
+    def l_st(self) -> int:
+        """Finest computed level (models/pwc.lua:136)."""
+        return max(self.skip + 1, 1)
+
+    @property
+    def feat_maps(self) -> tuple:
+        fm = list(_FEAT_MAPS)
+        while len(fm) < self.levels:
+            fm.append(fm[-1])
+        if self.skip == 0:
+            fm[0] = fm[1]
+        if self.siamese == 0:
+            fm = [3] * max(self.levels + 1, len(fm))
+        return tuple(fm)
+
+    @property
+    def flow_scales(self) -> tuple:
+        """flow_scale per output level, FINEST first."""
+        out = []
+        for l in range(self.l_st, self.levels + 1):
+            if self.rescale_flow == 1:
+                out.append(self.flownet_factor)
+            else:
+                out.append(self.flownet_factor / (2.0 ** (l - self.l_st)))
+        return tuple(out)
+
+    @property
+    def num_output_levels(self) -> int:
+        return self.levels - self.l_st + 1
+
+
+def pwc_config_from_options(opt) -> PWCConfig:
+    """Build from a back2future_tpu.config.Options (models/pwc.lua:103-117)."""
+    return PWCConfig(
+        frames=opt.frames, levels=opt.levels, win=opt.pwc_ws,
+        skip=opt.pwc_skip, siamese=opt.pwc_siamese, two_frame=opt.two_frame,
+        flownet_factor=opt.flownet_factor, rescale_flow=opt.rescale_flow,
+        residual=opt.residual, occ_input=opt.occ_input,
+        sum_cvs=opt.pwc_sum_cvs, past_flow=opt.past_flow,
+        dtype=DTYPES[opt.compute_dtype],
+        reference_grads=opt.reference_grads,
+    )
+
+
+class PWCNet(nn.Module):
+    """The multi-frame PWC network. Submodule names are the flax module
+    names (`feat_{l}`, `{flow,occ,past}_decoder_{l}`), so the params
+    bridge maps one tree onto the other by name."""
+
+    def __init__(self, cfg: PWCConfig, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        fm = cfg.feat_maps
+        nd = cfg.win * cfg.win
+        multi = cfg.frames > 2 and cfg.two_frame == 0
+        nd_flow = nd if (cfg.sum_cvs or not multi) else nd * 2
+        nd_occ = nd * 2 if multi else nd
+
+        # Shared-weight (siamese) feature pyramid: one ConvUnit per level,
+        # applied to every frame (models/pwc.lua:187-195). Level l has
+        # fm[l-1] channels.
+        if cfg.siamese == 1:
+            if cfg.skip == 0:
+                self.feat_1 = ConvUnit(3, fm[0], stride=1, generator=generator)
+            for l in range(2, cfg.levels + 1):
+                self.add_module(f"feat_{l}", ConvUnit(fm[l - 2], fm[l - 1], stride=2,
+                                                      generator=generator))
+
+        # decoders, created in the flax module's order
+        for l in range(cfg.l_st, cfg.levels + 1):
+            c_l = fm[l - 1]
+            up = 0 if l == cfg.levels else c_l + 2   # + ref features + upsampled flow
+            self.add_module(f"flow_decoder_{l}", Decoder(nd_flow + up, generator=generator))
+            if cfg.past_flow:
+                self.add_module(f"past_decoder_{l}",
+                                Decoder(nd_flow + up, generator=generator))
+            if cfg.frames > 2:
+                occ_in = nd_occ + c_l
+                if cfg.two_frame == 1:
+                    occ_in += c_l
+                if l != cfg.levels:
+                    occ_in += 2 + (2 if cfg.occ_input == 1 else 0)
+                self.add_module(f"occ_decoder_{l}", Decoder(occ_in, generator=generator))
+
+    def _features(self, img: torch.Tensor) -> Dict[int, torch.Tensor]:
+        """Apply pyramid stages 2..levels (and stage 1 when skip==0)."""
+        cfg = self.cfg
+        cs = {1: img}
+        if cfg.siamese == 1:
+            if cfg.skip == 0:
+                cs[1] = self.feat_1(img)
+            for l in range(2, cfg.levels + 1):
+                cs[l] = getattr(self, f"feat_{l}")(cs[l - 1])
+        else:
+            for l in range(2, cfg.levels + 1):
+                cs[l] = avg_pool2(cs[l - 1])
+        return cs
+
+    def _frame_range(self):
+        """Frames with features/cost volumes (models/pwc.lua:161-166)."""
+        cfg = self.cfg
+        return (cfg.ref, cfg.ref + 1) if cfg.two_frame == 1 else (1, cfg.frames)
+
+    def forward(self, x: torch.Tensor, with_warped: bool = True
+                ) -> List[Dict[str, Any]]:
+        """x: (B, H, W, 3*frames) frame stack, H and W divisible by
+        2**(levels-1)."""
+        cfg = self.cfg
+        if x.shape[-1] != 3 * cfg.frames:
+            raise ValueError(f"expected {3 * cfg.frames} input channels, "
+                             f"got {x.shape[-1]}")
+        x = x.to(cfg.dtype)
+        f_i, l_i = self._frame_range()
+        # the weights are shared across frames, so ONE conv chain runs
+        # over the frame-stacked batch and is split afterwards
+        f_range = list(range(f_i, l_i + 1))
+        stacked = torch.cat([x[..., 3 * (f - 1):3 * f] for f in f_range], dim=0)
+        css = self._features(stacked)
+        n = x.shape[0]
+        cs = {f: {l: feat[k * n:(k + 1) * n] for l, feat in css.items()}
+              for k, f in enumerate(f_range)}
+        return self._decode(x, cs, with_warped)
+
+    def pyramid(self, frame: torch.Tensor) -> Dict[int, torch.Tensor]:
+        """Siamese feature pyramid of ONE frame: (B, H, W, 3) -> {level:
+        (B, H/2^(l-1), W/2^(l-1), C_l)}. In a sliding window every frame's
+        pyramid is the same in all windows it appears in, so video
+        inference computes it once per frame (api.compute_flow_video)."""
+        if frame.shape[-1] != 3:
+            raise ValueError(f"pyramid() takes one (B, H, W, 3) frame, got "
+                             f"channels={frame.shape[-1]}")
+        return self._features(frame.to(self.cfg.dtype))
+
+    def from_pyramids(self, x: torch.Tensor,
+                      cs: Dict[int, Dict[int, torch.Tensor]],
+                      with_warped: bool = True) -> List[Dict[str, Any]]:
+        """Forward from precomputed per-frame pyramids `cs[f][l]`; `x` is
+        the (B, H, W, 3F) frame stack. Same outputs as `forward`."""
+        cfg = self.cfg
+        if x.shape[-1] != 3 * cfg.frames:
+            raise ValueError(f"expected {3 * cfg.frames} input channels, "
+                             f"got {x.shape[-1]}")
+        f_i, l_i = self._frame_range()
+        missing = [f for f in range(f_i, l_i + 1) if f not in cs]
+        if missing:
+            raise ValueError(f"from_pyramids: missing pyramids for frames "
+                             f"{missing} (need {f_i}..{l_i})")
+        cs = {f: {l: feat.to(cfg.dtype) for l, feat in d.items()}
+              for f, d in cs.items()}
+        return self._decode(x.to(cfg.dtype), cs, with_warped)
+
+    def _decode(self, x: torch.Tensor, cs: Dict[int, Dict[int, torch.Tensor]],
+                with_warped: bool) -> List[Dict[str, Any]]:
+        """Coarse-to-fine decode from per-frame feature pyramids: cost
+        volumes, occ/flow decoders, feature warps and (with_warped) the
+        image warps, then the output groups."""
+        cfg = self.cfg
+        F, ref, l_st, levels = cfg.frames, cfg.ref, cfg.l_st, cfg.levels
+        factor = cfg.flownet_factor
+        f_i, l_i = self._frame_range()
+        multi = F > 2 and cfg.two_frame == 0
+
+        def wb(im, fl):
+            return warp_bilinear(im, fl, reference_grads=cfg.reference_grads)
+
+        # image pyramids of non-ref frames for the photometric warps
+        # (ds[f][j] = image downsampled j times; models/pwc.lua:147-158)
+        ds = {}
+        if with_warped:
+            for f in range(1, F + 1):
+                if f != ref:
+                    chain = [x[..., 3 * (f - 1):3 * f].contiguous()]
+                    for _ in range(levels - l_st):
+                        chain.append(avg_pool2(chain[-1]))
+                    ds[f] = chain
+
+        ws: Dict[int, Dict[int, torch.Tensor]] = {f: {} for f in range(1, F + 1)}
+        ufs, ubfs, uoccs, fs, bfs, occs = {}, {}, {}, {}, {}, {}
+        skip_ufs, skip_ubfs, skip_occs = {}, {}, {}
+        iws: Dict[int, Dict[int, torch.Tensor]] = {f: {} for f in range(1, F + 1)}
+
+        for l in range(levels, l_st - 1, -1):
+            # cost-volume inputs: raw features at the coarsest level, warped
+            # features below (models/pwc.lua:238-244)
+            inp = cs if l == levels else ws
+            future = [inp[f][l] for f in range(ref + 1, l_i + 1)]
+            cv_fwd = cost_volume_multi(cs[ref][l], future, cfg.win, fwd=True)
+            if multi:
+                past = [inp[f][l] for f in range(ref - 1, 0, -1)]
+                cv_bwd = cost_volume_multi(cs[ref][l], past, cfg.win, fwd=False)
+                cvs_occ = torch.cat([cv_fwd, cv_bwd], dim=-1)
+                cvs_flow = cv_fwd + cv_bwd if cfg.sum_cvs else cvs_occ
+            else:
+                cvs_flow = cvs_occ = cv_fwd
+
+            # occlusion decoder (models/pwc.lua:286-321)
+            if F > 2:
+                occ_in = [cvs_occ, cs[ref][l]]
+                if cfg.two_frame == 1:
+                    occ_in.append(cs[ref + 1][l])
+                if l != levels:
+                    occ_in.append(ufs[l + 1])
+                    if cfg.occ_input == 1:
+                        occ_in.append(uoccs[l + 1])
+                occs[l] = spatial_softmax(
+                    getattr(self, f"occ_decoder_{l}")(torch.cat(occ_in, dim=-1)))
+                if cfg.skip > 0 or cfg.occ_input == 1:
+                    uoccs[l] = upsample_nearest2x(occs[l])
+                if cfg.skip > 0:
+                    so = uoccs[l]
+                    for _ in range(2, l_st):
+                        so = upsample_nearest2x(so)
+                    skip_occs[l] = so
+
+            # flow decoder(s) (models/pwc.lua:324-352)
+            flow_dec = getattr(self, f"flow_decoder_{l}")
+            past_dec = getattr(self, f"past_decoder_{l}") if cfg.past_flow else None
+            if l == levels:
+                fs[l] = flow_dec(cvs_flow)
+                if cfg.past_flow:
+                    bfs[l] = past_dec(cvs_flow)
+            else:
+                d = flow_dec(torch.cat([cvs_flow, cs[ref][l], ufs[l + 1]], dim=-1))
+                fs[l] = d + ufs[l + 1] if cfg.residual == 1 else d
+                if cfg.past_flow:
+                    db = past_dec(torch.cat([cvs_flow, cs[ref][l], ubfs[l + 1]], dim=-1))
+                    bfs[l] = db + ubfs[l + 1] if cfg.residual == 1 else db
+
+            # upsample flow chains (models/pwc.lua:354-390)
+            if cfg.skip > 0 or l > l_st:
+                ufs[l] = upsample_bilinear2x(fs[l])
+                if cfg.past_flow:
+                    ubfs[l] = upsample_bilinear2x(bfs[l])
+                if cfg.rescale_flow == 1:
+                    ufs[l] = ufs[l] * 2.0
+                    if cfg.past_flow:
+                        ubfs[l] = ubfs[l] * 2.0
+                if cfg.skip > 0:
+                    su = ufs[l]
+                    sub = ubfs[l] if cfg.past_flow else None
+                    for _ in range(2, l_st):
+                        su = upsample_bilinear2x(su)
+                        if cfg.rescale_flow == 1:
+                            su = su * 2.0
+                        if sub is not None:
+                            sub = upsample_bilinear2x(sub)
+                            if cfg.rescale_flow == 1:
+                                sub = sub * 2.0
+                    skip_ufs[l] = su
+                    if cfg.past_flow:
+                        skip_ubfs[l] = sub
+
+            # warps (models/pwc.lua:392-448)
+            for f in range(1, F + 1):
+                if f == ref:
+                    continue
+                # feature warp for the next (finer) level's cost volumes
+                if l > l_st and f_i <= f <= l_i:
+                    if cfg.rescale_flow == 1:
+                        m = factor * (f - ref)
+                    else:
+                        m = factor * (f - ref) / (2.0 ** (l - 2))
+                    ws[f][l - 1] = wb(cs[f][l - 1], ufs[l] * m)
+
+                if not with_warped:
+                    continue
+                # image warp at this level's output resolution
+                if cfg.skip == 0:
+                    base = bfs[l] if (cfg.past_flow and f < ref) else fs[l]
+                else:
+                    base = skip_ubfs[l] if (cfg.past_flow and f < ref) else skip_ufs[l]
+                # the past multiplier stays negative even with a separate
+                # past decoder, so hard-model weights transfer
+                # (models/pwc.lua:438-444)
+                if cfg.rescale_flow == 1:
+                    m = factor * (f - ref)
+                else:
+                    m = factor * (f - ref) / (2.0 ** (l - l_st))
+                iws[f][l] = wb(ds[f][l - l_st], base * m)
+
+        # output groups, FINEST first (models/pwc.lua:458-489)
+        out: List[Dict[str, Any]] = []
+        for idx, l in enumerate(range(l_st, levels + 1)):
+            if cfg.skip == 0:
+                flow, flow_past = fs[l], (bfs[l] if cfg.past_flow else None)
+            else:
+                flow, flow_past = skip_ufs[l], (skip_ubfs[l] if cfg.past_flow else None)
+            if F > 2:
+                occ = skip_occs[l] if cfg.skip > 0 else occs[l]
+            else:
+                occ = None
+            out.append({
+                "flow": flow,
+                "flow_past": flow_past,
+                "occ": occ,
+                "warped": ([iws[f][l] for f in range(1, F + 1) if f != ref]
+                           if with_warped else []),
+                "flow_scale": cfg.flow_scales[idx],
+            })
+        return out
