@@ -2,8 +2,12 @@
 
 One rule for every op: a CUDA tensor goes through the hand-written
 kernel, a CPU tensor through the plain twin. `plain_ops()` is the one
-exception, for comparing the two on the card; nothing on the serving
-path enters it.
+exception, for comparing the two on the card; nothing on the serving or
+training path enters it. An op that has a backward decides its route in
+its forward and keeps it for the backward, which autograd runs on
+another thread (where `plain_ops()`, a context variable, is not set).
+Kernels are called on tensors inside `autograd.Function.forward` and
+`backward`, where autograd records nothing.
 """
 
 from __future__ import annotations
@@ -42,7 +46,9 @@ def use_kernel(t: torch.Tensor) -> bool:
 
 def check_kernel_input(name: str, t: torch.Tensor, shape, dtype) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of `shape` and `dtype`
-    (f32 or bf16) that does not require grad."""
+    (f32 or bf16)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got one on {t.device}")
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {t.dtype} not supported by the "
                         f"kernel (float32 or bfloat16)")
@@ -52,10 +58,6 @@ def check_kernel_input(name: str, t: torch.Tensor, shape, dtype) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous (NHWC)")
-    if t.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels are forward-only; their backward "
-            f"lands with the training-step slice of the port")
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

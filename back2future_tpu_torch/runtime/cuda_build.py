@@ -1,10 +1,10 @@
 """Build-on-demand loader for the port's CUDA kernels.
 
 Counterpart of `back2future_tpu/runtime/native.py`: every `csrc/*.cu` is
-compiled by `nvcc` for `sm_90a` into ONE shared library with a plain C
-interface, cached in `back2future_tpu_torch/_build/` under a hash of the
-sources and flags (so an edited source rebuilds), and loaded with
-`ctypes`. Unlike the host runtime there is no fallback: the kernels are
+compiled by `nvcc` for `sm_90a` (one `nvcc` per source, all started
+together) and linked into ONE shared library with a plain C interface,
+cached in `back2future_tpu_torch/_build/` under a hash of the sources and
+flags (so an edited source rebuilds), and loaded with `ctypes`. Unlike the host runtime there is no fallback: the kernels are
 only ever asked for on a CUDA tensor, so a missing `nvcc` or a failed
 build raises.
 
@@ -29,7 +29,7 @@ SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -61,21 +61,42 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile `csrc/*.cu` unless the library for these sources exists;
-    return its path. The `-Xptxas -v` report (registers, shared memory,
-    spills per kernel) is kept beside it as `<name>.log`. Raises
-    RuntimeError if `nvcc` is missing or fails."""
+    return its path. The sources compile in parallel, one `nvcc` each,
+    and are linked with `nvcc -shared`. The `-Xptxas -v` report
+    (registers, shared memory, spills per kernel) is kept beside the
+    library as `<name>.log`. Raises RuntimeError if `nvcc` is missing or
+    fails."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS,
-           *map(str, sorted(SRC_DIR.glob("*.cu"))), "-o", str(tmp)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o" for src in sorted(SRC_DIR.glob("*.cu"))}
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)] for src, obj in objs.items()]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    tmp = so.with_name(f"{tag}.tmp.so")
+    try:
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(cmd, log, proc.returncode) for cmd, log, proc in zip(cmds, logs, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"[code {rc}] {' '.join(cmd)}\n{log}" for cmd, log, rc in failed))
+        link = [nvcc, "-shared", *map(str, objs.values()), "-o", str(tmp)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with code {res.returncode}:\n"
+                               f"{' '.join(link)}\n{res.stdout}{res.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs.values():
+            obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
     return so
 

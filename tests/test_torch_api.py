@@ -110,18 +110,19 @@ def test_init_cuda_without_card_raises():
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports the port and runs a tiny CPU forward
-    without loading jax, flax or msgpack."""
+    """A fresh interpreter imports the port, its train step and losses
+    included, and runs a tiny CPU forward without loading jax, flax,
+    optax or msgpack."""
     code = (
         "import sys, numpy as np\n"
         "import back2future_tpu_torch\n"
-        "from back2future_tpu_torch import api, ops, models, runtime\n"
+        "from back2future_tpu_torch import api, data, losses, ops, models, runtime, train\n"
         "est = api.init(None, device='cpu', dtype='float32')\n"
         "ims = [np.random.default_rng(k).random((64, 128, 3), dtype=np.float32)"
         " for k in range(3)]\n"
         "flow, fo, bo = est(*ims)\n"
         "assert flow.shape == (64, 128, 2) and np.isfinite(flow).all()\n"
-        "bad = [m for m in ('jax', 'flax', 'msgpack') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'msgpack') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -135,5 +136,6 @@ def test_no_jax_import_in_port_sources():
     offending = [str(p.relative_to(ROOT))
                  for p in (ROOT / "back2future_tpu_torch").rglob("*.py")
                  if any(s in p.read_text() for s in ("import jax", "from jax",
-                                                     "import flax", "from flax"))]
+                                                     "import flax", "from flax",
+                                                     "import optax", "from optax"))]
     assert not offending

@@ -157,13 +157,17 @@ def test_warp_bf16_keeps_subpixel_weights():
 
 
 def test_warp_grad_needs_training_slice():
-    img = torch.zeros(1, 4, 4, 2, requires_grad=True)
-    flow = torch.zeros(1, 4, 4, 2)
-    with pytest.raises(NotImplementedError):
-        ops.warp_bilinear(img, flow)
-    # plain autodiff through the twin is what reference_grads=False asks for
+    """The training slice gives the warp its gradients: with reference
+    gradients the flow gradient at a clamped coordinate stays non-zero,
+    with autodiff it is zeroed (tests/test_torch_train_ops.py holds both
+    against JAX)."""
+    img = torch.from_numpy(rand((1, 4, 4, 2), seed=30)).requires_grad_()
+    flow = torch.full((1, 4, 4, 2), 9.0, requires_grad=True)   # clamps everywhere
+    ops.warp_bilinear(img, flow).sum().backward()
+    assert img.grad is not None and flow.grad.abs().sum() > 0
+    flow.grad = None
     ops.warp_bilinear(img, flow, reference_grads=False).sum().backward()
-    assert img.grad is not None
+    assert torch.all(flow.grad == 0)
 
 
 def test_plain_ops_routing_on_cpu():
