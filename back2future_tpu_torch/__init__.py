@@ -2,19 +2,26 @@
 
 The JAX package (`back2future_tpu`) stays the reference; every module
 here mirrors its counterpart there and is tested against it on the CPU.
-This package imports `torch` and never `jax` or `flax`; framework-free
-helpers (`back2future_tpu.config`, `.data`, `.api` pre/post-processing)
-are reused by import.
+This package imports `torch` and never `jax`, `flax` or anything of the
+JAX package: what it needs of that package's framework-free modules
+(`Options`, the numpy pre/post-processing of the API, colour
+normalisation, resize) it keeps as its own copies.
 
 Layering, from the entry point down to the device:
   api       — init() / FlowEstimator: host pre/post-processing, the
               serving forward under torch.inference_mode()
   models    — nn.Modules: PWCNet (multi-frame PWC + occlusion head),
-              Conv/ConvUnit/Decoder, and the flax-params bridge
+              Conv/ConvUnit/Decoder, the flax-params bridge and the
+              hard -> soft surgery
+  train     — the unsupervised train step: multi-scale loss, optimiser
+              chain, TrainState
+  losses    — the criteria of the hard and soft recipes, reference
+              gradients as autograd Functions
   ops       — NHWC tensor ops: pyramid resampling (plain torch), the
-              multi-frame cost volume and the bilinear warp, each a
-              hand-written CUDA kernel on CUDA tensors and a plain torch
-              twin on CPU tensors (`ops.plain_ops()` forces the twins)
+              multi-frame cost volume, the bilinear warp and the fused
+              feature stem, each a hand-written CUDA kernel on CUDA
+              tensors and a plain torch twin on CPU tensors
+              (`ops.plain_ops()` forces the twins)
   runtime   — nvcc build of csrc/*.cu into one shared library, loaded
               with ctypes; per-kernel launch counters
   csrc      — the CUDA C++ kernels (sm_90a)

@@ -1,8 +1,8 @@
 """Library inference API: `init(...) -> FlowEstimator`, the port of
 back2future_tpu/api.py (the reference's library mode, back2future.lua:47-130).
 
-The numpy pre- and post-processing is the JAX package's own, reused by
-import (it is framework-free): frames are channel-stacked,
+The numpy pre- and post-processing is a copy of the JAX package's
+(back2future_tpu/api.py:35-102): frames are channel-stacked,
 ImageNet-normalised and snapped DOWN to the /64 grid; the finest-level
 flow is nearest-resized back with u scaled by W/W64 and v by H/H64, and
 the occlusion softmax is thresholded at OCC_THRESHOLD. The returned flow
@@ -20,16 +20,68 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from back2future_tpu.api import (  # noqa: F401  (OCC_THRESHOLD re-exported)
-    OCC_THRESHOLD, _postprocess_results, _preprocess_triplets, _round_down_64,
-)
-from back2future_tpu.data.augment import color_normalize
-from back2future_tpu.data.resample import resize
-
+from .data.augment import color_normalize
+from .data.resample import resize
 from .models import PWCConfig, PWCNet, load_flax_params
 from .models.pwc import DTYPES
 
 Results = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+OCC_THRESHOLD = 0.6666  # back2future.lua:40
+
+
+def _round_down_64(x: int) -> int:
+    return max(x - (x % 64), 64)
+
+
+def _preprocess_triplets(frame_stacks, frames: int):
+    """compute_flow preprocessing (back2future.lua:48-71): stack,
+    channel-concat, ImageNet-normalise, snap to the /64 grid.
+
+    Returns (imgs (B, H64, W64, 3F) float32, n, height, width)."""
+    if len(frame_stacks) != frames:
+        raise ValueError(f"model expects {frames} frames, got {len(frame_stacks)} "
+                         f"image stacks")
+    stacks = [np.stack([np.asarray(im, np.float32) for im in ims])
+              if not isinstance(ims, np.ndarray) else
+              np.asarray(ims, np.float32) for ims in frame_stacks]
+    imgs = np.concatenate(stacks, axis=-1)          # (B, H, W, 3F)
+    if imgs.shape[-1] != 3 * frames:
+        raise ValueError(f"model expects {frames} frames ({3 * frames} channels), "
+                         f"got {imgs.shape[-1]}")
+    imgs = color_normalize(imgs)
+    n, height, width = imgs.shape[:3]
+    fine_h, fine_w = _round_down_64(height), _round_down_64(width)
+    if (fine_h, fine_w) != (height, width):
+        imgs = np.stack([resize(im, fine_h, fine_w, "bilinear") for im in imgs])
+    return imgs, n, height, width
+
+
+def _postprocess_results(flow_b, occ_b, n: int, height: int, width: int) -> Results:
+    """compute_flow postprocessing (back2future.lua:77-91): resize the
+    flow back with its components rescaled, threshold and resize the
+    occlusions. Models without an occlusion head (two-frame / no_occ)
+    return all-False masks."""
+    flow_b = np.asarray(flow_b, np.float32)[:n]
+    sc_h = height / flow_b.shape[1]
+    sc_w = width / flow_b.shape[2]
+    flows = np.empty((n, height, width, 2), np.float32)
+    fwd_occs = np.zeros((n, height, width), bool)
+    bwd_occs = np.zeros((n, height, width), bool)
+    occ_b = None if occ_b is None else np.asarray(occ_b, np.float32)[:n]
+    for i in range(n):
+        f = resize(flow_b[i], height, width, "simple")
+        f[..., 0] *= sc_w
+        f[..., 1] *= sc_h
+        flows[i] = f
+        if occ_b is None:
+            continue
+        # channel 1 (index 0) past/backward, channel 2 (index 1) future/forward
+        fwd_occs[i] = resize((occ_b[i, ..., 1] >= OCC_THRESHOLD).astype(np.float32),
+                             height, width, "simple") > 0.5
+        bwd_occs[i] = resize((occ_b[i, ..., 0] >= OCC_THRESHOLD).astype(np.float32),
+                             height, width, "simple") > 0.5
+    return flows, fwd_occs, bwd_occs
 
 
 def _numpy(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:

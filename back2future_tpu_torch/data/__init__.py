@@ -1,8 +1,9 @@
-"""Device side of the data path (counterpart of back2future_tpu.data).
+"""Data path of the port (counterpart of back2future_tpu.data).
 
-The host pipeline (manifests, loading, augmentation, prefetch) is
-framework-free and is reused from `back2future_tpu.data` by import; only
-what runs on the device is ported here.
+Ported: the device-side decode of the compact wire (`decode_batch`), and
+the numpy helpers the inference API needs (`augment.color_normalize`,
+`resample.resize`). The host training pipeline (manifests, loading,
+augmentation, prefetch) is not ported yet.
 """
 
 from .wire import decode_batch

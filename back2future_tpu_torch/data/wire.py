@@ -1,6 +1,6 @@
 """Device-side decode of the compact wire format (counterpart of
-back2future_tpu/data/wire.py:63-83; the host-side `encode_batch` is reused
-from there).
+back2future_tpu/data/wire.py:63-83; the host-side `encode_batch` is not
+ported yet).
 
 A u8 image batch gets the deferred ImageNet normalisation per 3-channel
 group on the device (augment.color_normalize semantics,
@@ -14,7 +14,7 @@ from typing import Dict
 
 import torch
 
-from back2future_tpu.data.augment import IMAGENET_MEAN, IMAGENET_STD
+from .augment import IMAGENET_MEAN, IMAGENET_STD
 
 
 def decode_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -1,11 +1,12 @@
 """Criterion library of the port (counterpart of back2future_tpu.losses).
 
 Ported: the penalties, OBCC, first-order smoothness and the occlusion
-prior — what the hard unsupervised recipe runs. `build_criterions` keeps
-the reference's selection logic (model.lua:144-258); a criterion that is
-not ported yet (OBGCC, BCC/MBCC, the SSIM family, KL occlusion
-smoothness, second-order smoothness, const_vel, the supervised L2)
-raises NotImplementedError naming ROADMAP.md queue 1 item 8.
+prior (the hard unsupervised recipe), and OBGCC, second-order smoothness
+and const_vel (the soft fine-tune recipe). `build_criterions` keeps the
+reference's selection logic (model.lua:144-258); a criterion that is not
+ported yet (BCC/MBCC, the SSIM family, KL occlusion smoothness, the
+supervised L2) raises NotImplementedError naming ROADMAP.md queue 1
+item 8.
 """
 
 from __future__ import annotations
@@ -15,13 +16,14 @@ import functools
 from typing import Callable
 
 from .penalty import L1Penalty, LorentzianPenalty, QuadraticPenalty, make_penalty
-from .photometric import PhotoConfig, make_obcc
-from .priors import make_occ_prior
-from .smoothness import SmoothConfig, make_flow_smoothness, smoothness
+from .photometric import PhotoConfig, make_obcc, make_obgcc
+from .priors import make_const_vel, make_occ_prior
+from .smoothness import SmoothConfig, make_flow_smoothness, second_order_smoothness, smoothness
 
 _TODO = "is not ported yet (ROADMAP.md queue 1 item 8)"
+_PME_FACTORIES = {"OBCC": make_obcc, "OBGCC": make_obgcc}
 # pme criteria of the JAX package that wait for a later slice
-_UNPORTED_PME = ("BCC", "OBGCC", "SSIM", "SSIML1", "OSSIM", "OSSIML1")
+_UNPORTED_PME = ("BCC", "SSIM", "SSIML1", "OSSIM", "OSSIML1")
 
 
 @dataclasses.dataclass
@@ -47,7 +49,7 @@ def build_criterions(opt) -> Criterions:
     name = opt.pme_criterion
     if name in _UNPORTED_PME:
         raise NotImplementedError(f"pme_criterion {name!r} {_TODO}")
-    if name != "OBCC":
+    if name not in _PME_FACTORIES:
         raise ValueError(f"unsupported pme_criterion {name!r}")
 
     # model.lua:189-193 only swaps the criterion's default penalty when
@@ -73,8 +75,10 @@ def build_criterions(opt) -> Criterions:
         reference_grads=opt.reference_grads,
     )
 
+    pme_factory = _PME_FACTORIES[name]
+
     def pme(scale: float):
-        return make_obcc(photo_cfg, float(scale))
+        return pme_factory(photo_cfg, float(scale))
 
     flow_smooth = make_flow_smoothness(SmoothConfig(
         penalty=opt.smooth_flow_penalty, size_average=opt.sizeAverage,
@@ -91,15 +95,15 @@ def build_criterions(opt) -> Criterions:
         flow_smooth=flow_smooth,
         occ_smooth=occ_smooth,
         occ_prior=make_occ_prior(opt.sizeAverage, 1.0, opt.reference_grads),
-        const_vel=_unported("const_vel"),
+        const_vel=make_const_vel(opt.sizeAverage, opt.reference_grads),
         l2=_unported("supervised L2"),
     )
 
 
 __all__ = [
     "QuadraticPenalty", "L1Penalty", "LorentzianPenalty", "make_penalty",
-    "PhotoConfig", "make_obcc",
-    "SmoothConfig", "smoothness", "make_flow_smoothness",
-    "make_occ_prior",
+    "PhotoConfig", "make_obcc", "make_obgcc",
+    "SmoothConfig", "smoothness", "second_order_smoothness", "make_flow_smoothness",
+    "make_occ_prior", "make_const_vel",
     "Criterions", "build_criterions",
 ]

@@ -1,15 +1,22 @@
-"""Occlusion prior (counterpart of back2future_tpu/losses/priors.py:23-65).
+"""Occlusion prior and constant-velocity criterions (counterpart of
+back2future_tpu/losses/priors.py).
 
-Its reference backward is a deliberate pseudo-gradient — (1-o2, 1-o1)
-where the analytic gradient of 1 - o1*o2 is (-o2, -o1)
-(criterions/OcclusionPriorCriterion.lua:59-66) — so under
-`reference_grads=True` it is an autograd Function. The constant-velocity
-criterion is not ported yet (ROADMAP.md queue 1 item 8).
+Both reference backwards deviate from the true gradient, so under
+`reference_grads=True` each is an autograd Function:
+
+  * the occlusion prior's is a deliberate pseudo-gradient — (1-o2, 1-o1)
+    where the analytic gradient of 1 - o1*o2 is (-o2, -o1)
+    (criterions/OcclusionPriorCriterion.lua:59-66);
+  * const_vel normalises the forward by the elements (B*H*W*2) but the
+    backward by the pixels (B*H*W), and stabilises the EPE denominator
+    with eps=1e-12 (criterions/ConstVelCriterion.lua:33,56-60).
 """
 
 from __future__ import annotations
 
 import torch
+
+_EPS = 1e-12
 
 
 def _occ_prior_value(occ, size_average, penalty):
@@ -57,3 +64,41 @@ def make_occ_prior(size_average: bool = True, penalty: float = 1.0,
         return _occ_prior_value(occ, size_average, penalty)
 
     return occ_prior
+
+
+def _const_vel_value(flow_a, flow_b, size_average):
+    diff = flow_a - flow_b
+    out = torch.sqrt((diff * diff).sum(-1)).sum()
+    return out / flow_a.numel() if size_average else out
+
+
+class _ConstVelFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, flow_a, flow_b, size_average):
+        ctx.size_average = size_average
+        ctx.save_for_backward(flow_a, flow_b)
+        return _const_vel_value(flow_a, flow_b, size_average)
+
+    @staticmethod
+    def backward(ctx, g):
+        flow_a, flow_b = ctx.saved_tensors
+        diff = flow_a - flow_b
+        d = diff / (torch.sqrt((diff * diff).sum(-1, keepdim=True)) + _EPS)
+        if ctx.size_average:
+            # normalised by the pixels, not the elements (reference quirk,
+            # ConstVelCriterion.lua:56,69-70)
+            d = d / (flow_a.numel() / flow_a.shape[-1])
+        return d * g, -d * g, None
+
+
+def make_const_vel(size_average: bool = True, reference_grads: bool = True):
+    """fn(flow_a, flow_b) -> scalar: the summed end-point error between
+    the two flows (criterions/ConstVelCriterion.lua)."""
+
+    def const_vel(flow_a, flow_b):
+        if reference_grads:
+            return _ConstVelFn.apply(flow_a, flow_b, size_average)
+        return _const_vel_value(flow_a, flow_b, size_average)
+
+    return const_vel

@@ -29,6 +29,7 @@ from ..ops import (
     avg_pool2, cost_volume_multi, spatial_softmax, upsample_bilinear2x,
     upsample_nearest2x, warp_bilinear,
 )
+from ..ops.stem import fused_stem, stem_eligible, stem_enabled
 from .layers import ConvUnit, Decoder
 
 # d = 16 (models/pwc.lua:29); feature dims per level (models/pwc.lua:89)
@@ -93,7 +94,7 @@ class PWCConfig:
 
 
 def pwc_config_from_options(opt) -> PWCConfig:
-    """Build from a back2future_tpu.config.Options (models/pwc.lua:103-117)."""
+    """Build from an `Options` (config.py; models/pwc.lua:103-117)."""
     return PWCConfig(
         frames=opt.frames, levels=opt.levels, win=opt.pwc_ws,
         skip=opt.pwc_skip, siamese=opt.pwc_siamese, two_frame=opt.two_frame,
@@ -146,18 +147,35 @@ class PWCNet(nn.Module):
                 self.add_module(f"occ_decoder_{l}", Decoder(occ_in, generator=generator))
 
     def _features(self, img: torch.Tensor) -> Dict[int, torch.Tensor]:
-        """Apply pyramid stages 2..levels (and stage 1 when skip==0)."""
+        """Apply pyramid stages 2..levels (and stage 1 when skip==0);
+        stages 2 and 3 through the fused stem when `_stem_fusable`."""
         cfg = self.cfg
         cs = {1: img}
         if cfg.siamese == 1:
             if cfg.skip == 0:
                 cs[1] = self.feat_1(img)
-            for l in range(2, cfg.levels + 1):
+            start = 2
+            if self._stem_fusable(cs[1]):
+                cs[2], cs[3] = fused_stem(cs[1], self.feat_2, self.feat_3)
+                start = 4
+            for l in range(start, cfg.levels + 1):
                 cs[l] = getattr(self, f"feat_{l}")(cs[l - 1])
         else:
             for l in range(2, cfg.levels + 1):
                 cs[l] = avg_pool2(cs[l - 1])
         return cs
+
+    def _stem_fusable(self, x: torch.Tensor) -> bool:
+        """Whether levels 2 and 3 run through the fused stem (ops/stem.py),
+        as in the JAX net (back2future_tpu/models/pwc.py:190-202): default
+        feature dims, raw 3-channel input (skip != 0, so no feat_1 stage),
+        `stem_eligible` shapes, and `B2F_STEM_PALLAS` on (off by default).
+        The stem reads `feat_2`'s and `feat_3`'s own parameters."""
+        cfg = self.cfg
+        fm = cfg.feat_maps
+        return (cfg.skip != 0 and cfg.levels >= 3 and x.shape[-1] == 3
+                and stem_eligible(x.shape[1], x.shape[2], 3, fm[1], fm[2])
+                and stem_enabled())
 
     def _frame_range(self):
         """Frames with features/cost volumes (models/pwc.lua:161-166)."""

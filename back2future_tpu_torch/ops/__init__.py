@@ -1,9 +1,10 @@
 """NHWC tensor ops of the port (counterpart of back2future_tpu.ops).
 
-The cost volume and the warp, forward and backward, are hand-written
-CUDA kernels on CUDA tensors and plain torch twins on CPU tensors;
-`plain_ops()` routes CUDA tensors through the twins, to compare the two
-on the card. `*_backward_cuda` launch the backward kernels alone.
+The cost volume and the warp, forward and backward, and the fused
+feature stem's forward are hand-written CUDA kernels on CUDA tensors and
+plain torch twins on CPU tensors; `plain_ops()` routes CUDA tensors
+through the twins, to compare the two on the card. `*_backward_cuda` and
+`stem_unit_cuda` launch kernels alone.
 """
 
 from .cost_volume import (
@@ -20,6 +21,10 @@ from .pyramid import (
     upsample_nearest2x,
 )
 from .route import plain_ops
+from .stem import (
+    fused_stem, stem_eligible, stem_enabled, stem_reference, stem_unit_cuda, unit_params,
+    unit_reference,
+)
 from .warp import (
     warp_bilinear, warp_bilinear_backward_cuda, warp_bilinear_backward_reference,
     warp_bilinear_reference,
@@ -43,4 +48,11 @@ __all__ = [
     "resize_nearest",
     "spatial_softmax",
     "plain_ops",
+    "fused_stem",
+    "stem_eligible",
+    "stem_enabled",
+    "stem_reference",
+    "stem_unit_cuda",
+    "unit_params",
+    "unit_reference",
 ]

@@ -1,5 +1,7 @@
 """CPU parity of the port's FlowEstimator against the JAX FlowEstimator,
-and the port's import hygiene (no jax, no flax).
+of the port's own copies of the JAX package's framework-free helpers
+(Options, colour normalisation, resize, the API's pre/post-processing),
+and the port's import hygiene (no jax, no flax, no JAX package).
 
 Both estimators are built from the same weights (the port's seeded init
 crossed by the params bridge) and the same PWCConfig, in f32. Flow
@@ -10,6 +12,7 @@ of OCC_THRESHOLD, so at most 0.1% of their pixels may differ.
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -21,9 +24,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from back2future_tpu import api as jax_api
 from back2future_tpu.api import FlowEstimator as JaxFlowEstimator
+from back2future_tpu.config import Options as JaxOptions
+from back2future_tpu.data import augment as jax_augment
+from back2future_tpu.data import resample as jax_resample
 from back2future_tpu.models.pwc import PWCConfig as JaxPWCConfig
 from back2future_tpu_torch import api
+from back2future_tpu_torch.config import Options
+from back2future_tpu_torch.data import augment, resample
 from back2future_tpu_torch.models import PWCConfig, PWCNet, to_flax_params
 
 torch.set_num_threads(1)
@@ -111,8 +120,8 @@ def test_init_cuda_without_card_raises():
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports the port, its train step and losses
-    included, and runs a tiny CPU forward without loading jax, flax,
-    optax or msgpack."""
+    included, and runs a tiny CPU forward without loading the JAX
+    package, jax, flax, optax or msgpack."""
     code = (
         "import sys, numpy as np\n"
         "import back2future_tpu_torch\n"
@@ -122,7 +131,8 @@ def test_port_imports_no_jax():
         " for k in range(3)]\n"
         "flow, fo, bo = est(*ims)\n"
         "assert flow.shape == (64, 128, 2) and np.isfinite(flow).all()\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'msgpack') if m in sys.modules]\n"
+        "bad = [m for m in ('back2future_tpu', 'jax', 'flax', 'optax', 'msgpack')"
+        " if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -133,9 +143,83 @@ def test_port_imports_no_jax():
 
 
 def test_no_jax_import_in_port_sources():
-    offending = [str(p.relative_to(ROOT))
-                 for p in (ROOT / "back2future_tpu_torch").rglob("*.py")
+    """Neither the port nor chip_smoke.py imports jax, flax, optax or the
+    JAX package (`back2future_tpu`, not `back2future_tpu_torch`)."""
+    jax_package = re.compile(r"^\s*(from|import)\s+back2future_tpu(\.|\s|$)", re.M)
+    sources = [*(ROOT / "back2future_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    offending = [str(p.relative_to(ROOT)) for p in sources
                  if any(s in p.read_text() for s in ("import jax", "from jax",
                                                      "import flax", "from flax",
-                                                     "import optax", "from optax"))]
+                                                     "import optax", "from optax"))
+                 or jax_package.search(p.read_text())]
     assert not offending
+
+
+# ------------------------------------------ the port's copies of JAX helpers
+
+OPTION_SETS = [dict(), dict(dataset="Kitti2015", frames=5, no_occ=True),
+               dict(dataset="Sintel", optimize="epe", epe=1.0, scale=0.5),
+               dict(netType="spynet", past_flow=True, wire="compact", cropWidth=320,
+                    cropHeight=192)]
+
+
+@pytest.mark.parametrize("kw", OPTION_SETS, ids=["default", "kitti", "sintel_epe", "spynet"])
+def test_options_match_jax(kw):
+    """Same fields, defaults and derived options as the JAX Options, and
+    an option set written by one package reads in the other."""
+    fields = [(f.name, f.default) for f in dataclasses.fields(Options)]
+    assert fields == [(f.name, f.default) for f in dataclasses.fields(JaxOptions)]
+    got, want = Options(**kw).derive(), JaxOptions(**kw).derive()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(JaxOptions.from_json(got.to_json())) == dataclasses.asdict(want)
+    assert dataclasses.asdict(Options.from_json(want.to_json())) == dataclasses.asdict(got)
+
+
+def test_options_reject_what_jax_rejects():
+    for kw, error in ((dict(wire="u8"), ValueError),
+                      (dict(wire="compact", normalize_images=0), ValueError),
+                      (dict(frames=4), AssertionError)):
+        for cls in (Options, JaxOptions):
+            with pytest.raises(error):
+                cls(**kw).derive()
+
+
+def test_color_normalize_matches_jax():
+    img = np.random.default_rng(11).random((5, 7, 9), dtype=np.float32)
+    np.testing.assert_array_equal(augment.color_normalize(img), jax_augment.color_normalize(img))
+    np.testing.assert_array_equal(augment.IMAGENET_MEAN, jax_augment.IMAGENET_MEAN)
+    np.testing.assert_array_equal(augment.IMAGENET_STD, jax_augment.IMAGENET_STD)
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "simple"])
+@pytest.mark.parametrize("size", [(64, 128), (41, 13), (70, 140)], ids=["down", "odd", "same"])
+def test_resize_matches_jax(mode, size):
+    """The JAX package resizes with its C++ resampler where it is built
+    (f32 weights) and with numpy otherwise (f64 weights); the port is the
+    numpy path: bilinear within 1e-5, nearest exact."""
+    rng = np.random.default_rng(12)
+    for img in (rng.random((70, 140, 3), dtype=np.float32), rng.random((70, 140), dtype=np.float32)):
+        got, want = resample.resize(img, *size, mode), jax_resample.resize(img, *size, mode)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 if mode == "bilinear" else 0)
+    with pytest.raises(ValueError):
+        resample.resize(img, 10, 10, "bicubic")
+
+
+def test_api_processing_matches_jax():
+    rng = np.random.default_rng(13)
+    stacks = [rng.random((2, 70, 140, 3), dtype=np.float32) for _ in range(3)]
+    got, want = api._preprocess_triplets(stacks, 3), jax_api._preprocess_triplets(stacks, 3)
+    assert got[1:] == want[1:] == (2, 70, 140)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    flow = rng.standard_normal((2, 64, 128, 2)).astype(np.float32)
+    occ = rng.random((2, 64, 128, 2), dtype=np.float32)
+    for o in (occ, None):
+        for a, b in zip(api._postprocess_results(flow, o, 2, 70, 140),
+                        jax_api._postprocess_results(flow, o, 2, 70, 140)):
+            np.testing.assert_array_equal(a, b)
+    assert api.OCC_THRESHOLD == jax_api.OCC_THRESHOLD
+    assert [api._round_down_64(v) for v in (10, 64, 130, 1242)] == \
+        [jax_api._round_down_64(v) for v in (10, 64, 130, 1242)]
+    with pytest.raises(ValueError):
+        api._preprocess_triplets(stacks[:2], 3)

@@ -7,17 +7,22 @@ one; run them on a machine with an H100 with
 Tolerances: f32 1e-5 relative (both sum in f32, in another order); bf16
 one bf16 rounding of the output (rtol 1e-2), since both sum in f32 and
 round once. The warp's image gradient adds with f32 atomics in an order
-that varies from run to run: f32 1e-5 of the largest value.
+that varies from run to run: f32 1e-5 of the largest value. The fused
+stem (K5, K6) against its twin: bf16 1e-2 of the largest value (the mid
+map and the output each round once to bf16, the twin rounds again after
+the bias and after leaky).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from back2future_tpu.config import Options
 from back2future_tpu_torch import ops
+from back2future_tpu_torch.config import Options
 from back2future_tpu_torch.losses import build_criterions
-from back2future_tpu_torch.models import PWCConfig, PWCNet, pwc_config_from_options
+from back2future_tpu_torch.models import (
+    ConvUnit, PWCConfig, PWCNet, convert_net_hard_to_soft, pwc_config_from_options,
+)
 from back2future_tpu_torch.runtime import KERNELS, reset_launches
 from back2future_tpu_torch.train import create_train_state, make_train_step
 
@@ -177,10 +182,115 @@ def test_train_step_kernels_match_plain_ops(cuda):
             assert all(k.launches == 0 for k in KERNELS.values())
         else:
             _, logs = step(state, {"images": x})
-            assert {k: v.launches for k, v in KERNELS.items()} == {
+            assert {k: v.launches for k, v in KERNELS.items() if v.launches} == {
                 "b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 18,
                 "b2f_cost_volume_dref": 10, "b2f_cost_volume_dframe": 10,
                 "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8}
+        losses.append(logs["loss"].item())
+        grads.append([p.grad.clone() for p in net.parameters()])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * b.abs().max().item())
+
+
+# ------------------------------------------------------------ fused stem (K5, K6)
+
+# (N, H, W): the serving and train frames at a reduced batch, and a ragged
+# size that leaves partial tiles
+STEM_SHAPES = [(2, 320, 1216), (2, 320, 640), (1, 37, 70)]
+
+
+def stem_units(device):
+    gen = torch.Generator().manual_seed(21)
+    return ConvUnit(3, 16, generator=gen).to(device), ConvUnit(16, 32, generator=gen).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", STEM_SHAPES, ids=["serving", "train", "ragged"])
+def test_stem_kernels_match_twin(cuda, dtype, shape):
+    unit2, unit3 = stem_units(cuda)
+    x = rand(shape + (3,), 22, cuda, dtype)
+    reset_launches()
+    with torch.no_grad():
+        f2, f3 = ops.fused_stem(x, unit2, unit3)
+        want2, want3 = ops.stem_reference(x, ops.unit_params(unit2), ops.unit_params(unit3))
+    assert KERNELS["b2f_stem_unit_a"].launches == 1 and KERNELS["b2f_stem_unit_b"].launches == 1
+    n, h, w = shape
+    assert f2.shape == (n, (h + 1) // 2, (w + 1) // 2, 16) and f2.dtype == dtype
+    assert f3.shape == (n, (h + 3) // 4, (w + 3) // 4, 32) and f3.dtype == dtype
+    close_to_scale(f2, want2, dtype)
+    close_to_scale(f3, want3, dtype)
+
+
+def test_stem_backward_is_the_twin_chain(cuda):
+    """Gradients of x and the 8 parameters through the kernels' Function
+    equal autograd through the twin chain (the backward recomputes it)."""
+    unit2, unit3 = stem_units(cuda)
+    x = rand((1, 32, 64, 3), 23, cuda).requires_grad_()
+    g2, g3 = rand((1, 16, 32, 16), 24, cuda), rand((1, 8, 16, 32), 25, cuda)
+    params = [*ops.unit_params(unit2), *ops.unit_params(unit3)]
+    f2, f3 = ops.fused_stem(x, unit2, unit3)
+    got = torch.autograd.grad((f2, f3), [x, *params], (g2, g3))
+    w2, w3 = ops.stem_reference(x, params[:4], params[4:])
+    want = torch.autograd.grad((w2, w3), [x, *params], (g2, g3))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
+
+
+def test_stem_kernel_inputs_are_checked(cuda):
+    unit2, unit3 = stem_units(cuda)
+    x = rand((1, 16, 64, 3), 26, cuda)
+    with pytest.raises(TypeError):
+        ops.stem_unit_cuda(x.half(), ops.unit_params(unit2), "a")
+    with pytest.raises(ValueError):
+        ops.stem_unit_cuda(x, ops.unit_params(unit3), "a")
+    with pytest.raises(ValueError):
+        ops.stem_unit_cuda(x.cpu(), ops.unit_params(unit2), "a")
+
+
+def test_model_with_stem_matches_stem_off(cuda, monkeypatch):
+    """The f32 flagship forward with B2F_STEM_PALLAS=1: one K5 and one K6
+    launch beside the 10 + 8, and the outputs of the stem-off forward."""
+    net = PWCNet(PWCConfig(), generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = rand((2, 64, 128, 9), 27, cuda)
+    with torch.inference_mode():
+        monkeypatch.setenv("B2F_STEM_PALLAS", "0")
+        want = net(x, with_warped=False)
+        monkeypatch.setenv("B2F_STEM_PALLAS", "1")
+        reset_launches()
+        got = net(x, with_warped=False)
+    assert {k: v.launches for k, v in KERNELS.items() if v.launches} == {
+        "b2f_stem_unit_a": 1, "b2f_stem_unit_b": 1,
+        "b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 8}
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g["flow"], w["flow"], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(g["occ"], w["occ"], rtol=1e-4, atol=1e-4)
+
+
+def test_soft_train_step_kernels_match_plain_ops(cuda, monkeypatch):
+    """One f32 step of the soft recipe (OBGCC, past_flow, const_vel,
+    second-order smoothness) from a hard net by surgery, with the fused
+    stem on: the loss and every gradient as under plain_ops()."""
+    monkeypatch.setenv("B2F_STEM_PALLAS", "1")
+    hard_opt = Options(optimize="pme", batchSize=2, compute_dtype="float32").derive()
+    opt = Options(optimize="pme", batchSize=2, compute_dtype="float32", pme_criterion="OBGCC",
+                  past_flow=True, const_vel=1.0, smooth_second_order=True).derive()
+    crits = build_criterions(opt)
+    x = rand((2, 64, 128, 9), 28, cuda)
+    hard = PWCNet(pwc_config_from_options(hard_opt), generator=torch.Generator().manual_seed(0))
+    grads, losses = [], []
+    for plain in (False, True):
+        net = convert_net_hard_to_soft(hard, PWCNet(pwc_config_from_options(opt))).to(cuda)
+        step = make_train_step(net, opt, crits)
+        reset_launches()
+        if plain:
+            with ops.plain_ops():
+                _, logs = step(create_train_state(net, opt), {"images": x})
+            assert all(k.launches == 0 for k in KERNELS.values())
+        else:
+            _, logs = step(create_train_state(net, opt), {"images": x})
+            assert KERNELS["b2f_stem_unit_a"].launches == 1
+            assert KERNELS["b2f_stem_unit_b"].launches == 1
         losses.append(logs["loss"].item())
         grads.append([p.grad.clone() for p in net.parameters()])
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)

@@ -256,13 +256,13 @@ def test_occ_prior_matches_jax(channels, reference_grads):
 
 def test_build_criterions_rejects_unported():
     base = dict(levels=4, pwc_ws=3, batchSize=2, dataset="synthetic")
-    for kw in (dict(pme_criterion="OBGCC"), dict(pme_criterion="SSIML1"),
-               dict(smooth_occ_penalty="KL"), dict(smooth_second_order=True)):
+    for kw in (dict(pme_criterion="SSIML1"), dict(pme_criterion="BCC"),
+               dict(smooth_occ_penalty="KL")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_criterions(Options(**base, **kw).derive())
     crits = build_criterions(Options(**base).derive())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        crits.const_vel(torch.zeros(1, 2, 2, 2), torch.zeros(1, 2, 2, 2))
+        crits.l2(torch.zeros(1, 2, 2, 2), torch.zeros(1, 2, 2, 2), torch.ones(1, 2, 2))
 
 
 def test_decode_batch_matches_jax():
