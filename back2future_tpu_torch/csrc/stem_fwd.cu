@@ -32,7 +32,16 @@
 // read by all lanes of a warp at one address (a broadcast), four output
 // channels per load. The TPU kernels' block-Toeplitz lift onto 128-lane
 // blocks and whole-image VMEM slabs are not carried over.
+//
+// Unit B in bf16 does not use this kernel: it runs on the tensor cores
+// (stem_unit_b_mma.cu). Unit A in both types and unit B in f32 do.
 #include "common.cuh"
+
+namespace b2f {
+// stem_unit_b_mma.cu: unit B (K6) in bf16
+cudaError_t stem_unit_b_mma(const void* x, const void* w1, const void* b1, const void* w2,
+                            const void* b2, void* out, int N, int H, int W, cudaStream_t stream);
+}  // namespace b2f
 
 namespace {
 
@@ -206,7 +215,10 @@ cudaError_t dispatch(const void* x, const void* w1, const void* b1, const void* 
     case b2f::kFloat32:
       return launch<float, CIN, CMID, COUT>(x, w1, b1, w2, b2, out, N, H, W, s);
     case b2f::kBFloat16:
-      return launch<__nv_bfloat16, CIN, CMID, COUT>(x, w1, b1, w2, b2, out, N, H, W, s);
+      if constexpr (CIN == 16 && CMID == 32 && COUT == 32)   // K6: on the tensor cores
+        return b2f::stem_unit_b_mma(x, w1, b1, w2, b2, out, N, H, W, s);
+      else
+        return launch<__nv_bfloat16, CIN, CMID, COUT>(x, w1, b1, w2, b2, out, N, H, W, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -7,10 +7,11 @@ then 16 -> 32 -> 32 stride 2; models/pwc.lua:58-65). It is an autograd
 Function over the input and the eight conv parameters:
 
   * forward, on a CUDA tensor: kernel K5 (`b2f_stem_unit_a`, unit 2) then
-    K6 (`b2f_stem_unit_b`, unit 3) of csrc/stem_fwd.cu, each one fused
-    ConvUnit whose mid map stays in shared memory; on a CPU tensor, or
-    under `plain_ops()`, the plain twin `stem_reference`. The route is
-    fixed in the forward.
+    K6 (`b2f_stem_unit_b`, unit 3) of csrc/stem_fwd.cu (K6 in bf16 on the
+    tensor cores, csrc/stem_unit_b_mma.cu), each one fused ConvUnit whose
+    mid map stays in shared memory; on a CPU tensor, or under
+    `plain_ops()`, the plain twin `stem_reference`. The route is fixed in
+    the forward.
   * backward: as `_stem_bwd` (stem_pallas.py:463-466), the twin chain is
     recomputed on detached inputs and differentiated by autograd; the TPU
     kernel has no backward kernel, so none is written here.
@@ -28,7 +29,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..runtime.cuda_build import Kernel
+from ..runtime.cuda_build import Kernel, query
 from .route import DTYPE_CODES, check_kernel_input, ptr, stream_ptr, use_kernel
 
 # (x, w1, b1, w2, b2, out, dtype, N, H, W, stream)
@@ -104,6 +105,17 @@ def stem_unit_cuda(x: torch.Tensor, p: UnitParams, unit: str) -> torch.Tensor:
         kernel(ptr(x), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(out), DTYPE_CODES[x.dtype],
                n, h, w, stream_ptr(x.device))
     return out
+
+
+def stem_unit_b_bf16_info() -> dict:
+    """What the build and the runtime made of K6's bf16 kernel
+    (csrc/stem_unit_b_mma.cu): registers and local memory per thread,
+    dynamic shared memory per block, resident blocks per SM."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    query("b2f_stem_unit_b_bf16_info", [ctypes.POINTER(ctypes.c_int)] * 4,
+          *map(ctypes.byref, vals))
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 class _StemFn(torch.autograd.Function):

@@ -143,6 +143,17 @@ class Kernel:
 KERNELS: Dict[str, Kernel] = {}
 
 
+def query(symbol: str, argtypes: Sequence, *args) -> None:
+    """Call a C entry point of the library that launches nothing (a query
+    of a kernel's attributes); a non-zero `cudaError_t` raises."""
+    fn = getattr(_library(), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err} ({_library().b2f_error_string(err).decode()})")
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for k in KERNELS.values():

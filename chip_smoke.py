@@ -5,7 +5,9 @@
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: the card (nvidia-smi name and power limit), TF32 flags
   2. build: nvcc of back2future_tpu_torch/csrc into back2future_tpu_torch/_build
-     (one nvcc per source, in parallel)
+     (one nvcc per source, in parallel); K6's bf16 tensor-core kernel:
+     registers, spills, shared memory, resident blocks per SM, and the
+     HMMA / LDGSTS / LDSM instructions of its SASS (cuobjdump)
   3. kernels against their plain torch twins, in bf16 and f32, with the
      max abs error, the tolerance, CUDA-event medians of the kernel, the
      twin and (where one PyTorch call computes the same function) that
@@ -16,7 +18,8 @@ Phases, one line each (any failure raises and exits non-zero):
      d_ref / d_frame, warp image and flow gradients) at the shapes of the
      train step at B=8, 320x640, fwd and past, with flows past the border;
      the fused stem (K5 unit A, K6 unit B) at the serving (48 frames) and
-     train (24 frames) stacked shapes
+     train (24 frames) stacked shapes, timed also by the profiler's device
+     time per call (the summary's K5 / K6 numbers)
   4. serving path, stem off: init(None, device="cuda") with the flagship
      config (frames 3, levels 7, win 9, skip 2, bf16, random weights from
      seed 0), compute_flow / compute_flow_batch (B=16, three times) /
@@ -63,6 +66,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -156,6 +161,29 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int) -> dict:
+    """Device time per call of `fn` by kernel name: the CUDA kernels it
+    launches, summed by torch.profiler over `reps` calls after a warm-up,
+    without the host time between them (which single-launch event windows
+    include)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    if not by_name:
+        raise AssertionError("the profiler recorded no device time")
+    return by_name
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -189,6 +217,39 @@ def phase_build() -> None:
             log("build", "ptxas " + line.strip()[:200])
 
 
+def phase_k6_build() -> None:
+    """What the build made of K6's bf16 kernel (stem_unit_b_mma.cu):
+    registers, local memory and shared memory from the runtime, spills
+    from the build's `-Xptxas -v` report, resident blocks per SM, and its
+    SASS's tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM)
+    instructions by `cuobjdump -sass`. No HMMA in the SASS fails."""
+    from back2future_tpu_torch import ops
+    from back2future_tpu_torch.runtime import cuda_build
+
+    info = ops.stem_unit_b_bf16_info()
+    so = cuda_build.library_path()
+    report = so.with_suffix(".log").read_text().splitlines()
+    spills = next((report[i + 1].strip() for i, line in enumerate(report[:-1])
+                   if "Function properties" in line and "stem_unit_b_mma" in line), "not found")
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path=os.path.join(home, "bin"))
+    if tool is None:
+        sass = "cuobjdump not found (PATH, $CUDA_HOME/bin): SASS not read"
+    else:
+        dump = subprocess.run([tool, "-sass", str(so)], check=True, capture_output=True,
+                              text=True, timeout=300).stdout
+        body = next((f for f in dump.split("Function : ")[1:]
+                     if "stem_unit_b_mma" in f.split(None, 1)[0]), "")
+        n = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HMMA", "LDGSTS", "LDSM")}
+        sass = f"SASS ({tool}): " + ", ".join(f"{k} {v}" for k, v in n.items())
+        if not n["HMMA"]:
+            raise AssertionError("K6 bf16: no HMMA instruction in the built kernel's SASS")
+    log("build", f"K6 bf16 (stem_unit_b_mma_kernel): {info['registers']} registers, "
+                 f"{info['local_bytes']} bytes local memory per thread ({spills}), "
+                 f"{info['smem_bytes']} bytes dynamic shared memory per block, "
+                 f"{info['blocks_per_sm']} resident blocks per SM; {sass}")
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its twin at every main-path shape; returns the
     per-kernel summary over the bf16 checks: max error, and the kernel,
@@ -210,13 +271,15 @@ def phase_kernels(dev) -> dict:
                          "warp_dimages", "warp_dflow", "stem_unit_a", "stem_unit_b")}
 
     def check(kernel, label, dtype, kern, twin, per_forward, work, library=None,
-              of_largest=False):
+              of_largest=False, device_time=False):
         """Compare, time, log; add bf16 results `per_forward` times to the
         summary. `work`: (operations, bytes) of one call, inputs read and
         outputs written once. `library`: one PyTorch call computing the
         same function, or None. `of_largest`: the absolute tolerance is
         taken relative to the largest value (gradients summed over many
-        terms)."""
+        terms). `device_time`: the summary takes the profiler's device
+        time per call (`device_ms`) of the kernel, twin and library, for
+        kernels whose wrapper's host work is of the kernel's order."""
         tol = KERNEL_TOL[dtype]
         got, want = kern(), twin()
         torch.cuda.synchronize()
@@ -232,6 +295,14 @@ def phase_kernels(dev) -> dict:
                        f"kernel {ms:.4f} ms twin {pms:.4f} ms{lib} bound "
                        f"{max(ops_ms, bytes_ms):.4f} ms (bytes {bytes_ms:.4f}, "
                        f"operations {ops_ms:.4f})")
+        if device_time:
+            mine = device_ms(kern, 20)
+            ms, pms = sum(mine.values()), sum(device_ms(twin, 5).values())
+            lms = sum(device_ms(library, 20).values()) if library is not None else None
+            lib = f" library {lms:.4f} ms" if lms is not None else ""
+            log("kernels", f"{label}: device time per call (profiler) kernel {ms:.4f} ms "
+                           f"(" + ", ".join(f"{n[:48]} {v:.4f}" for n, v in sorted(
+                               mine.items(), key=lambda kv: -kv[1])) + f"), twin {pms:.4f} ms{lib}")
         if not ok:
             raise AssertionError(f"{label}: outside tolerance ({err})")
         if dtype == torch.bfloat16:
@@ -348,7 +419,7 @@ def phase_kernels(dev) -> dict:
                           twin, per_forward=int(where == "train"),
                           work=(2 * out_px * c_out * 9 * (c_in + c_out),
                                 nbytes(inp, *p) + out_px * c_out * inp.element_size()),
-                          library=twin, of_largest=True)
+                          library=twin, of_largest=True, device_time=True)
 
     log("kernels", "per serving forward (bf16, B=16): cost volume kernel "
                    f"{summary['cost_volume']['ms']:.3f} ms vs twin "
@@ -674,8 +745,8 @@ KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches
      "train"),
     ("stem_unit_a", "stem_unit_a", "stem_fwd.cu", "back2future_tpu/ops/stem_pallas.py:264",
      "soft"),
-    ("stem_unit_b", "stem_unit_b", "stem_fwd.cu", "back2future_tpu/ops/stem_pallas.py:307",
-     "soft"),
+    ("stem_unit_b", "stem_unit_b", "stem_unit_b_mma.cu",
+     "back2future_tpu/ops/stem_pallas.py:307", "soft"),
 ]
 
 
@@ -684,6 +755,7 @@ def main() -> None:
 
     dev = torch.device("cuda")
     phase_build()
+    phase_k6_build()
     if "--profile" in sys.argv[1:]:
         phase_profile(card, dev)
         return

@@ -222,6 +222,33 @@ def test_stem_kernels_match_twin(cuda, dtype, shape):
     close_to_scale(f3, want3, dtype)
 
 
+# (N, H, W) of K6's input, for its 8 x 32 output tiles: Wo % 32 of 1 and
+# 31, Ho % 8 not 0, odd H and W, N = 1, a single pixel, and the full
+# serving frame batch (3 x B=16 frames at 160 x 608)
+UNIT_B_SHAPES = [(1, 25, 65), (3, 10, 62), (2, 17, 125), (1, 1, 1), (48, 160, 608)]
+
+
+@pytest.mark.parametrize("scale", [1.0, 30.0], ids=["unit", "x30"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", UNIT_B_SHAPES, ids=["ho13_wo33", "ho5_wo31", "ho9_wo63",
+                                                      "1x1", "serving48"])
+def test_stem_unit_b_kernel_matches_twin(cuda, dtype, shape, scale):
+    """K6 alone (bf16 on the tensor cores, f32 on the CUDA cores, whose
+    1e-5 a TF32 product would miss) against the twin, inputs up to 30x so
+    that the mid map's rounding is tested at scale."""
+    _, unit3 = stem_units(cuda)
+    x = rand(shape + (16,), 29, cuda, dtype, scale=scale)
+    p = ops.unit_params(unit3)
+    before = KERNELS["b2f_stem_unit_b"].launches
+    with torch.no_grad():
+        got = ops.stem_unit_cuda(x, p, "b")
+        want = ops.unit_reference(x, p)
+    assert KERNELS["b2f_stem_unit_b"].launches == before + 1
+    n, h, w = shape
+    assert got.shape == (n, (h + 1) // 2, (w + 1) // 2, 32) and got.dtype == dtype
+    close_to_scale(got, want, dtype)
+
+
 def test_stem_backward_is_the_twin_chain(cuda):
     """Gradients of x and the 8 parameters through the kernels' Function
     equal autograd through the twin chain (the backward recomputes it)."""
