@@ -35,7 +35,8 @@ _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of `nvcc` (PATH, then $CUDA_HOME/bin); raises if missing."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -70,10 +71,10 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc_bin = nvcc()
     tag = f"{so.stem}.{os.getpid()}"
     objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o" for src in sorted(SRC_DIR.glob("*.cu"))}
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)] for src, obj in objs.items()]
+    cmds = [[nvcc_bin, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)] for src, obj in objs.items()]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
     tmp = so.with_name(f"{tag}.tmp.so")
@@ -84,7 +85,7 @@ def build() -> Path:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"[code {rc}] {' '.join(cmd)}\n{log}" for cmd, log, rc in failed))
-        link = [nvcc, "-shared", *map(str, objs.values()), "-o", str(tmp)]
+        link = [nvcc_bin, "-shared", *map(str, objs.values()), "-o", str(tmp)]
         res = subprocess.run(link, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed with code {res.returncode}:\n"

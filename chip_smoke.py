@@ -30,7 +30,7 @@ Phases, one line each (any failure raises and exits non-zero):
   5. serving path, stem on (B2F_STEM_PALLAS=1 for this phase only): the
      same B=16 batch, exactly 1 K5 + 1 K6 + 10 + 8 launches, flow and
      occlusion against the stem-off results; device forward ms stem off /
-     on / on / off (the in-model A/B; the default stays off)
+     on / on / off, twice (the in-model A/B; the default stays off)
   6. train path, hard recipe (stem off): the options of
      tools/train_bench.py (optimize pme, OBCC + L1, bf16, B=8, 320x640,
      weights from seed 0, numpy-seeded images on the device),
@@ -59,6 +59,12 @@ step at B=8, 320x640: the hard recipe, and the soft recipe with the stem
 off and on; per step the unprofiled step ms (CUDA events), the device
 busy ms (profiled kernel, copy and memset time), the idle share, and the
 device time by kind of op.
+
+    python3 chip_smoke.py --k6-phases
+
+runs, after phases 1-2, only K6's bf16 kernel with its convs removed one
+at a time (variants built from copies of its source), timed at the
+serving and train shapes: where its time goes.
 """
 
 from __future__ import annotations
@@ -526,7 +532,8 @@ def compare_results(phase, label, got, want):
 def phase_serving_stem(card: str, main: dict) -> dict:
     """The serving path with B2F_STEM_PALLAS=1: the same estimator and
     batch as the stem-off phase; launch counts, agreement with the
-    stem-off results, and the device forward stem off / on / on / off."""
+    stem-off results, and the device forward stem off / on / on / off,
+    twice."""
     from back2future_tpu_torch.runtime import reset_launches
 
     est, x = main["est"], main["x"]
@@ -540,16 +547,18 @@ def phase_serving_stem(card: str, main: dict) -> dict:
                              f"expected {SERVING_STEM_PER_FORWARD}")
     log("stem", f"compute_flow_batch B={B} with B2F_STEM_PALLAS=1: launches {launches}")
     compare_results("stem", "stem on vs stem off", res, main["results"])
-    times = {False: [], True: []}
+    turns = (False, True, True, False) * 2
+    times = []
     with torch.inference_mode():
-        for on in (False, True, True, False):
+        for on in turns:
             with stem(on):
-                times[on].append(cuda_ms(lambda: est.net(x, with_warped=False), 5))
-    off, on = statistics.mean(times[False]), statistics.mean(times[True])
-    log("stem", f"serving forward on the device, B={B} {H}x{W} bf16, stem off / on / on / "
-                f"off: {times[False][0]:.2f} / {times[True][0]:.2f} / {times[True][1]:.2f} / "
-                f"{times[False][1]:.2f} ms (CUDA events, medians of 5); off {off:.2f} ms, "
-                f"on {on:.2f} ms on {card}")
+                times.append(cuda_ms(lambda: est.net(x, with_warped=False), 5))
+    off, on = (statistics.median(t for t, o in zip(times, turns) if o == side)
+               for side in (False, True))
+    log("stem", f"serving forward on the device, B={B} {H}x{W} bf16, stem "
+                + " / ".join("on" if o else "off" for o in turns) + ": "
+                + " / ".join(f"{t:.2f}" for t in times) + f" ms (CUDA events, medians of 5); "
+                f"median off {off:.2f} ms, on {on:.2f} ms on {card}")
     return launches
 
 
@@ -652,6 +661,104 @@ def phase_profile(card: str, dev) -> None:
         log("profile", f"{label}: top device ops (ms per step): " + "; ".join(
             f"{n[:60]} {v:.3f}" for n, v in sorted(top.items(), key=lambda kv: -kv[1])[:8]))
         del net, state, step, prof
+
+
+# K6's phases, removed one at a time from a copy of its source: the sums
+# of a removed conv 2 are 0 (the kernel still stages and stores)
+_ZERO_ACC = "    for (auto& a : acc) for (auto& b : a) for (float& v : b) v = 0.f;\n"
+K6_PHASES = {
+    "whole kernel": [],
+    "without conv 1": [("    conv1(smem, tile.oy0, tile.ox0, Ho, Wo);\n", "")],
+    "without conv 2": [("    conv2(smem, acc);\n", _ZERO_ACC)],
+    "without either conv": [("    conv1(smem, tile.oy0, tile.ox0, Ho, Wo);\n", ""),
+                            ("    conv2(smem, acc);\n", _ZERO_ACC)],
+}
+
+
+def phase_k6_phases(card: str, dev) -> None:
+    """K6 bf16 with its convs removed (K6_PHASES), each variant built by
+    nvcc from a copy of stem_unit_b_mma.cu with its own C entry point and
+    timed by CUDA events over 100 back-to-back launches at the serving and
+    train shapes, the variants in turn, two rounds."""
+    import ctypes
+
+    from back2future_tpu_torch.runtime import cuda_build
+
+    src = (cuda_build.SRC_DIR / "stem_unit_b_mma.cu").read_text()
+    entry = ('\nextern "C" int k6_phase_launch(const void* x, const void* w1, const void* b1, '
+             'const void* w2, const void* b2, void* out, int N, int H, int W, void* s) {\n'
+             '  return b2f::stem_unit_b_mma(x, w1, b1, w2, b2, out, N, H, W, '
+             'static_cast<cudaStream_t>(s));\n}\n')
+    out_dir = cuda_build.BUILD_DIR / "k6_phases"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, edits) in enumerate(K6_PHASES.items()):
+        text = src
+        for a, b in edits:
+            if a not in text:
+                raise AssertionError(f"K6 phases: {a.strip()!r} not in stem_unit_b_mma.cu")
+            text = text.replace(a, b)
+        cu = out_dir / f"variant{i}.cu"
+        cu.write_text(text + entry)
+        cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-shared", "-I",
+               str(cuda_build.SRC_DIR), str(cu), "-o", str(cu.with_suffix(".so"))]
+        procs[name] = (cu.with_suffix(".so"), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        report = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"K6 phases: nvcc failed for {name!r}:\n{report}")
+        lib = ctypes.CDLL(str(so))
+        lib.k6_phase_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        libs[name] = lib
+        log("k6", f"{name}: ptxas " + "; ".join(
+            line.strip() for line in report.splitlines() if "Used" in line or "spill" in line))
+    rng = np.random.default_rng(0)
+
+    def param(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.1).to(
+            dev).bfloat16().float()
+
+    w1, b1, w2, b2 = param((3, 3, 16, 32)), param(32), param((3, 3, 32, 32)), param(32)
+    times = {}
+    for _ in range(2):
+        for name, lib in libs.items():
+            for where, (n, h, w) in STEM_SHAPES.items():
+                x = torch.from_numpy(rng.standard_normal((n, h // 2, w // 2, 16)).astype(
+                    np.float32)).to(dev, torch.bfloat16)
+                out = torch.empty((n, h // 4, w // 4, 32), dtype=torch.bfloat16, device=dev)
+                args = [x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                        out.data_ptr(), n, h // 2, w // 2, torch.cuda.current_stream().cuda_stream]
+                for _ in range(10):
+                    if lib.k6_phase_launch(*args):
+                        raise RuntimeError(f"K6 phases: {name!r} failed to launch")
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                for _ in range(100):
+                    lib.k6_phase_launch(*args)
+                end.record()
+                end.synchronize()
+                times.setdefault((name, where), []).append(start.elapsed_time(end) / 100)
+    for (name, where), t in times.items():
+        log("k6", f"{name}, {where} {STEM_SHAPES[where][0]}x{STEM_SHAPES[where][1] // 2}x"
+                  f"{STEM_SHAPES[where][2] // 2}x16: " + " / ".join(f"{v:.4f}" for v in t)
+                  + f" ms per launch (two rounds; CUDA events over 100 launches) on {card}")
+    # shared-memory bytes of one 8x32 output tile by the kernel's plan: 16-byte
+    # ldmatrix.x4 rows of 512 bytes (conv 1: 22 m16 tiles x 9 taps of A, 8
+    # warps x 9 taps x 2 of B; conv 2: 8 warps x 18 k16 steps x (2 A + 2 B)),
+    # the input region's cp.async fill, the mid tile's and the output's writes
+    # and the output's read
+    ldsm = {"conv 1": (22 * 9 + 8 * 9 * 2) * 512, "conv 2": 8 * 18 * 4 * 512}
+    other = 21 * 69 * 32 + 10 * 34 * 64 + 2 * 8 * 32 * 64
+    for where, (n, h, w) in STEM_SHAPES.items():
+        tiles = n * -(-(h // 4) // 8) * -(-(w // 4) // 32)
+        log("k6", f"shared-memory traffic by the tile plan, {where}: {tiles} tiles x "
+                  f"{sum(ldsm.values()) + other} bytes = "
+                  f"{tiles * (sum(ldsm.values()) + other) / 1e9:.3f} GB per launch (ldmatrix "
+                  + ", ".join(f"{k} {tiles * v / 1e9:.3f} GB" for k, v in ldsm.items())
+                  + f"; staging and epilogues {tiles * other / 1e9:.3f} GB)")
 
 
 def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
@@ -758,6 +865,9 @@ def main() -> None:
     phase_k6_build()
     if "--profile" in sys.argv[1:]:
         phase_profile(card, dev)
+        return
+    if "--k6-phases" in sys.argv[1:]:
+        phase_k6_phases(card, dev)
         return
     summary = phase_kernels(dev)
     with stem(False):
