@@ -22,8 +22,8 @@ from .pyramid import (
 )
 from .route import plain_ops
 from .stem import (
-    fused_stem, stem_eligible, stem_enabled, stem_reference, stem_unit_b_bf16_info,
-    stem_unit_cuda, unit_params, unit_reference,
+    fused_stem, stem_eligible, stem_enabled, stem_reference, stem_unit_cuda, unit_params,
+    unit_reference,
 )
 from .warp import (
     warp_bilinear, warp_bilinear_backward_cuda, warp_bilinear_backward_reference,
@@ -53,7 +53,6 @@ __all__ = [
     "stem_enabled",
     "stem_reference",
     "stem_unit_cuda",
-    "stem_unit_b_bf16_info",
     "unit_params",
     "unit_reference",
 ]

@@ -229,10 +229,10 @@ def phase_k6_build() -> None:
     from the build's `-Xptxas -v` report, resident blocks per SM, and its
     SASS's tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM)
     instructions by `cuobjdump -sass`. No HMMA in the SASS fails."""
-    from back2future_tpu_torch import ops
+    from back2future_tpu_torch.ops.stem import stem_unit_b_bf16_info
     from back2future_tpu_torch.runtime import cuda_build
 
-    info = ops.stem_unit_b_bf16_info()
+    info = stem_unit_b_bf16_info()
     so = cuda_build.library_path()
     report = so.with_suffix(".log").read_text().splitlines()
     spills = next((report[i + 1].strip() for i, line in enumerate(report[:-1])
