@@ -663,15 +663,22 @@ def phase_profile(card: str, dev) -> None:
         del net, state, step, prof
 
 
-# K6's phases, removed one at a time from a copy of its source: the sums
-# of a removed conv 2 are 0 (the kernel still stages and stores)
+# K6's phases, removed from a copy of its source: the sums of a removed
+# conv 2 are 0 (the kernel still stages and stores); without device
+# memory, the tiles' input copies and output stores go (the kernel still
+# stages its weights and computes on whatever shared memory holds)
 _ZERO_ACC = "    for (auto& a : acc) for (auto& b : a) for (float& v : b) v = 0.f;\n"
+_STAGE = "stage_input(in_s, x + tile.n * in_image, 2 * tile.oy0 - 3, 2 * tile.ox0 - 3, H, W);\n"
 K6_PHASES = {
     "whole kernel": [],
     "without conv 1": [("    conv1(smem, tile.oy0, tile.ox0, Ho, Wo);\n", "")],
     "without conv 2": [("    conv2(smem, acc);\n", _ZERO_ACC)],
     "without either conv": [("    conv1(smem, tile.oy0, tile.ox0, Ho, Wo);\n", ""),
                             ("    conv2(smem, acc);\n", _ZERO_ACC)],
+    "without device memory": [
+        ("      " + _STAGE, "      (void)tile;\n"), ("  " + _STAGE, ""),
+        ("    store_output(smem + OFF_MID, out + here.n * out_image, here.oy0, here.ox0, Ho, Wo);\n",
+         "")],
 }
 
 
