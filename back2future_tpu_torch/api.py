@@ -15,7 +15,8 @@ The forward runs under `torch.inference_mode()` with
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from pathlib import Path
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,6 +29,14 @@ from .models.pwc import DTYPES
 Results = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
 OCC_THRESHOLD = 0.6666  # back2future.lua:40
+
+# Reference pretrained-name -> converted checkpoint path (back2future.lua:100-110),
+# as in back2future_tpu/api.py
+PRETRAINED_PATHS = {
+    "Ours-Hard": "models/RoamingImages_H",
+    "Ours-Soft-ft-KITTI": "models/RoamingImages_H_KITTI_S",
+    "Ours-Soft-ft-Sintel": "models/RoamingImages_H_Sintel_S",
+}
 
 
 def _round_down_64(x: int) -> int:
@@ -148,11 +157,28 @@ class FlowEstimator:
         return _postprocess_results(flow, occ, w, height, width)
 
 
-def init(model: Optional[Tuple[dict, PWCConfig]] = None, device="cuda",
-         dtype: str = "", seed: int = 0) -> FlowEstimator:
+def _checkpoint(model) -> Path:
+    """The checkpoint path of a pretrained name or a path, as the JAX
+    package resolves it; FileNotFoundError with its message when nothing
+    is there."""
+    path = PRETRAINED_PATHS.get(str(model), str(model))
+    if not Path(path).exists():
+        raise FileNotFoundError(
+            f"no checkpoint at {path!r} (for reference pretrained names, "
+            f"convert the .t7 with tools/convert_t7.py first)")
+    return Path(path)
+
+
+def init(model: Union[None, str, Path, Tuple[dict, PWCConfig]] = "Ours-Soft-ft-KITTI",
+         device="cuda", dtype: str = "", seed: int = 0) -> FlowEstimator:
     """Build a FlowEstimator on `device`.
 
     `model` is either
+      * a reference pretrained name ("Ours-Hard", "Ours-Soft-ft-KITTI",
+        the default, "Ours-Soft-ft-Sintel") or a checkpoint path, as in
+        the JAX package: FileNotFoundError when no checkpoint is there,
+        and NotImplementedError when one is (loading checkpoints is not
+        ported yet: ROADMAP.md queue 1 item 9b);
       * a (params, PWCConfig) pair: `params` a flax-named tree of numpy
         arrays (models.bridge), `PWCConfig` the port's; or
       * None: random weights from `torch.Generator().manual_seed(seed)`,
@@ -162,6 +188,11 @@ def init(model: Optional[Tuple[dict, PWCConfig]] = None, device="cuda",
     default is the config's own, and bfloat16 for random weights.
     `device` "cuda" with no card raises.
     """
+    if model is not None and not isinstance(model, tuple):
+        path = _checkpoint(model)
+        raise NotImplementedError(
+            f"checkpoint at {str(path)!r}: the port does not load checkpoints yet "
+            f"(ROADMAP.md queue 1 item 9b); pass None or (params, PWCConfig)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init(device='cuda'): no CUDA device is available")
@@ -171,7 +202,7 @@ def init(model: Optional[Tuple[dict, PWCConfig]] = None, device="cuda",
     if model is None:
         config = PWCConfig(dtype=DTYPES[dtype or "bfloat16"])
         net = PWCNet(config, generator=generator)
-    elif isinstance(model, tuple) and len(model) == 2:
+    elif len(model) == 2:
         params, config = model
         if not isinstance(config, PWCConfig):
             raise TypeError(f"expected the port's PWCConfig, got {type(config)}")
@@ -180,6 +211,5 @@ def init(model: Optional[Tuple[dict, PWCConfig]] = None, device="cuda",
         net = PWCNet(config, generator=generator)
         load_flax_params(net, params)
     else:
-        raise TypeError("model must be None or a (params, PWCConfig) pair; "
-                        "checkpoint paths are not supported by the port yet")
+        raise TypeError(f"model as a tuple must be (params, PWCConfig), got {len(model)} items")
     return FlowEstimator(net.to(device), device)

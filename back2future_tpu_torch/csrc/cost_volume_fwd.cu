@@ -25,7 +25,19 @@
 // template parameter so the accumulator array is fully unrolled). The
 // TPU kernel's whole-image VMEM slab and sequential grid are not carried
 // over: blocks are independent and each loads only its own haloed tile.
+//
+// bf16 does not use this kernel on the main path: `b2f_cost_volume_fwd`
+// sends it to the tensor cores (cost_volume_fwd_mma.cu). f32 stays here.
+// `b2f_cost_volume_fwd_cuda_cores` runs this kernel in both types, to
+// compare the two designs on the card.
 #include "common.cuh"
+
+namespace b2f {
+// cost_volume_fwd_mma.cu: K1 in bf16
+cudaError_t cost_volume_fwd_mma(const void* ref, const void* frame, void* out, int B, int H,
+                                int W, int C, int win, int dil, int fwd, float scale,
+                                cudaStream_t stream);
+}  // namespace b2f
 
 namespace {
 
@@ -152,23 +164,46 @@ cudaError_t dispatch_win(const void* ref, const void* frame, void* out, int B,
   }
 }
 
+bool valid_shape(int B, int H, int W, int C, int dilation) {
+  return B > 0 && H > 0 && W > 0 && C > 0 && dilation >= 1;
+}
+
 }  // namespace
 
 // ref, frame: (B, H, W, C) contiguous; out: (B, H, W, win*win) contiguous,
 // all of `dtype` (b2f::DType). win in {3, 5, 7, 9}, dilation >= 1.
-// Launches on `stream` and returns cudaGetLastError().
+// Launches on `stream` and returns cudaGetLastError(). f32 on the CUDA
+// cores (this file), bf16 on the tensor cores (cost_volume_fwd_mma.cu).
 extern "C" int b2f_cost_volume_fwd(const void* ref, const void* frame, void* out,
                                    int dtype, int B, int H, int W, int C, int win,
                                    int dilation, int fwd, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || dilation < 1)
-    return cudaErrorInvalidValue;
+  if (!valid_shape(B, H, W, C, dilation)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case b2f::kFloat32:
       return dispatch_win<float>(ref, frame, out, B, H, W, C, win, dilation, fwd, scale, s);
     case b2f::kBFloat16:
-      return dispatch_win<__nv_bfloat16>(ref, frame, out, B, H, W, C, win, dilation,
-                                         fwd, scale, s);
+      return b2f::cost_volume_fwd_mma(ref, frame, out, B, H, W, C, win, dilation, fwd, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The same function on this file's CUDA-core kernel in both types: the
+// old bf16 design, kept to be timed beside the tensor-core kernel. Nothing
+// on the serving or training path calls it.
+extern "C" int b2f_cost_volume_fwd_cuda_cores(const void* ref, const void* frame, void* out,
+                                              int dtype, int B, int H, int W, int C, int win,
+                                              int dilation, int fwd, float scale,
+                                              void* stream) {
+  if (!valid_shape(B, H, W, C, dilation)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case b2f::kFloat32:
+      return dispatch_win<float>(ref, frame, out, B, H, W, C, win, dilation, fwd, scale, s);
+    case b2f::kBFloat16:
+      return dispatch_win<__nv_bfloat16>(ref, frame, out, B, H, W, C, win, dilation, fwd,
+                                         scale, s);
     default:
       return cudaErrorInvalidValue;
   }

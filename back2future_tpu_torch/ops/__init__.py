@@ -8,8 +8,8 @@ through the twins, to compare the two on the card. `*_backward_cuda` and
 """
 
 from .cost_volume import (
-    cost_volume, cost_volume_backward_cuda, cost_volume_backward_reference, cost_volume_multi,
-    cost_volume_reference,
+    cost_volume, cost_volume_backward_cuda, cost_volume_backward_reference, cost_volume_cuda_cores,
+    cost_volume_fwd_bf16_info, cost_volume_multi, cost_volume_reference,
 )
 from .pyramid import (
     avg_pool2,
@@ -40,6 +40,8 @@ __all__ = [
     "cost_volume_reference",
     "cost_volume_backward_reference",
     "cost_volume_backward_cuda",
+    "cost_volume_cuda_cores",
+    "cost_volume_fwd_bf16_info",
     "avg_pool2",
     "subsample2",
     "upsample_nearest2x",

@@ -12,7 +12,9 @@ Layout: NHWC; output (B, H, W, win*win) in the input dtype.
 
 `cost_volume` is an autograd Function (the port of the `custom_vjp` of
 `cost_volume_pallas`). On CUDA tensors its forward is the hand-written
-kernel csrc/cost_volume_fwd.cu (the Pallas `_fwd_kernel`) and its
+kernel behind `b2f_cost_volume_fwd` (the Pallas `_fwd_kernel`: bf16 on
+the tensor cores, csrc/cost_volume_fwd_mma.cu; f32 on the CUDA cores,
+csrc/cost_volume_fwd.cu) and its
 backward the kernels of csrc/cost_volume_bwd.cu (`_dref_kernel`,
 `_dframe_kernel`), each launched only for an input that needs its
 gradient; on CPU tensors the plain twins `cost_volume_reference` and
@@ -29,12 +31,15 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..runtime.cuda_build import Kernel
+from ..runtime.cuda_build import Kernel, query
 from .route import DTYPE_CODES, check_kernel_input, ptr, stream_ptr, use_kernel
 
 # (a, b, out, dtype, B, H, W, C, win, dilation, fwd, scale, stream)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 _FWD = Kernel("b2f_cost_volume_fwd", _ARGTYPES)
+# the CUDA-core forward in both dtypes (the bf16 design before the tensor
+# cores), for timing beside `_FWD`; nothing on the serving or train path
+_FWD_CUDA_CORES = Kernel("b2f_cost_volume_fwd_cuda_cores", _ARGTYPES)
 _DREF = Kernel("b2f_cost_volume_dref", _ARGTYPES)
 _DFRAME = Kernel("b2f_cost_volume_dframe", _ARGTYPES)
 KERNEL_WINDOWS = (3, 5, 7, 9)  # win sizes the kernel is instantiated for
@@ -98,6 +103,31 @@ def _launch(kernel: Kernel, a: torch.Tensor, b_: torch.Tensor, out_channels: int
         kernel(ptr(a), ptr(b_), ptr(out), DTYPE_CODES[b_.dtype], bsz, h, w, c, win,
                dilation, int(fwd), scale, stream_ptr(b_.device))
     return out
+
+
+def cost_volume_cuda_cores(ref: torch.Tensor, frame: torch.Tensor, win: int,
+                           dilation: int = 1, fwd: bool = True,
+                           scale: float = 1.0) -> torch.Tensor:
+    """The forward on the CUDA-core kernel, f32 or bf16, CUDA tensors only
+    (no autograd): the bf16 design that the tensor-core kernel replaced,
+    kept to compare the two on the card."""
+    if win not in KERNEL_WINDOWS:
+        raise ValueError(f"cost_volume kernel: win {win} not in {KERNEL_WINDOWS}")
+    for name, t in (("ref", ref), ("frame", frame)):
+        check_kernel_input(f"cost_volume {name}", t, ref.shape, ref.dtype)
+    return _launch(_FWD_CUDA_CORES, ref, frame, win * win, win, dilation, fwd, scale)
+
+
+def cost_volume_fwd_bf16_info() -> dict:
+    """What the build and the runtime made of K1's bf16 kernel
+    (csrc/cost_volume_fwd_mma.cu) at win 9, dilation 1: registers and
+    local memory per thread, dynamic shared memory per block, resident
+    blocks per SM."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    query("b2f_cost_volume_fwd_bf16_info", [ctypes.POINTER(ctypes.c_int)] * 4,
+          *map(ctypes.byref, vals))
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def cost_volume_backward_cuda(g: torch.Tensor, ref: torch.Tensor, frame: torch.Tensor,

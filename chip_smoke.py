@@ -5,9 +5,10 @@
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: the card (nvidia-smi name and power limit), TF32 flags
   2. build: nvcc of back2future_tpu_torch/csrc into back2future_tpu_torch/_build
-     (one nvcc per source, in parallel); K6's bf16 tensor-core kernel:
-     registers, spills, shared memory, resident blocks per SM, and the
-     HMMA / LDGSTS / LDSM instructions of its SASS (cuobjdump)
+     (one nvcc per source, in parallel); the bf16 tensor-core kernels of
+     K1 (win 9) and K6: registers, spills, shared memory, resident blocks
+     per SM, and the HMMA / LDGSTS / LDSM instructions of their SASS
+     (cuobjdump)
   3. kernels against their plain torch twins, in bf16 and f32, with the
      max abs error, the tolerance, CUDA-event medians of the kernel, the
      twin and (where one PyTorch call computes the same function) that
@@ -18,8 +19,9 @@ Phases, one line each (any failure raises and exits non-zero):
      d_ref / d_frame, warp image and flow gradients) at the shapes of the
      train step at B=8, 320x640, fwd and past, with flows past the border;
      the fused stem (K5 unit A, K6 unit B) at the serving (48 frames) and
-     train (24 frames) stacked shapes, timed also by the profiler's device
-     time per call (the summary's K5 / K6 numbers)
+     train (24 frames) stacked shapes. The bf16 checks are timed also by
+     the profiler's device time per call (the summary's numbers), and K1's
+     old CUDA-core kernel beside its tensor-core kernel at each level
   4. serving path, stem off: init(None, device="cuda") with the flagship
      config (frames 3, levels 7, win 9, skip 2, bf16, random weights from
      seed 0), compute_flow / compute_flow_batch (B=16, three times) /
@@ -30,7 +32,9 @@ Phases, one line each (any failure raises and exits non-zero):
   5. serving path, stem on (B2F_STEM_PALLAS=1 for this phase only): the
      same B=16 batch, exactly 1 K5 + 1 K6 + 10 + 8 launches, flow and
      occlusion against the stem-off results; device forward ms stem off /
-     on / on / off, twice (the in-model A/B; the default stays off)
+     on / on / off, twice (the in-model A/B; the default stays off); then
+     K1's A/B: the device forward with the CUDA-core cost volume (old) and
+     the tensor-core one (new), old / new / new / old, twice
   6. train path, hard recipe (stem off): the options of
      tools/train_bench.py (optimize pme, OBCC + L1, bf16, B=8, 320x640,
      weights from seed 0, numpy-seeded images on the device),
@@ -116,13 +120,16 @@ GRAD_TOL_FRAC = 1e-3                   # of max |gradient| per parameter
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# launches of one serving forward and of one train step, per kernel
-SERVING_PER_FORWARD = {"b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 8,
+# launches of one serving forward and of one train step, per kernel (the
+# CUDA-core cost volume forward is for timing only)
+SERVING_PER_FORWARD = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
+                       "b2f_warp_bilinear_fwd": 8,
                        "b2f_cost_volume_dref": 0, "b2f_cost_volume_dframe": 0,
                        "b2f_warp_bilinear_dflow": 0, "b2f_warp_bilinear_dimages": 0,
                        "b2f_stem_unit_a": 0, "b2f_stem_unit_b": 0}
 SERVING_STEM_PER_FORWARD = dict(SERVING_PER_FORWARD, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
-TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 18,
+TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
+                  "b2f_warp_bilinear_fwd": 18,
                   "b2f_cost_volume_dref": 10, "b2f_cost_volume_dframe": 10,
                   "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8,
                   "b2f_stem_unit_a": 0, "b2f_stem_unit_b": 0}
@@ -223,20 +230,19 @@ def phase_build() -> None:
             log("build", "ptxas " + line.strip()[:200])
 
 
-def phase_k6_build() -> None:
-    """What the build made of K6's bf16 kernel (stem_unit_b_mma.cu):
-    registers, local memory and shared memory from the runtime, spills
-    from the build's `-Xptxas -v` report, resident blocks per SM, and its
-    SASS's tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM)
-    instructions by `cuobjdump -sass`. No HMMA in the SASS fails."""
-    from back2future_tpu_torch.ops.stem import stem_unit_b_bf16_info
+def mma_build_report(label: str, info: dict, function: str) -> None:
+    """What the build made of a bf16 tensor-core kernel: registers, local
+    memory and shared memory from the runtime (`info`), spills from the
+    build's `-Xptxas -v` report, resident blocks per SM, and its SASS's
+    tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM) instructions
+    by `cuobjdump -sass`, for the function whose mangled name contains
+    `function`. No HMMA in the SASS fails."""
     from back2future_tpu_torch.runtime import cuda_build
 
-    info = stem_unit_b_bf16_info()
     so = cuda_build.library_path()
     report = so.with_suffix(".log").read_text().splitlines()
     spills = next((report[i + 1].strip() for i, line in enumerate(report[:-1])
-                   if "Function properties" in line and "stem_unit_b_mma" in line), "not found")
+                   if "Function properties" in line and function in line), "not found")
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or shutil.which("cuobjdump", path=os.path.join(home, "bin"))
     if tool is None:
@@ -245,23 +251,61 @@ def phase_k6_build() -> None:
         dump = subprocess.run([tool, "-sass", str(so)], check=True, capture_output=True,
                               text=True, timeout=300).stdout
         body = next((f for f in dump.split("Function : ")[1:]
-                     if "stem_unit_b_mma" in f.split(None, 1)[0]), "")
+                     if function in f.split(None, 1)[0]), "")
         n = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HMMA", "LDGSTS", "LDSM")}
         sass = f"SASS ({tool}): " + ", ".join(f"{k} {v}" for k, v in n.items())
         if not n["HMMA"]:
-            raise AssertionError("K6 bf16: no HMMA instruction in the built kernel's SASS")
-    log("build", f"K6 bf16 (stem_unit_b_mma_kernel): {info['registers']} registers, "
+            raise AssertionError(f"{label}: no HMMA instruction in the built kernel's SASS")
+    log("build", f"{label}: {info['registers']} registers, "
                  f"{info['local_bytes']} bytes local memory per thread ({spills}), "
                  f"{info['smem_bytes']} bytes dynamic shared memory per block, "
                  f"{info['blocks_per_sm']} resident blocks per SM; {sass}")
 
 
+def phase_mma_builds() -> None:
+    """The build reports of K1's (win 9) and K6's bf16 tensor-core kernels."""
+    from back2future_tpu_torch.ops import cost_volume_fwd_bf16_info
+    from back2future_tpu_torch.ops.stem import stem_unit_b_bf16_info
+
+    mma_build_report("K1 bf16 (cost_volume_fwd_mma_kernel<9>, win 9 dil 1)",
+                     cost_volume_fwd_bf16_info(), "cost_volume_fwd_mma_kernelILi9E")
+    mma_build_report("K6 bf16 (stem_unit_b_mma_kernel)", stem_unit_b_bf16_info(),
+                     "stem_unit_b_mma")
+
+
+def compare_k1_cuda_cores(label, ref, frame, fwd, c, new, twin, summary) -> None:
+    """K1's old CUDA-core kernel (b2f_cost_volume_fwd_cuda_cores) beside
+    its tensor-core kernel on the same bf16 inputs: the old one against
+    the twin, and both timed in one profiler window (one call of each, in
+    turn, 20 times), told apart by kernel name."""
+    from back2future_tpu_torch import ops
+
+    def old():
+        return ops.cost_volume_cuda_cores(ref, frame, WIN, 1, fwd, scale=1.0 / c)
+
+    got, want = old(), twin()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = KERNEL_TOL[torch.bfloat16]
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{label}, CUDA cores: outside tolerance ({err})")
+    times = device_ms(lambda: (new(), old()), 20)
+    new_ms = sum(v for n, v in times.items() if "mma" in n)
+    old_ms = sum(v for n, v in times.items() if "mma" not in n)
+    if not new_ms or not old_ms:
+        raise AssertionError(f"{label}: the profiler did not see both kernels: {times}")
+    log("kernels", f"{label}: K1 device time per call (profiler, in turns) tensor cores "
+                   f"{new_ms:.4f} ms, CUDA cores {old_ms:.4f} ms ({old_ms / new_ms:.2f}x); "
+                   f"CUDA cores max_abs_err {err:.3e}")
+    summary["cost_volume"]["cuda_cores_ms"] += old_ms
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its twin at every main-path shape; returns the
     per-kernel summary over the bf16 checks: max error, and the kernel,
-    twin, library and bound ms summed per serving forward (forward
-    kernels), per hard train step (backward kernels) or per soft train
-    step (K5, K6)."""
+    twin, library (profiler device times) and bound ms summed per serving
+    forward (forward kernels), per hard train step (backward kernels) or
+    per soft train step (K5, K6); for K1 also its CUDA-core kernel's
+    device time (`cuda_cores_ms`)."""
     from back2future_tpu_torch import ops
     from back2future_tpu_torch.models import ConvUnit
 
@@ -275,17 +319,19 @@ def phase_kernels(dev) -> dict:
                        bytes_ms=0.0, ops_ms=0.0)
                for k in ("cost_volume", "warp", "cost_volume_dref", "cost_volume_dframe",
                          "warp_dimages", "warp_dflow", "stem_unit_a", "stem_unit_b")}
+    summary["cost_volume"]["cuda_cores_ms"] = 0.0
 
     def check(kernel, label, dtype, kern, twin, per_forward, work, library=None,
-              of_largest=False, device_time=False):
+              of_largest=False):
         """Compare, time, log; add bf16 results `per_forward` times to the
         summary. `work`: (operations, bytes) of one call, inputs read and
         outputs written once. `library`: one PyTorch call computing the
         same function, or None. `of_largest`: the absolute tolerance is
         taken relative to the largest value (gradients summed over many
-        terms). `device_time`: the summary takes the profiler's device
-        time per call (`device_ms`) of the kernel, twin and library, for
-        kernels whose wrapper's host work is of the kernel's order."""
+        terms). bf16 checks are timed also by the profiler's device time
+        per call (`device_ms`) of the kernel, twin and library, which the
+        summary takes: single-launch event windows carry the wrapper's
+        host time."""
         tol = KERNEL_TOL[dtype]
         got, want = kern(), twin()
         torch.cuda.synchronize()
@@ -301,7 +347,7 @@ def phase_kernels(dev) -> dict:
                        f"kernel {ms:.4f} ms twin {pms:.4f} ms{lib} bound "
                        f"{max(ops_ms, bytes_ms):.4f} ms (bytes {bytes_ms:.4f}, "
                        f"operations {ops_ms:.4f})")
-        if device_time:
+        if dtype == torch.bfloat16:
             mine = device_ms(kern, 20)
             ms, pms = sum(mine.values()), sum(device_ms(twin, 5).values())
             lms = sum(device_ms(library, 20).values()) if library is not None else None
@@ -342,12 +388,13 @@ def phase_kernels(dev) -> dict:
             work = (2 * B * h * w * c * WIN * WIN,
                     nbytes(ref, frame) + B * h * w * WIN * WIN * ref.element_size())
             for fwd in (True, False):
-                check("cost_volume",
-                      f"cost_volume {tag} B={B} {h}x{w}x{c} {'fwd' if fwd else 'past'}",
-                      dtype,
-                      lambda: ops.cost_volume(ref, frame, WIN, 1, fwd, scale=1.0 / c),
-                      lambda: ops.cost_volume_reference(ref, frame, WIN, 1, fwd, scale=1.0 / c),
-                      per_forward=1, work=work)
+                label = f"cost_volume {tag} B={B} {h}x{w}x{c} {'fwd' if fwd else 'past'}"
+                new = lambda: ops.cost_volume(ref, frame, WIN, 1, fwd, scale=1.0 / c)   # noqa: E731
+                twin = lambda: ops.cost_volume_reference(   # noqa: E731
+                    ref, frame, WIN, 1, fwd, scale=1.0 / c)
+                check("cost_volume", label, dtype, new, twin, per_forward=1, work=work)
+                if dtype == torch.bfloat16:
+                    compare_k1_cuda_cores(label, ref, frame, fwd, c, new, twin, summary)
         # feature warps run at levels 6..3, once per non-reference frame
         for (h, w, c) in LEVEL_SHAPES[:4]:
             img = rand((B, h, w, c), dtype)
@@ -425,13 +472,15 @@ def phase_kernels(dev) -> dict:
                           twin, per_forward=int(where == "train"),
                           work=(2 * out_px * c_out * 9 * (c_in + c_out),
                                 nbytes(inp, *p) + out_px * c_out * inp.element_size()),
-                          library=twin, of_largest=True, device_time=True)
+                          library=twin, of_largest=True)
 
-    log("kernels", "per serving forward (bf16, B=16): cost volume kernel "
-                   f"{summary['cost_volume']['ms']:.3f} ms vs twin "
+    log("kernels", "per serving forward (bf16, B=16, profiler device time): cost volume kernel "
+                   f"{summary['cost_volume']['ms']:.3f} ms (its CUDA-core kernel "
+                   f"{summary['cost_volume']['cuda_cores_ms']:.3f} ms) vs twin "
                    f"{summary['cost_volume']['plain_ms']:.3f} ms; warp kernel "
                    f"{summary['warp']['ms']:.3f} ms vs twin {summary['warp']['plain_ms']:.3f} ms")
-    log("kernels", f"per train step (bf16, B={TRAIN_B}, {TRAIN_H}x{TRAIN_W}): " + "; ".join(
+    log("kernels", f"per train step (bf16, B={TRAIN_B}, {TRAIN_H}x{TRAIN_W}, profiler device "
+                   f"time): " + "; ".join(
         f"{k} kernel {summary[k]['ms']:.3f} ms vs twin {summary[k]['plain_ms']:.3f} ms"
         for k in ("cost_volume_dref", "cost_volume_dframe", "warp_dimages", "warp_dflow",
                   "stem_unit_a", "stem_unit_b")))
@@ -560,6 +609,52 @@ def phase_serving_stem(card: str, main: dict) -> dict:
                 + " / ".join(f"{t:.2f}" for t in times) + f" ms (CUDA events, medians of 5); "
                 f"median off {off:.2f} ms, on {on:.2f} ms on {card}")
     return launches
+
+
+@contextlib.contextmanager
+def k1_cuda_cores():
+    """Inside the block, ops.cost_volume's forward runs the CUDA-core
+    kernel (b2f_cost_volume_fwd_cuda_cores), the bf16 design before the
+    tensor cores; restored after. For the in-model A/B only."""
+    import importlib
+
+    module = importlib.import_module("back2future_tpu_torch.ops.cost_volume")
+    kernel = module._FWD
+    module._FWD = module._FWD_CUDA_CORES
+    try:
+        yield
+    finally:
+        module._FWD = kernel
+
+
+def phase_serving_k1(card: str, main: dict) -> None:
+    """K1's in-model A/B: the device forward at B=16 (stem off) with the
+    CUDA-core cost volume (old) and the tensor-core one (new), old / new
+    / new / old, twice; the old forward's flow against the new one's."""
+    est, x = main["est"], main["x"]
+    with torch.inference_mode(), stem(False):
+        new_flow = est.net(x, with_warped=False)[0]["flow"].float()
+        with k1_cuda_cores():
+            old_flow = est.net(x, with_warped=False)[0]["flow"].float()
+        scale = new_flow.abs().max().item()
+        err = (new_flow - old_flow).abs().max().item()
+        log("k1", f"device forward B={B}, finest flow, CUDA-core vs tensor-core cost volume: "
+                  f"max_abs_err {err:.3e} (tol {FLOW_TOL_FRAC} x max|flow| = "
+                  f"{FLOW_TOL_FRAC * scale:.3e})")
+        if err > FLOW_TOL_FRAC * scale:
+            raise AssertionError("K1 A/B: the two cost volumes give different flows")
+        turns = (True, False, False, True) * 2   # True: the old kernel
+        times = []
+        for old in turns:
+            with k1_cuda_cores() if old else contextlib.nullcontext():
+                times.append(cuda_ms(lambda: est.net(x, with_warped=False), 5))
+    old_ms, new_ms = (statistics.median(t for t, o in zip(times, turns) if o == side)
+                      for side in (True, False))
+    log("k1", f"serving forward on the device, B={B} {H}x{W} bf16, stem off, cost volume "
+              + " / ".join("old" if o else "new" for o in turns) + ": "
+              + " / ".join(f"{t:.2f}" for t in times) + f" ms (CUDA events, medians of 5); "
+              f"median old (CUDA cores) {old_ms:.2f} ms, new (tensor cores) {new_ms:.2f} ms "
+              f"on {card}")
 
 
 def train_options(dtype: str, soft: bool):
@@ -846,7 +941,7 @@ def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
 
 
 KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches count)
-    ("cost_volume_fwd", "cost_volume", "cost_volume_fwd.cu",
+    ("cost_volume_fwd", "cost_volume", "cost_volume_fwd_mma.cu",
      "back2future_tpu/ops/cost_volume_pallas.py:91", "serving"),
     ("warp_bilinear_fwd", "warp", "warp_fwd.cu", "back2future_tpu/ops/warp.py:96", "serving"),
     ("cost_volume_dref", "cost_volume_dref", "cost_volume_bwd.cu",
@@ -869,7 +964,7 @@ def main() -> None:
 
     dev = torch.device("cuda")
     phase_build()
-    phase_k6_build()
+    phase_mma_builds()
     if "--profile" in sys.argv[1:]:
         phase_profile(card, dev)
         return
@@ -881,6 +976,7 @@ def main() -> None:
         main_path = phase_main_path(card)
     paths = {"serving": main_path["launches"]}
     phase_serving_stem(card, main_path)
+    phase_serving_k1(card, main_path)
     del main_path
     with stem(False):
         paths["train"] = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)

@@ -107,8 +107,37 @@ def test_init_random_weights_and_dtype():
     torch.testing.assert_close(est.net.feat_2.c0.weight, f32.net.feat_2.c0.weight)
     with pytest.raises(ValueError):
         api.init(None, device="cpu", dtype="float16")
-    with pytest.raises(TypeError):
+    with pytest.raises(FileNotFoundError):
         api.init("Ours-Hard", device="cpu")
+    with pytest.raises(TypeError):
+        api.init((None,), device="cpu")
+
+
+@pytest.mark.parametrize("model", [None, *sorted(jax_api.PRETRAINED_PATHS)],
+                         ids=["default", *sorted(jax_api.PRETRAINED_PATHS)])
+def test_init_checkpoint_names_follow_jax(model, tmp_path, monkeypatch):
+    """With no converted checkpoint under the working directory, the
+    port's init and the JAX package's raise the same FileNotFoundError,
+    for the default model and for each pretrained name."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("B2F_COMPILE_CACHE", "0")   # JAX's init leaves jax's cache setting alone
+    assert api.PRETRAINED_PATHS == jax_api.PRETRAINED_PATHS
+    args = () if model is None else (model,)
+    with pytest.raises(FileNotFoundError) as port_err:
+        api.init(*args, device="cpu")
+    with pytest.raises(FileNotFoundError) as jax_err:
+        jax_api.init(*args)
+    assert str(port_err.value) == str(jax_err.value)
+
+
+def test_init_existing_checkpoint_is_not_loaded_yet(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    default = tmp_path / api.PRETRAINED_PATHS["Ours-Soft-ft-KITTI"]
+    default.mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
+        api.init(device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
+        api.init(str(default), device="cpu")
 
 
 def test_init_cuda_without_card_raises():

@@ -13,6 +13,8 @@ map and the output each round once to bf16, the twin rounds again after
 the bias and after leaky).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -23,10 +25,13 @@ from back2future_tpu_torch.losses import build_criterions
 from back2future_tpu_torch.models import (
     ConvUnit, PWCConfig, PWCNet, convert_net_hard_to_soft, pwc_config_from_options,
 )
+from back2future_tpu_torch.ops.route import DTYPE_CODES, ptr, stream_ptr
 from back2future_tpu_torch.runtime import KERNELS, reset_launches
 from back2future_tpu_torch.train import create_train_state, make_train_step
 
 pytestmark = pytest.mark.gpu
+
+CV_MODULE = importlib.import_module("back2future_tpu_torch.ops.cost_volume")
 
 TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5),
         torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -46,7 +51,7 @@ def rand(shape, seed, device, dtype=torch.float32, scale=1.0):
     return torch.from_numpy(x).to(device, dtype)
 
 
-CV_CASES = [(win, dil, fwd) for win in (3, 5, 9) for dil in (1, 2) for fwd in (True, False)]
+CV_CASES = [(win, dil, fwd) for win in (3, 5, 7, 9) for dil in (1, 2) for fwd in (True, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -61,6 +66,71 @@ def test_cost_volume_kernel_matches_twin(cuda, dtype, win, dil, fwd):
     want = ops.cost_volume_reference(ref, frame, win, dil, fwd, scale=0.05)
     assert got.dtype == dtype and got.shape == (2, 13, 37, win * win)
     torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("fwd", [True, False], ids=["fwd", "past"])
+@pytest.mark.parametrize("scale", [1.0, 30.0], ids=["unit", "x30"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [32, 64, 192])
+def test_cost_volume_kernel_main_path_channels(cuda, dtype, c, scale, fwd):
+    """K1 at the main path's channel counts (several chunks of 32 for the
+    tensor-core kernel), win 9, dil 1, a width that is not a multiple of
+    16, inputs up to 30x: bf16 on the tensor cores, f32 on the CUDA cores,
+    each within its tolerance of the largest value (at 30x an f32 sum of
+    terms near 900 cancels to values far below its terms)."""
+    ref = rand((2, 11, 38, c), 31, cuda, dtype, scale=scale)
+    frame = rand((2, 11, 38, c), 32, cuda, dtype, scale=scale)
+    before = KERNELS["b2f_cost_volume_fwd"].launches
+    got = ops.cost_volume(ref, frame, 9, 1, fwd, scale=1.0 / c)
+    assert KERNELS["b2f_cost_volume_fwd"].launches == before + 1
+    want = ops.cost_volume_reference(ref, frame, 9, 1, fwd, scale=1.0 / c)
+    close_to_scale(got, want, dtype)
+
+
+@pytest.mark.parametrize("offset", [1, 4], ids=["2B", "8B"])
+def test_cost_volume_bf16_kernel_unaligned(cuda, offset):
+    """Inputs and output that do not start on a 16-byte boundary: the
+    tensor-core kernel gathers its chunks by scalar loads and stores the
+    ends of each output run element by element."""
+    shape = (2, 9, 37, 32)
+
+    def unaligned(seed):
+        x = rand(shape, seed, cuda, torch.bfloat16)
+        buf = torch.empty(x.numel() + offset, dtype=torch.bfloat16, device=cuda)
+        view = buf[offset:].view(shape)
+        view.copy_(x)
+        return view
+
+    ref, frame = unaligned(33), unaligned(34)
+    for win, dil, fwd in ((9, 1, True), (5, 2, False)):
+        want = ops.cost_volume_reference(ref, frame, win, dil, fwd, scale=0.1)
+        out = torch.empty(want.numel() + offset, dtype=torch.bfloat16, device=cuda)
+        got = out[offset:].view(want.shape)
+        b, h, w, c = shape
+        CV_MODULE._FWD(ptr(ref), ptr(frame), ptr(got), DTYPE_CODES[torch.bfloat16], b, h, w, c,
+                       win, dil, int(fwd), 0.1, stream_ptr(ref.device))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TOLS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("win,dil,fwd", [(9, 1, True), (9, 1, False), (7, 2, True), (3, 1, False)])
+def test_cost_volume_cuda_cores_kernel_matches_twin(cuda, dtype, win, dil, fwd):
+    """The CUDA-core forward, kept for the A/B, in both dtypes."""
+    ref = rand((2, 13, 37, 20), 35, cuda, dtype)
+    frame = rand((2, 13, 37, 20), 36, cuda, dtype)
+    before = KERNELS["b2f_cost_volume_fwd_cuda_cores"].launches
+    got = ops.cost_volume_cuda_cores(ref, frame, win, dil, fwd, scale=0.05)
+    assert KERNELS["b2f_cost_volume_fwd_cuda_cores"].launches == before + 1
+    want = ops.cost_volume_reference(ref, frame, win, dil, fwd, scale=0.05)
+    assert got.dtype == dtype and got.shape == (2, 13, 37, win * win)
+    torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
+
+
+def test_cost_volume_bf16_kernel_info(cuda):
+    info = ops.cost_volume_fwd_bf16_info()
+    assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1, info
+    assert info["smem_bytes"] > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
