@@ -24,32 +24,42 @@
 // frame pixel x0-pad+j, and pixel i needs the columns j = i + u*dil,
 // u = 0..win-1, which form its qx band. The columns are walked in passes
 // of FC = 24 (three n8 tiles of `mma.sync.m16n8k16` bf16 -> f32): one
-// pass for win 9 at dil 1, where 24 of every 24 columns are computed for
-// 9 used (2.67x the useful products, 19.1 GFLOP per serving forward).
-// - Blocks: a TH x TW = 4 x 16 pixel tile, TH * ceil(win/3) warps; warp
-//   (ty, g) owns output row ty and the qy rows u = 3g..3g+2, so a lane
-//   holds 3 x 3 x 4 = 36 f32 sums.
-// - Staging: C is walked in chunks of CK = 32 channels (two k16 steps;
-//   the tail zero-filled), double-buffered by `cp.async.cg` 16-byte copies
-//   (the ref tile, 4 x 16 pixels, and the frame rows the tile's qy rows
-//   need, 24 columns each) into shared memory in NHWC order, 64 bytes a
-//   pixel, addressed in 16-byte chunks through the XOR swizzle of
-//   stem_unit_b_mma.cu so that `ldmatrix` rows 64 bytes apart hit 8
-//   distinct bank groups. The frame rows the tile needs are ty + u*dil:
-//   contiguous when dil <= TH, else win groups of TH rows, so a staged
-//   "slot" row is ty + u*min(dil, TH) and any dil fits in TH*win slots.
-//   When C is not a multiple of 8 or an input is not 16-byte aligned, the
-//   chunks are gathered by scalar loads instead.
+// pass for win 9 at dil 1, where all 24 columns are computed and each
+// pixel uses 9 (2.67x the useful products, 19.1 GFLOP per serving forward).
+// - Blocks: 384 threads at win 9 (TH * ceil(win/3) warps), two per SM,
+//   persistent: block b takes the 4 x 16 pixel tiles b, b + gridDim.x, ...
+//   Warp (ty, g) owns tile row ty and the qy rows u = 3g..3g+2, so a lane
+//   holds 3 x 3 x 4 = 36 f32 sums (80 registers, no spills).
+// - Staging: each tile is walked in stages of CK = 32 channels (two k16
+//   steps; the tail zero-filled) per pass, double-buffered: the copies of
+//   the next stage, the next tile's first one included, are issued before
+//   the current stage is computed, so they fly during its products, band
+//   scatter and store. `cp.async.cg` 16-byte copies bring the ref tile
+//   (4 x 16 pixels) and the frame rows the tile's qy rows need (24 columns
+//   each) into shared memory in NHWC order, 64 bytes a pixel, addressed in
+//   16-byte chunks through the XOR swizzle of stem_unit_b_mma.cu so that
+//   `ldmatrix` rows 64 bytes apart hit 8 distinct bank groups. The frame
+//   rows are ty + u*dil: contiguous when dil <= TH, else win groups of TH
+//   rows, so a staged "slot" row is ty + u*min(dil, TH) and any dil fits
+//   in TH*win slots. When C is not a multiple of 8 or an input is not
+//   16-byte aligned, the chunks are gathered by scalar loads instead.
 // - Products: per k16 step a warp loads its A fragment (16 ref pixels)
 //   once with `ldmatrix.x4` and, per qy row, B (24 frame pixels) with
 //   `ldmatrix.x4` + `.x2`: three `mma` per qy row.
-// - Epilogue: each pass scatters the band entries of its sums, times
-//   `scale` and rounded to bf16, into an output tile in shared memory laid
-//   out as the output ([pixel][win*win]); once all passes are done, each
-//   tile row, TW * 162 contiguous bytes at win 9, goes to device memory by
-//   16-byte stores (scalar at its unaligned ends; ragged tiles masked).
+// - Epilogue: the band entries of the sums, times `scale` and rounded to
+//   bf16, go into an output tile in shared memory laid out as the output
+//   ([pixel][win*win]); at dil 1 (a kernel of its own, `DIL1`) a lane's
+//   three sums of one (pixel, qx) are neighbours in q and go out as one
+//   4-byte and one 2-byte store, and the columns no lane can use are
+//   skipped at compile time; other dilations test each sum, one division
+//   each. Once a tile's passes are done, each tile row, TW * 162
+//   contiguous bytes at win 9, goes to device memory by 16-byte stores
+//   (scalar at its unaligned ends; ragged tiles masked).
+// Where the time goes (chip_smoke.py --k1-phases) and the numbers: PERF.md.
 // Registers, shared memory and blocks per SM: `b2f_cost_volume_fwd_bf16_info`
 // (chip_smoke.py's build line prints them with the `-Xptxas -v` report).
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -132,16 +142,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// What one block works on: the image, the tile, the geometry of the
-// staged frame rows.
-struct Tile {
-  const __nv_bfloat16* ref;     // this image
-  const __nv_bfloat16* frame;   // this image
+// What every tile of one launch shares: the images, the sizes, the
+// geometry of the staged frame rows, the grid of tiles.
+struct Geometry {
+  const __nv_bfloat16* ref;
+  const __nv_bfloat16* frame;
+  __nv_bfloat16* out;
   int H, W, C, dil, pad;
   int step;                     // min(dil, TH): slot row of (ty, u) is ty + u * step
   int ns;                       // staged frame rows (slots)
-  int y0, x0;
+  int tiles_x, tiles_y;
+  int out_off;                  // `out`'s element offset from a 16-byte boundary
   bool vec;                     // 16-byte copies (C % 8 == 0, inputs 16-byte aligned)
+};
+
+// a tile of the grid: tile columns fastest, then rows, then images
+struct Tile {
+  int b, y0, x0;
+  __device__ Tile(int t, const Geometry& g)
+      : b(t / (g.tiles_x * g.tiles_y)),
+        y0((t / g.tiles_x) % g.tiles_y * TH),
+        x0(t % g.tiles_x * TW) {}
 };
 
 // one 16-byte chunk (8 channels from c) of pixel `pix` of `base`, or
@@ -164,26 +185,28 @@ __device__ __forceinline__ void stage_chunk(uint32_t dst, const __nv_bfloat16* _
   st_shared16(dst, v);
 }
 
-// chunk of channels c0..c0+CK-1 of the ref tile and of the frame slots,
-// frame columns xf0..xf0+FC-1, into one buffer (copies not yet waited for)
+// stage s of tile `t` (pass s / chunks, channels from (s % chunks) * CK)
+// into one buffer: the ref tile and the frame slots, FC frame columns
+// from x0 - pad + pass * FC (copies not yet waited for)
 template <int NT>
-__device__ __forceinline__ void stage(uint32_t ref_s, uint32_t frm_s, const Tile& t, int c0,
-                                      int xf0) {
+__device__ __forceinline__ void stage(uint32_t ref_s, uint32_t frm_s, const Geometry& g,
+                                      const Tile& t, int s, int chunks) {
+  const int c0 = s % chunks * CK, xf0 = t.x0 - g.pad + s / chunks * FC;
+  const size_t image = static_cast<size_t>(t.b) * g.H * g.W;
   for (int e = threadIdx.x; e < TH * TW * CCH; e += NT) {
     const int p = e / CCH, c = c0 + (e % CCH) * 8;
     const int y = t.y0 + p / TW, x = t.x0 + p % TW;
-    const bool inside = y < t.H && x < t.W;
-    stage_chunk(ref_s + 16 * swz(e), t.ref, inside ? static_cast<size_t>(y) * t.W + x : 0, c,
-                t.C, inside, t.vec);
+    const bool inside = y < g.H && x < g.W;
+    stage_chunk(ref_s + 16 * swz(e), g.ref, inside ? image + y * g.W + x : 0, c, g.C, inside,
+                g.vec);
   }
-  for (int e = threadIdx.x; e < t.ns * FC * CCH; e += NT) {
+  for (int e = threadIdx.x; e < g.ns * FC * CCH; e += NT) {
     const int p = e / CCH, c = c0 + (e % CCH) * 8;
     const int slot = p / FC, x = xf0 + p % FC;
-    const int y = t.y0 - t.pad +
-                  (t.dil <= TH ? slot : slot % TH + (slot / TH) * t.dil);
-    const bool inside = y >= 0 && y < t.H && x >= 0 && x < t.W;
-    stage_chunk(frm_s + 16 * swz(e), t.frame, inside ? static_cast<size_t>(y) * t.W + x : 0,
-                c, t.C, inside, t.vec);
+    const int y = t.y0 - g.pad + (g.dil <= TH ? slot : slot % TH + (slot / TH) * g.dil);
+    const bool inside = y >= 0 && y < g.H && x >= 0 && x < g.W;
+    stage_chunk(frm_s + 16 * swz(e), g.frame, inside ? image + y * g.W + x : 0, c, g.C, inside,
+                g.vec);
   }
 }
 
@@ -215,7 +238,7 @@ __device__ __forceinline__ void products(float (&acc)[QG][NT8][4], uint32_t ref_
 
 // the band entries of one pass's sums into the staged output row `o`
 // (already offset by the row's shift): sum (i, j) is pixel i against
-// column pass*FC + j, in the band where j - i = u*dil, u < WIN
+// column pass*FC + j, in the band where j - i = u*dil, u < WIN.
 template <int WIN>
 __device__ __forceinline__ void scatter_band(__nv_bfloat16* o, const float (&acc)[QG][NT8][4],
                                              int g, int pass, int dil, bool fwd, float scale) {
@@ -239,30 +262,80 @@ __device__ __forceinline__ void scatter_band(__nv_bfloat16* o, const float (&acc
   }
 }
 
-// the staged output tile to device memory: row ty holds elements
-// E0 - shift .. of the row run E0 = ((b*H + y)*W + x0)*Q (counted from
-// a 16-byte boundary); whole 16-byte chunks by vector stores, the ends
-// element by element
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));
+}
+
+// scatter_band for dil 1 and a warp holding QG = 3 qy rows: one pass
+// (TW + WIN - 1 <= FC), u = j - i, and a lane's three sums of one (i, j)
+// are neighbours in q (qy inner), written as one 4-byte and one 2-byte
+// store. The sums whose column can miss the band for every lane are
+// skipped at compile time.
 template <int WIN>
-__device__ __forceinline__ void store_tile(const unsigned char* out_s, __nv_bfloat16* out,
-                                           const Tile& t, int b, int out_off) {
+__device__ __forceinline__ void scatter_band_dil1(__nv_bfloat16* o,
+                                                  const float (&acc)[QG][NT8][4], int g,
+                                                  bool fwd, float scale) {
+  static_assert(QG == 3 && TW + WIN - 1 <= FC, "one pass of three qy rows");
+  constexpr int Q = WIN * WIN;
+  const int lane = threadIdx.x & 31;
+  // the lowest q of the three: qy rows 3g..3g+2, mirrored when fwd
+  const int iy0 = fwd ? WIN - QG - g * QG : g * QG;
+#pragma unroll
+  for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int dmin = nt * 8 + (k & 1) - 7 - 8 * (k >> 1), dmax = dmin + 13;
+      if (dmax < 0 || dmin >= WIN) continue;   // no lane's column is in the band
+      const int i = (lane >> 2) + 8 * (k >> 1);
+      const int u = nt * 8 + 2 * (lane & 3) + (k & 1) - i;
+      if (u < 0 || u >= WIN) continue;
+      const int ix = fwd ? WIN - 1 - u : u;
+      __nv_bfloat16* e = o + i * Q + ix * WIN + iy0;
+      // in q order: qy rows iy0, iy0 + 1, iy0 + 2 (selected by value: an
+      // index chosen at run time would put `acc` in local memory)
+      const float first = acc[0][nt][k] * scale, last = acc[2][nt][k] * scale;
+      const uint16_t lo = bf16_bits(fwd ? last : first);
+      const uint16_t mid = bf16_bits(acc[1][nt][k] * scale);
+      const uint16_t hi = bf16_bits(fwd ? first : last);
+      const bool odd = (reinterpret_cast<uintptr_t>(e) & 2) != 0;
+      *reinterpret_cast<uint16_t*>(odd ? e : e + 2) = odd ? lo : hi;
+      *reinterpret_cast<uint32_t*>(odd ? e + 1 : e) =
+          odd ? mid | (static_cast<uint32_t>(hi) << 16) : lo | (static_cast<uint32_t>(mid) << 16);
+    }
+}
+
+// the output run of tile row ty: its first element in `out`, and the
+// shift (< 8) of its first element past a 16-byte boundary, at which the
+// staged row holds it
+struct Run {
+  size_t first;
+  int shift;
+  __device__ Run(const Geometry& g, const Tile& t, int ty, int q) {
+    first = ((static_cast<size_t>(t.b) * g.H + min(t.y0 + ty, g.H - 1)) * g.W + t.x0) * q;
+    shift = static_cast<int>((first + g.out_off) & 7);
+  }
+};
+
+// the staged output tile to device memory: element k >= shift of staged
+// row ty is element first - shift + k of `out`; whole 16-byte chunks by
+// vector stores, the ends element by element
+template <int WIN>
+__device__ __forceinline__ void store_tile(const unsigned char* out_s, const Geometry& g,
+                                           const Tile& t) {
   using P = Plan<WIN>;
   constexpr int CHUNKS = P::OUT_ROW / 8;
-  const int n = min(TW, t.W - t.x0) * P::Q;   // valid elements of a row run
+  const int n = min(TW, g.W - t.x0) * P::Q;   // valid elements of a row run
   for (int e = threadIdx.x; e < TH * CHUNKS; e += P::NT) {
     const int ty = e / CHUNKS, lo = (e % CHUNKS) * 8;
-    const int y = t.y0 + ty;
-    if (y >= t.H) continue;
-    const size_t run = (static_cast<size_t>(b) * t.H + y) * t.W * P::Q +
-                       static_cast<size_t>(t.x0) * P::Q;
-    const int shift = static_cast<int>((run + out_off) & 7);
-    if (lo + 8 <= shift || lo >= shift + n) continue;
+    if (t.y0 + ty >= g.H) continue;
+    const Run run(g, t, ty, P::Q);
+    if (lo + 8 <= run.shift || lo >= run.shift + n) continue;
     const __nv_bfloat16* src = reinterpret_cast<const __nv_bfloat16*>(out_s) + ty * P::OUT_ROW;
-    __nv_bfloat16* dst = out + run - shift;   // element lo of the row <-> dst[lo]
-    if (lo >= shift && lo + 8 <= shift + n) {
+    __nv_bfloat16* dst = g.out + run.first - run.shift;
+    if (lo >= run.shift && lo + 8 <= run.shift + n) {
       *reinterpret_cast<uint4*>(dst + lo) = *reinterpret_cast<const uint4*>(src + lo);
     } else {
-      for (int k = max(lo, shift); k < min(lo + 8, shift + n); ++k) dst[k] = src[k];
+      for (int k = max(lo, run.shift); k < min(lo + 8, run.shift + n); ++k) dst[k] = src[k];
     }
   }
 }
@@ -273,92 +346,116 @@ __host__ __device__ constexpr int smem_bytes(int ns) {
   return Plan<WIN>::OUT_BYTES + 2 * (REF_BYTES + ns * SLOT_BYTES);
 }
 
-template <int WIN>
+// persistent: block b takes tiles b, b + gridDim.x, ...; each tile is
+// `passes * chunks` stages, and every stage's copies, the next tile's
+// first included, are issued before the current stage is computed, so
+// the next tile's loads fly while this tile's band is scattered and stored
+template <int WIN, bool DIL1>
 __global__ void __launch_bounds__(Plan<WIN>::NT, 2)
-cost_volume_fwd_mma_kernel(const __nv_bfloat16* __restrict__ ref,
-                           const __nv_bfloat16* __restrict__ frame, __nv_bfloat16* __restrict__ out,
-                           int H, int W, int C, int dil, int fwd, float scale, int vec,
-                           int out_off) {
+cost_volume_fwd_mma_kernel(Geometry g, int fwd, float scale, int tiles) {
   using P = Plan<WIN>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.z;
-  const size_t plane = static_cast<size_t>(H) * W * C;
-  Tile t;
-  t.ref = ref + b * plane;
-  t.frame = frame + b * plane;
-  t.H = H;
-  t.W = W;
-  t.C = C;
-  t.dil = dil;
-  t.pad = (WIN - 1) / 2 * dil;
-  t.step = min(dil, TH);
-  t.ns = TH + (WIN - 1) * t.step;
-  t.y0 = blockIdx.y * TH;
-  t.x0 = blockIdx.x * TW;
-  t.vec = vec != 0;
-
   const int warp = threadIdx.x >> 5;
-  const int ty = warp / P::NQG, g = warp % P::NQG;
+  const int ty = warp / P::NQG, wg = warp % P::NQG;
   const uint32_t buf0 = smem_addr(smem + P::OUT_BYTES);
-  const uint32_t buf1 = buf0 + REF_BYTES + t.ns * SLOT_BYTES;
-  const int chunks = (C + CK - 1) / CK;
-  const int passes = (TW + 2 * t.pad + FC - 1) / FC;
-  const int stages = passes * chunks;
-  const size_t run = (static_cast<size_t>(b) * H + min(t.y0 + ty, H - 1)) * W * P::Q +
-                     static_cast<size_t>(t.x0) * P::Q;
-  __nv_bfloat16* out_row = reinterpret_cast<__nv_bfloat16*>(smem) + ty * P::OUT_ROW +
-                           static_cast<int>((run + out_off) & 7);
+  const uint32_t buf1 = buf0 + REF_BYTES + g.ns * SLOT_BYTES;
+  const int chunks = (g.C + CK - 1) / CK;
+  const int stages = (TW + 2 * g.pad + FC - 1) / FC * chunks;
+  const int step = DIL1 ? 1 : g.step;
 
-  float acc[QG][NT8][4];
-  stage<P::NT>(buf0, buf0 + REF_BYTES, t, 0, t.x0 - t.pad);
+  int t = blockIdx.x, s = 0;
+  Tile tile(t, g);
+  stage<P::NT>(buf0, buf0 + REF_BYTES, g, tile, 0, chunks);
   cp_async_commit();
-  for (int s = 0; s < stages; ++s) {
-    const int pass = s / chunks, c0 = (s % chunks) * CK;
-    const uint32_t cur = (s & 1) ? buf1 : buf0;
-    if (s + 1 < stages) {
-      const uint32_t next = (s & 1) ? buf0 : buf1;
-      stage<P::NT>(next, next + REF_BYTES, t, (s + 1) % chunks * CK,
-                   t.x0 - t.pad + (s + 1) / chunks * FC);
-    }
+  float acc[QG][NT8][4];
+  for (unsigned n = 0;; ++n) {
+    // the next stage: this tile's next, or the next tile's first
+    const int s_next = s + 1 < stages ? s + 1 : 0;
+    const int t_next = s_next ? t : t + gridDim.x;
+    const Tile next = s_next ? tile : Tile(t_next, g);
+    const uint32_t cur = (n & 1) ? buf1 : buf0, nxt = (n & 1) ? buf0 : buf1;
+    if (t_next < tiles) stage<P::NT>(nxt, nxt + REF_BYTES, g, next, s_next, chunks);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
+    const int c0 = s % chunks * CK;
     if (c0 == 0) {
 #pragma unroll
       for (auto& a : acc)
-        for (auto& n : a)
-          for (float& v : n) v = 0.f;
+        for (auto& b : a)
+          for (float& v : b) v = 0.f;
     }
-    products<WIN>(acc, cur, cur + REF_BYTES, ty, g, t.step,
-                  min(CK / 16, (C - c0 + 15) / 16));
-    if (c0 + CK >= C) scatter_band<WIN>(out_row, acc, g, pass, dil, fwd != 0, scale);
+    products<WIN>(acc, cur, cur + REF_BYTES, ty, wg, step, min(CK / 16, (g.C - c0 + 15) / 16));
+    if (c0 + CK >= g.C) {
+      const Run run(g, tile, ty, P::Q);
+      __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(smem) + ty * P::OUT_ROW + run.shift;
+      if (DIL1 && (wg + 1) * QG <= WIN)   // warp-uniform
+        scatter_band_dil1<WIN>(o, acc, wg, fwd != 0, scale);
+      else
+        scatter_band<WIN>(o, acc, wg, s / chunks, g.dil, fwd != 0, scale);
+    }
+    if (s + 1 == stages) {
+      __syncthreads();
+      store_tile<WIN>(smem, g, tile);
+    }
     __syncthreads();
+    if (t_next >= tiles) break;
+    s = s_next;
+    t = t_next;
+    tile = next;
   }
-  store_tile<WIN>(smem, out, t, b, out_off);
 }
 
-template <int WIN>
+template <int WIN, bool DIL1>
 cudaError_t set_smem_limit(int bytes) {
-  return cudaFuncSetAttribute(cost_volume_fwd_mma_kernel<WIN>,
+  return cudaFuncSetAttribute(cost_volume_fwd_mma_kernel<WIN, DIL1>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int WIN>
-cudaError_t launch(const void* ref, const void* frame, void* out, int B, int H, int W, int C,
-                   int dil, int fwd, float scale, cudaStream_t stream) {
-  const int ns = TH + (WIN - 1) * (dil < TH ? dil : TH);
-  const int smem = smem_bytes<WIN>(ns);
-  const cudaError_t e = set_smem_limit<WIN>(smem);
+// resident blocks per SM times the SMs of the current device, for `smem`
+// bytes of shared memory; the shared-memory limit is set on the way. Kept
+// for the last device and size asked for, so a launch costs no queries.
+template <int WIN, bool DIL1>
+cudaError_t grid_cap(int smem, int* cap) {
+  static int last_device = -1, last_smem = -1, last_cap = 0;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const int vec = C % 8 == 0 && aligned(ref) && aligned(frame);
-  const int out_off = static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 1) & 7);
-  cost_volume_fwd_mma_kernel<WIN><<<grid, Plan<WIN>::NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(ref), static_cast<const __nv_bfloat16*>(frame),
-      static_cast<__nv_bfloat16*>(out), H, W, C, dil, fwd, scale, vec, out_off);
+  if (device == last_device && smem == last_smem) {
+    *cap = last_cap;
+    return cudaSuccess;
+  }
+  e = set_smem_limit<WIN, DIL1>(smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cost_volume_fwd_mma_kernel<WIN, DIL1>, Plan<WIN>::NT, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *cap = last_cap = per_sm * sms;
+  last_smem = smem;
+  last_device = device;
+  return cudaSuccess;
+}
+
+template <int WIN, bool DIL1>
+cudaError_t launch(const Geometry& g, int B, int fwd, float scale, cudaStream_t stream) {
+  const int smem = smem_bytes<WIN>(g.ns);
+  const long long tiles = static_cast<long long>(g.tiles_x) * g.tiles_y * B;
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  int cap = 0;
+  const cudaError_t e = grid_cap<WIN, DIL1>(smem, &cap);
+  if (e != cudaSuccess) return e;
+  const int grid = static_cast<int>(tiles < cap ? tiles : cap);
+  cost_volume_fwd_mma_kernel<WIN, DIL1><<<grid, Plan<WIN>::NT, smem, stream>>>(
+      g, fwd, scale, static_cast<int>(tiles));
   return cudaGetLastError();
+}
+
+template <int WIN>
+cudaError_t launch_win(const Geometry& g, int B, int fwd, float scale, cudaStream_t stream) {
+  return g.dil == 1 ? launch<WIN, true>(g, B, fwd, scale, stream)
+                    : launch<WIN, false>(g, B, fwd, scale, stream);
 }
 
 }  // namespace
@@ -371,11 +468,27 @@ namespace b2f {
 cudaError_t cost_volume_fwd_mma(const void* ref, const void* frame, void* out, int B, int H,
                                 int W, int C, int win, int dil, int fwd, float scale,
                                 cudaStream_t stream) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  Geometry g;
+  g.ref = static_cast<const __nv_bfloat16*>(ref);
+  g.frame = static_cast<const __nv_bfloat16*>(frame);
+  g.out = static_cast<__nv_bfloat16*>(out);
+  g.H = H;
+  g.W = W;
+  g.C = C;
+  g.dil = dil;
+  g.pad = (win - 1) / 2 * dil;
+  g.step = dil < TH ? dil : TH;
+  g.ns = TH + (win - 1) * g.step;
+  g.tiles_x = (W + TW - 1) / TW;
+  g.tiles_y = (H + TH - 1) / TH;
+  g.out_off = static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 1) & 7);
+  g.vec = C % 8 == 0 && aligned(ref) && aligned(frame);
   switch (win) {
-    case 3: return launch<3>(ref, frame, out, B, H, W, C, dil, fwd, scale, stream);
-    case 5: return launch<5>(ref, frame, out, B, H, W, C, dil, fwd, scale, stream);
-    case 7: return launch<7>(ref, frame, out, B, H, W, C, dil, fwd, scale, stream);
-    case 9: return launch<9>(ref, frame, out, B, H, W, C, dil, fwd, scale, stream);
+    case 3: return launch_win<3>(g, B, fwd, scale, stream);
+    case 5: return launch_win<5>(g, B, fwd, scale, stream);
+    case 7: return launch_win<7>(g, B, fwd, scale, stream);
+    case 9: return launch_win<9>(g, B, fwd, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -389,15 +502,15 @@ cudaError_t cost_volume_fwd_mma(const void* ref, const void* frame, void* out, i
 extern "C" int b2f_cost_volume_fwd_bf16_info(int* regs, int* local_bytes, int* smem,
                                              int* blocks_per_sm) {
   const int bytes = smem_bytes<9>(TH + 8);
-  cudaError_t e = set_smem_limit<9>(bytes);
+  cudaError_t e = set_smem_limit<9, true>(bytes);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, cost_volume_fwd_mma_kernel<9>);
+  e = cudaFuncGetAttributes(&attr, cost_volume_fwd_mma_kernel<9, true>);
   if (e != cudaSuccess) return e;
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *smem = bytes;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
-                                                       cost_volume_fwd_mma_kernel<9>,
+                                                       cost_volume_fwd_mma_kernel<9, true>,
                                                        Plan<9>::NT, bytes);
 }

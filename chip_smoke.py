@@ -69,6 +69,12 @@ device time by kind of op.
 runs, after phases 1-2, only K6's bf16 kernel with its convs removed one
 at a time (variants built from copies of its source), timed at the
 serving and train shapes: where its time goes.
+
+    python3 chip_smoke.py --k1-phases
+
+does the same for K1's bf16 kernel (win 9, dil 1): without its products,
+its band scatter, its output store, or its device-memory traffic, at the
+serving levels' shapes.
 """
 
 from __future__ import annotations
@@ -174,27 +180,30 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> dict:
+def device_ms(fn, reps: int, attempts: int = 3) -> dict:
     """Device time per call of `fn` by kernel name: the CUDA kernels it
     launches, summed by torch.profiler over `reps` calls after a warm-up,
     without the host time between them (which single-launch event windows
-    include)."""
+    include). A window in which the profiler recorded no device time (it
+    happens now and then over many windows) is taken again, up to
+    `attempts` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-    if not by_name:
-        raise AssertionError("the profiler recorded no device time")
-    return by_name
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+        if by_name:
+            return by_name
+    raise AssertionError(f"the profiler recorded no device time in {attempts} windows")
 
 
 def nbytes(*tensors) -> int:
@@ -267,8 +276,8 @@ def phase_mma_builds() -> None:
     from back2future_tpu_torch.ops import cost_volume_fwd_bf16_info
     from back2future_tpu_torch.ops.stem import stem_unit_b_bf16_info
 
-    mma_build_report("K1 bf16 (cost_volume_fwd_mma_kernel<9>, win 9 dil 1)",
-                     cost_volume_fwd_bf16_info(), "cost_volume_fwd_mma_kernelILi9E")
+    mma_build_report("K1 bf16 (cost_volume_fwd_mma_kernel<9, true>, win 9 dil 1)",
+                     cost_volume_fwd_bf16_info(), "cost_volume_fwd_mma_kernelILi9ELb1E")
     mma_build_report("K6 bf16 (stem_unit_b_mma_kernel)", stem_unit_b_bf16_info(),
                      "stem_unit_b_mma")
 
@@ -777,28 +786,25 @@ K6_PHASES = {
 }
 
 
-def phase_k6_phases(card: str, dev) -> None:
-    """K6 bf16 with its convs removed (K6_PHASES), each variant built by
-    nvcc from a copy of stem_unit_b_mma.cu with its own C entry point and
-    timed by CUDA events over 100 back-to-back launches at the serving and
-    train shapes, the variants in turn, two rounds."""
+def build_variants(tag: str, source: str, variants: dict, entry: str, symbol: str,
+                   argtypes: list) -> dict:
+    """Each variant of csrc/`source` (a list of (text, replacement) edits)
+    nvcc-built in parallel into its own library with the C entry point
+    `entry` appended; returns the loaded libraries by variant name and
+    logs each one's ptxas registers and spills."""
     import ctypes
 
     from back2future_tpu_torch.runtime import cuda_build
 
-    src = (cuda_build.SRC_DIR / "stem_unit_b_mma.cu").read_text()
-    entry = ('\nextern "C" int k6_phase_launch(const void* x, const void* w1, const void* b1, '
-             'const void* w2, const void* b2, void* out, int N, int H, int W, void* s) {\n'
-             '  return b2f::stem_unit_b_mma(x, w1, b1, w2, b2, out, N, H, W, '
-             'static_cast<cudaStream_t>(s));\n}\n')
-    out_dir = cuda_build.BUILD_DIR / "k6_phases"
+    src = (cuda_build.SRC_DIR / source).read_text()
+    out_dir = cuda_build.BUILD_DIR / f"{tag}_phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, edits) in enumerate(K6_PHASES.items()):
+    for i, (name, edits) in enumerate(variants.items()):
         text = src
         for a, b in edits:
             if a not in text:
-                raise AssertionError(f"K6 phases: {a.strip()!r} not in stem_unit_b_mma.cu")
+                raise AssertionError(f"{tag} phases: {a.strip()!r} not in {source}")
             text = text.replace(a, b)
         cu = out_dir / f"variant{i}.cu"
         cu.write_text(text + entry)
@@ -810,12 +816,45 @@ def phase_k6_phases(card: str, dev) -> None:
     for name, (so, proc) in procs.items():
         report = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"K6 phases: nvcc failed for {name!r}:\n{report}")
+            raise RuntimeError(f"{tag} phases: nvcc failed for {name!r}:\n{report}")
         lib = ctypes.CDLL(str(so))
-        lib.k6_phase_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        libs[name] = lib
-        log("k6", f"{name}: ptxas " + "; ".join(
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        libs[name] = fn
+        log(tag, f"{name}: ptxas " + "; ".join(
             line.strip() for line in report.splitlines() if "Used" in line or "spill" in line))
+    return libs
+
+
+def time_launches(fn, args, label: str, reps: int = 100) -> float:
+    """ms per launch of the C entry point `fn`: CUDA events over `reps`
+    back-to-back launches after 10 warm-up launches."""
+    for _ in range(10):
+        if fn(*args):
+            raise RuntimeError(f"{label}: failed to launch")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_k6_phases(card: str, dev) -> None:
+    """K6 bf16 with its convs removed (K6_PHASES), each variant built by
+    nvcc from a copy of stem_unit_b_mma.cu with its own C entry point and
+    timed by CUDA events over 100 back-to-back launches at the serving and
+    train shapes, the variants in turn, two rounds."""
+    import ctypes
+
+    entry = ('\nextern "C" int k6_phase_launch(const void* x, const void* w1, const void* b1, '
+             'const void* w2, const void* b2, void* out, int N, int H, int W, void* s) {\n'
+             '  return b2f::stem_unit_b_mma(x, w1, b1, w2, b2, out, N, H, W, '
+             'static_cast<cudaStream_t>(s));\n}\n')
+    libs = build_variants("k6", "stem_unit_b_mma.cu", K6_PHASES, entry, "k6_phase_launch",
+                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     rng = np.random.default_rng(0)
 
     def param(shape):
@@ -832,17 +871,8 @@ def phase_k6_phases(card: str, dev) -> None:
                 out = torch.empty((n, h // 4, w // 4, 32), dtype=torch.bfloat16, device=dev)
                 args = [x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                         out.data_ptr(), n, h // 2, w // 2, torch.cuda.current_stream().cuda_stream]
-                for _ in range(10):
-                    if lib.k6_phase_launch(*args):
-                        raise RuntimeError(f"K6 phases: {name!r} failed to launch")
-                start, end = (torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True))
-                start.record()
-                for _ in range(100):
-                    lib.k6_phase_launch(*args)
-                end.record()
-                end.synchronize()
-                times.setdefault((name, where), []).append(start.elapsed_time(end) / 100)
+                times.setdefault((name, where), []).append(
+                    time_launches(lib, args, f"K6 phases: {name!r}"))
     for (name, where), t in times.items():
         log("k6", f"{name}, {where} {STEM_SHAPES[where][0]}x{STEM_SHAPES[where][1] // 2}x"
                   f"{STEM_SHAPES[where][2] // 2}x16: " + " / ".join(f"{v:.4f}" for v in t)
@@ -861,6 +891,71 @@ def phase_k6_phases(card: str, dev) -> None:
                   f"{tiles * (sum(ldsm.values()) + other) / 1e9:.3f} GB per launch (ldmatrix "
                   + ", ".join(f"{k} {tiles * v / 1e9:.3f} GB" for k, v in ldsm.items())
                   + f"; staging and epilogues {tiles * other / 1e9:.3f} GB)")
+
+
+# K1's phases, removed from a copy of cost_volume_fwd_mma.cu: without
+# device memory the stages' copies and the tiles' stores go (the kernel
+# still computes on whatever shared memory holds)
+_K1_PRODUCTS = ("    products<WIN>(acc, cur, cur + REF_BYTES, ty, wg, step, "
+                "min(CK / 16, (g.C - c0 + 15) / 16));\n")
+_K1_SCATTER = ("    if (c0 + CK >= g.C) {\n", "    if (false) {\n")
+_K1_STORE = "      store_tile<WIN>(smem, g, tile);\n"
+_K1_STAGES = [("  stage<P::NT>(buf0, buf0 + REF_BYTES, g, tile, 0, chunks);\n", ""),
+              ("    if (t_next < tiles) stage<P::NT>(nxt, nxt + REF_BYTES, g, next, s_next, "
+               "chunks);\n", "")]
+_K1_NO_MEMORY = _K1_STAGES + [(_K1_STORE, "")]
+K1_PHASES = {
+    "whole kernel": [],
+    "without products": [(_K1_PRODUCTS, "")],
+    "without the band scatter": [_K1_SCATTER],
+    "without the output store": [(_K1_STORE, "")],
+    "loads and stores only": [(_K1_PRODUCTS, ""), _K1_SCATTER],
+    "without device memory": _K1_NO_MEMORY,
+    "products only": _K1_NO_MEMORY + [_K1_SCATTER],
+    "band scatter only": _K1_NO_MEMORY + [(_K1_PRODUCTS, "")],
+    "loop and barriers only": _K1_NO_MEMORY + [(_K1_PRODUCTS, ""), _K1_SCATTER],
+}
+
+
+def phase_k1_phases(card: str, dev) -> None:
+    """K1 bf16 (win 9, dil 1) with its phases removed (K1_PHASES), each
+    variant built by nvcc from a copy of cost_volume_fwd_mma.cu with its
+    own C entry point and timed by CUDA events over 100 back-to-back
+    launches at the serving levels' shapes (fwd), the variants in turn,
+    two rounds; beside each level its byte bound."""
+    import ctypes
+
+    entry = ('\nextern "C" int k1_phase_launch(const void* ref, const void* frame, void* out, '
+             'int B, int H, int W, int C, int dil, int fwd, float scale, void* s) {\n'
+             '  return b2f::cost_volume_fwd_mma(ref, frame, out, B, H, W, C, 9, dil, fwd, '
+             'scale, static_cast<cudaStream_t>(s));\n}\n')
+    libs = build_variants("k1", "cost_volume_fwd_mma.cu", K1_PHASES, entry, "k1_phase_launch",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                         ctypes.c_void_p])
+    rng = np.random.default_rng(0)
+    inputs = {}
+    for (h, w, c) in LEVEL_SHAPES:
+        ref, frame = (torch.from_numpy(rng.standard_normal((B, h, w, c)).astype(np.float32)).to(
+            dev, torch.bfloat16) for _ in range(2))
+        out = torch.empty((B, h, w, WIN * WIN), dtype=torch.bfloat16, device=dev)
+        inputs[(h, w, c)] = (ref, frame, out)
+    times = {}
+    for _ in range(2):
+        for name, fn in libs.items():
+            for shape, (ref, frame, out) in inputs.items():
+                args = [ref.data_ptr(), frame.data_ptr(), out.data_ptr(), B, *shape, 1, 1,
+                        1.0 / shape[2], torch.cuda.current_stream().cuda_stream]
+                times.setdefault((name, shape), []).append(
+                    time_launches(fn, args, f"K1 phases: {name!r}"))
+    for shape, (ref, frame, out) in inputs.items():
+        bound = (nbytes(ref, frame, out)) / HBM_BYTES_PER_S * 1e3
+        log("k1", f"B={B} {'x'.join(map(str, shape))} fwd, byte bound {bound:.4f} ms: " + "; ".join(
+            f"{name} " + " / ".join(f"{v:.4f}" for v in times[(name, shape)])
+            for name in libs) + f" ms per launch (two rounds; CUDA events over 100 launches) "
+            f"on {card}")
+    for name in libs:
+        total = sum(statistics.median(times[(name, shape)]) for shape in inputs)
+        log("k1", f"{name}: {2 * total:.4f} ms per serving forward (10 launches, fwd timings)")
 
 
 def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
@@ -970,6 +1065,9 @@ def main() -> None:
         return
     if "--k6-phases" in sys.argv[1:]:
         phase_k6_phases(card, dev)
+        return
+    if "--k1-phases" in sys.argv[1:]:
+        phase_k1_phases(card, dev)
         return
     summary = phase_kernels(dev)
     with stem(False):
