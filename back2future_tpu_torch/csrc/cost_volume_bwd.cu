@@ -1,4 +1,8 @@
-// Multi-frame cost volume, backward: the two transposes of one frame term.
+// Multi-frame cost volume, backward: the two transposes of one frame term,
+// on the CUDA cores. Since the bf16 kernels moved to the tensor cores
+// (cost_volume_bwd_mma.cu), this file serves f32 on the main path, and
+// both types only through the `_cuda_cores` entry points, which time the
+// old bf16 design beside the new one.
 //
 // Replaces back2future_tpu/ops/cost_volume_pallas.py `_dref_kernel` (K2)
 // and `_dframe_kernel` (K3), the Pallas TPU kernels of `_cv_bwd_rule`.
@@ -257,20 +261,71 @@ int entry(Which which, const void* g, const void* other, void* out, int dtype, i
 
 }  // namespace
 
+namespace b2f {
+// cost_volume_bwd_mma.cu: K2's form in bf16 on the tensor cores
+cudaError_t cost_volume_dref_mma(const void* g, const void* frame, void* out, int B, int H, int W,
+                                 int C, int win, int dil, int fwd, float scale,
+                                 cudaStream_t stream);
+}  // namespace b2f
+
+namespace {
+
+bool valid_shape(int B, int H, int W, int C, int dilation) {
+  return B > 0 && H > 0 && W > 0 && C > 0 && dilation >= 1;
+}
+
+// bf16 on the tensor cores: d_ref from (g, frame, fwd); d_frame from the
+// shifted gradient g' and ref with the direction mirrored
+int entry_mma(Which which, const void* g, const void* other, void* out, int B, int H, int W,
+              int C, int win, int dilation, int fwd, float scale, void* stream) {
+  if (!valid_shape(B, H, W, C, dilation)) return cudaErrorInvalidValue;
+  return b2f::cost_volume_dref_mma(g, other, out, B, H, W, C, win, dilation,
+                                   which == kDRef ? fwd : !fwd, scale,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
 // g: (B, H, W, win*win); frame, d_ref: (B, H, W, C); all contiguous and of
 // `dtype` (b2f::DType). win in {3, 5, 7, 9}, dilation >= 1. Launches on
-// `stream` and returns cudaGetLastError().
+// `stream` and returns cudaGetLastError(). f32 on this file's CUDA-core
+// kernel, bf16 on the tensor cores (cost_volume_bwd_mma.cu).
 extern "C" int b2f_cost_volume_dref(const void* g, const void* frame, void* d_ref,
                                     int dtype, int B, int H, int W, int C, int win,
                                     int dilation, int fwd, float scale, void* stream) {
-  return entry(kDRef, g, frame, d_ref, dtype, B, H, W, C, win, dilation, fwd, scale,
-               stream);
+  if (dtype == b2f::kBFloat16)
+    return entry_mma(kDRef, g, frame, d_ref, B, H, W, C, win, dilation, fwd, scale, stream);
+  if (dtype != b2f::kFloat32) return cudaErrorInvalidValue;
+  return entry(kDRef, g, frame, d_ref, dtype, B, H, W, C, win, dilation, fwd, scale, stream);
 }
 
-// g: (B, H, W, win*win); ref, d_frame: (B, H, W, C); as b2f_cost_volume_dref.
-extern "C" int b2f_cost_volume_dframe(const void* g, const void* ref, void* d_frame,
+// ref, d_frame: (B, H, W, C); as b2f_cost_volume_dref. The first argument
+// is the output gradient g for f32 (this file's CUDA-core kernel), and for
+// bf16 the shifted gradient g' that b2f_cost_volume_gshift writes from it
+// (cost_volume_bwd_mma.cu: d_frame = dref_form(g', ref, !fwd)).
+extern "C" int b2f_cost_volume_dframe(const void* g_or_shifted, const void* ref, void* d_frame,
                                       int dtype, int B, int H, int W, int C, int win,
                                       int dilation, int fwd, float scale, void* stream) {
-  return entry(kDFrame, g, ref, d_frame, dtype, B, H, W, C, win, dilation, fwd, scale,
-               stream);
+  if (dtype == b2f::kBFloat16)
+    return entry_mma(kDFrame, g_or_shifted, ref, d_frame, B, H, W, C, win, dilation, fwd, scale,
+                     stream);
+  if (dtype != b2f::kFloat32) return cudaErrorInvalidValue;
+  return entry(kDFrame, g_or_shifted, ref, d_frame, dtype, B, H, W, C, win, dilation, fwd,
+               scale, stream);
+}
+
+// The two transposes on this file's CUDA-core kernels in both types (g
+// itself for d_frame): the old bf16 design, kept to be timed beside the
+// tensor-core kernels. Nothing on the serving or training path calls them.
+extern "C" int b2f_cost_volume_dref_cuda_cores(const void* g, const void* frame, void* d_ref,
+                                               int dtype, int B, int H, int W, int C, int win,
+                                               int dilation, int fwd, float scale, void* stream) {
+  return entry(kDRef, g, frame, d_ref, dtype, B, H, W, C, win, dilation, fwd, scale, stream);
+}
+
+extern "C" int b2f_cost_volume_dframe_cuda_cores(const void* g, const void* ref, void* d_frame,
+                                                 int dtype, int B, int H, int W, int C, int win,
+                                                 int dilation, int fwd, float scale,
+                                                 void* stream) {
+  return entry(kDFrame, g, ref, d_frame, dtype, B, H, W, C, win, dilation, fwd, scale, stream);
 }

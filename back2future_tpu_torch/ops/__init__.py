@@ -8,8 +8,10 @@ through the twins, to compare the two on the card. `*_backward_cuda` and
 """
 
 from .cost_volume import (
-    cost_volume, cost_volume_backward_cuda, cost_volume_backward_reference, cost_volume_cuda_cores,
-    cost_volume_fwd_bf16_info, cost_volume_multi, cost_volume_reference,
+    cost_volume, cost_volume_backward_cuda, cost_volume_backward_cuda_cores,
+    cost_volume_backward_reference, cost_volume_bwd_bf16_info, cost_volume_cuda_cores,
+    cost_volume_fwd_bf16_info, cost_volume_gshift_cuda, cost_volume_gshift_reference,
+    cost_volume_multi, cost_volume_reference, dref_form,
 )
 from .pyramid import (
     avg_pool2,
@@ -40,6 +42,11 @@ __all__ = [
     "cost_volume_reference",
     "cost_volume_backward_reference",
     "cost_volume_backward_cuda",
+    "cost_volume_backward_cuda_cores",
+    "cost_volume_gshift_cuda",
+    "cost_volume_gshift_reference",
+    "dref_form",
+    "cost_volume_bwd_bf16_info",
     "cost_volume_cuda_cores",
     "cost_volume_fwd_bf16_info",
     "avg_pool2",

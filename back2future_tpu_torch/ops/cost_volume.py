@@ -14,11 +14,14 @@ Layout: NHWC; output (B, H, W, win*win) in the input dtype.
 `cost_volume_pallas`). On CUDA tensors its forward is the hand-written
 kernel behind `b2f_cost_volume_fwd` (the Pallas `_fwd_kernel`: bf16 on
 the tensor cores, csrc/cost_volume_fwd_mma.cu; f32 on the CUDA cores,
-csrc/cost_volume_fwd.cu) and its
-backward the kernels of csrc/cost_volume_bwd.cu (`_dref_kernel`,
-`_dframe_kernel`), each launched only for an input that needs its
-gradient; on CPU tensors the plain twins `cost_volume_reference` and
-`cost_volume_backward_reference` run instead. The op is bilinear, so the
+csrc/cost_volume_fwd.cu) and its backward the kernels of `_dref_kernel`
+and `_dframe_kernel`, each launched only for an input that needs its
+gradient: bf16 on the tensor cores (csrc/cost_volume_bwd_mma.cu, one
+kernel body for both, d_frame after the shift kernel writes g', see
+`cost_volume_gshift_reference`), f32 on the CUDA cores
+(csrc/cost_volume_bwd.cu); on CPU tensors the plain twins
+`cost_volume_reference` and `cost_volume_backward_reference` run
+instead. The op is bilinear, so the
 twins' sums are its exact gradient; the output gradient is cast to the
 input dtype first, as in the JAX rule, and every sum is f32, rounded once.
 """
@@ -41,7 +44,15 @@ _FWD = Kernel("b2f_cost_volume_fwd", _ARGTYPES)
 # cores), for timing beside `_FWD`; nothing on the serving or train path
 _FWD_CUDA_CORES = Kernel("b2f_cost_volume_fwd_cuda_cores", _ARGTYPES)
 _DREF = Kernel("b2f_cost_volume_dref", _ARGTYPES)
+# bf16: takes the shifted gradient g' that `_GSHIFT` writes; f32: g
 _DFRAME = Kernel("b2f_cost_volume_dframe", _ARGTYPES)
+# (g, g_shifted, dtype, B, H, W, win, dilation, fwd, stream)
+_GSHIFT = Kernel("b2f_cost_volume_gshift",
+                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+# the CUDA-core backward in both dtypes (the bf16 design before the tensor
+# cores), for timing beside `_DREF` / `_DFRAME`; nothing on any path
+_DREF_CUDA_CORES = Kernel("b2f_cost_volume_dref_cuda_cores", _ARGTYPES)
+_DFRAME_CUDA_CORES = Kernel("b2f_cost_volume_dframe_cuda_cores", _ARGTYPES)
 KERNEL_WINDOWS = (3, 5, 7, 9)  # win sizes the kernel is instantiated for
 
 
@@ -68,6 +79,35 @@ def cost_volume_reference(ref: torch.Tensor, frame: torch.Tensor, win: int,
     return (torch.stack(costs, dim=-1) * scale).to(ref.dtype)
 
 
+def dref_form(g: torch.Tensor, frame: torch.Tensor, win: int, dilation: int = 1,
+              fwd: bool = True, scale: float = 1.0) -> torch.Tensor:
+    """The d_ref transpose, summed in f32, times `scale`, in the input
+    dtype: out[y,x] = sum_q g[y,x,q] * frame[y-qy, x-qx], frame pixels
+    outside the image 0. Also d_frame's form, on the shifted gradient
+    with the direction mirrored (see `cost_volume_gshift_reference`)."""
+    b, h, w, c = frame.shape
+    pad = (win - 1) // 2 * dilation
+    gf = g.float()
+    frame_p = F.pad(frame.float(), (0, 0, pad, pad, pad, pad))
+    out = torch.zeros(b, h, w, c, dtype=torch.float32, device=frame.device)
+    for q, (qy, qx) in enumerate(displacements(win, dilation, fwd)):
+        out += gf[..., q:q + 1] * frame_p[:, pad - qy:pad - qy + h, pad - qx:pad - qx + w]
+    return (out * scale).to(frame.dtype)
+
+
+def cost_volume_gshift_reference(g: torch.Tensor, win: int, dilation: int = 1,
+                                 fwd: bool = True) -> torch.Tensor:
+    """Plain torch twin of the shift kernel: g'[y,x,q] = g[y+qy, x+qx, q],
+    0 where (y+qy, x+qx) is outside the image. Since the op is bilinear,
+    d_frame = dref_form(g', ref, win, dilation, not fwd)."""
+    b, h, w, _ = g.shape
+    pad = (win - 1) // 2 * dilation
+    g_p = F.pad(g, (0, 0, pad, pad, pad, pad))
+    planes = [g_p[:, pad + qy:pad + qy + h, pad + qx:pad + qx + w, q]
+              for q, (qy, qx) in enumerate(displacements(win, dilation, fwd))]
+    return torch.stack(planes, dim=-1)
+
+
 def cost_volume_backward_reference(g: torch.Tensor, ref: torch.Tensor,
                                    frame: torch.Tensor, win: int, dilation: int = 1,
                                    fwd: bool = True, scale: float = 1.0
@@ -75,20 +115,17 @@ def cost_volume_backward_reference(g: torch.Tensor, ref: torch.Tensor,
     """Plain torch twin of the backward kernels: for the output gradient
     `g` (B, H, W, win*win), explicit shifted products summed in f32,
     times `scale`, in the input dtype (no autograd):
-      d_ref[y,x]   = sum_q g[y,x,q]       * frame[y-qy, x-qx]
+      d_ref[y,x]   = sum_q g[y,x,q]       * frame[y-qy, x-qx]   (dref_form)
       d_frame[y,x] = sum_q g[y+qy,x+qx,q] * ref[y+qy, x+qx]"""
     b, h, w, c = ref.shape
     pad = (win - 1) // 2 * dilation
     gf, r = g.float(), ref.float()
-    frame_p = F.pad(frame.float(), (0, 0, pad, pad, pad, pad))
-    d_ref = torch.zeros(b, h, w, c, dtype=torch.float32, device=ref.device)
-    d_frame_p = torch.zeros_like(frame_p)
+    d_frame_p = torch.zeros(b, h + 2 * pad, w + 2 * pad, c, dtype=torch.float32,
+                            device=ref.device)
     for q, (qy, qx) in enumerate(displacements(win, dilation, fwd)):
-        gq = gf[..., q:q + 1]
-        d_ref += gq * frame_p[:, pad - qy:pad - qy + h, pad - qx:pad - qx + w]
-        d_frame_p[:, pad - qy:pad - qy + h, pad - qx:pad - qx + w] += gq * r
+        d_frame_p[:, pad - qy:pad - qy + h, pad - qx:pad - qx + w] += gf[..., q:q + 1] * r
     d_frame = d_frame_p[:, pad:pad + h, pad:pad + w]
-    return (d_ref * scale).to(ref.dtype), (d_frame * scale).to(frame.dtype)
+    return dref_form(g, frame, win, dilation, fwd, scale), (d_frame * scale).to(frame.dtype)
 
 
 def _launch(kernel: Kernel, a: torch.Tensor, b_: torch.Tensor, out_channels: int,
@@ -118,16 +155,50 @@ def cost_volume_cuda_cores(ref: torch.Tensor, frame: torch.Tensor, win: int,
     return _launch(_FWD_CUDA_CORES, ref, frame, win * win, win, dilation, fwd, scale)
 
 
+def _bf16_info(symbol: str) -> dict:
+    vals = [ctypes.c_int() for _ in range(4)]
+    query(symbol, [ctypes.POINTER(ctypes.c_int)] * 4, *map(ctypes.byref, vals))
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
 def cost_volume_fwd_bf16_info() -> dict:
     """What the build and the runtime made of K1's bf16 kernel
     (csrc/cost_volume_fwd_mma.cu) at win 9, dilation 1: registers and
     local memory per thread, dynamic shared memory per block, resident
     blocks per SM."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    query("b2f_cost_volume_fwd_bf16_info", [ctypes.POINTER(ctypes.c_int)] * 4,
-          *map(ctypes.byref, vals))
-    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
-                    (v.value for v in vals)))
+    return _bf16_info("b2f_cost_volume_fwd_bf16_info")
+
+
+def cost_volume_bwd_bf16_info() -> dict:
+    """The same for the bf16 backward kernel of K2 and K3
+    (csrc/cost_volume_bwd_mma.cu) at win 9."""
+    return _bf16_info("b2f_cost_volume_bwd_bf16_info")
+
+
+def _check_backward_inputs(g, ref, frame, win):
+    shape = tuple(ref.shape)
+    if win not in KERNEL_WINDOWS:
+        raise ValueError(f"cost_volume kernel: win {win} not in {KERNEL_WINDOWS}")
+    check_kernel_input("cost_volume grad", g, shape[:3] + (win * win,), ref.dtype)
+    for name, t in (("ref", ref), ("frame", frame)):
+        check_kernel_input(f"cost_volume {name}", t, shape, ref.dtype)
+
+
+def cost_volume_gshift_cuda(g: torch.Tensor, win: int, dilation: int = 1,
+                            fwd: bool = True) -> torch.Tensor:
+    """The shift kernel on a bf16 CUDA tensor: g' (see
+    `cost_volume_gshift_reference`) in a fresh tensor."""
+    if g.dtype != torch.bfloat16:
+        raise TypeError(f"cost_volume gshift: the kernel takes bf16, got {g.dtype}")
+    bsz, h, w, q = g.shape
+    check_kernel_input("cost_volume grad", g, (bsz, h, w, win * win), torch.bfloat16)
+    out = torch.empty_like(g)
+    if out.numel():
+        with torch.cuda.device(g.device):
+            _GSHIFT(ptr(g), ptr(out), DTYPE_CODES[g.dtype], bsz, h, w, win, dilation,
+                    int(fwd), stream_ptr(g.device))
+    return out
 
 
 def cost_volume_backward_cuda(g: torch.Tensor, ref: torch.Tensor, frame: torch.Tensor,
@@ -135,14 +206,33 @@ def cost_volume_backward_cuda(g: torch.Tensor, ref: torch.Tensor, frame: torch.T
                               scale: float = 1.0, need: Tuple[bool, bool] = (True, True)
                               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The backward kernels on CUDA tensors: (d_ref by K2, d_frame by K3),
-    each None where `need` says so; `g` in the input dtype."""
-    shape = tuple(ref.shape)
-    check_kernel_input("cost_volume grad", g, shape[:3] + (win * win,), ref.dtype)
-    for name, t in (("ref", ref), ("frame", frame)):
-        check_kernel_input(f"cost_volume {name}", t, shape, ref.dtype)
-    c = shape[-1]
+    each None where `need` says so; `g` in the input dtype. bf16 runs the
+    tensor-core kernel, d_frame on the shifted gradient; f32 the CUDA-core
+    kernels."""
+    _check_backward_inputs(g, ref, frame, win)
+    c = ref.shape[-1]
     d_ref = _launch(_DREF, g, frame, c, win, dilation, fwd, scale) if need[0] else None
-    d_frame = _launch(_DFRAME, g, ref, c, win, dilation, fwd, scale) if need[1] else None
+    d_frame = None
+    if need[1]:
+        g_frame = cost_volume_gshift_cuda(g, win, dilation, fwd) \
+            if ref.dtype == torch.bfloat16 else g
+        d_frame = _launch(_DFRAME, g_frame, ref, c, win, dilation, fwd, scale)
+    return d_ref, d_frame
+
+
+def cost_volume_backward_cuda_cores(g: torch.Tensor, ref: torch.Tensor, frame: torch.Tensor,
+                                    win: int, dilation: int = 1, fwd: bool = True,
+                                    scale: float = 1.0, need: Tuple[bool, bool] = (True, True)
+                                    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The backward on the CUDA-core kernels, f32 or bf16, CUDA tensors
+    only (no autograd): the bf16 design that the tensor-core kernel
+    replaced, kept to compare the two on the card."""
+    _check_backward_inputs(g, ref, frame, win)
+    c = ref.shape[-1]
+    d_ref = _launch(_DREF_CUDA_CORES, g, frame, c, win, dilation, fwd, scale) \
+        if need[0] else None
+    d_frame = _launch(_DFRAME_CUDA_CORES, g, ref, c, win, dilation, fwd, scale) \
+        if need[1] else None
     return d_ref, d_frame
 
 
