@@ -194,15 +194,165 @@ def test_cost_volume_backward_kernels_match_twin(cuda, dtype, win, dil, fwd):
     ref = rand((2, 13, 37, 20), 11, cuda, dtype).requires_grad_()
     frame = rand((2, 13, 37, 20), 12, cuda, dtype).requires_grad_()
     g = rand((2, 13, 37, win * win), 13, cuda, dtype)
-    before = {k: KERNELS[k].launches for k in ("b2f_cost_volume_dref", "b2f_cost_volume_dframe")}
+    names = ("b2f_cost_volume_dref", "b2f_cost_volume_dframe", "b2f_cost_volume_gshift")
+    before = {k: KERNELS[k].launches for k in names}
     ops.cost_volume(ref, frame, win, dil, fwd, scale=0.05).backward(g)
-    for k, n in before.items():
-        assert KERNELS[k].launches == n + 1, k
+    # bf16: d_frame after the shift; f32: the CUDA-core kernels, no shift
+    shifts = int(dtype == torch.bfloat16)
+    assert {k: KERNELS[k].launches - n for k, n in before.items()} == {
+        "b2f_cost_volume_dref": 1, "b2f_cost_volume_dframe": 1, "b2f_cost_volume_gshift": shifts}
     want_ref, want_frame = ops.cost_volume_backward_reference(
         g, ref.detach(), frame.detach(), win, dil, fwd, scale=0.05)
     assert ref.grad.dtype == dtype
     close_to_scale(ref.grad, want_ref, dtype)
     close_to_scale(frame.grad, want_frame, dtype)
+
+
+def backward_launches(fn):
+    """fn's launches of the backward kernels (tensor-core, shift and
+    CUDA-core entry points), by name, after a synchronise."""
+    names = [k for k in KERNELS if k.startswith(("b2f_cost_volume_d", "b2f_cost_volume_gshift"))]
+    before = {k: KERNELS[k].launches for k in names}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: KERNELS[k].launches - before[k] for k in names if KERNELS[k].launches > before[k]}
+
+
+# the train step's levels 3..7 (B=8, 320x640 cut to B=2)
+TRAIN_LEVELS = [(80, 160, 32), (40, 80, 64), (20, 40, 96), (10, 20, 128), (5, 10, 192)]
+
+
+@pytest.mark.parametrize("fwd", [True, False], ids=["fwd", "past"])
+@pytest.mark.parametrize("scale", [1.0, 30.0], ids=["unit", "x30"])
+@pytest.mark.parametrize("level", TRAIN_LEVELS, ids=lambda s: "x".join(map(str, s)))
+def test_cost_volume_bf16_backward_train_levels(cuda, level, scale, fwd):
+    """K2 and K3 in bf16 at the main path's shapes (win 9, dil 1), inputs
+    up to 30x: exactly one d_ref, one shift and one d_frame launch, each
+    within 1e-2 of the largest value of the twin."""
+    h, w, c = level
+    ref, frame = (rand((2, h, w, c), 40 + k, cuda, torch.bfloat16, scale) for k in range(2))
+    g = rand((2, h, w, 81), 42, cuda, torch.bfloat16, scale)
+    (d_ref, d_frame), launches = backward_launches(
+        lambda: ops.cost_volume_backward_cuda(g, ref, frame, 9, 1, fwd, 1.0 / c))
+    assert launches == {"b2f_cost_volume_dref": 1, "b2f_cost_volume_gshift": 1,
+                        "b2f_cost_volume_dframe": 1}
+    want_ref, want_frame = ops.cost_volume_backward_reference(g, ref, frame, 9, 1, fwd, 1.0 / c)
+    assert d_ref.dtype == d_frame.dtype == torch.bfloat16
+    close_to_scale(d_ref, want_ref, torch.bfloat16)
+    close_to_scale(d_frame, want_frame, torch.bfloat16)
+
+
+@pytest.mark.parametrize("c", [20, 32, 64, 192])
+@pytest.mark.parametrize("win,dil,fwd", [(win, dil, fwd) for win in (3, 5, 7, 9)
+                                         for dil in (1, 2, 3) for fwd in (True, False)])
+def test_cost_volume_bf16_backward_windows(cuda, win, dil, fwd, c):
+    """Every window, dilation and direction, ragged 13x37 tiles, C = 20
+    (scalar frame staging, a zero tail), 32, 64, 192; one launch alone
+    where only one gradient is needed."""
+    ref, frame = (rand((2, 13, 37, c), 50 + k, cuda, torch.bfloat16) for k in range(2))
+    g = rand((2, 13, 37, win * win), 52, cuda, torch.bfloat16)
+    want = ops.cost_volume_backward_reference(g, ref, frame, win, dil, fwd, 0.05)
+    for i, need, names in ((0, (True, False), {"b2f_cost_volume_dref": 1}),
+                           (1, (False, True), {"b2f_cost_volume_gshift": 1,
+                                               "b2f_cost_volume_dframe": 1})):
+        got, launches = backward_launches(
+            lambda: ops.cost_volume_backward_cuda(g, ref, frame, win, dil, fwd, 0.05, need=need))
+        assert launches == names and got[1 - i] is None
+        close_to_scale(got[i], want[i], torch.bfloat16)
+
+
+def storage_at(x, offset):
+    """A copy of x whose storage starts `offset` elements into a buffer."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("offset", [1, 3, 4], ids=["2B", "6B", "8B"])
+def test_cost_volume_bf16_backward_unaligned(cuda, offset):
+    """g, g', the features and the gradients starting off a 16-byte
+    boundary: the g rows are staged from their shift, the features by
+    scalar loads, the gradients stored element by element; and features
+    that are not contiguous are refused by the op."""
+    shape = (2, 9, 37, 32)
+    ref, frame = (storage_at(rand(shape, 60 + k, cuda, torch.bfloat16), offset) for k in range(2))
+    b, h, w, c = shape
+    for win, dil, fwd in ((9, 1, True), (5, 2, False)):
+        g = storage_at(rand((b, h, w, win * win), 62, cuda, torch.bfloat16), offset)
+        want_ref, want_frame = ops.cost_volume_backward_reference(g, ref, frame, win, dil, fwd,
+                                                                  0.1)
+        g_shift = storage_at(torch.zeros_like(g), offset)
+        CV_MODULE._GSHIFT(ptr(g), ptr(g_shift), DTYPE_CODES[torch.bfloat16], b, h, w, win, dil,
+                          int(fwd), stream_ptr(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(g_shift, ops.cost_volume_gshift_reference(g, win, dil, fwd))
+        for kernel, grad, other, want in ((CV_MODULE._DREF, g, frame, want_ref),
+                                          (CV_MODULE._DFRAME, g_shift, ref, want_frame)):
+            got = storage_at(torch.zeros_like(want), offset)
+            kernel(ptr(grad), ptr(other), ptr(got), DTYPE_CODES[torch.bfloat16], b, h, w, c,
+                   win, dil, int(fwd), 0.1, stream_ptr(cuda))
+            torch.cuda.synchronize()
+            close_to_scale(got, want, torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops.cost_volume(ref.transpose(1, 2), frame.transpose(1, 2), 9)
+
+
+@pytest.mark.parametrize("win,dil,fwd", [(9, 1, True), (9, 1, False), (3, 1, True), (7, 2, False),
+                                         (5, 3, True), (3, 9, False)])
+@pytest.mark.parametrize("shape", [(2, 80, 160), (2, 5, 10), (1, 19, 70), (1, 1, 1)],
+                         ids=["l3", "l7", "ragged", "1x1"])
+def test_cost_volume_gshift_matches_twin(cuda, shape, win, dil, fwd):
+    """The shift kernel moves values: exactly the twin's g'."""
+    g = rand(shape + (win * win,), 70, cuda, torch.bfloat16)
+    got, launches = backward_launches(lambda: ops.cost_volume_gshift_cuda(g, win, dil, fwd))
+    assert launches == {"b2f_cost_volume_gshift": 1}
+    assert torch.equal(got, ops.cost_volume_gshift_reference(g, win, dil, fwd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("win,dil,fwd", [(9, 1, True), (9, 1, False), (7, 2, True), (3, 3, False)])
+def test_cost_volume_backward_cuda_cores_kernels(cuda, dtype, win, dil, fwd):
+    """The CUDA-core backward, kept for the A/B, in both dtypes against the
+    twin; f32 on the main path runs the same kernels (the same bits)."""
+    ref, frame = (rand((2, 13, 37, 20), 80 + k, cuda, dtype) for k in range(2))
+    g = rand((2, 13, 37, win * win), 82, cuda, dtype)
+    got, launches = backward_launches(
+        lambda: ops.cost_volume_backward_cuda_cores(g, ref, frame, win, dil, fwd, 0.05))
+    assert launches == {"b2f_cost_volume_dref_cuda_cores": 1,
+                        "b2f_cost_volume_dframe_cuda_cores": 1}
+    want = ops.cost_volume_backward_reference(g, ref, frame, win, dil, fwd, 0.05)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        close_to_scale(a, b, dtype)
+    if dtype == torch.float32:
+        main, launches = backward_launches(
+            lambda: ops.cost_volume_backward_cuda(g, ref, frame, win, dil, fwd, 0.05))
+        assert launches == {"b2f_cost_volume_dref": 1, "b2f_cost_volume_dframe": 1}
+        for a, b in zip(main, got):
+            assert torch.equal(a, b)
+
+
+def test_cost_volume_bwd_bf16_kernel_info(cuda):
+    info = ops.cost_volume_bwd_bf16_info()
+    assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1, info
+    assert info["smem_bytes"] > 0
+
+
+def test_bf16_train_step_launches(cuda):
+    """One bf16 train step of the flagship model at 64x128: 10 cost volume,
+    18 warp, 10 d_ref, 10 shift, 10 d_frame, 18 flow-gradient and 8
+    image-gradient launches; a finite loss."""
+    opt = Options(optimize="pme", batchSize=2, compute_dtype="bfloat16").derive()
+    net = PWCNet(pwc_config_from_options(opt), generator=torch.Generator().manual_seed(0)).to(cuda)
+    step = make_train_step(net, opt, build_criterions(opt))
+    reset_launches()
+    _, logs = step(create_train_state(net, opt), {"images": rand((2, 64, 128, 9), 29, cuda)})
+    assert {k: v.launches for k, v in KERNELS.items() if v.launches} == {
+        "b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 18,
+        "b2f_cost_volume_dref": 10, "b2f_cost_volume_gshift": 10, "b2f_cost_volume_dframe": 10,
+        "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8}
+    assert np.isfinite(logs["loss"].item())
 
 
 @pytest.mark.parametrize("reference_grads", [True, False], ids=["ref_grads", "autodiff"])
