@@ -75,7 +75,7 @@ constexpr int CCH = CG / 8;      // 16-byte chunks per staged pixel
 constexpr int NT8 = CG / 8;      // n8 tiles per warp
 constexpr int KS = KC / 16;      // k16 steps
 
-constexpr int align128(int n) { return (n + 127) / 128 * 128; }
+__host__ __device__ constexpr int align128(int n) { return (n + 127) / 128 * 128; }
 
 template <int WIN>
 struct Plan {
@@ -183,16 +183,16 @@ __device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const unsigned shor
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    uint32_t half[2] = {0u, 0u};
+    uint32_t part[2] = {0u, 0u};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int jmin = ks * 16 + 8 * (r >> 1) + h, imin = 8 * (r & 1);
       if (jmin + 6 - imin < 0 || jmin - (imin + 7) >= WIN) continue;   // never in the band
       const int i = (lane >> 2) + imin;
       const int v = jmin + 2 * (lane & 3) - i;
-      if (v >= 0 && v < WIN) half[h] = grow[i * WIN * WIN + (fwd ? WIN - 1 - v : v) * WIN + iy];
+      if (v >= 0 && v < WIN) part[h] = grow[i * WIN * WIN + (fwd ? WIN - 1 - v : v) * WIN + iy];
     }
-    a[r] = half[0] | (half[1] << 16);
+    a[r] = part[0] | (part[1] << 16);
   }
 }
 
@@ -245,14 +245,14 @@ cost_volume_bwd_mma_kernel(Geometry g, int fwd, float scale) {
   // (k = 2, 3): row lane/4 + 8
   const size_t row = (static_cast<size_t>(t.b) * g.H + y) * g.W;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int x = t.x0 + ((lane >> 2) + 8 * half) * g.dil;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int x = t.x0 + ((lane >> 2) + 8 * hr) * g.dil;
     if (x >= g.W) continue;
     __nv_bfloat16* o = g.out + (row + x) * g.C;
 #pragma unroll
     for (int nt = 0; nt < NT8; ++nt) {
       const int c = t.c0 + nt * 8 + 2 * (lane & 3);
-      const float v0 = acc[nt][2 * half] * scale, v1 = acc[nt][2 * half + 1] * scale;
+      const float v0 = acc[nt][2 * hr] * scale, v1 = acc[nt][2 * hr + 1] * scale;
       if (g.pairs) {
         if (c < g.C) *reinterpret_cast<__nv_bfloat162*>(o + c) = __floats2bfloat162_rn(v0, v1);
       } else {
@@ -359,8 +359,7 @@ cost_volume_gshift_kernel(ShiftGeometry s, int fwd) {
   cp_async_commit();
   for (int n = 0; yy <= last; ++n) {
     const int nxt = next_row<WIN>(yy, y0, s);
-    const uint32_t cur = in0 + (n & 1) * in_bytes, other = in0 + ((n + 1) & 1) * in_bytes;
-    if (nxt <= last) stage_row<WIN>(other, s, b, nxt, xs, xe);
+    if (nxt <= last) stage_row<WIN>(in0 + ((n + 1) & 1) * in_bytes, s, b, nxt, xs, xe);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
@@ -503,7 +502,7 @@ extern "C" int b2f_cost_volume_gshift(const void* g, void* g_shifted, int dtype,
   s.pad = (win - 1) / 2 * dilation;
   s.tiles_x = (W + SH_XT - 1) / SH_XT;
   s.tiles_y = (H + SH_TS - 1) / SH_TS;
-  s.in_cols = min(W, SH_XT + 2 * s.pad);
+  s.in_cols = W < SH_XT + 2 * s.pad ? W : SH_XT + 2 * s.pad;
   s.g_off = elem_offset(g);
   s.out_off = elem_offset(g_shifted);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -6,9 +6,9 @@ Phases, one line each (any failure raises and exits non-zero):
   1. environment: the card (nvidia-smi name and power limit), TF32 flags
   2. build: nvcc of back2future_tpu_torch/csrc into back2future_tpu_torch/_build
      (one nvcc per source, in parallel); the bf16 tensor-core kernels of
-     K1 (win 9) and K6: registers, spills, shared memory, resident blocks
-     per SM, and the HMMA / LDGSTS / LDSM instructions of their SASS
-     (cuobjdump)
+     K1 (win 9), K2/K3 (win 9) and K6: registers, spills, shared memory,
+     resident blocks per SM, and the HMMA / LDGSTS / LDSM instructions of
+     their SASS (cuobjdump)
   3. kernels against their plain torch twins, in bf16 and f32, with the
      max abs error, the tolerance, CUDA-event medians of the kernel, the
      twin and (where one PyTorch call computes the same function) that
@@ -20,8 +20,10 @@ Phases, one line each (any failure raises and exits non-zero):
      train step at B=8, 320x640, fwd and past, with flows past the border;
      the fused stem (K5 unit A, K6 unit B) at the serving (48 frames) and
      train (24 frames) stacked shapes. The bf16 checks are timed also by
-     the profiler's device time per call (the summary's numbers), and K1's
-     old CUDA-core kernel beside its tensor-core kernel at each level
+     the profiler's device time per call (the summary's numbers), and the
+     old CUDA-core kernels of K1, K2 and K3 beside their tensor-core
+     kernels at each level (K3's time includes the shift kernel's, whose
+     share is logged)
   4. serving path, stem off: init(None, device="cuda") with the flagship
      config (frames 3, levels 7, win 9, skip 2, bf16, random weights from
      seed 0), compute_flow / compute_flow_batch (B=16, three times) /
@@ -39,16 +41,21 @@ Phases, one line each (any failure raises and exits non-zero):
      tools/train_bench.py (optimize pme, OBCC + L1, bf16, B=8, 320x640,
      weights from seed 0, numpy-seeded images on the device),
      create_train_state + make_train_step, 6 steps: finite loss and
-     components, exact launch counts per step (10 / 18 / 10 / 10 / 18 / 8),
+     components, exact launch counts per step (10 / 18 / 10 / 10 + 10
+     shifts / 18 / 8),
      step ms (CUDA events, median of steps 2-6), triplets/s trained, peak
      device memory; then one f32 step with the kernels and one under
      plain_ops() from the same initial state: loss and every parameter
-     gradient compared
+     gradient compared; then the backward A/B: one bf16 step with the
+     CUDA-core K2/K3 (old) and one with the tensor-core ones (new) from
+     the same state, every parameter gradient compared, and the step in
+     turns old / new / new / old, twice: step ms (CUDA events) and K1-K3
+     device ms per step (profiler)
   7. train path, soft fine-tune recipe (stem on): the hard net of phase 6
      turned into a soft one by convert_net_hard_to_soft (OBGCC,
      past_flow, const_vel 1, second-order smoothness), 6 bf16 steps with
      exact launch counts for all eight kernels (1 K5 + 1 K6 + 10 / 18 /
-     10 / 10 / 18 / 8), then the f32 kernels-vs-plain_ops() step
+     10 / 10 + 10 / 18 / 8), then the f32 kernels-vs-plain_ops() step
   8. one JSON line of the kernels (forward kernels: launches of the
      serving path and ms per serving forward; backward kernels: launches
      of the hard train path and ms per train step; K5/K6: launches of the
@@ -121,22 +128,32 @@ TRAIN_STEPS = 6
 # image gradient's f32 atomics in an order that varies from run to run
 LOSS_RTOL = 1e-4
 GRAD_TOL_FRAC = 1e-3                   # of max |gradient| per parameter
+# bf16 train step, CUDA-core vs tensor-core K2/K3: each rounds its f32 sums
+# to bf16 once (2^-8 relative), in another order, so an output may differ
+# by one rounding; that propagates through the bf16 backward of the
+# decoder and the features (5 levels, 4 warps) and the image gradient's
+# atomics
+BF16_GRAD_TOL_FRAC = 2e-2              # of max |gradient| per parameter
 
 # the card's published peaks (H100 SXM, dense): memory, and operations by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # launches of one serving forward and of one train step, per kernel (the
-# CUDA-core cost volume forward is for timing only)
+# CUDA-core cost volume kernels are for timing only)
 SERVING_PER_FORWARD = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
                        "b2f_warp_bilinear_fwd": 8,
                        "b2f_cost_volume_dref": 0, "b2f_cost_volume_dframe": 0,
+                       "b2f_cost_volume_gshift": 0, "b2f_cost_volume_dref_cuda_cores": 0,
+                       "b2f_cost_volume_dframe_cuda_cores": 0,
                        "b2f_warp_bilinear_dflow": 0, "b2f_warp_bilinear_dimages": 0,
                        "b2f_stem_unit_a": 0, "b2f_stem_unit_b": 0}
 SERVING_STEM_PER_FORWARD = dict(SERVING_PER_FORWARD, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
 TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
                   "b2f_warp_bilinear_fwd": 18,
                   "b2f_cost_volume_dref": 10, "b2f_cost_volume_dframe": 10,
+                  "b2f_cost_volume_gshift": 10, "b2f_cost_volume_dref_cuda_cores": 0,
+                  "b2f_cost_volume_dframe_cuda_cores": 0,
                   "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8,
                   "b2f_stem_unit_a": 0, "b2f_stem_unit_b": 0}
 SOFT_PER_STEP = dict(TRAIN_PER_STEP, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
@@ -272,12 +289,15 @@ def mma_build_report(label: str, info: dict, function: str) -> None:
 
 
 def phase_mma_builds() -> None:
-    """The build reports of K1's (win 9) and K6's bf16 tensor-core kernels."""
-    from back2future_tpu_torch.ops import cost_volume_fwd_bf16_info
+    """The build reports of K1's (win 9), K2/K3's (win 9) and K6's bf16
+    tensor-core kernels."""
+    from back2future_tpu_torch.ops import cost_volume_bwd_bf16_info, cost_volume_fwd_bf16_info
     from back2future_tpu_torch.ops.stem import stem_unit_b_bf16_info
 
     mma_build_report("K1 bf16 (cost_volume_fwd_mma_kernel<9, true>, win 9 dil 1)",
                      cost_volume_fwd_bf16_info(), "cost_volume_fwd_mma_kernelILi9ELb1E")
+    mma_build_report("K2/K3 bf16 (cost_volume_bwd_mma_kernel<9>, win 9, any dil)",
+                     cost_volume_bwd_bf16_info(), "cost_volume_bwd_mma_kernelILi9E")
     mma_build_report("K6 bf16 (stem_unit_b_mma_kernel)", stem_unit_b_bf16_info(),
                      "stem_unit_b_mma")
 
@@ -308,6 +328,33 @@ def compare_k1_cuda_cores(label, ref, frame, fwd, c, new, twin, summary) -> None
     summary["cost_volume"]["cuda_cores_ms"] += old_ms
 
 
+def compare_bwd_cuda_cores(label, key, new, old, twin, summary) -> None:
+    """K2's or K3's old CUDA-core kernel (`old`) beside its tensor-core
+    path (`new`: for K3 the shift, then the product kernel) on the same
+    bf16 inputs: the old one against the twin within 1e-2 of the largest
+    value, and both timed in one profiler window (one call of each, in
+    turn, 20 times), told apart by kernel name; the shift's share of K3
+    logged."""
+    got, want = old(), twin()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = KERNEL_TOL[torch.bfloat16]
+    atol = tol * max(1.0, want.float().abs().max().item())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=atol):
+        raise AssertionError(f"{label}, CUDA cores: outside tolerance ({err})")
+    times = device_ms(lambda: (new(), old()), 20)
+    new_ms = sum(v for n, v in times.items() if "mma" in n or "gshift" in n)
+    shift_ms = sum(v for n, v in times.items() if "gshift" in n)
+    old_ms = sum(times.values()) - new_ms
+    if not new_ms or not old_ms:
+        raise AssertionError(f"{label}: the profiler did not see both kernels: {times}")
+    shift = f" (of it the shift {shift_ms:.4f} ms)" if shift_ms else ""
+    log("kernels", f"{label}: device time per call (profiler, in turns) tensor cores "
+                   f"{new_ms:.4f} ms{shift}, CUDA cores {old_ms:.4f} ms ({old_ms / new_ms:.2f}x); "
+                   f"CUDA cores max_abs_err {err:.3e}")
+    summary[key]["cuda_cores_ms"] += old_ms
+    summary[key]["shift_ms"] += shift_ms
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its twin at every main-path shape; returns the
     per-kernel summary over the bf16 checks: max error, and the kernel,
@@ -328,7 +375,9 @@ def phase_kernels(dev) -> dict:
                        bytes_ms=0.0, ops_ms=0.0)
                for k in ("cost_volume", "warp", "cost_volume_dref", "cost_volume_dframe",
                          "warp_dimages", "warp_dflow", "stem_unit_a", "stem_unit_b")}
-    summary["cost_volume"]["cuda_cores_ms"] = 0.0
+    for k in ("cost_volume", "cost_volume_dref", "cost_volume_dframe"):
+        summary[k]["cuda_cores_ms"] = 0.0
+    summary["cost_volume_dframe"]["shift_ms"] = 0.0
 
     def check(kernel, label, dtype, kern, twin, per_forward, work, library=None,
               of_largest=False):
@@ -433,11 +482,18 @@ def phase_kernels(dev) -> dict:
                 args = (WIN, 1, fwd, 1.0 / c)
                 for i, name in enumerate(("d_ref", "d_frame")):
                     need = (i == 0, i == 1)
-                    check(f"cost_volume_{name.replace('_', '')}", f"cost_volume {name} {where}",
-                          dtype,
-                          lambda: ops.cost_volume_backward_cuda(g, ref, frame, *args, need=need)[i],
-                          lambda: ops.cost_volume_backward_reference(g, ref, frame, *args)[i],
-                          per_forward=1, work=work, of_largest=True)
+                    key = f"cost_volume_{name.replace('_', '')}"
+                    new = lambda: ops.cost_volume_backward_cuda(   # noqa: E731
+                        g, ref, frame, *args, need=need)[i]
+                    twin = lambda: ops.cost_volume_backward_reference(   # noqa: E731
+                        g, ref, frame, *args)[i]
+                    check(key, f"cost_volume {name} {where}", dtype, new, twin, per_forward=1,
+                          work=work, of_largest=True)
+                    if dtype == torch.bfloat16:
+                        compare_bwd_cuda_cores(
+                            f"cost_volume {name} {where}", key, new,
+                            lambda: ops.cost_volume_backward_cuda_cores(
+                                g, ref, frame, *args, need=need)[i], twin, summary)
         warps = [(shape, True) for shape in TRAIN_LEVELS[:4]] + \
             [(shape, False) for shape in IMAGE_WARP_SHAPES]
         for (h, w, c), feature in warps:
@@ -493,6 +549,12 @@ def phase_kernels(dev) -> dict:
         f"{k} kernel {summary[k]['ms']:.3f} ms vs twin {summary[k]['plain_ms']:.3f} ms"
         for k in ("cost_volume_dref", "cost_volume_dframe", "warp_dimages", "warp_dflow",
                   "stem_unit_a", "stem_unit_b")))
+    log("kernels", "per hard train step (bf16, profiler device time, timed in turns with the "
+                   "CUDA-core kernels): " + "; ".join(
+        f"{k} tensor cores {summary[k]['ms']:.3f} ms (in the turns "
+        f"{summary[k]['cuda_cores_ms']:.3f} ms for the CUDA-core kernel), bound "
+        f"{summary[k]['bound_ms']:.4f} ms" for k in ("cost_volume_dref", "cost_volume_dframe"))
+        + f"; the shift's share of d_frame {summary['cost_volume_dframe']['shift_ms']:.3f} ms")
     return summary
 
 
@@ -664,6 +726,92 @@ def phase_serving_k1(card: str, main: dict) -> None:
               + " / ".join(f"{t:.2f}" for t in times) + f" ms (CUDA events, medians of 5); "
               f"median old (CUDA cores) {old_ms:.2f} ms, new (tensor cores) {new_ms:.2f} ms "
               f"on {card}")
+
+
+@contextlib.contextmanager
+def bwd_cuda_cores():
+    """Inside the block, the cost volume's backward runs the CUDA-core
+    kernels (b2f_cost_volume_d*_cuda_cores, no shift), the bf16 design
+    before the tensor cores; restored after. For the A/B only."""
+    import importlib
+
+    module = importlib.import_module("back2future_tpu_torch.ops.cost_volume")
+    fn = module.cost_volume_backward_cuda
+    module.cost_volume_backward_cuda = module.cost_volume_backward_cuda_cores
+    try:
+        yield
+    finally:
+        module.cost_volume_backward_cuda = fn
+
+
+def phase_train_bwd_ab(card: str, dev) -> None:
+    """K2/K3's A/B in the hard bf16 train step: one step with the CUDA-core
+    backward (old) and one with the tensor-core one (new) from the same
+    initial state, every parameter gradient compared; then the step in
+    turns old / new / new / old, twice: per turn one warm-up step, the
+    median of 3 steps by CUDA events, and the K1-K3 device ms per step of
+    2 more (profiler)."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    opt = train_options("bfloat16", soft=False)
+    crits = build_criterions(opt)
+    batch = train_batch(dev)
+    net = train_network(opt, dev)
+    init = {k: v.clone() for k, v in net.state_dict().items()}
+    grads = {}
+    for old in (True, False):
+        net.load_state_dict(init)
+        step = make_train_step(net, opt, crits)
+        with bwd_cuda_cores() if old else contextlib.nullcontext():
+            step(create_train_state(net, opt), batch)
+        torch.cuda.synchronize()
+        grads[old] = {n: p.grad.clone() for n, p in net.named_parameters()}
+    ratios = {n: (grads[False][n] - g).float().abs().max().item()
+              / max(g.float().abs().max().item(), 1e-30) for n, g in grads[True].items()}
+    worst = max(ratios, key=ratios.get)
+    within = sum(v <= GRAD_TOL_FRAC for v in ratios.values())
+    log("bwd", f"bf16 hard step, CUDA-core vs tensor-core K2/K3: worst gradient max_abs_err / "
+               f"max|g| {ratios[worst]:.3e} ({worst}; tol {BF16_GRAD_TOL_FRAC}); {within} of "
+               f"{len(ratios)} parameters within {GRAD_TOL_FRAC}")
+    if ratios[worst] > BF16_GRAD_TOL_FRAC:
+        raise AssertionError("K2/K3 A/B: the two backward paths give different gradients")
+
+    net.load_state_dict(init)
+    step = make_train_step(net, opt, crits)
+    state = create_train_state(net, opt)
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    turns = (True, False, False, True) * 2   # True: the old kernels
+    step_ms, cv_ms = [], []
+    for old in turns:
+        with bwd_cuda_cores() if old else contextlib.nullcontext():
+            one_step()
+            times = []
+            for _ in range(3):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                one_step()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            by_name = device_ms(one_step, 2)
+        step_ms.append(statistics.median(times))
+        cv_ms.append(sum(v for n, v in by_name.items() if "cost_volume" in n))
+    names = " / ".join("old" if o else "new" for o in turns)
+    log("bwd", f"bf16 hard step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}, backward {names}: step "
+               + " / ".join(f"{t:.2f}" for t in step_ms) + " ms (CUDA events, medians of 3); "
+               "K1-K3 device " + " / ".join(f"{t:.3f}" for t in cv_ms)
+               + f" ms per step (profiler) on {card}")
+    for label, vals in (("step", step_ms), ("K1-K3 device", cv_ms)):
+        old_v, new_v = (statistics.median(v for v, o in zip(vals, turns) if o == side)
+                        for side in (True, False))
+        log("bwd", f"median {label} ms: old (CUDA cores) {old_v:.3f}, new (tensor cores) "
+                   f"{new_v:.3f}")
 
 
 def train_options(dtype: str, soft: bool):
@@ -1035,13 +1183,15 @@ def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
     return launches
 
 
-KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches count)
+# (name, summary key, source, replaces, path whose launches count); K3's
+# launches are its shift's and its product's
+KERNEL_ENTRIES = [
     ("cost_volume_fwd", "cost_volume", "cost_volume_fwd_mma.cu",
      "back2future_tpu/ops/cost_volume_pallas.py:91", "serving"),
     ("warp_bilinear_fwd", "warp", "warp_fwd.cu", "back2future_tpu/ops/warp.py:96", "serving"),
-    ("cost_volume_dref", "cost_volume_dref", "cost_volume_bwd.cu",
+    ("cost_volume_dref", "cost_volume_dref", "cost_volume_bwd_mma.cu",
      "back2future_tpu/ops/cost_volume_pallas.py:175", "train"),
-    ("cost_volume_dframe", "cost_volume_dframe", "cost_volume_bwd.cu",
+    ("cost_volume_dframe", "cost_volume_dframe", "cost_volume_bwd_mma.cu",
      "back2future_tpu/ops/cost_volume_pallas.py:203", "train"),
     ("warp_bilinear_dimages", "warp_dimages", "warp_bwd.cu",
      "back2future_tpu/ops/warp_pallas.py:81", "train"),
@@ -1078,6 +1228,7 @@ def main() -> None:
     del main_path
     with stem(False):
         paths["train"] = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)
+        phase_train_bwd_ab(card, dev)
     with stem(True):
         paths["soft"] = run_train(card, dev, "soft", soft=True, per_step=SOFT_PER_STEP)
     kernels = []
@@ -1085,7 +1236,10 @@ def main() -> None:
         s = summary[key]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"back2future_tpu_torch/csrc/{source}", "replaces": replaces,
-                        "launches": paths[path][f"b2f_{name}"], "max_abs_err": s["err"],
+                        "launches": paths[path][f"b2f_{name}"] + (
+                            paths[path]["b2f_cost_volume_gshift"]
+                            if name == "cost_volume_dframe" else 0),
+                        "max_abs_err": s["err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
                         "library_ms": s["library_ms"]})
