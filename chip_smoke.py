@@ -377,7 +377,7 @@ def phase_kernels(dev) -> dict:
                          "warp_dimages", "warp_dflow", "stem_unit_a", "stem_unit_b")}
     for k in ("cost_volume", "cost_volume_dref", "cost_volume_dframe"):
         summary[k]["cuda_cores_ms"] = 0.0
-    summary["cost_volume_dframe"]["shift_ms"] = 0.0
+        summary[k]["shift_ms"] = 0.0
 
     def check(kernel, label, dtype, kern, twin, per_forward, work, library=None,
               of_largest=False):
