@@ -172,27 +172,39 @@ __device__ __forceinline__ void stage_frame(uint32_t f_s, const Geometry& g, con
   }
 }
 
-// A_u's fragment of k16 step ks for this lane: element (i, j), i = row,
-// j = column of the step, is pixel i's g value q = ix*WIN + iy at
-// v = ks*16 + j - i, ix = v (mirrored when fwd), 0 outside 0 <= v < WIN.
-// Fragment register r holds rows lane/4 + 8*(r&1), columns 2*(lane%4) +
-// 8*(r>>1) and the next.
+// Where this lane's A fragment elements sit in a staged g row, for every
+// qy row: element (i, j) of k16 step ks (i = row, j = column of the step)
+// is pixel i's g value q = ix*WIN + iy at v = ks*16 + j - i, ix = v
+// (mirrored when fwd), 0 outside 0 <= v < WIN. Fragment register r holds
+// rows lane/4 + 8*(r&1), columns 2*(lane%4) + 8*(r>>1) and the next.
+// off = i*Q + ix*WIN (add iy for the qy row), or -1 outside the band.
 template <int WIN>
-__device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const unsigned short* grow, int ks,
-                                           int iy, bool fwd) {
+__device__ __forceinline__ void a_offsets(int (&off)[KS][4][2], bool fwd) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    uint32_t part[2] = {0u, 0u};
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int jmin = ks * 16 + 8 * (r >> 1) + h, imin = 8 * (r & 1);
-      if (jmin + 6 - imin < 0 || jmin - (imin + 7) >= WIN) continue;   // never in the band
-      const int i = (lane >> 2) + imin;
-      const int v = jmin + 2 * (lane & 3) - i;
-      if (v >= 0 && v < WIN) part[h] = grow[i * WIN * WIN + (fwd ? WIN - 1 - v : v) * WIN + iy];
-    }
-    a[r] = part[0] | (part[1] << 16);
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int jmin = ks * 16 + 8 * (r >> 1) + h, imin = 8 * (r & 1);
+        off[ks][r][h] = -1;
+        if (jmin + 6 - imin < 0 || jmin - (imin + 7) >= WIN) continue;   // never in the band
+        const int i = (lane >> 2) + imin;
+        const int v = jmin + 2 * (lane & 3) - i;
+        if (v >= 0 && v < WIN) off[ks][r][h] = i * WIN * WIN + (fwd ? WIN - 1 - v : v) * WIN;
+      }
+}
+
+// A_u's fragment of k16 step ks for the qy row iy, from the staged g row
+template <int WIN>
+__device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const unsigned short* grow,
+                                           const int (&off)[4][2], int iy) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const uint32_t lo = off[r][0] >= 0 ? grow[off[r][0] + iy] : 0u;
+    const uint32_t hi = off[r][1] >= 0 ? grow[off[r][1] + iy] : 0u;
+    a[r] = lo | (hi << 16);
   }
 }
 
@@ -224,13 +236,15 @@ cost_volume_bwd_mma_kernel(Geometry g, int fwd, float scale) {
   // B rows of an ldmatrix.x4.trans: k = lane%8 + 8*((lane/8)%2), channel
   // chunk lane/16 of the pair of n8 tiles
   const int jb = (lane & 7) + ((lane >> 3) & 1) * 8, cb = lane >> 4;
+  int off[KS][4][2];
+  a_offsets<WIN>(off, fwd != 0);
 #pragma unroll
   for (int u = 0; u < WIN; ++u) {
     const int iy = fwd ? WIN - 1 - u : u;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       uint32_t a[4];
-      a_fragment<WIN>(a, grow, ks, iy, fwd != 0);
+      a_fragment<WIN>(a, grow, off[ks], iy);
 #pragma unroll
       for (int p = 0; p < NT8 / 2; ++p) {
         uint32_t b[4];
@@ -264,18 +278,22 @@ cost_volume_bwd_mma_kernel(Geometry g, int fwd, float scale) {
 }
 
 // The shift g'[b,y,x,q] = g[b, y+qy(q), x+qx(q), q], 0 outside the image:
-// one block per SH_TS x SH_XT output pixels. Its output tile, laid out as
-// device memory (each row from a `shift` < 8), is zeroed in shared memory;
-// then every input row the tile reaches is brought in once, haloed by pad
-// columns and clipped to the image, by 16-byte `cp.async` copies
-// (double-buffered: the next row's copies fly while this one is used),
-// and its values are moved to the output rows y = row - qy they belong to
-// (one row for each qy); the tile then leaves by 16-byte stores, scalar
-// at the rows' unaligned ends. Every value of g is read once per tile it
-// reaches: (SH_TS + 2*pad) / SH_TS times (SH_XT + 2*pad) / SH_XT from L2.
-constexpr int SH_TS = 8;         // output rows per block
-constexpr int SH_XT = 32;        // output columns per block
+// one block per SH_TS x SH_XT output pixels. The input rows the tile can
+// reach, slots k = 0 .. SH_TS + 2*pad - 1 (row y0 - pad + k), haloed by
+// pad columns and clipped to the image, come into shared memory at once
+// by 16-byte `cp.async` copies, each row from a `shift` < 8 elements
+// before its first value (in batches of `batch` slots when a large
+// dilation makes them too many for shared memory). Then every element of
+// the output tile, laid out as device memory, takes its value from its
+// slot, or 0; the tile leaves by 16-byte stores, scalar at the rows'
+// unaligned ends. So a block waits on memory once (at dil 1): a first
+// design that walked the rows one at a time, double-buffered, was bound
+// by that loop's latency. Every value of g is read (SH_TS + 2*pad) /
+// SH_TS times (SH_XT + 2*pad) / SH_XT over, mostly from L2.
+constexpr int SH_TS = 4;         // output rows per block
+constexpr int SH_XT = 16;        // output columns per block
 constexpr int SH_NT = 256;       // threads per block
+constexpr int SMEM_MAX = 227 * 1024;
 
 template <int WIN>
 struct Shift {
@@ -293,40 +311,21 @@ struct ShiftGeometry {
   int H, W, dil, pad;
   int tiles_x, tiles_y;
   int in_cols;                  // staged input pixels a row at most
+  int slots, batch;             // input rows a tile can reach; staged at once
   int g_off, out_off;           // element offsets from a 16-byte boundary
 };
-
-// the input row yy's pixels [xs, xe) into `dst` from element `shift`
-template <int WIN>
-__device__ __forceinline__ void stage_row(uint32_t dst, const ShiftGeometry& s, int b, int yy,
-                                          int xs, int xe) {
-  constexpr int Q = WIN * WIN;
-  const size_t first = ((static_cast<size_t>(b) * s.H + yy) * s.W + xs) * Q;
-  const int shift = static_cast<int>((first + s.g_off) & 7);
-  const int n = (xe - xs) * Q;
-  for (int k = threadIdx.x; 8 * k < shift + n; k += SH_NT)
-    cp_async16(dst + 16 * k, s.g + (first - shift + 8 * k), true);
-}
 
 // is input row yy = y0 + ty + qy for some output row ty of the tile and
 // qy in {-n..n} * dil (block-uniform)
 template <int WIN>
 __device__ __forceinline__ bool row_needed(int yy, int y0, const ShiftGeometry& s) {
   constexpr int N = (WIN - 1) / 2;
-  if (yy < 0 || yy >= s.H) return false;
 #pragma unroll
   for (int m = -N; m <= N; ++m) {
     const int ty = yy - y0 + m * s.dil;
     if (ty >= 0 && ty < SH_TS && y0 + ty < s.H) return true;
   }
   return false;
-}
-
-template <int WIN>
-__device__ __forceinline__ int next_row(int yy, int y0, const ShiftGeometry& s) {
-  const int last = y0 + SH_TS - 1 + s.pad;
-  do ++yy; while (yy <= last && !row_needed<WIN>(yy, y0, s));
-  return yy;
 }
 
 template <int WIN>
@@ -341,48 +340,56 @@ cost_volume_gshift_kernel(ShiftGeometry s, int fwd) {
   const int y0 = t % s.tiles_y * SH_TS, b = t / s.tiles_y;
   const int sign = fwd ? 1 : -1;
   const int xs = max(0, x0 - s.pad), xe = min(s.W, x0 + SH_XT + s.pad);
-  const int in_bytes = P::in_bytes(s.in_cols);
+  const int in_bytes = P::in_bytes(s.in_cols), chunks = in_bytes / 16;
   const uint32_t in0 = smem_addr(smem + P::OUT_BYTES);
   unsigned short* out_s = reinterpret_cast<unsigned short*>(smem);
-  const unsigned short* in_base = reinterpret_cast<const unsigned short*>(smem + P::OUT_BYTES);
+  const unsigned short* in_s = reinterpret_cast<const unsigned short*>(smem + P::OUT_BYTES);
 
-  for (int k = threadIdx.x; k < P::OUT_BYTES / 16; k += SH_NT)
-    reinterpret_cast<uint4*>(smem)[k] = make_uint4(0, 0, 0, 0);
-
+  // element offset of pixel (y, x) of this image, and its residue mod 8
+  // (32-bit arithmetic keeps the residue)
   const size_t image = static_cast<size_t>(b) * s.H;
   auto first_of = [&](int y, int x) { return ((image + y) * s.W + x) * Q; };
-  auto out_shift = [&](int ty) { return static_cast<int>((first_of(y0 + ty, x0) + s.out_off) & 7); };
+  auto residue = [&](int y, int x, int off) {
+    return static_cast<int>(((static_cast<unsigned>(b) * s.H + y) * s.W + x) * Q + off) & 7;
+  };
+  int out_shift[SH_TS];
+#pragma unroll
+  for (int ty = 0; ty < SH_TS; ++ty) out_shift[ty] = residue(y0 + ty, x0, s.out_off);
 
-  int yy = next_row<WIN>(y0 - s.pad - 1, y0, s);
-  const int last = y0 + SH_TS - 1 + s.pad;
-  if (yy <= last) stage_row<WIN>(in0, s, b, yy, xs, xe);
-  cp_async_commit();
-  for (int n = 0; yy <= last; ++n) {
-    const int nxt = next_row<WIN>(yy, y0, s);
-    if (nxt <= last) stage_row<WIN>(in0 + ((n + 1) & 1) * in_bytes, s, b, nxt, xs, xe);
+  for (int s0 = 0; s0 < s.slots; s0 += s.batch) {
+    const int s1 = min(s.slots, s0 + s.batch);
+    for (int e = threadIdx.x; e < (s1 - s0) * chunks; e += SH_NT) {
+      const int k = e / chunks, c = e % chunks;
+      const int yy = y0 - s.pad + s0 + k;
+      if (yy < 0 || yy >= s.H || (s.dil > SH_TS && !row_needed<WIN>(yy, y0, s))) continue;
+      const int shift = residue(yy, xs, s.g_off);
+      if (8 * c >= shift + (xe - xs) * Q) continue;
+      cp_async16(in0 + k * in_bytes + 16 * c, s.g + (first_of(yy, xs) - shift + 8 * c), true);
+    }
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait_all();
     __syncthreads();
-    const unsigned short* in_s = in_base + (n & 1) * (in_bytes / 2) +
-                                 static_cast<int>((first_of(yy, xs) + s.g_off) & 7);
-    // qy = sign*(iy - N)*dil, output row yy - qy; then (x, ix) pairs
-#pragma unroll 1
-    for (int iy = 0; iy < WIN; ++iy) {
-      const int ty = yy - sign * (iy - N) * s.dil - y0;
-      if (ty < 0 || ty >= SH_TS || y0 + ty >= s.H) continue;   // block-uniform
-      unsigned short* o = out_s + ty * P::OUT_ROW + out_shift(ty);
-      for (int e = threadIdx.x; e < SH_XT * WIN; e += SH_NT) {
-        const int x = e % SH_XT, ix = e / SH_XT;
-        const int sx = x0 + x + sign * (ix - N) * s.dil;
-        if (x0 + x >= s.W || sx < 0 || sx >= s.W) continue;
-        const int q = ix * WIN + iy;
-        o[x * Q + q] = in_s[(sx - xs) * Q + q];
+    // element r = x*Q + q of output row ty: from slot ty + pad + qy
+    for (int r = threadIdx.x; r < SH_XT * Q; r += SH_NT) {
+      const int x = r / Q, q = r % Q;
+      const int ix = q / WIN, iy = q % WIN;
+      if (x0 + x >= s.W) continue;
+      const int sx = x0 + x + sign * (ix - N) * s.dil;
+      const bool col_ok = sx >= 0 && sx < s.W;
+      const int dk = s.pad + sign * (iy - N) * s.dil;
+#pragma unroll
+      for (int ty = 0; ty < SH_TS; ++ty) {
+        const int k = ty + dk;
+        if (k < s0 || k >= s1 || y0 + ty >= s.H) continue;
+        const int yy = y0 - s.pad + k;
+        unsigned short v = 0;
+        if (col_ok && yy >= 0 && yy < s.H)
+          v = in_s[(k - s0) * (in_bytes / 2) + residue(yy, xs, s.g_off) + (sx - xs) * Q + q];
+        out_s[ty * P::OUT_ROW + out_shift[ty] + r] = v;
       }
     }
     __syncthreads();
-    yy = nxt;
   }
-  __syncthreads();
 
   // the tile's rows to device memory: element k >= shift of staged row ty
   // is element first - shift + k of `out`
@@ -391,7 +398,7 @@ cost_volume_gshift_kernel(ShiftGeometry s, int fwd) {
   for (int e = threadIdx.x; e < SH_TS * CHUNKS; e += SH_NT) {
     const int ty = e / CHUNKS, lo = (e % CHUNKS) * 8;
     if (y0 + ty >= s.H) continue;
-    const int shift = out_shift(ty);
+    const int shift = residue(y0 + ty, x0, s.out_off);
     if (lo + 8 <= shift || lo >= shift + n) continue;
     const unsigned short* src = out_s + ty * P::OUT_ROW;
     unsigned short* dst =
@@ -433,16 +440,19 @@ cudaError_t launch_bwd(const Geometry& g, int B, int fwd, float scale, cudaStrea
 }
 
 template <int WIN>
-cudaError_t launch_shift(const ShiftGeometry& s, int B, int fwd, cudaStream_t stream) {
+cudaError_t launch_shift(ShiftGeometry s, int B, int fwd, cudaStream_t stream) {
+  using P = Shift<WIN>;
   static int last_device = -1, last_bytes = 0;
   const long long blocks = static_cast<long long>(s.tiles_x) * s.tiles_y * B;
-  const long long bytes = Shift<WIN>::OUT_BYTES + 2LL * Shift<WIN>::in_bytes(s.in_cols);
-  if (blocks > INT_MAX || bytes > 227 * 1024) return cudaErrorInvalidValue;
-  const cudaError_t e = smem_limit(cost_volume_gshift_kernel<WIN>, static_cast<int>(bytes),
-                                   &last_device, &last_bytes);
+  const int row_bytes = P::in_bytes(s.in_cols);
+  s.batch = (SMEM_MAX - P::OUT_BYTES) / row_bytes;
+  if (s.batch > s.slots) s.batch = s.slots;
+  if (blocks > INT_MAX || s.batch < 1) return cudaErrorInvalidValue;
+  const int bytes = P::OUT_BYTES + s.batch * row_bytes;
+  const cudaError_t e =
+      smem_limit(cost_volume_gshift_kernel<WIN>, bytes, &last_device, &last_bytes);
   if (e != cudaSuccess) return e;
-  cost_volume_gshift_kernel<WIN><<<static_cast<int>(blocks), SH_NT, static_cast<int>(bytes),
-                                   stream>>>(s, fwd);
+  cost_volume_gshift_kernel<WIN><<<static_cast<int>(blocks), SH_NT, bytes, stream>>>(s, fwd);
   return cudaGetLastError();
 }
 
@@ -486,8 +496,8 @@ cudaError_t cost_volume_dref_mma(const void* g, const void* frame, void* out, in
 
 // g, g_shifted: (B, H, W, win*win) bf16, contiguous (any 2-byte
 // alignment). g_shifted[b,y,x,q] = g[b, y+qy(q), x+qx(q), q], 0 outside
-// the image; win in {3, 5, 7, 9}, dilation >= 1 (as long as a haloed input
-// row fits shared memory: SH_XT + 2*pad pixels, clipped to W). Launches on
+// the image; win in {3, 5, 7, 9}, dilation >= 1 (as long as one haloed
+// input row fits shared memory: SH_XT + 2*pad pixels, clipped to W). Launches on
 // `stream` and returns cudaGetLastError(). bf16 only.
 extern "C" int b2f_cost_volume_gshift(const void* g, void* g_shifted, int dtype, int B, int H,
                                       int W, int win, int dilation, int fwd, void* stream) {
@@ -503,6 +513,7 @@ extern "C" int b2f_cost_volume_gshift(const void* g, void* g_shifted, int dtype,
   s.tiles_x = (W + SH_XT - 1) / SH_XT;
   s.tiles_y = (H + SH_TS - 1) / SH_TS;
   s.in_cols = W < SH_XT + 2 * s.pad ? W : SH_XT + 2 * s.pad;
+  s.slots = SH_TS + 2 * s.pad;
   s.g_off = elem_offset(g);
   s.out_off = elem_offset(g_shifted);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -10,12 +10,12 @@ mode).
 (b) The kernels cannot be compiled or run on the CPU; this model repeats
     their index arithmetic step by step with the same constants (read
     from the `.cu`), so a fault in the plan shows here:
-    - the shift kernel: SH_TS x SH_XT output tiles zeroed in shared
-      memory, each input row the tile reaches staged once (haloed, clipped
-      to the image, from a `shift` < 8 elements before its first value, in
-      16-byte chunks) and moved to the output rows it belongs to, the rows
-      stored in 16-byte chunks aligned in device memory, ends element by
-      element;
+    - the shift kernel: SH_TS x SH_XT output tiles; the input rows a
+      tile can reach staged at once in slots (in batches when they do not
+      fit shared memory), haloed, clipped to the image, each from a
+      `shift` < 8 elements before its first value, in 16-byte chunks;
+      every output element from its slot or 0; the rows stored in 16-byte
+      chunks aligned in device memory, ends element by element;
     - the product kernel: TH x TW tiles on the dilation lattice, CG-channel
       groups; g rows staged from their `shift` (dil 1) or pixel by pixel;
       ROWS frame slots x KC columns in 16-byte chunks through the XOR
@@ -44,7 +44,8 @@ torch.set_num_threads(1)
 
 SOURCE = Path(__file__).resolve().parent.parent / "back2future_tpu_torch/csrc/cost_volume_bwd_mma.cu"
 TH, TW, CG, KC = 8, 16, 32, 32          # the product kernel's constants
-SH_TS, SH_XT = 8, 32                    # the shift kernel's
+SH_TS, SH_XT = 4, 16                    # the shift kernel's
+SMEM_MAX = 227 * 1024
 CCH, NT8, KS = CG // 8, CG // 8, KC // 16
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -72,6 +73,10 @@ def device_memory(t, off):
     return torch.cat([torch.full((off,), float("nan")), flat, torch.full((16,), float("nan"))])
 
 
+def align128(n):
+    return (n + 127) // 128 * 128
+
+
 def plan_gshift(g, win, dil, fwd, g_off=0, out_off=0):
     """The shift kernel, step by step: g' of g (B, H, W, win*win)."""
     b, h, w, q = g.shape
@@ -79,14 +84,19 @@ def plan_gshift(g, win, dil, fwd, g_off=0, out_off=0):
     pad = n * dil
     sign = 1 if fwd else -1
     out_row = (SH_XT * q + 14) // 8 * 8
+    row_bytes = align128((min(w, SH_XT + 2 * pad) * q + 14) // 8 * 16)
+    slots = SH_TS + 2 * pad
+    batch = min(slots, (SMEM_MAX - align128(SH_TS * out_row * 2)) // row_bytes)
+    assert batch >= 1
     mem = device_memory(g, g_off)
     out = torch.full((out_off + b * h * w * q,), float("nan"))
-    e = torch.arange(SH_XT * win)
-    x, ix = e % SH_XT, e // SH_XT
+    r = torch.arange(SH_XT * q)
+    x, qq = r // q, r % q
+    ix, iy = qq // win, qq % win
     for bi in range(b):
         for y0 in range(0, h, SH_TS):
             for x0 in range(0, w, SH_XT):
-                out_s = torch.zeros(SH_TS, out_row)
+                out_s = torch.full((SH_TS, out_row), float("nan"))
                 xs, xe = max(0, x0 - pad), min(w, x0 + SH_XT + pad)
 
                 def first_of(y, xx):
@@ -95,23 +105,32 @@ def plan_gshift(g, win, dil, fwd, g_off=0, out_off=0):
                 def out_shift(ty):
                     return (first_of(y0 + ty, x0) + out_off) % 8
 
-                for yy in range(y0 - pad, y0 + SH_TS + pad):
-                    if not 0 <= yy < h:
-                        continue
-                    first = first_of(yy, xs)
-                    shift = (first + g_off) % 8
-                    chunks = math.ceil((shift + (xe - xs) * q) / 8)
-                    in_s = mem[g_off + first - shift:g_off + first - shift + 8 * chunks]
-                    for iy in range(win):
-                        ty = yy - sign * (iy - n) * dil - y0
-                        if not (0 <= ty < SH_TS and y0 + ty < h):
+                for s0 in range(0, slots, batch):
+                    s1 = min(slots, s0 + batch)
+                    in_s = torch.full((s1 - s0, row_bytes // 2), float("nan"))
+                    for k in range(s0, s1):
+                        yy = y0 - pad + k
+                        if not 0 <= yy < h:
                             continue
-                        sx = x0 + x + sign * (ix - n) * dil
-                        ok = (x0 + x < w) & (sx >= 0) & (sx < w)
-                        qq = ix * win + iy
+                        first = first_of(yy, xs)
+                        shift = (first + g_off) % 8
+                        chunks = math.ceil((shift + (xe - xs) * q) / 8)
+                        assert 8 * chunks <= row_bytes // 2
+                        start = g_off + first - shift
+                        in_s[k - s0, :8 * chunks] = mem[start:start + 8 * chunks]
+                    sx = x0 + x + sign * (ix - n) * dil
+                    for ty in range(SH_TS):
+                        k = ty + pad + sign * (iy - n) * dil   # the source row's slot
+                        yy = y0 - pad + k
+                        mine = (k >= s0) & (k < s1) & (x0 + x < w)
+                        if y0 + ty >= h or not mine.any():
+                            continue
+                        ok = mine & (sx >= 0) & (sx < w) & (yy >= 0) & (yy < h)
+                        shift = (((bi * h + yy) * w + xs) * q + g_off) % 8
                         src = shift + (sx - xs) * q + qq
-                        assert not ok.any() or int(src[ok].max()) < in_s.numel()
-                        out_s[ty, out_shift(ty) + (x * q + qq)[ok]] = in_s[src[ok]]
+                        vals = torch.zeros(SH_XT * q)
+                        vals[ok] = in_s[(k - s0)[ok], src[ok]]
+                        out_s[ty, out_shift(ty) + r[mine]] = vals[mine]
                 nvalid = min(SH_XT, w - x0) * q
                 for ty in range(SH_TS):
                     if y0 + ty >= h:
@@ -350,3 +369,12 @@ def test_plan_more_shapes(case):
     want = ops.cost_volume_backward_reference(g, ref, frame, *args, SCALE)
     torch.testing.assert_close(got[0], want[0], **TOL)
     torch.testing.assert_close(got[1], want[1], **TOL)
+
+
+def test_plan_gshift_in_batches():
+    """A dilation whose input rows do not fit shared memory at once (win 9,
+    dil 12: 100 slots of 18,176 bytes, staged 12 at a time)."""
+    g = torch.from_numpy(rand((1, 9, 112, 81), 8))
+    for fwd in (True, False):
+        torch.testing.assert_close(plan_gshift(g, 9, 12, fwd, 5, 3),
+                                   ops.cost_volume_gshift_reference(g, 9, 12, fwd), rtol=0, atol=0)

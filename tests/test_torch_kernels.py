@@ -299,11 +299,12 @@ def test_cost_volume_bf16_backward_unaligned(cuda, offset):
 
 
 @pytest.mark.parametrize("win,dil,fwd", [(9, 1, True), (9, 1, False), (3, 1, True), (7, 2, False),
-                                         (5, 3, True), (3, 9, False)])
-@pytest.mark.parametrize("shape", [(2, 80, 160), (2, 5, 10), (1, 19, 70), (1, 1, 1)],
-                         ids=["l3", "l7", "ragged", "1x1"])
+                                         (5, 3, True), (3, 9, False), (9, 12, True)])
+@pytest.mark.parametrize("shape", [(2, 80, 160), (2, 5, 10), (1, 19, 70), (1, 9, 112), (1, 1, 1)],
+                         ids=["l3", "l7", "ragged", "batches", "1x1"])
 def test_cost_volume_gshift_matches_twin(cuda, shape, win, dil, fwd):
-    """The shift kernel moves values: exactly the twin's g'."""
+    """The shift kernel moves values: exactly the twin's g' (at dil 12 and
+    a width of 112 its input rows are staged in batches)."""
     g = rand(shape + (win * win,), 70, cuda, torch.bfloat16)
     got, launches = backward_launches(lambda: ops.cost_volume_gshift_cuda(g, win, dil, fwd))
     assert launches == {"b2f_cost_volume_gshift": 1}
