@@ -262,10 +262,11 @@ int entry(Which which, const void* g, const void* other, void* out, int dtype, i
 }  // namespace
 
 namespace b2f {
-// cost_volume_bwd_mma.cu: K2's form in bf16 on the tensor cores
-cudaError_t cost_volume_dref_mma(const void* g, const void* frame, void* out, int B, int H, int W,
-                                 int C, int win, int dil, int fwd, float scale,
-                                 cudaStream_t stream);
+// cost_volume_bwd_mma.cu: K2 (dframe 0) and K3 (dframe 1) in bf16 on the
+// tensor cores
+cudaError_t cost_volume_bwd_mma(const void* g, const void* other, void* out, int B, int H, int W,
+                                int C, int win, int dil, int fwd, float scale, int dframe,
+                                cudaStream_t stream);
 }  // namespace b2f
 
 namespace {
@@ -274,14 +275,16 @@ bool valid_shape(int B, int H, int W, int C, int dilation) {
   return B > 0 && H > 0 && W > 0 && C > 0 && dilation >= 1;
 }
 
-// bf16 on the tensor cores: d_ref from (g, frame, fwd); d_frame from the
-// shifted gradient g' and ref with the direction mirrored
-int entry_mma(Which which, const void* g, const void* other, void* out, int B, int H, int W,
-              int C, int win, int dilation, int fwd, float scale, void* stream) {
+// bf16 on the tensor cores, f32 on this file's CUDA-core kernels
+int entry_main(Which which, const void* g, const void* other, void* out, int dtype, int B, int H,
+               int W, int C, int win, int dilation, int fwd, float scale, void* stream) {
+  if (dtype != b2f::kBFloat16)
+    return dtype == b2f::kFloat32 ? entry(which, g, other, out, dtype, B, H, W, C, win,
+                                          dilation, fwd, scale, stream)
+                                  : cudaErrorInvalidValue;
   if (!valid_shape(B, H, W, C, dilation)) return cudaErrorInvalidValue;
-  return b2f::cost_volume_dref_mma(g, other, out, B, H, W, C, win, dilation,
-                                   which == kDRef ? fwd : !fwd, scale,
-                                   static_cast<cudaStream_t>(stream));
+  return b2f::cost_volume_bwd_mma(g, other, out, B, H, W, C, win, dilation, fwd, scale,
+                                  which == kDFrame, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -293,29 +296,20 @@ int entry_mma(Which which, const void* g, const void* other, void* out, int B, i
 extern "C" int b2f_cost_volume_dref(const void* g, const void* frame, void* d_ref,
                                     int dtype, int B, int H, int W, int C, int win,
                                     int dilation, int fwd, float scale, void* stream) {
-  if (dtype == b2f::kBFloat16)
-    return entry_mma(kDRef, g, frame, d_ref, B, H, W, C, win, dilation, fwd, scale, stream);
-  if (dtype != b2f::kFloat32) return cudaErrorInvalidValue;
-  return entry(kDRef, g, frame, d_ref, dtype, B, H, W, C, win, dilation, fwd, scale, stream);
+  return entry_main(kDRef, g, frame, d_ref, dtype, B, H, W, C, win, dilation, fwd, scale,
+                    stream);
 }
 
-// ref, d_frame: (B, H, W, C); as b2f_cost_volume_dref. The first argument
-// is the output gradient g for f32 (this file's CUDA-core kernel), and for
-// bf16 the shifted gradient g' that b2f_cost_volume_gshift writes from it
-// (cost_volume_bwd_mma.cu: d_frame = dref_form(g', ref, !fwd)).
-extern "C" int b2f_cost_volume_dframe(const void* g_or_shifted, const void* ref, void* d_frame,
+// g: (B, H, W, win*win); ref, d_frame: (B, H, W, C); as b2f_cost_volume_dref.
+extern "C" int b2f_cost_volume_dframe(const void* g, const void* ref, void* d_frame,
                                       int dtype, int B, int H, int W, int C, int win,
                                       int dilation, int fwd, float scale, void* stream) {
-  if (dtype == b2f::kBFloat16)
-    return entry_mma(kDFrame, g_or_shifted, ref, d_frame, B, H, W, C, win, dilation, fwd, scale,
-                     stream);
-  if (dtype != b2f::kFloat32) return cudaErrorInvalidValue;
-  return entry(kDFrame, g_or_shifted, ref, d_frame, dtype, B, H, W, C, win, dilation, fwd,
-               scale, stream);
+  return entry_main(kDFrame, g, ref, d_frame, dtype, B, H, W, C, win, dilation, fwd, scale,
+                    stream);
 }
 
-// The two transposes on this file's CUDA-core kernels in both types (g
-// itself for d_frame): the old bf16 design, kept to be timed beside the
+// The two transposes on this file's CUDA-core kernels in both types: the
+// old bf16 design, kept to be timed beside the
 // tensor-core kernels. Nothing on the serving or training path calls them.
 extern "C" int b2f_cost_volume_dref_cuda_cores(const void* g, const void* frame, void* d_ref,
                                                int dtype, int B, int H, int W, int C, int win,

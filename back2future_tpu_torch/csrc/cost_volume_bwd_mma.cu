@@ -14,16 +14,17 @@
 // One kernel body serves both. The op is bilinear, so d_frame is d_ref's
 // form on a shifted gradient with the direction mirrored: with
 // g'[b,y,x,q] = g[b, y+qy, x+qx, q] (0 outside the image), d_frame =
-// dref_form(g', ref, !fwd). `cost_volume_gshift_kernel` writes g' (one
-// read and one write of g), then `cost_volume_bwd_mma_kernel` runs.
+// dref_form(g', ref, !fwd). In that form the g' value that meets the ref
+// value at staged slot ty + u, column j is g at that very pixel; so the
+// d_frame instantiation stages g as the haloed tile, exactly as it
+// stages ref, and reads its A values there: no shifted copy of g is made.
 //
 // What bounds them on the H100: per hard train step (B=8, 320x640, levels
 // 3..7, a future and a past volume each) d_ref reads g (44.2 MB over the
 // levels) and the frame (23.2 MB) and writes d_ref (23.2 MB): 90.6 MB,
-// 0.027 ms at 3.35 TB/s; d_frame moves the same, and the shift reads and
-// writes g once more (88.4 MB, 0.026 ms). The 1.9 useful GFLOP of each
-// take 2 us at the dense bf16 rate, so both are bound by bytes once the
-// products run on the tensor cores; the CUDA-core kernels spend one
+// 0.027 ms at 3.35 TB/s; d_frame moves the same. The 1.9 useful GFLOP of
+// each take 2 us at the dense bf16 rate, so both are bound by bytes once
+// the products run on the tensor cores; the CUDA-core kernels spend one
 // shared-memory load per FMA, and K3 restages g's planes per 16 channels.
 //
 // Design of the product: for an output row y, a qy row u and 16 pixels on
@@ -38,19 +39,23 @@
 // columns at every window and dilation.
 // - Blocks: 256 threads, one (TH x TW lattice tile, CG-channel group) each;
 //   warp ty owns tile row ty: 16 pixels x CG = 32 channels, 16 f32 sums a
-//   lane. Four blocks per SM.
-// - Staging, once per block: the tile's g rows (TW * win^2 contiguous
-//   values a row at dil 1: 16-byte `cp.async` copies starting `shift` (< 8)
-//   elements before the row, so any alignment of g works; scalar loads at
-//   dil > 1, where the lattice pixels are not contiguous) and the TH +
-//   win - 1 frame rows x KC columns x CG channels the tile needs, as
+//   lane. Four blocks per SM for d_ref, two for d_frame.
+// - Staging, once per block: g (d_ref: the tile's TH rows of TW pixels,
+//   20.9 KB at win 9; d_frame: the haloed TH + win - 1 rows of TW + win - 1
+//   pixels, 62.5 KB), each row's pixels in the image one contiguous run at
+//   dil 1, moved by 16-byte `cp.async` copies aligned in device memory (so
+//   any alignment of g works), its two end chunks and everything outside
+//   the image by scalar loads and zero stores; element by element at dil >
+//   1, where the lattice pixels are not contiguous. And the TH + win - 1
+//   frame rows x KC columns x CG channels the tile needs, as
 //   cost_volume_fwd_mma.cu stages its frame slots: NHWC order, 16-byte
 //   chunks through the XOR swizzle, by `cp.async` when C % 8 == 0 and the
 //   frame is 16-byte aligned, else scalar loads. Columns past TW + win - 1
 //   only meet zeros of A and are zero-filled without a load.
 // - A: per (u, k16 step) a lane builds its fragment from the staged g row
-//   (its 8 elements by scalar shared loads, an element that can never be
-//   in the band skipped at compile time), once for all CG channels.
+//   (its 8 elements by scalar shared loads at offsets computed once, an
+//   element that can never be in the band skipped at compile time), once
+//   for all CG channels.
 // - B: `ldmatrix.x4.trans` of the staged [column][channel] rows, the
 //   k-major B of `mma`: two per (u, k16 step), four `mma`.
 // - Output: each lane's sums, times `scale`, leave as bf16 pairs (4-byte
@@ -77,23 +82,31 @@ constexpr int KS = KC / 16;      // k16 steps
 
 __host__ __device__ constexpr int align128(int n) { return (n + 127) / 128 * 128; }
 
-template <int WIN>
+// DFRAME: d_frame, whose A values sit at the frame slots' rows and columns
+// (the staged g is the haloed tile); else d_ref (the tile's own pixels)
+template <int WIN, bool DFRAME>
 struct Plan {
   static constexpr int Q = WIN * WIN;
   static constexpr int N = (WIN - 1) / 2;
-  static constexpr int ROWS = TH + WIN - 1;            // staged frame rows
+  static constexpr int ROWS = TH + WIN - 1;            // staged frame rows (slots)
   static constexpr int COLS = TW + WIN - 1;            // frame columns A can reach
-  // a staged g row: TW pixels of Q values from `shift` (< 8) elements in
-  static constexpr int G_ROW = (TW * Q + 7 + 7) / 8 * 8;
-  static constexpr int G_BYTES = align128(TH * G_ROW * 2);
+  // staged g: GR rows of GC lattice pixels, row s / column c at lattice
+  // offset s - GO / c - GO from the tile's first pixel, each row from a
+  // `shift` (< 8) elements in
+  static constexpr int GR = DFRAME ? ROWS : TH;
+  static constexpr int GC = DFRAME ? COLS : TW;
+  static constexpr int GO = DFRAME ? N : 0;
+  static constexpr int G_ROW = (GC * Q + 7 + 7) / 8 * 8;
+  static constexpr int G_BYTES = align128(GR * G_ROW * 2);
+  static constexpr int SHIFT_BYTES = align128(GR * 4);
   static constexpr int F_BYTES = ROWS * KC * CG * 2;
-  static constexpr int SMEM = G_BYTES + F_BYTES;
+  static constexpr int SMEM = G_BYTES + SHIFT_BYTES + F_BYTES;
   static_assert(COLS <= KC, "a pixel's band must fit the staged columns");
 };
 
 // What every block of one launch shares.
 struct Geometry {
-  const __nv_bfloat16* g;       // (B, H, W, Q): g for d_ref, g' for d_frame
+  const __nv_bfloat16* g;       // (B, H, W, Q): the output gradient
   const __nv_bfloat16* frame;   // (B, H, W, C): frame for d_ref, ref for d_frame
   __nv_bfloat16* out;           // (B, H, W, C)
   int H, W, C, dil;
@@ -121,38 +134,62 @@ struct Tile {
   }
 };
 
-// element offset of tile row ty's first g value
-__device__ __forceinline__ size_t g_first(const Geometry& g, const Tile& t, int y, int q) {
-  return ((static_cast<size_t>(t.b) * g.H + y) * g.W + t.x0) * q;
-}
-
-// the tile's g rows into shared memory; row ty from element `shift` of
-// its G_ROW (shift 0 at dil > 1)
-template <int WIN>
+// g's staged rows and their shifts. At dil 1 each row's pixels in the
+// image are one contiguous run, brought in by 16-byte `cp.async` chunks
+// aligned in device memory: the run's first value sits `shift` (its
+// element offset mod 8) plus its column's offset into the staged row.
+// The chunks at the run's two ends are gathered element by element, and
+// chunks outside it (rows and columns outside the image) are zeroed, so
+// that every staged value outside the run is 0. At dil > 1, element by
+// element, 0 outside the image.
+template <int WIN, bool DFRAME>
 __device__ __forceinline__ void stage_g(unsigned char* smem, const Geometry& g, const Tile& t) {
-  using P = Plan<WIN>;
+  using P = Plan<WIN, DFRAME>;
+  int* shifts = reinterpret_cast<int*>(smem + P::G_BYTES);
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(g.g);
   if (g.dil == 1) {
     constexpr int CH = P::G_ROW / 8;   // 16-byte chunks of a staged row
-    const int n = min(TW, g.W - t.x0) * P::Q;
     const uint32_t base = smem_addr(smem);
-    for (int e = threadIdx.x; e < TH * CH; e += NT) {
-      const int ty = e / CH, k = e % CH;
-      if (t.y0 + ty >= g.H) continue;
-      const size_t first = g_first(g, t, t.y0 + ty, P::Q);
-      const int shift = static_cast<int>((first + g.g_off) & 7);
-      if (8 * k >= shift + n) continue;
-      cp_async16(base + 2 * (ty * P::G_ROW + 8 * k), g.g + (first - shift + 8 * k), true);
+    // the image's columns of a row: [cs, ce)
+    const int cs = max(0, P::GO - t.x0), ce = min(P::GC, g.W - t.x0 + P::GO);
+    const int n = (ce - cs) * P::Q;   // values of a row's run
+    for (int e = threadIdx.x; e < P::GR * CH; e += NT) {
+      const int s = e / CH, m = e % CH;
+      const int y = t.y0 + s - P::GO;
+      const uint32_t dst = base + 2 * (s * P::G_ROW + 8 * m);
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (y < 0 || y >= g.H || n <= 0) {
+        if (m == 0) shifts[s] = 0;
+        st_shared16(dst, v);
+        continue;
+      }
+      // the run's first value in g, and its place in the staged row
+      const size_t first =
+          ((static_cast<size_t>(t.b) * g.H + y) * g.W + t.x0 - P::GO + cs) * P::Q;
+      const int shift = static_cast<int>((static_cast<unsigned>(first) + g.g_off -
+                                          static_cast<unsigned>(cs * P::Q)) & 7);
+      if (m == 0) shifts[s] = shift;
+      const int lo = 8 * m - shift - cs * P::Q;   // the run's value at the chunk's start
+      if (lo >= 0 && lo + 8 <= n) {
+        cp_async16(dst, g.g + (first + lo), true);
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (lo + k >= 0 && lo + k < n)
+          v[k / 2] |= static_cast<uint32_t>(src[first + lo + k]) << (16 * (k % 2));
+      st_shared16(dst, v);
     }
     return;
   }
   unsigned short* dst = reinterpret_cast<unsigned short*>(smem);
-  const unsigned short* src = reinterpret_cast<const unsigned short*>(g.g);
-  for (int e = threadIdx.x; e < TH * TW * P::Q; e += NT) {
-    const int ty = e / (TW * P::Q), r = e % (TW * P::Q);
-    const int y = t.y0 + ty * g.dil, x = t.x0 + r / P::Q * g.dil;
-    if (y >= g.H || x >= g.W) continue;
-    dst[ty * P::G_ROW + r] =
-        src[((static_cast<size_t>(t.b) * g.H + y) * g.W + x) * P::Q + r % P::Q];
+  for (int e = threadIdx.x; e < P::GR; e += NT) shifts[e] = 0;
+  for (int e = threadIdx.x; e < P::GR * P::GC * P::Q; e += NT) {
+    const int s = e / (P::GC * P::Q), r = e % (P::GC * P::Q);
+    const int y = t.y0 + (s - P::GO) * g.dil, x = t.x0 + (r / P::Q - P::GO) * g.dil;
+    const bool inside = y >= 0 && y < g.H && x >= 0 && x < g.W;
+    dst[s * P::G_ROW + r] =
+        inside ? src[((static_cast<size_t>(t.b) * g.H + y) * g.W + x) * P::Q + r % P::Q] : 0;
   }
 }
 
@@ -160,7 +197,7 @@ __device__ __forceinline__ void stage_g(unsigned char* smem, const Geometry& g, 
 // columns (j: x0 + (j - n)*dil), channels c0 .. c0 + CG
 template <int WIN>
 __device__ __forceinline__ void stage_frame(uint32_t f_s, const Geometry& g, const Tile& t) {
-  using P = Plan<WIN>;
+  using P = Plan<WIN, false>;
   const size_t image = static_cast<size_t>(t.b) * g.H * g.W;
   for (int e = threadIdx.x; e < P::ROWS * KC * CCH; e += NT) {
     const int p = e / CCH, c = t.c0 + (e % CCH) * 8;
@@ -174,11 +211,12 @@ __device__ __forceinline__ void stage_frame(uint32_t f_s, const Geometry& g, con
 
 // Where this lane's A fragment elements sit in a staged g row, for every
 // qy row: element (i, j) of k16 step ks (i = row, j = column of the step)
-// is pixel i's g value q = ix*WIN + iy at v = ks*16 + j - i, ix = v
-// (mirrored when fwd), 0 outside 0 <= v < WIN. Fragment register r holds
-// rows lane/4 + 8*(r&1), columns 2*(lane%4) + 8*(r>>1) and the next.
-// off = i*Q + ix*WIN (add iy for the qy row), or -1 outside the band.
-template <int WIN>
+// is the g value q = ix*WIN + iy at v = ks*16 + j - i, ix = v (mirrored
+// when fwd), 0 outside 0 <= v < WIN, of pixel i (d_ref) or of staged
+// column ks*16 + j (d_frame). Fragment register r holds rows lane/4 +
+// 8*(r&1), columns 2*(lane%4) + 8*(r>>1) and the next. off = column*Q +
+// ix*WIN (add iy for the qy row), or -1 outside the band.
+template <int WIN, bool DFRAME>
 __device__ __forceinline__ void a_offsets(int (&off)[KS][4][2], bool fwd) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -190,9 +228,10 @@ __device__ __forceinline__ void a_offsets(int (&off)[KS][4][2], bool fwd) {
         const int jmin = ks * 16 + 8 * (r >> 1) + h, imin = 8 * (r & 1);
         off[ks][r][h] = -1;
         if (jmin + 6 - imin < 0 || jmin - (imin + 7) >= WIN) continue;   // never in the band
-        const int i = (lane >> 2) + imin;
-        const int v = jmin + 2 * (lane & 3) - i;
-        if (v >= 0 && v < WIN) off[ks][r][h] = i * WIN * WIN + (fwd ? WIN - 1 - v : v) * WIN;
+        const int i = (lane >> 2) + imin, j = jmin + 2 * (lane & 3);
+        const int v = j - i;
+        if (v >= 0 && v < WIN)
+          off[ks][r][h] = (DFRAME ? j : i) * WIN * WIN + (fwd ? WIN - 1 - v : v) * WIN;
       }
 }
 
@@ -208,14 +247,19 @@ __device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const unsigned shor
   }
 }
 
-template <int WIN>
-__global__ void __launch_bounds__(NT, 4)
+// d_ref (DFRAME false): out = dref_form(g, frame, fwd). d_frame (DFRAME
+// true, `frame` = ref, `fwd` mirrored by the caller): the g value that
+// meets staged frame slot ty + u, column j is g at that very pixel, so g
+// is staged as the haloed tile, like the frame, and no shifted copy of it
+// is needed.
+template <int WIN, bool DFRAME>
+__global__ void __launch_bounds__(NT, DFRAME ? 2 : 4)
 cost_volume_bwd_mma_kernel(Geometry g, int fwd, float scale) {
-  using P = Plan<WIN>;
+  using P = Plan<WIN, DFRAME>;
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile t(blockIdx.x, g);
-  const uint32_t f_s = smem_addr(smem + P::G_BYTES);
-  stage_g<WIN>(smem, g, t);
+  const uint32_t f_s = smem_addr(smem + P::G_BYTES + P::SHIFT_BYTES);
+  stage_g<WIN, DFRAME>(smem, g, t);
   stage_frame<WIN>(f_s, g, t);
   cp_async_commit();
   cp_async_wait_all();
@@ -224,10 +268,8 @@ cost_volume_bwd_mma_kernel(Geometry g, int fwd, float scale) {
   const int ty = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int y = t.y0 + ty * g.dil;
   if (y >= g.H) return;   // warp-uniform; no barrier follows
-  const int shift =
-      g.dil == 1 ? static_cast<int>((g_first(g, t, y, P::Q) + g.g_off) & 7) : 0;
-  const unsigned short* grow =
-      reinterpret_cast<const unsigned short*>(smem) + ty * P::G_ROW + shift;
+  const unsigned short* g_s = reinterpret_cast<const unsigned short*>(smem);
+  const int* shifts = reinterpret_cast<const int*>(smem + P::G_BYTES);
 
   float acc[NT8][4];
 #pragma unroll
@@ -237,10 +279,12 @@ cost_volume_bwd_mma_kernel(Geometry g, int fwd, float scale) {
   // chunk lane/16 of the pair of n8 tiles
   const int jb = (lane & 7) + ((lane >> 3) & 1) * 8, cb = lane >> 4;
   int off[KS][4][2];
-  a_offsets<WIN>(off, fwd != 0);
+  a_offsets<WIN, DFRAME>(off, fwd != 0);
 #pragma unroll
   for (int u = 0; u < WIN; ++u) {
     const int iy = fwd ? WIN - 1 - u : u;
+    const int row = DFRAME ? ty + u : ty;   // staged g row
+    const unsigned short* grow = g_s + row * P::G_ROW + shifts[row];
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       uint32_t a[4];
@@ -277,140 +321,6 @@ cost_volume_bwd_mma_kernel(Geometry g, int fwd, float scale) {
   }
 }
 
-// The shift g'[b,y,x,q] = g[b, y+qy(q), x+qx(q), q], 0 outside the image:
-// one block per SH_TS x SH_XT output pixels. The input rows the tile can
-// reach, slots k = 0 .. SH_TS + 2*pad - 1 (row y0 - pad + k), haloed by
-// pad columns and clipped to the image, come into shared memory at once
-// by 16-byte `cp.async` copies, each row from a `shift` < 8 elements
-// before its first value (in batches of `batch` slots when a large
-// dilation makes them too many for shared memory). Then every element of
-// the output tile, laid out as device memory, takes its value from its
-// slot, or 0; the tile leaves by 16-byte stores, scalar at the rows'
-// unaligned ends. So a block waits on memory once (at dil 1): a first
-// design that walked the rows one at a time, double-buffered, was bound
-// by that loop's latency. Every value of g is read (SH_TS + 2*pad) /
-// SH_TS times (SH_XT + 2*pad) / SH_XT over, mostly from L2.
-constexpr int SH_TS = 4;         // output rows per block
-constexpr int SH_XT = 16;        // output columns per block
-constexpr int SH_NT = 256;       // threads per block
-constexpr int SMEM_MAX = 227 * 1024;
-
-template <int WIN>
-struct Shift {
-  static constexpr int Q = WIN * WIN;
-  static constexpr int N = (WIN - 1) / 2;
-  static constexpr int OUT_ROW = (SH_XT * Q + 7 + 7) / 8 * 8;   // halfwords
-  static constexpr int OUT_BYTES = align128(SH_TS * OUT_ROW * 2);
-  // a staged input row of `cols` pixels, from a `shift` < 8
-  __host__ __device__ static int in_bytes(int cols) { return align128((cols * Q + 7 + 7) / 8 * 16); }
-};
-
-struct ShiftGeometry {
-  const __nv_bfloat16* g;
-  __nv_bfloat16* out;
-  int H, W, dil, pad;
-  int tiles_x, tiles_y;
-  int in_cols;                  // staged input pixels a row at most
-  int slots, batch;             // input rows a tile can reach; staged at once
-  int g_off, out_off;           // element offsets from a 16-byte boundary
-};
-
-// is input row yy = y0 + ty + qy for some output row ty of the tile and
-// qy in {-n..n} * dil (block-uniform)
-template <int WIN>
-__device__ __forceinline__ bool row_needed(int yy, int y0, const ShiftGeometry& s) {
-  constexpr int N = (WIN - 1) / 2;
-#pragma unroll
-  for (int m = -N; m <= N; ++m) {
-    const int ty = yy - y0 + m * s.dil;
-    if (ty >= 0 && ty < SH_TS && y0 + ty < s.H) return true;
-  }
-  return false;
-}
-
-template <int WIN>
-__global__ void __launch_bounds__(SH_NT)
-cost_volume_gshift_kernel(ShiftGeometry s, int fwd) {
-  using P = Shift<WIN>;
-  constexpr int Q = P::Q, N = P::N;
-  extern __shared__ __align__(128) unsigned char smem[];
-  int t = blockIdx.x;
-  const int x0 = t % s.tiles_x * SH_XT;
-  t /= s.tiles_x;
-  const int y0 = t % s.tiles_y * SH_TS, b = t / s.tiles_y;
-  const int sign = fwd ? 1 : -1;
-  const int xs = max(0, x0 - s.pad), xe = min(s.W, x0 + SH_XT + s.pad);
-  const int in_bytes = P::in_bytes(s.in_cols), chunks = in_bytes / 16;
-  const uint32_t in0 = smem_addr(smem + P::OUT_BYTES);
-  unsigned short* out_s = reinterpret_cast<unsigned short*>(smem);
-  const unsigned short* in_s = reinterpret_cast<const unsigned short*>(smem + P::OUT_BYTES);
-
-  // element offset of pixel (y, x) of this image, and its residue mod 8
-  // (32-bit arithmetic keeps the residue)
-  const size_t image = static_cast<size_t>(b) * s.H;
-  auto first_of = [&](int y, int x) { return ((image + y) * s.W + x) * Q; };
-  auto residue = [&](int y, int x, int off) {
-    return static_cast<int>(((static_cast<unsigned>(b) * s.H + y) * s.W + x) * Q + off) & 7;
-  };
-  int out_shift[SH_TS];
-#pragma unroll
-  for (int ty = 0; ty < SH_TS; ++ty) out_shift[ty] = residue(y0 + ty, x0, s.out_off);
-
-  for (int s0 = 0; s0 < s.slots; s0 += s.batch) {
-    const int s1 = min(s.slots, s0 + s.batch);
-    for (int e = threadIdx.x; e < (s1 - s0) * chunks; e += SH_NT) {
-      const int k = e / chunks, c = e % chunks;
-      const int yy = y0 - s.pad + s0 + k;
-      if (yy < 0 || yy >= s.H || (s.dil > SH_TS && !row_needed<WIN>(yy, y0, s))) continue;
-      const int shift = residue(yy, xs, s.g_off);
-      if (8 * c >= shift + (xe - xs) * Q) continue;
-      cp_async16(in0 + k * in_bytes + 16 * c, s.g + (first_of(yy, xs) - shift + 8 * c), true);
-    }
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    // element r = x*Q + q of output row ty: from slot ty + pad + qy
-    for (int r = threadIdx.x; r < SH_XT * Q; r += SH_NT) {
-      const int x = r / Q, q = r % Q;
-      const int ix = q / WIN, iy = q % WIN;
-      if (x0 + x >= s.W) continue;
-      const int sx = x0 + x + sign * (ix - N) * s.dil;
-      const bool col_ok = sx >= 0 && sx < s.W;
-      const int dk = s.pad + sign * (iy - N) * s.dil;
-#pragma unroll
-      for (int ty = 0; ty < SH_TS; ++ty) {
-        const int k = ty + dk;
-        if (k < s0 || k >= s1 || y0 + ty >= s.H) continue;
-        const int yy = y0 - s.pad + k;
-        unsigned short v = 0;
-        if (col_ok && yy >= 0 && yy < s.H)
-          v = in_s[(k - s0) * (in_bytes / 2) + residue(yy, xs, s.g_off) + (sx - xs) * Q + q];
-        out_s[ty * P::OUT_ROW + out_shift[ty] + r] = v;
-      }
-    }
-    __syncthreads();
-  }
-
-  // the tile's rows to device memory: element k >= shift of staged row ty
-  // is element first - shift + k of `out`
-  constexpr int CHUNKS = P::OUT_ROW / 8;
-  const int n = min(SH_XT, s.W - x0) * Q;
-  for (int e = threadIdx.x; e < SH_TS * CHUNKS; e += SH_NT) {
-    const int ty = e / CHUNKS, lo = (e % CHUNKS) * 8;
-    if (y0 + ty >= s.H) continue;
-    const int shift = residue(y0 + ty, x0, s.out_off);
-    if (lo + 8 <= shift || lo >= shift + n) continue;
-    const unsigned short* src = out_s + ty * P::OUT_ROW;
-    unsigned short* dst =
-        reinterpret_cast<unsigned short*>(s.out) + (first_of(y0 + ty, x0) - shift);
-    if (lo >= shift && lo + 8 <= shift + n) {
-      *reinterpret_cast<uint4*>(dst + lo) = *reinterpret_cast<const uint4*>(src + lo);
-    } else {
-      for (int k = max(lo, shift); k < min(lo + 8, shift + n); ++k) dst[k] = src[k];
-    }
-  }
-}
-
 // sets a kernel's dynamic shared-memory limit to `bytes` once per device
 // and size (kept for the last ones asked for, so a launch costs no call)
 template <typename Kernel>
@@ -426,52 +336,46 @@ cudaError_t smem_limit(Kernel kernel, int bytes, int* last_device, int* last_byt
   return e;
 }
 
-template <int WIN>
+template <int WIN, bool DFRAME>
 cudaError_t launch_bwd(const Geometry& g, int B, int fwd, float scale, cudaStream_t stream) {
+  using P = Plan<WIN, DFRAME>;
   static int last_device = -1, last_bytes = 0;
   const long long blocks = static_cast<long long>(g.tiles_x) * g.tiles_y * B * g.groups;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const cudaError_t e =
-      smem_limit(cost_volume_bwd_mma_kernel<WIN>, Plan<WIN>::SMEM, &last_device, &last_bytes);
+  const cudaError_t e = smem_limit(cost_volume_bwd_mma_kernel<WIN, DFRAME>, P::SMEM,
+                                   &last_device, &last_bytes);
   if (e != cudaSuccess) return e;
-  cost_volume_bwd_mma_kernel<WIN><<<static_cast<int>(blocks), NT, Plan<WIN>::SMEM, stream>>>(
+  cost_volume_bwd_mma_kernel<WIN, DFRAME><<<static_cast<int>(blocks), NT, P::SMEM, stream>>>(
       g, fwd, scale);
   return cudaGetLastError();
 }
 
-template <int WIN>
-cudaError_t launch_shift(ShiftGeometry s, int B, int fwd, cudaStream_t stream) {
-  using P = Shift<WIN>;
-  static int last_device = -1, last_bytes = 0;
-  const long long blocks = static_cast<long long>(s.tiles_x) * s.tiles_y * B;
-  const int row_bytes = P::in_bytes(s.in_cols);
-  s.batch = (SMEM_MAX - P::OUT_BYTES) / row_bytes;
-  if (s.batch > s.slots) s.batch = s.slots;
-  if (blocks > INT_MAX || s.batch < 1) return cudaErrorInvalidValue;
-  const int bytes = P::OUT_BYTES + s.batch * row_bytes;
-  const cudaError_t e =
-      smem_limit(cost_volume_gshift_kernel<WIN>, bytes, &last_device, &last_bytes);
-  if (e != cudaSuccess) return e;
-  cost_volume_gshift_kernel<WIN><<<static_cast<int>(blocks), SH_NT, bytes, stream>>>(s, fwd);
-  return cudaGetLastError();
+template <bool DFRAME>
+cudaError_t launch_win(const Geometry& g, int B, int win, int fwd, float scale,
+                       cudaStream_t stream) {
+  switch (win) {
+    case 3: return launch_bwd<3, DFRAME>(g, B, fwd, scale, stream);
+    case 5: return launch_bwd<5, DFRAME>(g, B, fwd, scale, stream);
+    case 7: return launch_bwd<7, DFRAME>(g, B, fwd, scale, stream);
+    case 9: return launch_bwd<9, DFRAME>(g, B, fwd, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
-
-int elem_offset(const void* p) { return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 1) & 7); }
 
 }  // namespace
 
 namespace b2f {
 
-// g: (B, H, W, win*win), frame, out: (B, H, W, C), all bf16 and
-// contiguous; win in {3, 5, 7, 9}, dil >= 1. out = dref_form(g, frame):
-// d_ref from (g, frame, fwd), d_frame from (g', ref, !fwd). Called by
-// cost_volume_bwd.cu's entry points for bf16.
-cudaError_t cost_volume_dref_mma(const void* g, const void* frame, void* out, int B, int H, int W,
-                                 int C, int win, int dil, int fwd, float scale,
-                                 cudaStream_t stream) {
+// g: (B, H, W, win*win), other, out: (B, H, W, C), all bf16 and
+// contiguous; win in {3, 5, 7, 9}, dil >= 1. d_ref (dframe 0) from (g,
+// frame); d_frame (dframe 1) from (g, ref). Called by cost_volume_bwd.cu's
+// entry points for bf16.
+cudaError_t cost_volume_bwd_mma(const void* g, const void* other, void* out, int B, int H, int W,
+                                int C, int win, int dil, int fwd, float scale, int dframe,
+                                cudaStream_t stream) {
   Geometry geo;
   geo.g = static_cast<const __nv_bfloat16*>(g);
-  geo.frame = static_cast<const __nv_bfloat16*>(frame);
+  geo.frame = static_cast<const __nv_bfloat16*>(other);
   geo.out = static_cast<__nv_bfloat16*>(out);
   geo.H = H;
   geo.W = W;
@@ -480,68 +384,38 @@ cudaError_t cost_volume_dref_mma(const void* g, const void* frame, void* out, in
   geo.tiles_x = (W + TW * dil - 1) / (TW * dil) * dil;
   geo.tiles_y = (H + TH * dil - 1) / (TH * dil) * dil;
   geo.groups = (C + CG - 1) / CG;
-  geo.g_off = elem_offset(g);
-  geo.frame_vec = C % 8 == 0 && reinterpret_cast<uintptr_t>(frame) % 16 == 0;
+  geo.g_off = static_cast<int>((reinterpret_cast<uintptr_t>(g) >> 1) & 7);
+  geo.frame_vec = C % 8 == 0 && reinterpret_cast<uintptr_t>(other) % 16 == 0;
   geo.pairs = C % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
-  switch (win) {
-    case 3: return launch_bwd<3>(geo, B, fwd, scale, stream);
-    case 5: return launch_bwd<5>(geo, B, fwd, scale, stream);
-    case 7: return launch_bwd<7>(geo, B, fwd, scale, stream);
-    case 9: return launch_bwd<9>(geo, B, fwd, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  // d_frame is d_ref's form with the direction mirrored
+  return dframe ? launch_win<true>(geo, B, win, !fwd, scale, stream)
+                : launch_win<false>(geo, B, win, fwd, scale, stream);
 }
 
 }  // namespace b2f
 
-// g, g_shifted: (B, H, W, win*win) bf16, contiguous (any 2-byte
-// alignment). g_shifted[b,y,x,q] = g[b, y+qy(q), x+qx(q), q], 0 outside
-// the image; win in {3, 5, 7, 9}, dilation >= 1 (as long as one haloed
-// input row fits shared memory: SH_XT + 2*pad pixels, clipped to W). Launches on
-// `stream` and returns cudaGetLastError(). bf16 only.
-extern "C" int b2f_cost_volume_gshift(const void* g, void* g_shifted, int dtype, int B, int H,
-                                      int W, int win, int dilation, int fwd, void* stream) {
-  if (dtype != b2f::kBFloat16 || B <= 0 || H <= 0 || W <= 0 || dilation < 1)
-    return cudaErrorInvalidValue;
-  ShiftGeometry s;
-  s.g = static_cast<const __nv_bfloat16*>(g);
-  s.out = static_cast<__nv_bfloat16*>(g_shifted);
-  s.H = H;
-  s.W = W;
-  s.dil = dilation;
-  s.pad = (win - 1) / 2 * dilation;
-  s.tiles_x = (W + SH_XT - 1) / SH_XT;
-  s.tiles_y = (H + SH_TS - 1) / SH_TS;
-  s.in_cols = W < SH_XT + 2 * s.pad ? W : SH_XT + 2 * s.pad;
-  s.slots = SH_TS + 2 * s.pad;
-  s.g_off = elem_offset(g);
-  s.out_off = elem_offset(g_shifted);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (win) {
-    case 3: return launch_shift<3>(s, B, fwd, st);
-    case 5: return launch_shift<5>(s, B, fwd, st);
-    case 7: return launch_shift<7>(s, B, fwd, st);
-    case 9: return launch_shift<9>(s, B, fwd, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// What the compiler and the runtime made of the bf16 backward kernel at
-// the main path's win 9: registers per thread, local memory per thread
-// (bytes, spills), dynamic shared memory per block (bytes), resident
-// blocks per SM. Launches nothing.
-extern "C" int b2f_cost_volume_bwd_bf16_info(int* regs, int* local_bytes, int* smem,
-                                             int* blocks_per_sm) {
+// What the compiler and the runtime made of the bf16 backward kernels at
+// the main path's win 9 (dframe 0: d_ref, 1: d_frame): registers per
+// thread, local memory per thread (bytes, spills), dynamic shared memory
+// per block (bytes), resident blocks per SM. Launches nothing.
+template <bool DFRAME>
+static int bwd_info(int* regs, int* local_bytes, int* smem, int* blocks_per_sm) {
   static int last_device = -1, last_bytes = 0;
-  const int bytes = Plan<9>::SMEM;
-  cudaError_t e = smem_limit(cost_volume_bwd_mma_kernel<9>, bytes, &last_device, &last_bytes);
+  const auto kernel = cost_volume_bwd_mma_kernel<9, DFRAME>;
+  const int bytes = Plan<9, DFRAME>::SMEM;
+  cudaError_t e = smem_limit(kernel, bytes, &last_device, &last_bytes);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, cost_volume_bwd_mma_kernel<9>);
+  e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return e;
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *smem = bytes;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
-                                                       cost_volume_bwd_mma_kernel<9>, NT, bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, NT, bytes);
+}
+
+extern "C" int b2f_cost_volume_bwd_bf16_info(int dframe, int* regs, int* local_bytes, int* smem,
+                                             int* blocks_per_sm) {
+  return dframe ? bwd_info<true>(regs, local_bytes, smem, blocks_per_sm)
+                : bwd_info<false>(regs, local_bytes, smem, blocks_per_sm);
 }

@@ -10,7 +10,7 @@ through the twins, to compare the two on the card. `*_backward_cuda` and
 from .cost_volume import (
     cost_volume, cost_volume_backward_cuda, cost_volume_backward_cuda_cores,
     cost_volume_backward_reference, cost_volume_bwd_bf16_info, cost_volume_cuda_cores,
-    cost_volume_fwd_bf16_info, cost_volume_gshift_cuda, cost_volume_gshift_reference,
+    cost_volume_fwd_bf16_info, cost_volume_gshift_reference,
     cost_volume_multi, cost_volume_reference, dref_form,
 )
 from .pyramid import (
@@ -43,7 +43,6 @@ __all__ = [
     "cost_volume_backward_reference",
     "cost_volume_backward_cuda",
     "cost_volume_backward_cuda_cores",
-    "cost_volume_gshift_cuda",
     "cost_volume_gshift_reference",
     "dref_form",
     "cost_volume_bwd_bf16_info",

@@ -17,8 +17,8 @@ the tensor cores, csrc/cost_volume_fwd_mma.cu; f32 on the CUDA cores,
 csrc/cost_volume_fwd.cu) and its backward the kernels of `_dref_kernel`
 and `_dframe_kernel`, each launched only for an input that needs its
 gradient: bf16 on the tensor cores (csrc/cost_volume_bwd_mma.cu, one
-kernel body for both, d_frame after the shift kernel writes g', see
-`cost_volume_gshift_reference`), f32 on the CUDA cores
+kernel body for both: d_frame is d_ref's form on the shifted gradient,
+see `cost_volume_gshift_reference`), f32 on the CUDA cores
 (csrc/cost_volume_bwd.cu); on CPU tensors the plain twins
 `cost_volume_reference` and `cost_volume_backward_reference` run
 instead. The op is bilinear, so the
@@ -44,11 +44,7 @@ _FWD = Kernel("b2f_cost_volume_fwd", _ARGTYPES)
 # cores), for timing beside `_FWD`; nothing on the serving or train path
 _FWD_CUDA_CORES = Kernel("b2f_cost_volume_fwd_cuda_cores", _ARGTYPES)
 _DREF = Kernel("b2f_cost_volume_dref", _ARGTYPES)
-# bf16: takes the shifted gradient g' that `_GSHIFT` writes; f32: g
 _DFRAME = Kernel("b2f_cost_volume_dframe", _ARGTYPES)
-# (g, g_shifted, dtype, B, H, W, win, dilation, fwd, stream)
-_GSHIFT = Kernel("b2f_cost_volume_gshift",
-                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 # the CUDA-core backward in both dtypes (the bf16 design before the tensor
 # cores), for timing beside `_DREF` / `_DFRAME`; nothing on any path
 _DREF_CUDA_CORES = Kernel("b2f_cost_volume_dref_cuda_cores", _ARGTYPES)
@@ -97,9 +93,10 @@ def dref_form(g: torch.Tensor, frame: torch.Tensor, win: int, dilation: int = 1,
 
 def cost_volume_gshift_reference(g: torch.Tensor, win: int, dilation: int = 1,
                                  fwd: bool = True) -> torch.Tensor:
-    """Plain torch twin of the shift kernel: g'[y,x,q] = g[y+qy, x+qx, q],
-    0 where (y+qy, x+qx) is outside the image. Since the op is bilinear,
-    d_frame = dref_form(g', ref, win, dilation, not fwd)."""
+    """The shifted output gradient g'[y,x,q] = g[y+qy, x+qx, q], 0 where
+    (y+qy, x+qx) is outside the image. Since the op is bilinear, d_frame =
+    dref_form(g', ref, win, dilation, not fwd): the form the bf16 d_frame
+    kernel computes, reading g' in place from its haloed tile of g."""
     b, h, w, _ = g.shape
     pad = (win - 1) // 2 * dilation
     g_p = F.pad(g, (0, 0, pad, pad, pad, pad))
@@ -155,9 +152,10 @@ def cost_volume_cuda_cores(ref: torch.Tensor, frame: torch.Tensor, win: int,
     return _launch(_FWD_CUDA_CORES, ref, frame, win * win, win, dilation, fwd, scale)
 
 
-def _bf16_info(symbol: str) -> dict:
+def _bf16_info(symbol: str, *first: int) -> dict:
     vals = [ctypes.c_int() for _ in range(4)]
-    query(symbol, [ctypes.POINTER(ctypes.c_int)] * 4, *map(ctypes.byref, vals))
+    query(symbol, [ctypes.c_int] * len(first) + [ctypes.POINTER(ctypes.c_int)] * 4, *first,
+          *map(ctypes.byref, vals))
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
                     (v.value for v in vals)))
 
@@ -170,10 +168,10 @@ def cost_volume_fwd_bf16_info() -> dict:
     return _bf16_info("b2f_cost_volume_fwd_bf16_info")
 
 
-def cost_volume_bwd_bf16_info() -> dict:
-    """The same for the bf16 backward kernel of K2 and K3
-    (csrc/cost_volume_bwd_mma.cu) at win 9."""
-    return _bf16_info("b2f_cost_volume_bwd_bf16_info")
+def cost_volume_bwd_bf16_info(dframe: bool = False) -> dict:
+    """The same for the bf16 backward kernel (csrc/cost_volume_bwd_mma.cu)
+    at win 9: its d_ref instantiation (K2), or its d_frame one (K3)."""
+    return _bf16_info("b2f_cost_volume_bwd_bf16_info", int(dframe))
 
 
 def _check_backward_inputs(g, ref, frame, win):
@@ -185,38 +183,17 @@ def _check_backward_inputs(g, ref, frame, win):
         check_kernel_input(f"cost_volume {name}", t, shape, ref.dtype)
 
 
-def cost_volume_gshift_cuda(g: torch.Tensor, win: int, dilation: int = 1,
-                            fwd: bool = True) -> torch.Tensor:
-    """The shift kernel on a bf16 CUDA tensor: g' (see
-    `cost_volume_gshift_reference`) in a fresh tensor."""
-    if g.dtype != torch.bfloat16:
-        raise TypeError(f"cost_volume gshift: the kernel takes bf16, got {g.dtype}")
-    bsz, h, w, q = g.shape
-    check_kernel_input("cost_volume grad", g, (bsz, h, w, win * win), torch.bfloat16)
-    out = torch.empty_like(g)
-    if out.numel():
-        with torch.cuda.device(g.device):
-            _GSHIFT(ptr(g), ptr(out), DTYPE_CODES[g.dtype], bsz, h, w, win, dilation,
-                    int(fwd), stream_ptr(g.device))
-    return out
-
-
 def cost_volume_backward_cuda(g: torch.Tensor, ref: torch.Tensor, frame: torch.Tensor,
                               win: int, dilation: int = 1, fwd: bool = True,
                               scale: float = 1.0, need: Tuple[bool, bool] = (True, True)
                               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The backward kernels on CUDA tensors: (d_ref by K2, d_frame by K3),
     each None where `need` says so; `g` in the input dtype. bf16 runs the
-    tensor-core kernel, d_frame on the shifted gradient; f32 the CUDA-core
-    kernels."""
+    tensor-core kernels, f32 the CUDA-core ones."""
     _check_backward_inputs(g, ref, frame, win)
     c = ref.shape[-1]
     d_ref = _launch(_DREF, g, frame, c, win, dilation, fwd, scale) if need[0] else None
-    d_frame = None
-    if need[1]:
-        g_frame = cost_volume_gshift_cuda(g, win, dilation, fwd) \
-            if ref.dtype == torch.bfloat16 else g
-        d_frame = _launch(_DFRAME, g_frame, ref, c, win, dilation, fwd, scale)
+    d_frame = _launch(_DFRAME, g, ref, c, win, dilation, fwd, scale) if need[1] else None
     return d_ref, d_frame
 
 

@@ -6,7 +6,7 @@ Phases, one line each (any failure raises and exits non-zero):
   1. environment: the card (nvidia-smi name and power limit), TF32 flags
   2. build: nvcc of back2future_tpu_torch/csrc into back2future_tpu_torch/_build
      (one nvcc per source, in parallel); the bf16 tensor-core kernels of
-     K1 (win 9), K2/K3 (win 9) and K6: registers, spills, shared memory,
+     K1, K2 and K3 (win 9) and K6: registers, spills, shared memory,
      resident blocks per SM, and the HMMA / LDGSTS / LDSM instructions of
      their SASS (cuobjdump)
   3. kernels against their plain torch twins, in bf16 and f32, with the
@@ -22,8 +22,7 @@ Phases, one line each (any failure raises and exits non-zero):
      train (24 frames) stacked shapes. The bf16 checks are timed also by
      the profiler's device time per call (the summary's numbers), and the
      old CUDA-core kernels of K1, K2 and K3 beside their tensor-core
-     kernels at each level (K3's time includes the shift kernel's, whose
-     share is logged)
+     kernels at each level
   4. serving path, stem off: init(None, device="cuda") with the flagship
      config (frames 3, levels 7, win 9, skip 2, bf16, random weights from
      seed 0), compute_flow / compute_flow_batch (B=16, three times) /
@@ -41,8 +40,7 @@ Phases, one line each (any failure raises and exits non-zero):
      tools/train_bench.py (optimize pme, OBCC + L1, bf16, B=8, 320x640,
      weights from seed 0, numpy-seeded images on the device),
      create_train_state + make_train_step, 6 steps: finite loss and
-     components, exact launch counts per step (10 / 18 / 10 / 10 + 10
-     shifts / 18 / 8),
+     components, exact launch counts per step (10 / 18 / 10 / 10 / 18 / 8),
      step ms (CUDA events, median of steps 2-6), triplets/s trained, peak
      device memory; then one f32 step with the kernels and one under
      plain_ops() from the same initial state: loss and every parameter
@@ -55,7 +53,7 @@ Phases, one line each (any failure raises and exits non-zero):
      turned into a soft one by convert_net_hard_to_soft (OBGCC,
      past_flow, const_vel 1, second-order smoothness), 6 bf16 steps with
      exact launch counts for all eight kernels (1 K5 + 1 K6 + 10 / 18 /
-     10 / 10 + 10 / 18 / 8), then the f32 kernels-vs-plain_ops() step
+     10 / 10 / 18 / 8), then the f32 kernels-vs-plain_ops() step
   8. one JSON line of the kernels (forward kernels: launches of the
      serving path and ms per serving forward; backward kernels: launches
      of the hard train path and ms per train step; K5/K6: launches of the
@@ -144,7 +142,7 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SERVING_PER_FORWARD = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
                        "b2f_warp_bilinear_fwd": 8,
                        "b2f_cost_volume_dref": 0, "b2f_cost_volume_dframe": 0,
-                       "b2f_cost_volume_gshift": 0, "b2f_cost_volume_dref_cuda_cores": 0,
+                       "b2f_cost_volume_dref_cuda_cores": 0,
                        "b2f_cost_volume_dframe_cuda_cores": 0,
                        "b2f_warp_bilinear_dflow": 0, "b2f_warp_bilinear_dimages": 0,
                        "b2f_stem_unit_a": 0, "b2f_stem_unit_b": 0}
@@ -152,7 +150,7 @@ SERVING_STEM_PER_FORWARD = dict(SERVING_PER_FORWARD, b2f_stem_unit_a=1, b2f_stem
 TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
                   "b2f_warp_bilinear_fwd": 18,
                   "b2f_cost_volume_dref": 10, "b2f_cost_volume_dframe": 10,
-                  "b2f_cost_volume_gshift": 10, "b2f_cost_volume_dref_cuda_cores": 0,
+                  "b2f_cost_volume_dref_cuda_cores": 0,
                   "b2f_cost_volume_dframe_cuda_cores": 0,
                   "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8,
                   "b2f_stem_unit_a": 0, "b2f_stem_unit_b": 0}
@@ -296,8 +294,10 @@ def phase_mma_builds() -> None:
 
     mma_build_report("K1 bf16 (cost_volume_fwd_mma_kernel<9, true>, win 9 dil 1)",
                      cost_volume_fwd_bf16_info(), "cost_volume_fwd_mma_kernelILi9ELb1E")
-    mma_build_report("K2/K3 bf16 (cost_volume_bwd_mma_kernel<9>, win 9, any dil)",
-                     cost_volume_bwd_bf16_info(), "cost_volume_bwd_mma_kernelILi9E")
+    for k, dframe in (("K2", False), ("K3", True)):
+        mma_build_report(f"{k} bf16 (cost_volume_bwd_mma_kernel<9, {str(dframe).lower()}>, "
+                         "win 9, any dil)", cost_volume_bwd_bf16_info(dframe),
+                         f"cost_volume_bwd_mma_kernelILi9ELb{int(dframe)}E")
     mma_build_report("K6 bf16 (stem_unit_b_mma_kernel)", stem_unit_b_bf16_info(),
                      "stem_unit_b_mma")
 
@@ -330,11 +330,10 @@ def compare_k1_cuda_cores(label, ref, frame, fwd, c, new, twin, summary) -> None
 
 def compare_bwd_cuda_cores(label, key, new, old, twin, summary) -> None:
     """K2's or K3's old CUDA-core kernel (`old`) beside its tensor-core
-    path (`new`: for K3 the shift, then the product kernel) on the same
-    bf16 inputs: the old one against the twin within 1e-2 of the largest
-    value, and both timed in one profiler window (one call of each, in
-    turn, 20 times), told apart by kernel name; the shift's share of K3
-    logged."""
+    kernel (`new`) on the same bf16 inputs: the old one against the twin
+    within 1e-2 of the largest value, and both timed in one profiler
+    window (one call of each, in turn, 20 times), told apart by kernel
+    name."""
     got, want = old(), twin()
     err = (got.float() - want.float()).abs().max().item()
     tol = KERNEL_TOL[torch.bfloat16]
@@ -342,17 +341,14 @@ def compare_bwd_cuda_cores(label, key, new, old, twin, summary) -> None:
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=atol):
         raise AssertionError(f"{label}, CUDA cores: outside tolerance ({err})")
     times = device_ms(lambda: (new(), old()), 20)
-    new_ms = sum(v for n, v in times.items() if "mma" in n or "gshift" in n)
-    shift_ms = sum(v for n, v in times.items() if "gshift" in n)
-    old_ms = sum(times.values()) - new_ms
+    new_ms = sum(v for n, v in times.items() if "mma" in n)
+    old_ms = sum(v for n, v in times.items() if "mma" not in n)
     if not new_ms or not old_ms:
         raise AssertionError(f"{label}: the profiler did not see both kernels: {times}")
-    shift = f" (of it the shift {shift_ms:.4f} ms)" if shift_ms else ""
     log("kernels", f"{label}: device time per call (profiler, in turns) tensor cores "
-                   f"{new_ms:.4f} ms{shift}, CUDA cores {old_ms:.4f} ms ({old_ms / new_ms:.2f}x); "
+                   f"{new_ms:.4f} ms, CUDA cores {old_ms:.4f} ms ({old_ms / new_ms:.2f}x); "
                    f"CUDA cores max_abs_err {err:.3e}")
     summary[key]["cuda_cores_ms"] += old_ms
-    summary[key]["shift_ms"] += shift_ms
 
 
 def phase_kernels(dev) -> dict:
@@ -377,7 +373,6 @@ def phase_kernels(dev) -> dict:
                          "warp_dimages", "warp_dflow", "stem_unit_a", "stem_unit_b")}
     for k in ("cost_volume", "cost_volume_dref", "cost_volume_dframe"):
         summary[k]["cuda_cores_ms"] = 0.0
-        summary[k]["shift_ms"] = 0.0
 
     def check(kernel, label, dtype, kern, twin, per_forward, work, library=None,
               of_largest=False):
@@ -551,10 +546,9 @@ def phase_kernels(dev) -> dict:
                   "stem_unit_a", "stem_unit_b")))
     log("kernels", "per hard train step (bf16, profiler device time, timed in turns with the "
                    "CUDA-core kernels): " + "; ".join(
-        f"{k} tensor cores {summary[k]['ms']:.3f} ms (in the turns "
-        f"{summary[k]['cuda_cores_ms']:.3f} ms for the CUDA-core kernel), bound "
-        f"{summary[k]['bound_ms']:.4f} ms" for k in ("cost_volume_dref", "cost_volume_dframe"))
-        + f"; the shift's share of d_frame {summary['cost_volume_dframe']['shift_ms']:.3f} ms")
+        f"{k} tensor cores {summary[k]['ms']:.3f} ms (the CUDA-core kernel "
+        f"{summary[k]['cuda_cores_ms']:.3f} ms in the turns), bound "
+        f"{summary[k]['bound_ms']:.4f} ms" for k in ("cost_volume_dref", "cost_volume_dframe")))
     return summary
 
 
@@ -731,7 +725,7 @@ def phase_serving_k1(card: str, main: dict) -> None:
 @contextlib.contextmanager
 def bwd_cuda_cores():
     """Inside the block, the cost volume's backward runs the CUDA-core
-    kernels (b2f_cost_volume_d*_cuda_cores, no shift), the bf16 design
+    kernels (b2f_cost_volume_d*_cuda_cores), the bf16 design
     before the tensor cores; restored after. For the A/B only."""
     import importlib
 
@@ -1183,9 +1177,7 @@ def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
     return launches
 
 
-# (name, summary key, source, replaces, path whose launches count); K3's
-# launches are its shift's and its product's
-KERNEL_ENTRIES = [
+KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches count)
     ("cost_volume_fwd", "cost_volume", "cost_volume_fwd_mma.cu",
      "back2future_tpu/ops/cost_volume_pallas.py:91", "serving"),
     ("warp_bilinear_fwd", "warp", "warp_fwd.cu", "back2future_tpu/ops/warp.py:96", "serving"),
@@ -1236,10 +1228,7 @@ def main() -> None:
         s = summary[key]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"back2future_tpu_torch/csrc/{source}", "replaces": replaces,
-                        "launches": paths[path][f"b2f_{name}"] + (
-                            paths[path]["b2f_cost_volume_gshift"]
-                            if name == "cost_volume_dframe" else 0),
-                        "max_abs_err": s["err"],
+                        "launches": paths[path][f"b2f_{name}"], "max_abs_err": s["err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
                         "library_ms": s["library_ms"]})

@@ -7,22 +7,19 @@ mode).
     d_frame = dref_form(g', ref, not fwd) with g'[y,x,q] = g[y+qy, x+qx, q]
     (`cost_volume_gshift_reference`), for every window, dilation and
     direction.
-(b) The kernels cannot be compiled or run on the CPU; this model repeats
-    their index arithmetic step by step with the same constants (read
-    from the `.cu`), so a fault in the plan shows here:
-    - the shift kernel: SH_TS x SH_XT output tiles; the input rows a
-      tile can reach staged at once in slots (in batches when they do not
-      fit shared memory), haloed, clipped to the image, each from a
-      `shift` < 8 elements before its first value, in 16-byte chunks;
-      every output element from its slot or 0; the rows stored in 16-byte
-      chunks aligned in device memory, ends element by element;
-    - the product kernel: TH x TW tiles on the dilation lattice, CG-channel
-      groups; g rows staged from their `shift` (dil 1) or pixel by pixel;
-      ROWS frame slots x KC columns in 16-byte chunks through the XOR
-      swizzle, columns past TW + win - 1 zero-filled; per lane the banded
-      A fragment, the B fragments of `ldmatrix.x4.trans` and the `mma`
-      m16n8k16 sums, rebuilt from the fragments by PTX's layouts; the sums
-      stored in pairs per lane.
+(b) The kernel cannot be compiled or run on the CPU; this model repeats
+    its index arithmetic step by step with the same constants (read from
+    the `.cu`), so a fault in the plan shows here: TH x TW tiles on the
+    dilation lattice, CG-channel groups; g staged as the tile's rows
+    (d_ref) or as its haloed tile (d_frame, which so reads the shifted
+    gradient in place), each row's run in the image in 16-byte chunks
+    aligned in device memory from its `shift`, the run's end chunks and
+    everything outside the image element by element or zero, pixel by
+    pixel at dil > 1; ROWS frame slots x KC columns in 16-byte chunks
+    through the XOR swizzle, columns past TW + win - 1 zero-filled; per
+    lane the banded A fragment, the B fragments of `ldmatrix.x4.trans` and
+    the `mma` m16n8k16 sums, rebuilt from the fragments by PTX's layouts;
+    the sums stored in pairs per lane.
 Tolerance: f32 1e-5 (channel sums in another order).
 """
 
@@ -44,8 +41,6 @@ torch.set_num_threads(1)
 
 SOURCE = Path(__file__).resolve().parent.parent / "back2future_tpu_torch/csrc/cost_volume_bwd_mma.cu"
 TH, TW, CG, KC = 8, 16, 32, 32          # the product kernel's constants
-SH_TS, SH_XT = 4, 16                    # the shift kernel's
-SMEM_MAX = 227 * 1024
 CCH, NT8, KS = CG // 8, CG // 8, KC // 16
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -57,7 +52,7 @@ SCALE = 0.25
 
 def test_plan_constants_are_the_kernels():
     src = SOURCE.read_text()
-    for name, value in dict(TH=TH, TW=TW, CG=CG, KC=KC, SH_TS=SH_TS, SH_XT=SH_XT).items():
+    for name, value in dict(TH=TH, TW=TW, CG=CG, KC=KC).items():
         assert re.search(rf"constexpr int {name} = {value};", src), name
 
 
@@ -71,82 +66,6 @@ def device_memory(t, off):
     which a copy may read but no result may use."""
     flat = t.flatten()
     return torch.cat([torch.full((off,), float("nan")), flat, torch.full((16,), float("nan"))])
-
-
-def align128(n):
-    return (n + 127) // 128 * 128
-
-
-def plan_gshift(g, win, dil, fwd, g_off=0, out_off=0):
-    """The shift kernel, step by step: g' of g (B, H, W, win*win)."""
-    b, h, w, q = g.shape
-    n = (win - 1) // 2
-    pad = n * dil
-    sign = 1 if fwd else -1
-    out_row = (SH_XT * q + 14) // 8 * 8
-    row_bytes = align128((min(w, SH_XT + 2 * pad) * q + 14) // 8 * 16)
-    slots = SH_TS + 2 * pad
-    batch = min(slots, (SMEM_MAX - align128(SH_TS * out_row * 2)) // row_bytes)
-    assert batch >= 1
-    mem = device_memory(g, g_off)
-    out = torch.full((out_off + b * h * w * q,), float("nan"))
-    r = torch.arange(SH_XT * q)
-    x, qq = r // q, r % q
-    ix, iy = qq // win, qq % win
-    for bi in range(b):
-        for y0 in range(0, h, SH_TS):
-            for x0 in range(0, w, SH_XT):
-                out_s = torch.full((SH_TS, out_row), float("nan"))
-                xs, xe = max(0, x0 - pad), min(w, x0 + SH_XT + pad)
-
-                def first_of(y, xx):
-                    return ((bi * h + y) * w + xx) * q
-
-                def out_shift(ty):
-                    return (first_of(y0 + ty, x0) + out_off) % 8
-
-                for s0 in range(0, slots, batch):
-                    s1 = min(slots, s0 + batch)
-                    in_s = torch.full((s1 - s0, row_bytes // 2), float("nan"))
-                    for k in range(s0, s1):
-                        yy = y0 - pad + k
-                        if not 0 <= yy < h:
-                            continue
-                        first = first_of(yy, xs)
-                        shift = (first + g_off) % 8
-                        chunks = math.ceil((shift + (xe - xs) * q) / 8)
-                        assert 8 * chunks <= row_bytes // 2
-                        start = g_off + first - shift
-                        in_s[k - s0, :8 * chunks] = mem[start:start + 8 * chunks]
-                    sx = x0 + x + sign * (ix - n) * dil
-                    for ty in range(SH_TS):
-                        k = ty + pad + sign * (iy - n) * dil   # the source row's slot
-                        yy = y0 - pad + k
-                        mine = (k >= s0) & (k < s1) & (x0 + x < w)
-                        if y0 + ty >= h or not mine.any():
-                            continue
-                        ok = mine & (sx >= 0) & (sx < w) & (yy >= 0) & (yy < h)
-                        shift = (((bi * h + yy) * w + xs) * q + g_off) % 8
-                        src = shift + (sx - xs) * q + qq
-                        vals = torch.zeros(SH_XT * q)
-                        vals[ok] = in_s[(k - s0)[ok], src[ok]]
-                        out_s[ty, out_shift(ty) + r[mine]] = vals[mine]
-                nvalid = min(SH_XT, w - x0) * q
-                for ty in range(SH_TS):
-                    if y0 + ty >= h:
-                        continue
-                    shift = out_shift(ty)
-                    base = out_off + first_of(y0 + ty, x0) - shift
-                    for lo in range(0, out_row, 8):
-                        if lo + 8 <= shift or lo >= shift + nvalid:
-                            continue
-                        if lo >= shift and lo + 8 <= shift + nvalid:   # one 16-byte store
-                            assert (base + lo) % 8 == 0
-                        k = torch.arange(max(lo, shift), min(lo + 8, shift + nvalid))
-                        out[base + k] = out_s[ty, k]
-    out = out[out_off:].view(b, h, w, q)
-    assert not torch.isnan(out).any(), "an element of g' was never written"
-    return out
 
 
 LANE = torch.arange(32)
@@ -188,16 +107,20 @@ def mma(acc, a_frag, b_lo, b_hi):
     return acc + d[GID.view(32, 1) + 8 * (kk >> 1), 2 * TIG.view(32, 1) + (kk & 1)]
 
 
-def plan_dref(g, frame, win, dil, fwd, scale=1.0, g_off=0):
-    """The product kernel, step by step, in f32: dref_form(g, frame)."""
+def plan_dref(g, frame, win, dil, fwd, scale=1.0, g_off=0, dframe=False):
+    """The product kernel, step by step, in f32: dref_form(g, frame) for
+    d_ref; for d_frame (`dframe`, `frame` = ref, `fwd` already mirrored)
+    the same form on the shifted gradient, read from the haloed g tile."""
     b, h, w, c = frame.shape
     q, n = win * win, (win - 1) // 2
     rows, cols = TH + win - 1, TW + win - 1
-    g_row = (TW * q + 14) // 8 * 8
+    gr, gc, go = (rows, cols, n) if dframe else (TH, TW, 0)   # staged g rows, columns, offset
+    g_row = (gc * q + 14) // 8 * 8
     tiles_x = math.ceil(w / (TW * dil)) * dil
     tiles_y = math.ceil(h / (TH * dil)) * dil
     groups = math.ceil(c / CG)
     mem = device_memory(g, g_off)
+    gflat = g.flatten()
     framep = torch.cat([frame, torch.zeros(b, h, w, CG)], dim=-1)   # channels past C read 0
     out = torch.full((b, h, w, c), float("nan"))
     for blk in range(tiles_x * tiles_y * b * groups):
@@ -208,23 +131,37 @@ def plan_dref(g, frame, win, dil, fwd, scale=1.0, g_off=0):
         y0 = ty_t // dil * TH * dil + ty_t % dil
         x0 = tx // dil * TW * dil + tx % dil
 
-        def first_of(y):
-            return ((bi * h + y) * w + x0) * q
-
-        g_s = torch.full((TH, g_row), float("nan"))
-        for ty in range(TH):
-            y = y0 + ty * dil
-            if y >= h:
-                continue
-            if dil == 1:
-                shift = (first_of(y) + g_off) % 8
-                chunks = math.ceil((shift + min(TW, w - x0) * q) / 8)
-                start = g_off + first_of(y) - shift
-                g_s[ty, :8 * chunks] = mem[start:start + 8 * chunks]
-            else:
-                for i in range(TW):
-                    if x0 + i * dil < w:
-                        g_s[ty, i * q:(i + 1) * q] = g[bi, y, x0 + i * dil]
+        g_s = torch.full((gr, g_row), float("nan"))
+        shifts = [0] * gr
+        if dil == 1:
+            cs, ce = max(0, go - x0), min(gc, w - x0 + go)
+            nrun = (ce - cs) * q
+            for s in range(gr):
+                y = y0 + s - go
+                if not 0 <= y < h or nrun <= 0:
+                    g_s[s] = 0
+                    continue
+                first = ((bi * h + y) * w + x0 - go + cs) * q
+                shifts[s] = shift = (first + g_off - cs * q) % 8
+                for m in range(g_row // 8):
+                    lo = 8 * m - shift - cs * q
+                    if lo >= 0 and lo + 8 <= nrun:   # one 16-byte copy
+                        assert (g_off + first + lo) % 8 == 0
+                        g_s[s, 8 * m:8 * m + 8] = mem[g_off + first + lo:g_off + first + lo + 8]
+                    else:
+                        k = torch.arange(8)
+                        ok = (lo + k >= 0) & (lo + k < nrun)
+                        vals = torch.zeros(8)
+                        vals[ok] = gflat[first + lo + k[ok]]
+                        g_s[s, 8 * m:8 * m + 8] = vals
+        else:
+            g_s[:] = 0
+            for s in range(gr):
+                for col in range(gc):
+                    y, x = y0 + (s - go) * dil, x0 + (col - go) * dil
+                    if 0 <= y < h and 0 <= x < w:
+                        g_s[s, col * q:(col + 1) * q] = g[bi, y, x]
+        assert not torch.isnan(g_s).any(), "a staged g value was never written"
         e = torch.arange(rows * KC * CCH)
         p, cc = e // CCH, c0 + (e % CCH) * 8
         s, j = p // KC, p % KC
@@ -238,19 +175,19 @@ def plan_dref(g, frame, win, dil, fwd, scale=1.0, g_off=0):
             y = y0 + ty * dil
             if y >= h:
                 continue
-            shift = (first_of(y) + g_off) % 8 if dil == 1 else 0
-            grow = g_s[ty, shift:]
             acc = torch.zeros(NT8, 32, 4)
             jb, cb = (LANE & 7) + ((LANE >> 3) & 1) * 8, LANE >> 4
             for u in range(win):
                 iy = win - 1 - u if fwd else u
+                row = ty + u if dframe else ty
+                grow = g_s[row, shifts[row]:]
                 for ks in range(KS):
-                    row, _, j_band = a_rows_cols(ks)
-                    v = j_band - row
+                    i, _, j_band = a_rows_cols(ks)
+                    v = j_band - i
                     band = (v >= 0) & (v < win)
                     ix = win - 1 - v if fwd else v
-                    idx = (row * q + ix * win + iy).clamp(0, TW * q - 1)
-                    a = torch.where(band, grow[idx], torch.zeros(()))
+                    idx = (j_band if dframe else i) * q + ix * win + iy
+                    a = torch.where(band, grow[idx.clamp(0, gc * q - 1)], torch.zeros(()))
                     for pp in range(NT8 // 2):
                         rows_l = f_s[swz(((ty + u) * KC + ks * 16 + jb) * CCH + 2 * pp + cb)]
                         bfr = ldmatrix_x4_trans(rows_l)
@@ -267,13 +204,11 @@ def plan_dref(g, frame, win, dil, fwd, scale=1.0, g_off=0):
     return out
 
 
-def plan_backward(g, ref, frame, win, dil, fwd, scale, g_off=0, out_off=0):
-    """(d_ref, d_frame) as the bf16 path runs them: the product kernel on
-    (g, frame, fwd); the shift kernel, then the product kernel on (g',
-    ref, not fwd)."""
-    g_shift = plan_gshift(g, win, dil, fwd, g_off, out_off)
+def plan_backward(g, ref, frame, win, dil, fwd, scale, g_off=0):
+    """(d_ref, d_frame) as the bf16 kernels compute them: d_ref from (g,
+    frame, fwd); d_frame from (g, ref, not fwd) with the haloed g tile."""
     return (plan_dref(g, frame, win, dil, fwd, scale, g_off),
-            plan_dref(g_shift, ref, win, dil, not fwd, scale, out_off))
+            plan_dref(g, ref, win, dil, not fwd, scale, g_off, dframe=True))
 
 
 def rand(shape, seed):
@@ -343,16 +278,17 @@ def test_plan_matches_twin_and_jax(jax_grads, win, dil, fwd, c):
     np.testing.assert_allclose(d_frame.numpy(), want_frame, **TOL)
 
 
-# misaligned g and g' (every shift of a staged row), the main path's
-# levels 6 and 7 (10x20, 5x10 at B=8 cut to B=1), a dilation past TH, a
-# 1x1 image, more rows than one shift tile holds
+# misaligned g (every shift of a staged row), the main path's levels 6
+# and 7 (10x20, 5x10 at B=8 cut to B=1), a dilation past TH, a 1x1 image,
+# an image narrower than a tile's halo
 MORE_CASES = {
-    "l7_c192_off3": dict(shape=(1, 5, 10, 192), win=9, dil=1, fwd=True, g_off=3, out_off=5),
-    "l6_c128_off7": dict(shape=(1, 10, 20, 128), win=9, dil=1, fwd=False, g_off=7, out_off=1),
-    "dil9_win3": dict(shape=(1, 11, 23, 16), win=3, dil=9, fwd=True, g_off=0, out_off=0),
-    "dil5_win5_off2": dict(shape=(1, 13, 21, 8), win=5, dil=5, fwd=False, g_off=2, out_off=6),
-    "1x1": dict(shape=(1, 1, 1, 3), win=3, dil=1, fwd=False, g_off=4, out_off=2),
-    "h19_w70": dict(shape=(1, 19, 70, 8), win=9, dil=1, fwd=True, g_off=6, out_off=3),
+    "l7_c192_off3": dict(shape=(1, 5, 10, 192), win=9, dil=1, fwd=True, g_off=3),
+    "l6_c128_off7": dict(shape=(1, 10, 20, 128), win=9, dil=1, fwd=False, g_off=7),
+    "dil9_win3": dict(shape=(1, 11, 23, 16), win=3, dil=9, fwd=True, g_off=0),
+    "dil5_win5_off2": dict(shape=(1, 13, 21, 8), win=5, dil=5, fwd=False, g_off=2),
+    "1x1": dict(shape=(1, 1, 1, 3), win=3, dil=1, fwd=False, g_off=4),
+    "h19_w70": dict(shape=(1, 19, 70, 8), win=9, dil=1, fwd=True, g_off=6),
+    "w5_off1": dict(shape=(2, 4, 5, 8), win=9, dil=1, fwd=False, g_off=1),
 }
 
 
@@ -363,18 +299,7 @@ def test_plan_more_shapes(case):
     g = torch.from_numpy(rand(shape[:3] + (win * win,), 5))
     ref, frame = torch.from_numpy(rand(shape, 6)), torch.from_numpy(rand(shape, 7))
     args = (win, kw["dil"], kw["fwd"])
-    torch.testing.assert_close(plan_gshift(g, *args, kw["g_off"], kw["out_off"]),
-                               ops.cost_volume_gshift_reference(g, *args), rtol=0, atol=0)
-    got = plan_backward(g, ref, frame, *args, SCALE, kw["g_off"], kw["out_off"])
+    got = plan_backward(g, ref, frame, *args, SCALE, kw["g_off"])
     want = ops.cost_volume_backward_reference(g, ref, frame, *args, SCALE)
     torch.testing.assert_close(got[0], want[0], **TOL)
     torch.testing.assert_close(got[1], want[1], **TOL)
-
-
-def test_plan_gshift_in_batches():
-    """A dilation whose input rows do not fit shared memory at once (win 9,
-    dil 12: 100 slots of 18,176 bytes, staged 12 at a time)."""
-    g = torch.from_numpy(rand((1, 9, 112, 81), 8))
-    for fwd in (True, False):
-        torch.testing.assert_close(plan_gshift(g, 9, 12, fwd, 5, 3),
-                                   ops.cost_volume_gshift_reference(g, 9, 12, fwd), rtol=0, atol=0)

@@ -194,13 +194,9 @@ def test_cost_volume_backward_kernels_match_twin(cuda, dtype, win, dil, fwd):
     ref = rand((2, 13, 37, 20), 11, cuda, dtype).requires_grad_()
     frame = rand((2, 13, 37, 20), 12, cuda, dtype).requires_grad_()
     g = rand((2, 13, 37, win * win), 13, cuda, dtype)
-    names = ("b2f_cost_volume_dref", "b2f_cost_volume_dframe", "b2f_cost_volume_gshift")
-    before = {k: KERNELS[k].launches for k in names}
-    ops.cost_volume(ref, frame, win, dil, fwd, scale=0.05).backward(g)
-    # bf16: d_frame after the shift; f32: the CUDA-core kernels, no shift
-    shifts = int(dtype == torch.bfloat16)
-    assert {k: KERNELS[k].launches - n for k, n in before.items()} == {
-        "b2f_cost_volume_dref": 1, "b2f_cost_volume_dframe": 1, "b2f_cost_volume_gshift": shifts}
+    _, launches = backward_launches(
+        lambda: ops.cost_volume(ref, frame, win, dil, fwd, scale=0.05).backward(g))
+    assert launches == {"b2f_cost_volume_dref": 1, "b2f_cost_volume_dframe": 1}
     want_ref, want_frame = ops.cost_volume_backward_reference(
         g, ref.detach(), frame.detach(), win, dil, fwd, scale=0.05)
     assert ref.grad.dtype == dtype
@@ -209,9 +205,9 @@ def test_cost_volume_backward_kernels_match_twin(cuda, dtype, win, dil, fwd):
 
 
 def backward_launches(fn):
-    """fn's launches of the backward kernels (tensor-core, shift and
-    CUDA-core entry points), by name, after a synchronise."""
-    names = [k for k in KERNELS if k.startswith(("b2f_cost_volume_d", "b2f_cost_volume_gshift"))]
+    """fn's launches of the backward kernels (main and CUDA-core entry
+    points), by name, after a synchronise."""
+    names = [k for k in KERNELS if k.startswith("b2f_cost_volume_d")]
     before = {k: KERNELS[k].launches for k in names}
     out = fn()
     torch.cuda.synchronize()
@@ -227,15 +223,14 @@ TRAIN_LEVELS = [(80, 160, 32), (40, 80, 64), (20, 40, 96), (10, 20, 128), (5, 10
 @pytest.mark.parametrize("level", TRAIN_LEVELS, ids=lambda s: "x".join(map(str, s)))
 def test_cost_volume_bf16_backward_train_levels(cuda, level, scale, fwd):
     """K2 and K3 in bf16 at the main path's shapes (win 9, dil 1), inputs
-    up to 30x: exactly one d_ref, one shift and one d_frame launch, each
-    within 1e-2 of the largest value of the twin."""
+    up to 30x: exactly one d_ref and one d_frame launch, each within 1e-2
+    of the largest value of the twin."""
     h, w, c = level
     ref, frame = (rand((2, h, w, c), 40 + k, cuda, torch.bfloat16, scale) for k in range(2))
     g = rand((2, h, w, 81), 42, cuda, torch.bfloat16, scale)
     (d_ref, d_frame), launches = backward_launches(
         lambda: ops.cost_volume_backward_cuda(g, ref, frame, 9, 1, fwd, 1.0 / c))
-    assert launches == {"b2f_cost_volume_dref": 1, "b2f_cost_volume_gshift": 1,
-                        "b2f_cost_volume_dframe": 1}
+    assert launches == {"b2f_cost_volume_dref": 1, "b2f_cost_volume_dframe": 1}
     want_ref, want_frame = ops.cost_volume_backward_reference(g, ref, frame, 9, 1, fwd, 1.0 / c)
     assert d_ref.dtype == d_frame.dtype == torch.bfloat16
     close_to_scale(d_ref, want_ref, torch.bfloat16)
@@ -253,8 +248,7 @@ def test_cost_volume_bf16_backward_windows(cuda, win, dil, fwd, c):
     g = rand((2, 13, 37, win * win), 52, cuda, torch.bfloat16)
     want = ops.cost_volume_backward_reference(g, ref, frame, win, dil, fwd, 0.05)
     for i, need, names in ((0, (True, False), {"b2f_cost_volume_dref": 1}),
-                           (1, (False, True), {"b2f_cost_volume_gshift": 1,
-                                               "b2f_cost_volume_dframe": 1})):
+                           (1, (False, True), {"b2f_cost_volume_dframe": 1})):
         got, launches = backward_launches(
             lambda: ops.cost_volume_backward_cuda(g, ref, frame, win, dil, fwd, 0.05, need=need))
         assert launches == names and got[1 - i] is None
@@ -271,10 +265,10 @@ def storage_at(x, offset):
 
 @pytest.mark.parametrize("offset", [1, 3, 4], ids=["2B", "6B", "8B"])
 def test_cost_volume_bf16_backward_unaligned(cuda, offset):
-    """g, g', the features and the gradients starting off a 16-byte
-    boundary: the g rows are staged from their shift, the features by
-    scalar loads, the gradients stored element by element; and features
-    that are not contiguous are refused by the op."""
+    """g, the features and the gradients starting off a 16-byte boundary:
+    the g rows are staged from their shift, the features by scalar loads,
+    the gradients stored element by element; and features that are not
+    contiguous are refused by the op."""
     shape = (2, 9, 37, 32)
     ref, frame = (storage_at(rand(shape, 60 + k, cuda, torch.bfloat16), offset) for k in range(2))
     b, h, w, c = shape
@@ -282,15 +276,10 @@ def test_cost_volume_bf16_backward_unaligned(cuda, offset):
         g = storage_at(rand((b, h, w, win * win), 62, cuda, torch.bfloat16), offset)
         want_ref, want_frame = ops.cost_volume_backward_reference(g, ref, frame, win, dil, fwd,
                                                                   0.1)
-        g_shift = storage_at(torch.zeros_like(g), offset)
-        CV_MODULE._GSHIFT(ptr(g), ptr(g_shift), DTYPE_CODES[torch.bfloat16], b, h, w, win, dil,
-                          int(fwd), stream_ptr(cuda))
-        torch.cuda.synchronize()
-        assert torch.equal(g_shift, ops.cost_volume_gshift_reference(g, win, dil, fwd))
-        for kernel, grad, other, want in ((CV_MODULE._DREF, g, frame, want_ref),
-                                          (CV_MODULE._DFRAME, g_shift, ref, want_frame)):
+        for kernel, other, want in ((CV_MODULE._DREF, frame, want_ref),
+                                    (CV_MODULE._DFRAME, ref, want_frame)):
             got = storage_at(torch.zeros_like(want), offset)
-            kernel(ptr(grad), ptr(other), ptr(got), DTYPE_CODES[torch.bfloat16], b, h, w, c,
+            kernel(ptr(g), ptr(other), ptr(got), DTYPE_CODES[torch.bfloat16], b, h, w, c,
                    win, dil, int(fwd), 0.1, stream_ptr(cuda))
             torch.cuda.synchronize()
             close_to_scale(got, want, torch.bfloat16)
@@ -300,15 +289,22 @@ def test_cost_volume_bf16_backward_unaligned(cuda, offset):
 
 @pytest.mark.parametrize("win,dil,fwd", [(9, 1, True), (9, 1, False), (3, 1, True), (7, 2, False),
                                          (5, 3, True), (3, 9, False), (9, 12, True)])
-@pytest.mark.parametrize("shape", [(2, 80, 160), (2, 5, 10), (1, 19, 70), (1, 9, 112), (1, 1, 1)],
-                         ids=["l3", "l7", "ragged", "batches", "1x1"])
-def test_cost_volume_gshift_matches_twin(cuda, shape, win, dil, fwd):
-    """The shift kernel moves values: exactly the twin's g' (at dil 12 and
-    a width of 112 its input rows are staged in batches)."""
-    g = rand(shape + (win * win,), 70, cuda, torch.bfloat16)
-    got, launches = backward_launches(lambda: ops.cost_volume_gshift_cuda(g, win, dil, fwd))
-    assert launches == {"b2f_cost_volume_gshift": 1}
-    assert torch.equal(got, ops.cost_volume_gshift_reference(g, win, dil, fwd))
+@pytest.mark.parametrize("shape", [(1, 80, 160, 32), (2, 5, 10, 192), (1, 19, 70, 8),
+                                   (1, 9, 112, 16), (1, 1, 1, 8), (1, 3, 40, 8)],
+                         ids=["l3", "l7", "ragged", "wide", "1x1", "3_rows"])
+def test_cost_volume_bf16_backward_halos(cuda, shape, win, dil, fwd):
+    """d_frame's haloed g tile (and d_ref's rows) where the halo leaves the
+    image on every side, reaches past it altogether, or the image is one
+    pixel: every staged value outside the image must be 0."""
+    ref, frame = (rand(shape, 70 + k, cuda, torch.bfloat16) for k in range(2))
+    g = rand(shape[:3] + (win * win,), 72, cuda, torch.bfloat16)
+    got, launches = backward_launches(
+        lambda: ops.cost_volume_backward_cuda(g, ref, frame, win, dil, fwd, 0.5))
+    assert launches == {"b2f_cost_volume_dref": 1, "b2f_cost_volume_dframe": 1}
+    want = ops.cost_volume_backward_reference(g, ref, frame, win, dil, fwd, 0.5)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a.float()).all()
+        close_to_scale(a, b, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -334,15 +330,16 @@ def test_cost_volume_backward_cuda_cores_kernels(cuda, dtype, win, dil, fwd):
             assert torch.equal(a, b)
 
 
-def test_cost_volume_bwd_bf16_kernel_info(cuda):
-    info = ops.cost_volume_bwd_bf16_info()
-    assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1, info
-    assert info["smem_bytes"] > 0
+@pytest.mark.parametrize("dframe", [False, True], ids=["d_ref", "d_frame"])
+def test_cost_volume_bwd_bf16_kernel_info(cuda, dframe):
+    info = ops.cost_volume_bwd_bf16_info(dframe)
+    assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 2, info
+    assert info["smem_bytes"] > 0 and info["local_bytes"] == 0
 
 
 def test_bf16_train_step_launches(cuda):
     """One bf16 train step of the flagship model at 64x128: 10 cost volume,
-    18 warp, 10 d_ref, 10 shift, 10 d_frame, 18 flow-gradient and 8
+    18 warp, 10 d_ref, 10 d_frame, 18 flow-gradient and 8
     image-gradient launches; a finite loss."""
     opt = Options(optimize="pme", batchSize=2, compute_dtype="bfloat16").derive()
     net = PWCNet(pwc_config_from_options(opt), generator=torch.Generator().manual_seed(0)).to(cuda)
@@ -351,7 +348,7 @@ def test_bf16_train_step_launches(cuda):
     _, logs = step(create_train_state(net, opt), {"images": rand((2, 64, 128, 9), 29, cuda)})
     assert {k: v.launches for k, v in KERNELS.items() if v.launches} == {
         "b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 18,
-        "b2f_cost_volume_dref": 10, "b2f_cost_volume_gshift": 10, "b2f_cost_volume_dframe": 10,
+        "b2f_cost_volume_dref": 10, "b2f_cost_volume_dframe": 10,
         "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8}
     assert np.isfinite(logs["loss"].item())
 
