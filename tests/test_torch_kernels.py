@@ -211,7 +211,7 @@ def backward_launches(fn):
     before = {k: KERNELS[k].launches for k in names}
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: KERNELS[k].launches - before[k] for k in names if KERNELS[k].launches > before[k]}
+    return out, {k: KERNELS[k].launches - n for k, n in before.items() if KERNELS[k].launches > n}
 
 
 # the train step's levels 3..7 (B=8, 320x640 cut to B=2)
