@@ -33,11 +33,16 @@
 // channels per load. The TPU kernels' block-Toeplitz lift onto 128-lane
 // blocks and whole-image VMEM slabs are not carried over.
 //
-// Unit B in bf16 does not use this kernel: it runs on the tensor cores
-// (stem_unit_b_mma.cu). Unit A in both types and unit B in f32 do.
+// Which kernel runs which type: f32 runs this kernel for both units; bf16
+// runs on the tensor cores, unit A in stem_unit_a_mma.cu and unit B in
+// stem_unit_b_mma.cu. `b2f_stem_unit_a_cuda_cores` runs this kernel for
+// unit A in both types, to time the old bf16 design beside the new one.
 #include "common.cuh"
 
 namespace b2f {
+// stem_unit_a_mma.cu: unit A (K5) in bf16
+cudaError_t stem_unit_a_mma(const void* x, const void* w1, const void* b1, const void* w2,
+                            const void* b2, void* out, int N, int H, int W, cudaStream_t stream);
 // stem_unit_b_mma.cu: unit B (K6) in bf16
 cudaError_t stem_unit_b_mma(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, void* out, int N, int H, int W, cudaStream_t stream);
@@ -206,19 +211,23 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
   return cudaGetLastError();
 }
 
+// bf16 on the tensor cores unless `cuda_cores`
 template <int CIN, int CMID, int COUT>
 cudaError_t dispatch(const void* x, const void* w1, const void* b1, const void* w2,
-                     const void* b2, void* out, int dtype, int N, int H, int W, void* stream) {
+                     const void* b2, void* out, int dtype, int N, int H, int W, void* stream,
+                     bool cuda_cores = false) {
   if (N <= 0 || H <= 0 || W <= 0 || N > 65535) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case b2f::kFloat32:
       return launch<float, CIN, CMID, COUT>(x, w1, b1, w2, b2, out, N, H, W, s);
     case b2f::kBFloat16:
-      if constexpr (CIN == 16 && CMID == 32 && COUT == 32)   // K6: on the tensor cores
-        return b2f::stem_unit_b_mma(x, w1, b1, w2, b2, out, N, H, W, s);
-      else
+      if (cuda_cores)
         return launch<__nv_bfloat16, CIN, CMID, COUT>(x, w1, b1, w2, b2, out, N, H, W, s);
+      if constexpr (CIN == 3)   // K5
+        return b2f::stem_unit_a_mma(x, w1, b1, w2, b2, out, N, H, W, s);
+      else   // K6
+        return b2f::stem_unit_b_mma(x, w1, b1, w2, b2, out, N, H, W, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -236,6 +245,15 @@ extern "C" int b2f_stem_unit_a(const void* x, const void* w1, const void* b1, co
                                const void* b2, void* out, int dtype, int N, int H, int W,
                                void* stream) {
   return dispatch<3, 16, 16>(x, w1, b1, w2, b2, out, dtype, N, H, W, stream);
+}
+
+// unit A on this file's CUDA-core kernel in both types: the old bf16
+// design, kept to be timed beside the tensor-core kernel. Nothing on the
+// serving or training path calls it.
+extern "C" int b2f_stem_unit_a_cuda_cores(const void* x, const void* w1, const void* b1,
+                                          const void* w2, const void* b2, void* out, int dtype,
+                                          int N, int H, int W, void* stream) {
+  return dispatch<3, 16, 16>(x, w1, b1, w2, b2, out, dtype, N, H, W, stream, true);
 }
 
 // unit B (K6): Cin 16, Cmid 32, Cout 32

@@ -24,8 +24,8 @@ from .pyramid import (
 )
 from .route import plain_ops
 from .stem import (
-    fused_stem, stem_eligible, stem_enabled, stem_reference, stem_unit_cuda, unit_params,
-    unit_reference,
+    fused_stem, stem_eligible, stem_enabled, stem_reference, stem_unit_a_cuda_cores,
+    stem_unit_cuda, unit_params, unit_reference,
 )
 from .warp import (
     warp_bilinear, warp_bilinear_backward_cuda, warp_bilinear_backward_reference,
@@ -60,6 +60,7 @@ __all__ = [
     "stem_eligible",
     "stem_enabled",
     "stem_reference",
+    "stem_unit_a_cuda_cores",
     "stem_unit_cuda",
     "unit_params",
     "unit_reference",

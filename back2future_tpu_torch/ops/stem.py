@@ -7,11 +7,13 @@ then 16 -> 32 -> 32 stride 2; models/pwc.lua:58-65). It is an autograd
 Function over the input and the eight conv parameters:
 
   * forward, on a CUDA tensor: kernel K5 (`b2f_stem_unit_a`, unit 2) then
-    K6 (`b2f_stem_unit_b`, unit 3) of csrc/stem_fwd.cu (K6 in bf16 on the
-    tensor cores, csrc/stem_unit_b_mma.cu), each one fused ConvUnit whose
-    mid map stays in shared memory; on a CPU tensor, or under
+    K6 (`b2f_stem_unit_b`, unit 3), each one fused ConvUnit whose mid map
+    stays in shared memory: in bf16 on the tensor cores
+    (csrc/stem_unit_a_mma.cu, csrc/stem_unit_b_mma.cu), in f32 on the
+    CUDA cores (csrc/stem_fwd.cu); on a CPU tensor, or under
     `plain_ops()`, the plain twin `stem_reference`. The route is fixed in
-    the forward.
+    the forward. `stem_unit_a_cuda_cores` keeps K5's old bf16 kernel
+    callable, for comparison on the card only.
   * backward: as `_stem_bwd` (stem_pallas.py:463-466), the twin chain is
     recomputed on detached inputs and differentiated by autograd; the TPU
     kernel has no backward kernel, so none is written here.
@@ -29,13 +31,15 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..runtime.cuda_build import Kernel, query
+from ..runtime.cuda_build import Kernel
+from .cost_volume import _bf16_info
 from .route import DTYPE_CODES, check_kernel_input, ptr, stream_ptr, use_kernel
 
 # (x, w1, b1, w2, b2, out, dtype, N, H, W, stream)
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _UNIT_A = Kernel("b2f_stem_unit_a", _ARGS)   # K5: 3 -> 16 -> 16
 _UNIT_B = Kernel("b2f_stem_unit_b", _ARGS)   # K6: 16 -> 32 -> 32
+_UNIT_A_CUDA_CORES = Kernel("b2f_stem_unit_a_cuda_cores", _ARGS)   # K5's old kernel
 _UNITS = {"a": (_UNIT_A, 3, 16), "b": (_UNIT_B, 16, 32)}   # kernel, c_in, c_out
 
 
@@ -84,12 +88,8 @@ def stem_reference(x: torch.Tensor, p2: UnitParams, p3: UnitParams
     return f2, unit_reference(f2, p3)
 
 
-def stem_unit_cuda(x: torch.Tensor, p: UnitParams, unit: str) -> torch.Tensor:
-    """One fused ConvUnit on a CUDA tensor: K5 (`unit="a"`, 3 -> 16) or K6
-    (`"b"`, 16 -> 32); (N, H, W, Cin) -> (N, ceil(H/2), ceil(W/2), Cout)
-    in the dtype of `x`. The weights go to the kernel in f32 HWIO, rounded
-    to the compute dtype as the unfused conv rounds them."""
-    kernel, c_in, c_out = _UNITS[unit]
+def _launch_unit(kernel: Kernel, c_in: int, c_out: int, x: torch.Tensor, p: UnitParams,
+                 unit: str) -> torch.Tensor:
     n, h, w = x.shape[:3]
     check_kernel_input(f"stem unit {unit} input", x, (n, h, w, c_in), x.dtype)
     shapes = ((c_out, c_in, 3, 3), (c_out,), (c_out, c_out, 3, 3), (c_out,))
@@ -107,15 +107,32 @@ def stem_unit_cuda(x: torch.Tensor, p: UnitParams, unit: str) -> torch.Tensor:
     return out
 
 
+def stem_unit_cuda(x: torch.Tensor, p: UnitParams, unit: str) -> torch.Tensor:
+    """One fused ConvUnit on a CUDA tensor: K5 (`unit="a"`, 3 -> 16) or K6
+    (`"b"`, 16 -> 32); (N, H, W, Cin) -> (N, ceil(H/2), ceil(W/2), Cout)
+    in the dtype of `x`. The weights go to the kernel in f32 HWIO, rounded
+    to the compute dtype as the unfused conv rounds them."""
+    return _launch_unit(*_UNITS[unit], x, p, unit)
+
+
+def stem_unit_a_cuda_cores(x: torch.Tensor, p: UnitParams) -> torch.Tensor:
+    """K5 on its CUDA-core kernel (csrc/stem_fwd.cu), f32 or bf16, CUDA
+    tensors only: the bf16 design that the tensor-core kernel replaced,
+    kept to compare the two on the card."""
+    return _launch_unit(_UNIT_A_CUDA_CORES, 3, 16, x, p, "a")
+
+
+def stem_unit_a_bf16_info() -> dict:
+    """What the build and the runtime made of K5's bf16 kernel
+    (csrc/stem_unit_a_mma.cu): registers and local memory per thread,
+    static shared memory per block, resident blocks per SM."""
+    return _bf16_info("b2f_stem_unit_a_bf16_info")
+
+
 def stem_unit_b_bf16_info() -> dict:
-    """What the build and the runtime made of K6's bf16 kernel
-    (csrc/stem_unit_b_mma.cu): registers and local memory per thread,
-    dynamic shared memory per block, resident blocks per SM."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    query("b2f_stem_unit_b_bf16_info", [ctypes.POINTER(ctypes.c_int)] * 4,
-          *map(ctypes.byref, vals))
-    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
-                    (v.value for v in vals)))
+    """The same for K6's bf16 kernel (csrc/stem_unit_b_mma.cu), whose
+    shared memory is dynamic."""
+    return _bf16_info("b2f_stem_unit_b_bf16_info")
 
 
 class _StemFn(torch.autograd.Function):

@@ -6,7 +6,7 @@ Phases, one line each (any failure raises and exits non-zero):
   1. environment: the card (nvidia-smi name and power limit), TF32 flags
   2. build: nvcc of back2future_tpu_torch/csrc into back2future_tpu_torch/_build
      (one nvcc per source, in parallel); the bf16 tensor-core kernels of
-     K1, K2 and K3 (win 9) and K6: registers, spills, shared memory,
+     K1, K2 and K3 (win 9), K5 and K6: registers, spills, shared memory,
      resident blocks per SM, and the HMMA / LDGSTS / LDSM instructions of
      their SASS (cuobjdump)
   3. kernels against their plain torch twins, in bf16 and f32, with the
@@ -21,8 +21,8 @@ Phases, one line each (any failure raises and exits non-zero):
      the fused stem (K5 unit A, K6 unit B) at the serving (48 frames) and
      train (24 frames) stacked shapes. The bf16 checks are timed also by
      the profiler's device time per call (the summary's numbers), and the
-     old CUDA-core kernels of K1, K2 and K3 beside their tensor-core
-     kernels at each level
+     old CUDA-core kernels of K1, K2, K3 and K5 beside their tensor-core
+     kernels at each shape, in turns in one profiler window
   4. serving path, stem off: init(None, device="cuda") with the flagship
      config (frames 3, levels 7, win 9, skip 2, bf16, random weights from
      seed 0), compute_flow / compute_flow_batch (B=16, three times) /
@@ -74,6 +74,11 @@ device time by kind of op.
 runs, after phases 1-2, only K6's bf16 kernel with its convs removed one
 at a time (variants built from copies of its source), timed at the
 serving and train shapes: where its time goes.
+
+    python3 chip_smoke.py --k5-phases
+
+does the same for K5's bf16 kernel: without conv 1, without conv 2, or
+without its device-memory traffic, at the serving and train shapes.
 
     python3 chip_smoke.py --k1-phases
 
@@ -145,7 +150,8 @@ SERVING_PER_FORWARD = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_core
                        "b2f_cost_volume_dref_cuda_cores": 0,
                        "b2f_cost_volume_dframe_cuda_cores": 0,
                        "b2f_warp_bilinear_dflow": 0, "b2f_warp_bilinear_dimages": 0,
-                       "b2f_stem_unit_a": 0, "b2f_stem_unit_b": 0}
+                       "b2f_stem_unit_a": 0, "b2f_stem_unit_a_cuda_cores": 0,
+                       "b2f_stem_unit_b": 0}
 SERVING_STEM_PER_FORWARD = dict(SERVING_PER_FORWARD, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
 TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
                   "b2f_warp_bilinear_fwd": 18,
@@ -153,7 +159,8 @@ TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0
                   "b2f_cost_volume_dref_cuda_cores": 0,
                   "b2f_cost_volume_dframe_cuda_cores": 0,
                   "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8,
-                  "b2f_stem_unit_a": 0, "b2f_stem_unit_b": 0}
+                  "b2f_stem_unit_a": 0, "b2f_stem_unit_a_cuda_cores": 0,
+                  "b2f_stem_unit_b": 0}
 SOFT_PER_STEP = dict(TRAIN_PER_STEP, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
 
 
@@ -282,15 +289,15 @@ def mma_build_report(label: str, info: dict, function: str) -> None:
             raise AssertionError(f"{label}: no HMMA instruction in the built kernel's SASS")
     log("build", f"{label}: {info['registers']} registers, "
                  f"{info['local_bytes']} bytes local memory per thread ({spills}), "
-                 f"{info['smem_bytes']} bytes dynamic shared memory per block, "
+                 f"{info['smem_bytes']} bytes shared memory per block, "
                  f"{info['blocks_per_sm']} resident blocks per SM; {sass}")
 
 
 def phase_mma_builds() -> None:
-    """The build reports of K1's (win 9), K2/K3's (win 9) and K6's bf16
-    tensor-core kernels."""
+    """The build reports of K1's (win 9), K2/K3's (win 9), K5's and K6's
+    bf16 tensor-core kernels."""
     from back2future_tpu_torch.ops import cost_volume_bwd_bf16_info, cost_volume_fwd_bf16_info
-    from back2future_tpu_torch.ops.stem import stem_unit_b_bf16_info
+    from back2future_tpu_torch.ops.stem import stem_unit_a_bf16_info, stem_unit_b_bf16_info
 
     mma_build_report("K1 bf16 (cost_volume_fwd_mma_kernel<9, true>, win 9 dil 1)",
                      cost_volume_fwd_bf16_info(), "cost_volume_fwd_mma_kernelILi9ELb1E")
@@ -298,6 +305,8 @@ def phase_mma_builds() -> None:
         mma_build_report(f"{k} bf16 (cost_volume_bwd_mma_kernel<9, {str(dframe).lower()}>, "
                          "win 9, any dil)", cost_volume_bwd_bf16_info(dframe),
                          f"cost_volume_bwd_mma_kernelILi9ELb{int(dframe)}E")
+    mma_build_report("K5 bf16 (stem_unit_a_mma_kernel)", stem_unit_a_bf16_info(),
+                     "stem_unit_a_mma")
     mma_build_report("K6 bf16 (stem_unit_b_mma_kernel)", stem_unit_b_bf16_info(),
                      "stem_unit_b_mma")
 
@@ -328,12 +337,16 @@ def compare_k1_cuda_cores(label, ref, frame, fwd, c, new, twin, summary) -> None
     summary["cost_volume"]["cuda_cores_ms"] += old_ms
 
 
-def compare_bwd_cuda_cores(label, key, new, old, twin, summary) -> None:
-    """K2's or K3's old CUDA-core kernel (`old`) beside its tensor-core
-    kernel (`new`) on the same bf16 inputs: the old one against the twin
-    within 1e-2 of the largest value, and both timed in one profiler
-    window (one call of each, in turn, 20 times), told apart by kernel
-    name."""
+def compare_cuda_cores(label, key, new, old, twin, summary, per_forward=1,
+                       names=("mma", None)) -> None:
+    """K2's, K3's or K5's old CUDA-core kernel (`old`) beside its
+    tensor-core kernel (`new`) on the same bf16 inputs: the old one
+    against the twin within 1e-2 of the largest value, and both timed in
+    one profiler window (one call of each, in turn, 20 times), told apart
+    by kernel name: `names` = (a part of the new kernel's name, of the old
+    one's, or None: every other device op, such as the wrappers' weight
+    preparation). The old kernel's time goes `per_forward` times into the
+    summary's `cuda_cores_ms`."""
     got, want = old(), twin()
     err = (got.float() - want.float()).abs().max().item()
     tol = KERNEL_TOL[torch.bfloat16]
@@ -341,14 +354,15 @@ def compare_bwd_cuda_cores(label, key, new, old, twin, summary) -> None:
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=atol):
         raise AssertionError(f"{label}, CUDA cores: outside tolerance ({err})")
     times = device_ms(lambda: (new(), old()), 20)
-    new_ms = sum(v for n, v in times.items() if "mma" in n)
-    old_ms = sum(v for n, v in times.items() if "mma" not in n)
+    new_ms = sum(v for n, v in times.items() if names[0] in n)
+    old_ms = sum(v for n, v in times.items()
+                 if (names[1] in n if names[1] else names[0] not in n))
     if not new_ms or not old_ms:
         raise AssertionError(f"{label}: the profiler did not see both kernels: {times}")
     log("kernels", f"{label}: device time per call (profiler, in turns) tensor cores "
                    f"{new_ms:.4f} ms, CUDA cores {old_ms:.4f} ms ({old_ms / new_ms:.2f}x); "
                    f"CUDA cores max_abs_err {err:.3e}")
-    summary[key]["cuda_cores_ms"] += old_ms
+    summary[key]["cuda_cores_ms"] += per_forward * old_ms
 
 
 def phase_kernels(dev) -> dict:
@@ -371,7 +385,7 @@ def phase_kernels(dev) -> dict:
                        bytes_ms=0.0, ops_ms=0.0)
                for k in ("cost_volume", "warp", "cost_volume_dref", "cost_volume_dframe",
                          "warp_dimages", "warp_dflow", "stem_unit_a", "stem_unit_b")}
-    for k in ("cost_volume", "cost_volume_dref", "cost_volume_dframe"):
+    for k in ("cost_volume", "cost_volume_dref", "cost_volume_dframe", "stem_unit_a"):
         summary[k]["cuda_cores_ms"] = 0.0
 
     def check(kernel, label, dtype, kern, twin, per_forward, work, library=None,
@@ -485,7 +499,7 @@ def phase_kernels(dev) -> dict:
                     check(key, f"cost_volume {name} {where}", dtype, new, twin, per_forward=1,
                           work=work, of_largest=True)
                     if dtype == torch.bfloat16:
-                        compare_bwd_cuda_cores(
+                        compare_cuda_cores(
                             f"cost_volume {name} {where}", key, new,
                             lambda: ops.cost_volume_backward_cuda_cores(
                                 g, ref, frame, *args, need=need)[i], twin, summary)
@@ -526,13 +540,19 @@ def phase_kernels(dev) -> dict:
                     p, c_in, c_out = units[unit], inp.shape[-1], units[unit][1].numel()
                     out_px = n * ((inp.shape[1] + 1) // 2) * ((inp.shape[2] + 1) // 2)
                     twin = lambda inp=inp, p=p: ops.unit_reference(inp, p)   # noqa: E731
-                    check(f"stem_unit_{unit}",
-                          f"stem unit {unit} {tag} {where} {'x'.join(map(str, inp.shape))}",
-                          dtype, lambda inp=inp, p=p, unit=unit: ops.stem_unit_cuda(inp, p, unit),
-                          twin, per_forward=int(where == "train"),
+                    label = f"stem unit {unit} {tag} {where} {'x'.join(map(str, inp.shape))}"
+                    new = lambda inp=inp, p=p, unit=unit: ops.stem_unit_cuda(inp, p, unit)   # noqa: E731
+                    check(f"stem_unit_{unit}", label, dtype, new, twin,
+                          per_forward=int(where == "train"),
                           work=(2 * out_px * c_out * 9 * (c_in + c_out),
                                 nbytes(inp, *p) + out_px * c_out * inp.element_size()),
                           library=twin, of_largest=True)
+                    if unit == "a" and dtype == torch.bfloat16:
+                        compare_cuda_cores(
+                            label, "stem_unit_a", new,
+                            lambda inp=inp, p=p: ops.stem_unit_a_cuda_cores(inp, p), twin,
+                            summary, per_forward=int(where == "train"),
+                            names=("stem_unit_a_mma", "stem_unit_kernel"))
 
     log("kernels", "per serving forward (bf16, B=16, profiler device time): cost volume kernel "
                    f"{summary['cost_volume']['ms']:.3f} ms (its CUDA-core kernel "
@@ -549,6 +569,11 @@ def phase_kernels(dev) -> dict:
         f"{k} tensor cores {summary[k]['ms']:.3f} ms (the CUDA-core kernel "
         f"{summary[k]['cuda_cores_ms']:.3f} ms in the turns), bound "
         f"{summary[k]['bound_ms']:.4f} ms" for k in ("cost_volume_dref", "cost_volume_dframe")))
+    s = summary["stem_unit_a"]
+    log("kernels", f"per soft step (bf16, profiler device time): stem_unit_a tensor cores "
+                   f"{s['ms']:.3f} ms with the wrapper's weight preparation (the CUDA-core "
+                   f"kernel alone {s['cuda_cores_ms']:.3f} ms in the turns), bound "
+                   f"{s['bound_ms']:.4f} ms")
     return summary
 
 
@@ -1035,6 +1060,82 @@ def phase_k6_phases(card: str, dev) -> None:
                   + f"; staging and epilogues {tiles * other / 1e9:.3f} GB)")
 
 
+# K5's phases, removed from a copy of its source, as K6's: without device
+# memory, the octet loads and the output stores go (the kernel still
+# repacks whatever its raw slots hold)
+_K5_LOAD = ("load_octet(raw, x + tile.n * in_image, task, 2 * tile.oy0 - 3, 2 * tile.ox0 - 8, "
+            "H, W, vec);\n")
+K5_PHASES = {
+    "whole kernel": [],
+    "without conv 1": [("    conv1(smem, wt, here.oy0, here.ox0, Ho, Wo);\n", "")],
+    "without conv 2": [("    conv2(smem, wt, acc);\n", _ZERO_ACC)],
+    "without either conv": [("    conv1(smem, wt, here.oy0, here.ox0, Ho, Wo);\n", ""),
+                            ("    conv2(smem, wt, acc);\n", _ZERO_ACC)],
+    "without device memory": [
+        ("      " + _K5_LOAD, ""), ("  " + _K5_LOAD, ""),
+        ("    store_output(smem + OFF_OUT, out + here.n * out_image, here.oy0, here.ox0, Ho, Wo);\n",
+         "")],
+}
+
+
+def phase_k5_phases(card: str, dev) -> None:
+    """K5 bf16 with its convs or its device-memory traffic removed
+    (K5_PHASES), each variant built by nvcc from a copy of
+    stem_unit_a_mma.cu with its own C entry point and timed by CUDA events
+    over 100 back-to-back launches at the serving and train shapes, the
+    variants in turn, two rounds; beside each shape its byte bound and the
+    shared-memory traffic of the tile plan."""
+    import ctypes
+
+    entry = ('\nextern "C" int k5_phase_launch(const void* x, const void* w1, const void* b1, '
+             'const void* w2, const void* b2, void* out, int N, int H, int W, void* s) {\n'
+             '  return b2f::stem_unit_a_mma(x, w1, b1, w2, b2, out, N, H, W, '
+             'static_cast<cudaStream_t>(s));\n}\n')
+    libs = build_variants("k5", "stem_unit_a_mma.cu", K5_PHASES, entry, "k5_phase_launch",
+                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    rng = np.random.default_rng(0)
+
+    def param(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.1).to(
+            dev).bfloat16().float()
+
+    w1, b1, w2, b2 = param((3, 3, 3, 16)), param(16), param((3, 3, 16, 16)), param(16)
+    inputs = {}
+    for where, (n, h, w) in STEM_SHAPES.items():
+        x = torch.from_numpy(rng.standard_normal((n, h, w, 3)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        out = torch.empty((n, h // 2, w // 2, 16), dtype=torch.bfloat16, device=dev)
+        inputs[where] = (x, out)
+    times = {}
+    for _ in range(2):
+        for name, lib in libs.items():
+            for where, (x, out) in inputs.items():
+                n, h, w = STEM_SHAPES[where]
+                args = [x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                        out.data_ptr(), n, h, w, torch.cuda.current_stream().cuda_stream]
+                times.setdefault((name, where), []).append(
+                    time_launches(lib, args, f"K5 phases: {name!r}"))
+    # shared-memory bytes of one 8x32 output tile by the kernel's plan: 16-byte
+    # ldmatrix.x4 rows of 512 bytes (conv 1: 22 m16 tiles x 3 ky; conv 2: 8
+    # warps x 2 m16 tiles x 9 taps; no B operand is read from shared memory),
+    # the input region's 8-byte pixel stores, the mid tile's and the output's
+    # writes and the output's read
+    ldsm = {"conv 1": 22 * 3 * 512, "conv 2": 8 * 2 * 9 * 512}
+    other = 21 * 70 * 8 + 10 * 34 * 32 + 2 * 8 * 32 * 32
+    for where, (x, out) in inputs.items():
+        n, h, w = STEM_SHAPES[where]
+        bound = nbytes(x, out) / HBM_BYTES_PER_S * 1e3
+        log("k5", f"{where} {n}x{h}x{w}x3, byte bound {bound:.4f} ms: " + "; ".join(
+            f"{name} " + " / ".join(f"{v:.4f}" for v in times[(name, where)]) for name in libs)
+            + f" ms per launch (two rounds; CUDA events over 100 launches) on {card}")
+        tiles = n * -(-(h // 2) // 8) * -(-(w // 2) // 32)
+        log("k5", f"shared-memory traffic by the tile plan, {where}: {tiles} tiles x "
+                  f"{sum(ldsm.values()) + other} bytes = "
+                  f"{tiles * (sum(ldsm.values()) + other) / 1e9:.3f} GB per launch (ldmatrix "
+                  + ", ".join(f"{k} {tiles * v / 1e9:.3f} GB" for k, v in ldsm.items())
+                  + f"; staging and epilogues {tiles * other / 1e9:.3f} GB)")
+
+
 # K1's phases, removed from a copy of cost_volume_fwd_mma.cu: without
 # device memory the stages' copies and the tiles' stores go (the kernel
 # still computes on whatever shared memory holds)
@@ -1189,7 +1290,8 @@ KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches
      "back2future_tpu/ops/warp_pallas.py:81", "train"),
     ("warp_bilinear_dflow", "warp_dflow", "warp_bwd.cu", "back2future_tpu/ops/warp.py:209",
      "train"),
-    ("stem_unit_a", "stem_unit_a", "stem_fwd.cu", "back2future_tpu/ops/stem_pallas.py:264",
+    ("stem_unit_a", "stem_unit_a", "stem_unit_a_mma.cu",
+     "back2future_tpu/ops/stem_pallas.py:264",
      "soft"),
     ("stem_unit_b", "stem_unit_b", "stem_unit_b_mma.cu",
      "back2future_tpu/ops/stem_pallas.py:307", "soft"),
@@ -1207,6 +1309,9 @@ def main() -> None:
         return
     if "--k6-phases" in sys.argv[1:]:
         phase_k6_phases(card, dev)
+        return
+    if "--k5-phases" in sys.argv[1:]:
+        phase_k5_phases(card, dev)
         return
     if "--k1-phases" in sys.argv[1:]:
         phase_k1_phases(card, dev)

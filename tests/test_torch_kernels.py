@@ -467,6 +467,82 @@ def test_stem_unit_b_kernel_matches_twin(cuda, dtype, shape, scale):
     close_to_scale(got, want, dtype)
 
 
+# (N, H, W) of K5's input, for its 8 x 32 output tiles: Wo % 32 of 1 and
+# 31, Ho % 8 not 0, odd H and W, W % 8 of 1 to 7 (a global row then starts
+# at every 16-byte misalignment of the 6-byte pixels, and the kernel reads
+# element by element), a single pixel, and the full serving frame batch
+# (3 x B=16 frames at 320 x 1216)
+UNIT_A_SHAPES = [(1, 17, 65), (2, 10, 62), (1, 33, 130), (1, 21, 123), (3, 12, 124),
+                 (1, 9, 69), (1, 14, 63), (1, 1, 1), (48, 320, 1216)]
+
+
+@pytest.mark.parametrize("scale", [1.0, 30.0], ids=["unit", "x30"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", UNIT_A_SHAPES, ids=["ho9_wo33_w8r1", "ho5_wo31_w8r6",
+                                                      "wo65_w8r2", "w8r3", "w8r4", "w8r5",
+                                                      "w8r7", "1x1", "serving48"])
+def test_stem_unit_a_kernel_matches_twin(cuda, dtype, shape, scale):
+    """K5 alone (bf16 on the tensor cores, f32 on the CUDA cores, whose
+    1e-5 a TF32 product would miss) against the twin, inputs up to 30x so
+    that the mid map's rounding is tested at scale."""
+    unit2, _ = stem_units(cuda)
+    x = rand(shape + (3,), 30, cuda, dtype, scale=scale)
+    p = ops.unit_params(unit2)
+    before = KERNELS["b2f_stem_unit_a"].launches
+    with torch.no_grad():
+        got = ops.stem_unit_cuda(x, p, "a")
+        want = ops.unit_reference(x, p)
+    assert KERNELS["b2f_stem_unit_a"].launches == before + 1
+    n, h, w = shape
+    assert got.shape == (n, (h + 1) // 2, (w + 1) // 2, 16) and got.dtype == dtype
+    close_to_scale(got, want, dtype)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 5], ids=["2B", "6B", "10B"])
+def test_stem_unit_a_bf16_kernel_unaligned(cuda, offset):
+    """An input that does not start on a 16-byte boundary (W % 8 == 0):
+    the tensor-core kernel reads it element by element."""
+    unit2, _ = stem_units(cuda)
+    shape = (2, 19, 128, 3)
+    x = rand(shape, 31, cuda, torch.bfloat16)
+    buf = torch.empty(x.numel() + offset, dtype=torch.bfloat16, device=cuda)
+    view = buf[offset:].view(shape)
+    view.copy_(x)
+    p = ops.unit_params(unit2)
+    with torch.no_grad():
+        got = ops.stem_unit_cuda(view, p, "a")
+        want = ops.unit_reference(x, p)
+    close_to_scale(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stem_unit_a_cuda_cores_kernel(cuda, dtype):
+    """K5's CUDA-core kernel, kept for the comparison: within tolerance of
+    the twin in both dtypes, and in f32 bit for bit the main path's K5
+    (the same kernel)."""
+    unit2, _ = stem_units(cuda)
+    x = rand((2, 37, 70, 3), 32, cuda, dtype)
+    p = ops.unit_params(unit2)
+    before = KERNELS["b2f_stem_unit_a_cuda_cores"].launches
+    with torch.no_grad():
+        got = ops.stem_unit_a_cuda_cores(x, p)
+        want = ops.unit_reference(x, p)
+        main = ops.stem_unit_cuda(x, p, "a")
+    assert KERNELS["b2f_stem_unit_a_cuda_cores"].launches == before + 1
+    assert got.shape == main.shape and got.dtype == dtype
+    close_to_scale(got, want, dtype)
+    if dtype == torch.float32:
+        assert torch.equal(got, main)
+
+
+def test_stem_unit_a_bf16_kernel_info(cuda):
+    from back2future_tpu_torch.ops.stem import stem_unit_a_bf16_info
+
+    info = stem_unit_a_bf16_info()
+    assert 0 < info["registers"] <= 128 and info["local_bytes"] == 0, info   # no spills
+    assert info["blocks_per_sm"] >= 2 and info["smem_bytes"] > 0, info
+
+
 def test_stem_backward_is_the_twin_chain(cuda):
     """Gradients of x and the 8 parameters through the kernels' Function
     equal autograd through the twin chain (the backward recomputes it)."""
