@@ -24,11 +24,15 @@ Layout: NHWC images (B, H, W, C); flow (B, H, W, 2) with channels (u, v)
 = (x-offset, y-offset).
 
 `warp_bilinear` is an autograd Function. On CUDA tensors its forward is
-the hand-written kernel csrc/warp_fwd.cu and its backward the kernels of
-csrc/warp_bwd.cu (the image-gradient scatter, launched only when the
-images need a gradient, and the flow gradient); on CPU tensors the plain
-twins `warp_bilinear_reference` and `warp_bilinear_backward_reference`
-run instead.
+the hand-written kernel csrc/warp_fwd.cu and its backward the image
+gradient K4 of csrc/warp_bwd_tiled.cu (tiles whose adds are summed per
+window pixel in shared memory, or added directly, by block; launched
+only when the images need a gradient) and the flow gradient of csrc/warp_bwd.cu; on CPU
+tensors the plain twins `warp_bilinear_reference` and
+`warp_bilinear_backward_reference` run instead.
+`warp_bilinear_backward_thread` keeps the first design's kernels
+(csrc/warp_bwd.cu) callable for comparison on the card, and
+`warp_dimages_routes` runs K4 with a count of its window-route blocks.
 """
 
 from __future__ import annotations
@@ -39,13 +43,21 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..runtime.cuda_build import Kernel
+from ..runtime.cuda_build import Kernel, query
 from .route import DTYPE_CODES, check_kernel_input, ptr, stream_ptr, use_kernel
 
 _FWD = Kernel("b2f_warp_bilinear_fwd",   # (img, flow, out, dtype, B, H, W, C, stream)
               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_DIMAGES_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DIMAGES = Kernel("b2f_warp_bilinear_dimages",   # (flow, g, d_img f32, dtype, B, H, W, C, stream)
-                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                  _DIMAGES_ARGS)
+# K4 with (direct_only, window-block counter) before the stream; and the
+# first design's K4: for comparison only, nothing on any path
+_DIMAGES_ROUTES = Kernel("b2f_warp_bilinear_dimages_routes",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+_DIMAGES_THREAD = Kernel("b2f_warp_bilinear_dimages_thread", _DIMAGES_ARGS)
+# K4's tile (rows, columns) and channel slice (csrc/warp_bwd_tiled.cu TH, TW, CS)
+DIMAGES_TILE = (16, 16, 32)
 _DFLOW = Kernel("b2f_warp_bilinear_dflow",   # (img, flow, g, d_flow, dtype, B, H, W, C, ref, stream)
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
@@ -113,13 +125,9 @@ def warp_bilinear_backward_reference(images: torch.Tensor, flow: torch.Tensor,
     return d_img.reshape(b, h, w, c).to(images.dtype), d_flow.to(flow.dtype)
 
 
-def warp_bilinear_backward_cuda(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
-                                reference_grads: bool = True,
-                                need: Tuple[bool, bool] = (True, True)
-                                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """The backward kernels on CUDA tensors: (d_images by the scatter K4
-    into a zeroed f32 buffer, cast once; d_flow by W-dflow), each None
-    where `need` says so; `flow` and `g` in the image dtype."""
+def _backward(dimages: Kernel, dflow: Kernel, images: torch.Tensor, flow: torch.Tensor,
+              g: torch.Tensor, reference_grads: bool, need: Tuple[bool, bool]
+              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     b, h, w, c = images.shape
     check_kernel_input("warp_bilinear images", images, images.shape, images.dtype)
     check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), images.dtype)
@@ -129,13 +137,61 @@ def warp_bilinear_backward_cuda(images: torch.Tensor, flow: torch.Tensor, g: tor
     with torch.cuda.device(images.device):
         if need[0]:
             acc = torch.zeros(images.shape, dtype=torch.float32, device=images.device)
-            _DIMAGES(ptr(flow), ptr(g), ptr(acc), code, b, h, w, c, stream)
+            dimages(ptr(flow), ptr(g), ptr(acc), code, b, h, w, c, stream)
             d_images = acc.to(images.dtype)
         if need[1]:
             d_flow = torch.empty_like(flow)
-            _DFLOW(ptr(images), ptr(flow), ptr(g), ptr(d_flow), code, b, h, w, c,
-                   int(reference_grads), stream)
+            dflow(ptr(images), ptr(flow), ptr(g), ptr(d_flow), code, b, h, w, c,
+                  int(reference_grads), stream)
     return d_images, d_flow
+
+
+def warp_bilinear_backward_cuda(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                                reference_grads: bool = True,
+                                need: Tuple[bool, bool] = (True, True)
+                                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The backward kernels on CUDA tensors: (d_images by K4 into a zeroed
+    f32 buffer, cast once; d_flow by W-dflow), each None where `need`
+    says so; `flow` and `g` in the image dtype."""
+    return _backward(_DIMAGES, _DFLOW, images, flow, g, reference_grads, need)
+
+
+def warp_bilinear_backward_thread(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                                  reference_grads: bool = True,
+                                  need: Tuple[bool, bool] = (True, True)
+                                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The same on the first design's kernels (csrc/warp_bwd.cu), CUDA
+    tensors only: kept to compare the two on the card."""
+    return _backward(_DIMAGES_THREAD, _DFLOW, images, flow, g, reference_grads, need)
+
+
+def warp_dimages_routes(flow: torch.Tensor, g: torch.Tensor, direct_only: bool = False
+                        ) -> Tuple[torch.Tensor, int, int]:
+    """K4 on CUDA tensors, for comparing its routes: (the f32 image
+    gradient, the blocks that took the window route, all blocks);
+    `direct_only` sends every block the direct route."""
+    b, h, w, c = g.shape
+    check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), g.dtype)
+    check_kernel_input("warp_bilinear grad", g, g.shape, g.dtype)
+    th, tw, cs = DIMAGES_TILE
+    acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    count = torch.zeros(1, dtype=torch.int32, device=g.device)
+    with torch.cuda.device(g.device):
+        _DIMAGES_ROUTES(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, h, w, c,
+                        int(direct_only), ptr(count), stream_ptr(g.device))
+    blocks = -(-h // th) * -(-w // tw) * b * -(-c // cs)
+    return acc, int(count.item()), blocks
+
+
+def warp_dimages_tiled_info(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What the build and the runtime made of K4's kernel with 4-channel
+    packs (csrc/warp_bwd_tiled.cu): registers and local memory per thread,
+    static shared memory per block, resident blocks per SM."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    query("b2f_warp_dimages_tiled_info", [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4,
+          DTYPE_CODES[dtype], *map(ctypes.byref, vals))
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 class _WarpFn(torch.autograd.Function):

@@ -8,7 +8,8 @@ Phases, one line each (any failure raises and exits non-zero):
      (one nvcc per source, in parallel); the bf16 tensor-core kernels of
      K1, K2 and K3 (win 9), K5 and K6: registers, spills, shared memory,
      resident blocks per SM, and the HMMA / LDGSTS / LDSM instructions of
-     their SASS (cuobjdump)
+     their SASS (cuobjdump); the same for the warp's bf16 K4 with the
+     global reductions and shared-memory atomics of its SASS
   3. kernels against their plain torch twins, in bf16 and f32, with the
      max abs error, the tolerance, CUDA-event medians of the kernel, the
      twin and (where one PyTorch call computes the same function) that
@@ -22,7 +23,11 @@ Phases, one line each (any failure raises and exits non-zero):
      train (24 frames) stacked shapes. The bf16 checks are timed also by
      the profiler's device time per call (the summary's numbers), and the
      old CUDA-core kernels of K1, K2, K3 and K5 beside their tensor-core
-     kernels at each shape, in turns in one profiler window
+     kernels at each shape, in turns in one profiler window. The warp
+     gradients run on the random flows and on smooth ones (a 2x upsample
+     of a coarse field, as a model's); K4 beside the first design's kernel
+     in turns, its wrapper's zero-fill and cast apart, and its blocks'
+     routes
   4. serving path, stem off: init(None, device="cuda") with the flagship
      config (frames 3, levels 7, win 9, skip 2, bf16, random weights from
      seed 0), compute_flow / compute_flow_batch (B=16, three times) /
@@ -44,11 +49,12 @@ Phases, one line each (any failure raises and exits non-zero):
      step ms (CUDA events, median of steps 2-6), triplets/s trained, peak
      device memory; then one f32 step with the kernels and one under
      plain_ops() from the same initial state: loss and every parameter
-     gradient compared; then the backward A/B: one bf16 step with the
+     gradient compared; then the backward A/Bs: one bf16 step with the
      CUDA-core K2/K3 (old) and one with the tensor-core ones (new) from
      the same state, every parameter gradient compared, and the step in
      turns old / new / new / old, twice: step ms (CUDA events) and K1-K3
-     device ms per step (profiler)
+     device ms per step (profiler); the same with the warp gradients'
+     first design (old) against K4 and W-dflow (new), warp device ms
   7. train path, soft fine-tune recipe (stem on): the hard net of phase 6
      turned into a soft one by convert_net_hard_to_soft (OBGCC,
      past_flow, const_vel 1, second-order smoothness), 6 bf16 steps with
@@ -143,13 +149,16 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # launches of one serving forward and of one train step, per kernel (the
-# CUDA-core cost volume kernels are for timing only)
+# CUDA-core cost volume kernels, K5's CUDA-core kernel, K4's route
+# comparison and the warp gradients' first design are for timing only)
 SERVING_PER_FORWARD = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
                        "b2f_warp_bilinear_fwd": 8,
                        "b2f_cost_volume_dref": 0, "b2f_cost_volume_dframe": 0,
                        "b2f_cost_volume_dref_cuda_cores": 0,
                        "b2f_cost_volume_dframe_cuda_cores": 0,
                        "b2f_warp_bilinear_dflow": 0, "b2f_warp_bilinear_dimages": 0,
+                       "b2f_warp_bilinear_dimages_routes": 0,
+                       "b2f_warp_bilinear_dimages_thread": 0,
                        "b2f_stem_unit_a": 0, "b2f_stem_unit_a_cuda_cores": 0,
                        "b2f_stem_unit_b": 0}
 SERVING_STEM_PER_FORWARD = dict(SERVING_PER_FORWARD, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
@@ -159,6 +168,7 @@ TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0
                   "b2f_cost_volume_dref_cuda_cores": 0,
                   "b2f_cost_volume_dframe_cuda_cores": 0,
                   "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8,
+                  "b2f_warp_bilinear_dimages_routes": 0, "b2f_warp_bilinear_dimages_thread": 0,
                   "b2f_stem_unit_a": 0, "b2f_stem_unit_a_cuda_cores": 0,
                   "b2f_stem_unit_b": 0}
 SOFT_PER_STEP = dict(TRAIN_PER_STEP, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
@@ -261,13 +271,16 @@ def phase_build() -> None:
             log("build", "ptxas " + line.strip()[:200])
 
 
-def mma_build_report(label: str, info: dict, function: str) -> None:
-    """What the build made of a bf16 tensor-core kernel: registers, local
-    memory and shared memory from the runtime (`info`), spills from the
-    build's `-Xptxas -v` report, resident blocks per SM, and its SASS's
-    tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM) instructions
-    by `cuobjdump -sass`, for the function whose mangled name contains
-    `function`. No HMMA in the SASS fails."""
+def mma_build_report(label: str, info: dict, function: str, ops=("HMMA", "LDGSTS", "LDSM"),
+                     prefixes=(), required=("HMMA",)) -> None:
+    """What the build made of a kernel: registers, local memory and shared
+    memory from the runtime (`info`), spills from the build's `-Xptxas -v`
+    report, resident blocks per SM, and the count of each of `ops` in its
+    SASS (by default the bf16 tensor-core kernels' HMMA, cp.async LDGSTS
+    and ldmatrix LDSM) and of every opcode that starts with one of
+    `prefixes`, by `cuobjdump -sass`, for the function whose mangled name
+    contains `function`. An instruction of `required` missing from the
+    SASS (no count of an opcode that starts with it) fails."""
     from back2future_tpu_torch.runtime import cuda_build
 
     so = cuda_build.library_path()
@@ -283,10 +296,15 @@ def mma_build_report(label: str, info: dict, function: str) -> None:
                               text=True, timeout=300).stdout
         body = next((f for f in dump.split("Function : ")[1:]
                      if function in f.split(None, 1)[0]), "")
-        n = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HMMA", "LDGSTS", "LDSM")}
+        n = {op: len(re.findall(rf"\b{op}\b", body)) for op in ops}
+        opcodes = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][\w.]*)", body)
+        for op in sorted({o for o in opcodes if o.startswith(tuple(prefixes))} if prefixes else ()):
+            n[op] = opcodes.count(op)
         sass = f"SASS ({tool}): " + ", ".join(f"{k} {v}" for k, v in n.items())
-        if not n["HMMA"]:
-            raise AssertionError(f"{label}: no HMMA instruction in the built kernel's SASS")
+        missing = [op for op in required if not any(k.startswith(op) and v for k, v in n.items())]
+        if missing:
+            raise AssertionError(f"{label}: no {', '.join(missing)} instruction in the built "
+                                 f"kernel's SASS")
     log("build", f"{label}: {info['registers']} registers, "
                  f"{info['local_bytes']} bytes local memory per thread ({spills}), "
                  f"{info['smem_bytes']} bytes shared memory per block, "
@@ -295,8 +313,11 @@ def mma_build_report(label: str, info: dict, function: str) -> None:
 
 def phase_mma_builds() -> None:
     """The build reports of K1's (win 9), K2/K3's (win 9), K5's and K6's
-    bf16 tensor-core kernels."""
-    from back2future_tpu_torch.ops import cost_volume_bwd_bf16_info, cost_volume_fwd_bf16_info
+    bf16 tensor-core kernels, and of the warp gradients' bf16 kernels
+    (their global reductions and shared-memory atomics)."""
+    from back2future_tpu_torch.ops import (
+        cost_volume_bwd_bf16_info, cost_volume_fwd_bf16_info, warp_dimages_tiled_info,
+    )
     from back2future_tpu_torch.ops.stem import stem_unit_a_bf16_info, stem_unit_b_bf16_info
 
     mma_build_report("K1 bf16 (cost_volume_fwd_mma_kernel<9, true>, win 9 dil 1)",
@@ -309,6 +330,10 @@ def phase_mma_builds() -> None:
                      "stem_unit_a_mma")
     mma_build_report("K6 bf16 (stem_unit_b_mma_kernel)", stem_unit_b_bf16_info(),
                      "stem_unit_b_mma")
+    mma_build_report("K4 bf16 (warp_bilinear_dimages_tiled_kernel<bf16, 4>)",
+                     warp_dimages_tiled_info(torch.bfloat16),
+                     "warp_bilinear_dimages_tiled_kernelI13__nv_bfloat16Li4E", ops=(),
+                     prefixes=("RED", "ATOM"), required=("RED", "ATOMS"))
 
 
 def compare_k1_cuda_cores(label, ref, frame, fwd, c, new, twin, summary) -> None:
@@ -338,31 +363,34 @@ def compare_k1_cuda_cores(label, ref, frame, fwd, c, new, twin, summary) -> None
 
 
 def compare_cuda_cores(label, key, new, old, twin, summary, per_forward=1,
-                       names=("mma", None)) -> None:
+                       names=("mma", None), words=("tensor cores", "CUDA cores"),
+                       field="cuda_cores_ms"):
     """K2's, K3's or K5's old CUDA-core kernel (`old`) beside its
-    tensor-core kernel (`new`) on the same bf16 inputs: the old one
-    against the twin within 1e-2 of the largest value, and both timed in
-    one profiler window (one call of each, in turn, 20 times), told apart
-    by kernel name: `names` = (a part of the new kernel's name, of the old
-    one's, or None: every other device op, such as the wrappers' weight
+    tensor-core kernel (`new`) on the same bf16 inputs (or another old
+    design beside the new one, named by `words`): the old one against the
+    twin within 1e-2 of the largest value, and both timed in one profiler
+    window (one call of each, in turn, 20 times), told apart by kernel
+    name: `names` = (a part of the new kernel's name, of the old one's, or
+    None: every other device op, such as the wrappers' weight
     preparation). The old kernel's time goes `per_forward` times into the
-    summary's `cuda_cores_ms`."""
+    summary's `field`; returns (new ms, old ms) per call."""
     got, want = old(), twin()
     err = (got.float() - want.float()).abs().max().item()
     tol = KERNEL_TOL[torch.bfloat16]
     atol = tol * max(1.0, want.float().abs().max().item())
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=atol):
-        raise AssertionError(f"{label}, CUDA cores: outside tolerance ({err})")
+        raise AssertionError(f"{label}, {words[1]}: outside tolerance ({err})")
     times = device_ms(lambda: (new(), old()), 20)
     new_ms = sum(v for n, v in times.items() if names[0] in n)
     old_ms = sum(v for n, v in times.items()
                  if (names[1] in n if names[1] else names[0] not in n))
     if not new_ms or not old_ms:
         raise AssertionError(f"{label}: the profiler did not see both kernels: {times}")
-    log("kernels", f"{label}: device time per call (profiler, in turns) tensor cores "
-                   f"{new_ms:.4f} ms, CUDA cores {old_ms:.4f} ms ({old_ms / new_ms:.2f}x); "
-                   f"CUDA cores max_abs_err {err:.3e}")
-    summary[key]["cuda_cores_ms"] += per_forward * old_ms
+    log("kernels", f"{label}: device time per call (profiler, in turns) {words[0]} "
+                   f"{new_ms:.4f} ms, {words[1]} {old_ms:.4f} ms ({old_ms / new_ms:.2f}x); "
+                   f"{words[1]} max_abs_err {err:.3e}")
+    summary[key][field] = summary[key].get(field, 0.0) + per_forward * old_ms
+    return new_ms, old_ms
 
 
 def phase_kernels(dev) -> dict:
@@ -389,7 +417,7 @@ def phase_kernels(dev) -> dict:
         summary[k]["cuda_cores_ms"] = 0.0
 
     def check(kernel, label, dtype, kern, twin, per_forward, work, library=None,
-              of_largest=False):
+              of_largest=False, smooth=False, kernel_part=None):
         """Compare, time, log; add bf16 results `per_forward` times to the
         summary. `work`: (operations, bytes) of one call, inputs read and
         outputs written once. `library`: one PyTorch call computing the
@@ -398,7 +426,11 @@ def phase_kernels(dev) -> dict:
         terms). bf16 checks are timed also by the profiler's device time
         per call (`device_ms`) of the kernel, twin and library, which the
         summary takes: single-launch event windows carry the wrapper's
-        host time."""
+        host time. `smooth`: the warp gradients' smooth-flow case, whose
+        times go to the summary's `smooth_*` entries (its error to `err`).
+        `kernel_part`: a part of the kernel's name; the device time of
+        the call's other ops (a wrapper's zero-fill and cast) is then
+        summed apart as `wrapper_ms`."""
         tol = KERNEL_TOL[dtype]
         got, want = kern(), twin()
         torch.cuda.synchronize()
@@ -427,6 +459,14 @@ def phase_kernels(dev) -> dict:
         if dtype == torch.bfloat16:
             s = summary[kernel]
             s["err"] = max(s["err"], err)
+            prefix = "smooth_" if smooth else ""
+            if kernel_part is not None:
+                alone = sum(v for n, v in mine.items() if kernel_part in n)
+                for k, v in (("kernel_ms", alone), ("wrapper_ms", ms - alone)):
+                    s[prefix + k] = s.get(prefix + k, 0.0) + per_forward * v
+            if smooth:
+                s["smooth_ms"] = s.get("smooth_ms", 0.0) + per_forward * ms
+                return
             s["ms"] += per_forward * ms
             s["plain_ms"] += per_forward * pms
             s["bound_ms"] += per_forward * max(ops_ms, bytes_ms)
@@ -447,6 +487,18 @@ def phase_kernels(dev) -> dict:
 
     def nchw(t):
         return t.permute(0, 3, 1, 2)
+
+    smooth_rng = np.random.default_rng(1)
+
+    def smooth_flow(shape, dtype):
+        """A model's kind of flow: a 2x bilinear upsample of a coarse
+        random field (1 pixel std at half size), as a decoder level's flow
+        is the 2x upsample of the coarser level's."""
+        b, h, w = shape
+        coarse = torch.from_numpy(smooth_rng.standard_normal((b, 2, h // 2, w // 2)).astype(
+            np.float32)).to(dev)
+        return F.interpolate(coarse, scale_factor=2, mode="bilinear", align_corners=False) \
+            .permute(0, 2, 3, 1).contiguous().to(dtype)
 
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -507,25 +559,45 @@ def phase_kernels(dev) -> dict:
             [(shape, False) for shape in IMAGE_WARP_SHAPES]
         for (h, w, c), feature in warps:
             img, g = rand((TRAIN_B, h, w, c), dtype), rand((TRAIN_B, h, w, c), dtype)
-            flow = rand((TRAIN_B, h, w, 2), dtype, scale=w / 4)   # reaches past the border
-            grid = grid_of(flow)
+            flows = {"random": rand((TRAIN_B, h, w, 2), dtype, scale=w / 4),   # past the border
+                     "smooth": smooth_flow((TRAIN_B, h, w), dtype)}
+            for kind, flow in flows.items():
+                grid = grid_of(flow)
 
-            def library(mask):
-                return lambda: torch.ops.aten.grid_sampler_2d_backward(
-                    nchw(g), nchw(img), grid, 0, 1, True, mask)
+                def library(mask, flow=flow, grid=grid):
+                    return lambda: torch.ops.aten.grid_sampler_2d_backward(
+                        nchw(g), nchw(img), grid, 0, 1, True, mask)
 
-            where = f"{tag} B={TRAIN_B} {h}x{w}x{c}"
-            check("warp_dflow", f"warp_bilinear d_flow {where}", dtype,
-                  lambda: ops.warp_bilinear_backward_cuda(img, flow, g, need=(False, True))[1],
-                  lambda: ops.warp_bilinear_backward_reference(img, flow, g)[1],
-                  per_forward=2, work=(8 * img.numel(), 2 * nbytes(img) + 2 * nbytes(flow)),
-                  library=library([False, True]), of_largest=True)
-            if feature:   # the image warps' inputs need no gradient
-                check("warp_dimages", f"warp_bilinear d_images {where}", dtype,
-                      lambda: ops.warp_bilinear_backward_cuda(img, flow, g, need=(True, False))[0],
-                      lambda: ops.warp_bilinear_backward_reference(img, flow, g)[0],
+                where = f"{tag} B={TRAIN_B} {h}x{w}x{c}, {kind} flow"
+                smooth = kind == "smooth"
+                check("warp_dflow", f"warp_bilinear d_flow {where}", dtype,
+                      lambda: ops.warp_bilinear_backward_cuda(img, flow, g, need=(False, True))[1],
+                      lambda: ops.warp_bilinear_backward_reference(img, flow, g)[1],
+                      per_forward=2, work=(8 * img.numel(), 2 * nbytes(img) + 2 * nbytes(flow)),
+                      library=library([False, True]), of_largest=True, smooth=smooth)
+                if not feature:   # the image warps' inputs need no gradient
+                    continue
+                new = lambda: ops.warp_bilinear_backward_cuda(   # noqa: E731
+                    img, flow, g, need=(True, False))[0]
+                twin = lambda: ops.warp_bilinear_backward_reference(img, flow, g)[0]   # noqa: E731
+                check("warp_dimages", f"warp_bilinear d_images {where}", dtype, new, twin,
                       per_forward=2, work=(8 * img.numel(), 2 * nbytes(img) + nbytes(flow)),
-                      library=library([True, False]), of_largest=True)
+                      library=library([True, False]), of_largest=True, smooth=smooth,
+                      kernel_part="dimages_tiled")
+                if dtype == torch.bfloat16:
+                    new_ms, _ = compare_cuda_cores(
+                        f"warp_bilinear d_images {where}, kernels alone", "warp_dimages", new,
+                        lambda: ops.warp_bilinear_backward_thread(
+                            img, flow, g, need=(True, False))[0], twin, summary,
+                        per_forward=2, names=("dimages_tiled", "dimages_kernel"),
+                        words=("K4", "the first design's K4"),
+                        field=f"{'smooth_' if smooth else ''}old_ms")
+                    turns = f"{'smooth_' if smooth else ''}new_turn_ms"
+                    summary["warp_dimages"][turns] = \
+                        summary["warp_dimages"].get(turns, 0.0) + 2 * new_ms
+                    _, n_window, blocks = ops.warp_dimages_routes(flow, g)
+                    log("kernels", f"warp_bilinear d_images {where}: {n_window} of {blocks} "
+                                   f"K4 blocks took the window route")
 
         # the fused stem: K5 then K6 on the frame-stacked batch; the twin is
         # the unfused cuDNN conv chain, which is also the library call
@@ -569,6 +641,16 @@ def phase_kernels(dev) -> dict:
         f"{k} tensor cores {summary[k]['ms']:.3f} ms (the CUDA-core kernel "
         f"{summary[k]['cuda_cores_ms']:.3f} ms in the turns), bound "
         f"{summary[k]['bound_ms']:.4f} ms" for k in ("cost_volume_dref", "cost_volume_dframe")))
+    for k in ("warp_dimages", "warp_dflow"):
+        s = summary[k]
+        log("kernels", f"per hard train step (bf16, profiler device time), {k}: " + "; ".join(
+            f"{kind} flows {s[p + 'ms']:.4f} ms" + "".join(
+                f", {name} {s[p + key]:.4f}" for key, name in (
+                    ("kernel_ms", "the kernel alone"), ("wrapper_ms", "zero-fill and cast"),
+                    ("new_turn_ms", "the kernel in turns"),
+                    ("old_ms", "the first design's kernel in turns")) if p + key in s)
+            for kind, p in (("random", ""), ("smooth", "smooth_")))
+            + f"; bound {s['bound_ms']:.4f} ms, library {s['library_ms']:.4f} ms (random flows)")
     s = summary["stem_unit_a"]
     log("kernels", f"per soft step (bf16, profiler device time): stem_unit_a tensor cores "
                    f"{s['ms']:.3f} ms with the wrapper's weight preparation (the CUDA-core "
@@ -763,12 +845,36 @@ def bwd_cuda_cores():
         module.cost_volume_backward_cuda = fn
 
 
+@contextlib.contextmanager
+def warp_bwd_thread():
+    """Inside the block, the warp's backward runs the first design's
+    kernels (b2f_warp_bilinear_*_thread); restored after. For the A/B
+    only."""
+    import importlib
+
+    module = importlib.import_module("back2future_tpu_torch.ops.warp")
+    fn = module.warp_bilinear_backward_cuda
+    module.warp_bilinear_backward_cuda = module.warp_bilinear_backward_thread
+    try:
+        yield
+    finally:
+        module.warp_bilinear_backward_cuda = fn
+
+
+# the hard-step A/Bs: (label, the old kernels swapped in, what they
+# replace, a part of the device op names timed per step)
+BWD_AB = (("K2/K3", bwd_cuda_cores, "CUDA-core vs tensor-core K2/K3", "cost_volume", "K1-K3"),
+          ("warp", warp_bwd_thread, "the first design's vs the new K4 and W-dflow",
+           "warp_bilinear", "warp"))
+
+
 def phase_train_bwd_ab(card: str, dev) -> None:
-    """K2/K3's A/B in the hard bf16 train step: one step with the CUDA-core
-    backward (old) and one with the tensor-core one (new) from the same
-    initial state, every parameter gradient compared; then the step in
-    turns old / new / new / old, twice: per turn one warm-up step, the
-    median of 3 steps by CUDA events, and the K1-K3 device ms per step of
+    """The backward A/Bs in the hard bf16 train step (BWD_AB: K2/K3 on the
+    CUDA cores, the warp gradients' first design): for each, one step with
+    the old kernels and one with the new from the same initial state,
+    every parameter gradient compared; then the step in turns old / new /
+    new / old, twice: per turn one warm-up step, the median of 3 steps by
+    CUDA events, and the device ms per step of the kernels concerned over
     2 more (profiler)."""
     from back2future_tpu_torch.losses import build_criterions
     from back2future_tpu_torch.train import create_train_state, make_train_step
@@ -778,59 +884,59 @@ def phase_train_bwd_ab(card: str, dev) -> None:
     batch = train_batch(dev)
     net = train_network(opt, dev)
     init = {k: v.clone() for k, v in net.state_dict().items()}
-    grads = {}
-    for old in (True, False):
+    for tag, swap, what, part, kernels in BWD_AB:
+        grads = {}
+        for old in (True, False):
+            net.load_state_dict(init)
+            step = make_train_step(net, opt, crits)
+            with swap() if old else contextlib.nullcontext():
+                step(create_train_state(net, opt), batch)
+            torch.cuda.synchronize()
+            grads[old] = {n: p.grad.clone() for n, p in net.named_parameters()}
+        ratios = {n: (grads[False][n] - g).float().abs().max().item()
+                  / max(g.float().abs().max().item(), 1e-30) for n, g in grads[True].items()}
+        worst = max(ratios, key=ratios.get)
+        within = sum(v <= GRAD_TOL_FRAC for v in ratios.values())
+        log("bwd", f"bf16 hard step, {what}: worst gradient max_abs_err / max|g| "
+                   f"{ratios[worst]:.3e} ({worst}; tol {BF16_GRAD_TOL_FRAC}); {within} of "
+                   f"{len(ratios)} parameters within {GRAD_TOL_FRAC}")
+        if ratios[worst] > BF16_GRAD_TOL_FRAC:
+            raise AssertionError(f"{tag} A/B: the two backward paths give different gradients")
+
         net.load_state_dict(init)
         step = make_train_step(net, opt, crits)
-        with bwd_cuda_cores() if old else contextlib.nullcontext():
-            step(create_train_state(net, opt), batch)
-        torch.cuda.synchronize()
-        grads[old] = {n: p.grad.clone() for n, p in net.named_parameters()}
-    ratios = {n: (grads[False][n] - g).float().abs().max().item()
-              / max(g.float().abs().max().item(), 1e-30) for n, g in grads[True].items()}
-    worst = max(ratios, key=ratios.get)
-    within = sum(v <= GRAD_TOL_FRAC for v in ratios.values())
-    log("bwd", f"bf16 hard step, CUDA-core vs tensor-core K2/K3: worst gradient max_abs_err / "
-               f"max|g| {ratios[worst]:.3e} ({worst}; tol {BF16_GRAD_TOL_FRAC}); {within} of "
-               f"{len(ratios)} parameters within {GRAD_TOL_FRAC}")
-    if ratios[worst] > BF16_GRAD_TOL_FRAC:
-        raise AssertionError("K2/K3 A/B: the two backward paths give different gradients")
+        state = create_train_state(net, opt)
 
-    net.load_state_dict(init)
-    step = make_train_step(net, opt, crits)
-    state = create_train_state(net, opt)
+        def one_step():
+            nonlocal state
+            state, _ = step(state, batch)
 
-    def one_step():
-        nonlocal state
-        state, _ = step(state, batch)
-
-    turns = (True, False, False, True) * 2   # True: the old kernels
-    step_ms, cv_ms = [], []
-    for old in turns:
-        with bwd_cuda_cores() if old else contextlib.nullcontext():
-            one_step()
-            times = []
-            for _ in range(3):
-                start, end = (torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True))
-                start.record()
+        turns = (True, False, False, True) * 2   # True: the old kernels
+        step_ms, dev_ms = [], []
+        for old in turns:
+            with swap() if old else contextlib.nullcontext():
                 one_step()
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end))
-            by_name = device_ms(one_step, 2)
-        step_ms.append(statistics.median(times))
-        cv_ms.append(sum(v for n, v in by_name.items() if "cost_volume" in n))
-    names = " / ".join("old" if o else "new" for o in turns)
-    log("bwd", f"bf16 hard step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}, backward {names}: step "
-               + " / ".join(f"{t:.2f}" for t in step_ms) + " ms (CUDA events, medians of 3); "
-               "K1-K3 device " + " / ".join(f"{t:.3f}" for t in cv_ms)
-               + f" ms per step (profiler) on {card}")
-    for label, vals in (("step", step_ms), ("K1-K3 device", cv_ms)):
-        old_v, new_v = (statistics.median(v for v, o in zip(vals, turns) if o == side)
-                        for side in (True, False))
-        log("bwd", f"median {label} ms: old (CUDA cores) {old_v:.3f}, new (tensor cores) "
-                   f"{new_v:.3f}")
+                times = []
+                for _ in range(3):
+                    start, end = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                    start.record()
+                    one_step()
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+                by_name = device_ms(one_step, 2)
+            step_ms.append(statistics.median(times))
+            dev_ms.append(sum(v for n, v in by_name.items() if part in n))
+        names = " / ".join("old" if o else "new" for o in turns)
+        log("bwd", f"bf16 hard step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}, {tag} {names}: step "
+                   + " / ".join(f"{t:.2f}" for t in step_ms) + " ms (CUDA events, medians of "
+                   f"3); {kernels} device " + " / ".join(f"{t:.3f}" for t in dev_ms)
+                   + f" ms per step (profiler) on {card}")
+        for label, vals in (("step", step_ms), (f"{kernels} device", dev_ms)):
+            old_v, new_v = (statistics.median(v for v, o in zip(vals, turns) if o == side)
+                            for side in (True, False))
+            log("bwd", f"{tag}: median {label} ms: old {old_v:.3f}, new {new_v:.3f}")
 
 
 def train_options(dtype: str, soft: bool):
@@ -1286,7 +1392,7 @@ KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches
      "back2future_tpu/ops/cost_volume_pallas.py:175", "train"),
     ("cost_volume_dframe", "cost_volume_dframe", "cost_volume_bwd_mma.cu",
      "back2future_tpu/ops/cost_volume_pallas.py:203", "train"),
-    ("warp_bilinear_dimages", "warp_dimages", "warp_bwd.cu",
+    ("warp_bilinear_dimages", "warp_dimages", "warp_bwd_tiled.cu",
      "back2future_tpu/ops/warp_pallas.py:81", "train"),
     ("warp_bilinear_dflow", "warp_dflow", "warp_bwd.cu", "back2future_tpu/ops/warp.py:209",
      "train"),

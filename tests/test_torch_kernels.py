@@ -353,12 +353,49 @@ def test_bf16_train_step_launches(cuda):
     assert np.isfinite(logs["loss"].item())
 
 
+# the warp's backward: channel counts of the image warps (3), the feature
+# warps (32..128, slices of K4) and between, and the flows K4's routes
+# see: zero, smooth (window route), random (direct), smooth with a few
+# outliers (both in one launch), far past the border
+WARP_CHANNELS = [3, 5, 16, 20, 32, 64, 96, 128]
+WARP_FLOWS = ("zero", "smooth", "random", "outliers", "far")
+
+
+def warp_flow(kind, shape, seed, device, dtype):
+    """A (B, H, W, 2) flow: zero; smooth, a 2x bilinear upsample of a
+    coarse random field (1 pixel std at half size); random, i.i.d. at
+    scale W/2; outliers, the smooth flow with 8 pixels per image sent 1-2
+    widths away; far, the smooth flow moved 2 widths right and 2 heights
+    up."""
+    b, h, w = shape
+    rng = np.random.default_rng(seed)
+    coarse = torch.from_numpy(rng.standard_normal((b, 2, -(-h // 2), -(-w // 2))).astype(
+        np.float32))
+    smooth = torch.nn.functional.interpolate(coarse, scale_factor=2, mode="bilinear",
+                                             align_corners=False)
+    flow = smooth[:, :, :h, :w].permute(0, 2, 3, 1).contiguous()
+    if kind == "zero":
+        flow = torch.zeros_like(flow)
+    elif kind == "random":
+        flow = torch.from_numpy(rng.standard_normal((b, h, w, 2)).astype(np.float32)) * (w / 2)
+    elif kind == "outliers":
+        for bi in range(b):
+            ys, xs = rng.integers(0, h, 8), rng.integers(0, w, 8)
+            flow[bi, ys, xs] = torch.from_numpy(
+                (rng.uniform(w, 2 * w, (8, 2)) * rng.choice([-1, 1], (8, 2))).astype(np.float32))
+    elif kind == "far":
+        flow = flow + torch.tensor([2.0 * w, -2.0 * h])
+    return flow.to(device, dtype)
+
+
 @pytest.mark.parametrize("reference_grads", [True, False], ids=["ref_grads", "autodiff"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("c", [3, 16, 20])
-def test_warp_backward_kernels_match_twin(cuda, dtype, c, reference_grads):
+@pytest.mark.parametrize("kind", WARP_FLOWS)
+@pytest.mark.parametrize("c", WARP_CHANNELS)
+def test_warp_backward_kernels_match_twin(cuda, dtype, c, kind, reference_grads):
+    # 11 x 300 leaves partial K4 tiles (16 x 16) in both directions
     img = rand((2, 11, 300, c), 14, cuda, dtype).requires_grad_()
-    flow = rand((2, 11, 300, 2), 15, cuda, dtype, scale=8.0).requires_grad_()
+    flow = warp_flow(kind, (2, 11, 300), 15, cuda, dtype).requires_grad_()
     g = rand((2, 11, 300, c), 16, cuda, dtype)
     names = ("b2f_warp_bilinear_dimages", "b2f_warp_bilinear_dflow")
     before = {k: KERNELS[k].launches for k in names}
@@ -369,6 +406,93 @@ def test_warp_backward_kernels_match_twin(cuda, dtype, c, reference_grads):
         img.detach(), flow.detach(), g, reference_grads)
     close_to_scale(img.grad, want_img, dtype)
     close_to_scale(flow.grad, want_flow, dtype)
+
+
+@pytest.mark.parametrize("need", [(True, True), (True, False), (False, True)],
+                         ids=["both", "d_images", "d_flow"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_backward_kernels_where_needed(cuda, dtype, need):
+    img = rand((2, 20, 40, 32), 30, cuda, dtype)
+    flow = warp_flow("smooth", (2, 20, 40), 31, cuda, dtype)
+    g = rand((2, 20, 40, 32), 32, cuda, dtype)
+    reset_launches()
+    got = ops.warp_bilinear_backward_cuda(img, flow, g, need=need)
+    assert KERNELS["b2f_warp_bilinear_dimages"].launches == int(need[0])
+    assert KERNELS["b2f_warp_bilinear_dflow"].launches == int(need[1])
+    want = ops.warp_bilinear_backward_reference(img, flow, g)
+    for n, a, b in zip(need, got, want):
+        if n:
+            close_to_scale(a, b, dtype)
+        else:
+            assert a is None
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [3, 20, 32, 64])
+def test_warp_backward_kernels_b1_and_offset(cuda, dtype, c, offset):
+    """B = 1, with g and the image offset by `offset` elements from an
+    aligned buffer: one element reaches the kernels' scalar loads."""
+    shape = (1, 13, 70, c)
+    n = int(np.prod(shape))
+
+    def shifted(seed):
+        buf = rand((n + offset,), seed, cuda, dtype)
+        return buf[offset:].view(shape)
+
+    img, g = shifted(33), shifted(34)
+    flow = warp_flow("outliers", shape[:3], 35, cuda, dtype)
+    got = ops.warp_bilinear_backward_cuda(img, flow, g)
+    want = ops.warp_bilinear_backward_reference(img, flow, g)
+    for a, b in zip(got, want):
+        close_to_scale(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [20, 32, 96])
+def test_warp_dimages_routes_agree(cuda, dtype, c):
+    """K4's window and direct routes on one input: smooth flows take the
+    window route in every block, and its result agrees with the direct
+    route forced on every block (f32 sums in another order: 1e-5 of the
+    largest value); random flows at 32 channels a slice go direct."""
+    shape = (2, 40, 80)
+    g = rand(shape + (c,), 36, cuda, dtype)
+    flow = warp_flow("smooth", shape, 37, cuda, dtype)
+    window, n_window, blocks = ops.warp_dimages_routes(flow, g)
+    direct, n_direct, _ = ops.warp_dimages_routes(flow, g, direct_only=True)
+    assert n_window == blocks and n_direct == 0
+    torch.testing.assert_close(window, direct, rtol=1e-5,
+                               atol=1e-5 * direct.abs().max().item())
+    want, _ = ops.warp_bilinear_backward_reference(g, flow, g)
+    close_to_scale(window, want.float(), dtype)
+    if c >= 32:
+        _, n_random, _ = ops.warp_dimages_routes(warp_flow("random", shape, 38, cuda, dtype), g)
+        assert n_random < blocks // 10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [3, 32])
+def test_warp_backward_thread_kernels_match_twin(cuda, dtype, c):
+    """The first design's kernels, kept for comparison: against the twin."""
+    img, g = rand((2, 11, 300, c), 39, cuda, dtype), rand((2, 11, 300, c), 40, cuda, dtype)
+    flow = warp_flow("random", (2, 11, 300), 41, cuda, dtype)
+    reset_launches()
+    got = ops.warp_bilinear_backward_thread(img, flow, g)
+    assert KERNELS["b2f_warp_bilinear_dimages_thread"].launches == 1
+    assert KERNELS["b2f_warp_bilinear_dimages"].launches == 0
+    want = ops.warp_bilinear_backward_reference(img, flow, g)
+    for a, b in zip(got, want):
+        close_to_scale(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_dimages_tiled_kernel_info(cuda, dtype):
+    info = ops.warp_dimages_tiled_info(dtype)
+    assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0, info
+    # bf16, the model's dtype, keeps 4 blocks on an SM; f32's packs take
+    # twice the registers
+    assert info["smem_bytes"] > 0, info
+    assert info["blocks_per_sm"] >= (4 if dtype == torch.bfloat16 else 2), info
 
 
 def test_warp_image_grad_kernel_only_where_needed(cuda):
