@@ -180,9 +180,10 @@ extern "C" int b2f_warp_bilinear_dimages_thread(const void* flow, const void* g,
 // contiguous and of `dtype`. reference_grads: 1 for the reference formula,
 // 0 for the autodiff gradient (zeroed where the coordinate clamps).
 // Launches on `stream`, returns cudaGetLastError().
-extern "C" int b2f_warp_bilinear_dflow(const void* img, const void* flow, const void* g,
-                                       void* d_flow, int dtype, int B, int H, int W,
-                                       int C, int reference_grads, void* stream) {
+extern "C" int b2f_warp_bilinear_dflow_thread(const void* img, const void* flow,
+                                              const void* g, void* d_flow, int dtype, int B,
+                                              int H, int W, int C, int reference_grads,
+                                              void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

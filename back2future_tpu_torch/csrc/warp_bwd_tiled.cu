@@ -1,12 +1,14 @@
 // Bilinear warp with pixel-offset flow, backward, designed for Hopper: the
-// image gradient (K4). The semantics are those of warp_bwd.cu, which
-// keeps the first design's kernel callable for comparison only
-// (b2f_warp_bilinear_dimages_thread):
+// image gradient (K4) and the flow gradient (W-dflow). The semantics are
+// those of warp_bwd.cu, which keeps the first design's kernels callable
+// for comparison only (b2f_warp_bilinear_{dimages,dflow}_thread):
 //
 //   d_img[b, corner(p), c] += w_corner(p) * g[b, p, c]
+//   d_flow[b, p] = the reference formula of the four corner dot products
+//                  <I[corner(p)], g[b, p]> (warp_corners.cuh, warp_dflow)
 //
-// for the four corners of every output pixel p (warp_corners.cuh); a +1
-// corner outside the image has weight exactly 0 and is skipped.
+// for the four corners of every output pixel p; a +1 corner outside the
+// image has weight exactly 0 and is skipped.
 //
 // K4 replaces back2future_tpu/ops/warp_pallas.py `_kernel` (via
 // `d_images_pallas`) and the XLA scatter that is its default in
@@ -40,6 +42,20 @@
 // the adds are scalar, and where g is not aligned for 4-element packs its
 // loads are. The order of the f32 sums varies from run to run (atomics),
 // so the result is not bitwise deterministic: f32 rounding only.
+//
+// W-dflow replaces the XLA flow-gradient formula of back2future_tpu/ops/
+// warp.py `_warp_bwd`. It is bound by device memory (about a FLOP a
+// byte). The first design ran one thread per pixel that walked C in
+// 16-byte packs: across a warp one pack's loads lay 2C bytes apart, and at
+// C = 3 (the image warps, two thirds of its time in a train step) it made
+// fifteen 2-byte loads per pixel. Here, for C = 3, one thread per pixel
+// reads its corner pairs (tl, tr) and (bl, br) as 6-element spans (3-4
+// loads each) through the read-only path, its g from a block tile staged
+// with 16-byte loads, and its flow and flow gradient as pairs; for any
+// other C a group of 4 or 8 lanes shares a pixel, each lane reading every
+// G-th 16-byte pack of g and of the four corners, so that one load of the
+// group covers whole 64- or 128-byte segments, and the group sums its four
+// dot products with xor-shuffles. Both sum in f32 and are deterministic.
 #include <climits>
 
 #include "warp_corners.cuh"
@@ -47,6 +63,7 @@
 namespace {
 
 using b2f::Corners;
+using b2f::from_f32;
 using b2f::Pack;
 using b2f::to_f32;
 using b2f::warp_corners;
@@ -266,6 +283,162 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
   if (window_blocks != nullptr && t == 0) atomicAdd(window_blocks, 1);
 }
 
+// W-dflow's plan: threads per block of both kernels
+constexpr int NT_FLOW = 128;
+
+// the 3 channels of a pixel at p, or the 6 of two neighbouring pixels,
+// through the read-only path: 4-byte (bf16) or 8-byte (f32) pairs from
+// where the span's start allows them, single elements at its ends
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+// the 6 elements at p (a corner pair): 3 pair loads where p is aligned
+// for them, else an element, 2 pairs and an element
+template <typename T>
+__device__ __forceinline__ void load_span6(const T* p, float (&v)[6]) {
+  if (reinterpret_cast<uintptr_t>(p) % (2 * sizeof(T)) == 0) {
+    const float2 a = ld2(p), b = ld2(p + 2), c = ld2(p + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y; v[4] = c.x; v[5] = c.y;
+  } else {
+    const float2 a = ld2(p + 1), b = ld2(p + 3);
+    v[0] = ld1(p); v[1] = a.x; v[2] = a.y; v[3] = b.x; v[4] = b.y; v[5] = ld1(p + 5);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_span3(const T* p, float (&v)[6]) {
+  v[0] = ld1(p); v[1] = ld1(p + 1); v[2] = ld1(p + 2);
+  v[3] = v[4] = v[5] = 0.f;
+}
+
+// the corners of pixel p = (b, y, x), its flow read as one pair where the
+// flow is aligned for it
+template <typename T>
+__device__ __forceinline__ Corners pair_corners(const T* flow, size_t p, int x, int y, int H,
+                                                int W, bool flow_pairs) {
+  const float2 f = flow_pairs ? ld2(flow + 2 * p) : make_float2(ld1(flow + 2 * p),
+                                                                 ld1(flow + 2 * p + 1));
+  return b2f::corners_at(f.x, f.y, x, y, H, W);
+}
+
+// W-dflow for C = 3 (the image warps): one thread per pixel. Each corner
+// pair (tl, tr), and (bl, br), is one 6-element span where the +1 column
+// is inside the image; the block's g (3 * NT_FLOW contiguous elements) is
+// staged through shared memory with 16-byte loads where aligned. The flow,
+// the spans and g are all in flight before the block waits for its g.
+// flow_pairs: flow and d_flow are pair-aligned.
+template <typename T>
+__global__ void __launch_bounds__(NT_FLOW)
+warp_bilinear_dflow_rows_kernel(const T* __restrict__ img, const T* __restrict__ flow,
+                                const T* __restrict__ g, T* __restrict__ d_flow, int H, int W,
+                                size_t npix, int flow_pairs, int reference_grads) {
+  constexpr int CHUNKS = NT_FLOW * 3 * sizeof(T) / 16;   // a full block's g
+  __shared__ uint4 g_raw[CHUNKS];
+  T* g_s = reinterpret_cast<T*>(g_raw);
+  const int t = threadIdx.x;
+  const size_t p0 = static_cast<size_t>(blockIdx.x) * NT_FLOW;
+  const int n = static_cast<int>(min(static_cast<size_t>(NT_FLOW), npix - p0));
+  const T* src = g + 3 * p0;
+  const bool chunked = n == NT_FLOW && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  uint4 chunk;
+  if (chunked && t < CHUNKS) chunk = __ldg(reinterpret_cast<const uint4*>(src) + t);
+
+  const size_t p = p0 + min(t, n - 1);
+  const int x = static_cast<int>(p % W);
+  const int y = static_cast<int>((p / W) % H);
+  const size_t b = p / (static_cast<size_t>(H) * W);
+  const Corners k = pair_corners(flow, p, x, y, H, W, flow_pairs);
+  float top[6], bot[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const T* row0 = img + ((b * H + k.y0) * W + k.x0) * 3;
+  if (k.x1_in) load_span6(row0, top); else load_span3(row0, top);
+  if (k.y1_in) {
+    const T* row1 = row0 + static_cast<size_t>(W) * 3;
+    if (k.x1_in) load_span6(row1, bot); else load_span3(row1, bot);
+  }
+
+  if (chunked) {
+    if (t < CHUNKS) g_raw[t] = chunk;
+  } else {
+    for (int i = t; i < 3 * n; i += NT_FLOW) g_s[i] = src[i];
+  }
+  __syncthreads();
+  if (t >= n) return;
+  const float g0 = to_f32(g_s[3 * t]), g1 = to_f32(g_s[3 * t + 1]), g2 = to_f32(g_s[3 * t + 2]);
+  const float2 d = b2f::warp_dflow(k, top[0] * g0 + top[1] * g1 + top[2] * g2,
+                                   top[3] * g0 + top[4] * g1 + top[5] * g2,
+                                   bot[0] * g0 + bot[1] * g1 + bot[2] * g2,
+                                   bot[3] * g0 + bot[4] * g1 + bot[5] * g2, reference_grads);
+  if (flow_pairs) {
+    Pack<T, 2> out;
+    out.v[0] = from_f32<T>(d.x);
+    out.v[1] = from_f32<T>(d.y);
+    *reinterpret_cast<Pack<T, 2>*>(d_flow + 2 * p) = out;
+  } else {
+    d_flow[2 * p] = from_f32<T>(d.x);
+    d_flow[2 * p + 1] = from_f32<T>(d.y);
+  }
+}
+
+// W-dflow for every other C: G lanes share a pixel. Lane l reads the VEC-
+// element packs l, l + G, ... of g and of the four corners, so that one
+// load of the group covers G * VEC contiguous elements, and the group sums
+// its four dot products with xor-shuffles.
+template <typename T, int VEC, int G>
+__global__ void __launch_bounds__(NT_FLOW)
+warp_bilinear_dflow_lanes_kernel(const T* __restrict__ img, const T* __restrict__ flow,
+                                 const T* __restrict__ g, T* __restrict__ d_flow, int H, int W,
+                                 int C, size_t npix, int reference_grads) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * NT_FLOW + threadIdx.x;
+  const int l = threadIdx.x % G;
+  const bool live = i / G < npix;   // the whole group, so its shuffles stay converged
+  const size_t p = live ? i / G : npix - 1;
+  const int x = static_cast<int>(p % W);
+  const int y = static_cast<int>((p / W) % H);
+  const size_t b = p / (static_cast<size_t>(H) * W);
+  const Corners k = warp_corners(flow, p, x, y, H, W);
+
+  const T* base = img + b * H * W * C;
+  const T* tl_p = base + (static_cast<size_t>(k.y0) * W + k.x0) * C;
+  const T* tr_p = base + (static_cast<size_t>(k.y0) * W + k.x1) * C;
+  const T* bl_p = base + (static_cast<size_t>(k.y1) * W + k.x0) * C;
+  const T* br_p = base + (static_cast<size_t>(k.y1) * W + k.x1) * C;
+  const T* gp = g + p * C;
+  using P = Pack<T, VEC>;
+  float tl = 0.f, tr = 0.f, bl = 0.f, br = 0.f;
+  for (int c = l * VEC; c < C; c += G * VEC) {
+    const P gv = *reinterpret_cast<const P*>(gp + c);
+    const P a = *reinterpret_cast<const P*>(tl_p + c);
+    const P bv = *reinterpret_cast<const P*>(tr_p + c);
+    const P cv = *reinterpret_cast<const P*>(bl_p + c);
+    const P d = *reinterpret_cast<const P*>(br_p + c);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const float gc = to_f32(gv.v[v]);
+      tl = fmaf(to_f32(a.v[v]), gc, tl);
+      tr = fmaf(to_f32(bv.v[v]), gc, tr);
+      bl = fmaf(to_f32(cv.v[v]), gc, bl);
+      br = fmaf(to_f32(d.v[v]), gc, br);
+    }
+  }
+#pragma unroll
+  for (int o = G / 2; o > 0; o /= 2) {
+    tl += __shfl_xor_sync(0xffffffffu, tl, o);
+    tr += __shfl_xor_sync(0xffffffffu, tr, o);
+    bl += __shfl_xor_sync(0xffffffffu, bl, o);
+    br += __shfl_xor_sync(0xffffffffu, br, o);
+  }
+  if (l != 0 || !live) return;
+  const float2 d = b2f::warp_dflow(k, tl, tr, bl, br, reference_grads);
+  d_flow[2 * p] = from_f32<T>(d.x);
+  d_flow[2 * p + 1] = from_f32<T>(d.y);
+}
+
 template <typename T>
 cudaError_t launch_dimages(const void* flow, const void* g, float* d_img, int B, int H, int W,
                            int C, int direct_only, int* window_blocks, cudaStream_t stream) {
@@ -302,6 +475,61 @@ int dimages(const void* flow, const void* g, void* d_img, int dtype, int B, int 
   }
 }
 
+// W-dflow's launch: the rows kernel for C = 3; else lane groups of 8
+// where the channels hold 8 packs, of 4 below
+template <typename T, int VEC, int G>
+cudaError_t launch_lanes(const T* img, const T* flow, const T* g, T* d_flow, int H, int W,
+                         int C, size_t npix, int reference_grads, cudaStream_t stream) {
+  const size_t blocks = (npix * G + NT_FLOW - 1) / NT_FLOW;
+  warp_bilinear_dflow_lanes_kernel<T, VEC, G><<<static_cast<unsigned>(blocks), NT_FLOW, 0,
+                                                stream>>>(img, flow, g, d_flow, H, W, C, npix,
+                                                          reference_grads);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dflow(const void* img_, const void* flow_, const void* g_, void* d_flow_,
+                         int B, int H, int W, int C, int reference_grads, cudaStream_t stream) {
+  const T* img = static_cast<const T*>(img_);
+  const T* flow = static_cast<const T*>(flow_);
+  const T* g = static_cast<const T*>(g_);
+  T* d_flow = static_cast<T*>(d_flow_);
+  const size_t npix = static_cast<size_t>(B) * H * W;
+  if (C == 3) {
+    const auto pair_aligned = [](const void* a) {
+      return reinterpret_cast<uintptr_t>(a) % (2 * sizeof(T)) == 0;
+    };
+    const size_t blocks = (npix + NT_FLOW - 1) / NT_FLOW;
+    warp_bilinear_dflow_rows_kernel<T><<<static_cast<unsigned>(blocks), NT_FLOW, 0, stream>>>(
+        img, flow, g, d_flow, H, W, npix, pair_aligned(flow) && pair_aligned(d_flow),
+        reference_grads);
+    return cudaGetLastError();
+  }
+  constexpr int VEC = 16 / sizeof(T);
+  if (C % VEC == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(g) % 16 == 0) {
+    return C / VEC >= 8
+               ? launch_lanes<T, VEC, 8>(img, flow, g, d_flow, H, W, C, npix, reference_grads,
+                                         stream)
+               : launch_lanes<T, VEC, 4>(img, flow, g, d_flow, H, W, C, npix, reference_grads,
+                                         stream);
+  }
+  return launch_lanes<T, 1, 4>(img, flow, g, d_flow, H, W, C, npix, reference_grads, stream);
+}
+
+// the kernel that b2f_warp_bwd_tiled_info reports
+template <typename T>
+const void* kernel_of(int kernel) {
+  switch (kernel) {
+    case 0: return reinterpret_cast<const void*>(warp_bilinear_dimages_tiled_kernel<T, 4>);
+    case 1: return reinterpret_cast<const void*>(warp_bilinear_dflow_rows_kernel<T>);
+    case 2:
+      return reinterpret_cast<const void*>(
+          warp_bilinear_dflow_lanes_kernel<T, 16 / sizeof(T), 4>);
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 // K4. flow: (B, H, W, 2) and g: (B, H, W, C), contiguous and of `dtype`
@@ -324,21 +552,41 @@ extern "C" int b2f_warp_bilinear_dimages_routes(const void* flow, const void* g,
                  static_cast<int*>(window_blocks), stream);
 }
 
-// What the compiler and the runtime made of K4's kernel with 4-channel
-// packs, in f32 (dtype 0) or bf16 (1): registers and local memory
-// (bytes, spills) per thread, static shared memory per block (bytes),
-// resident blocks per SM. Launches nothing.
-extern "C" int b2f_warp_dimages_tiled_info(int dtype, int* regs, int* local_bytes, int* smem,
-                                           int* blocks_per_sm) {
+// W-dflow. img: (B, H, W, C), flow: (B, H, W, 2), g: (B, H, W, C),
+// d_flow: (B, H, W, 2), all contiguous and of `dtype`. reference_grads: 1
+// for the reference formula, 0 for the autodiff gradient (zeroed where the
+// coordinate clamps). Launches on `stream`, returns cudaGetLastError().
+extern "C" int b2f_warp_bilinear_dflow(const void* img, const void* flow, const void* g,
+                                       void* d_flow, int dtype, int B, int H, int W, int C,
+                                       int reference_grads, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case b2f::kFloat32:
+      return launch_dflow<float>(img, flow, g, d_flow, B, H, W, C, reference_grads, s);
+    case b2f::kBFloat16:
+      return launch_dflow<__nv_bfloat16>(img, flow, g, d_flow, B, H, W, C, reference_grads, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// What the compiler and the runtime made of the kernels, in f32 (dtype
+// 0) or bf16 (1): kernel 0 K4 with 4-channel packs, 1 W-dflow's C = 3
+// rows, 2 W-dflow's lane groups of 4 with 16-byte packs. Registers and
+// local memory (bytes, spills) per thread, static shared memory per block
+// (bytes), resident blocks per SM. Launches nothing.
+extern "C" int b2f_warp_bwd_tiled_info(int kernel, int dtype, int* regs, int* local_bytes,
+                                       int* smem, int* blocks_per_sm) {
+  const void* fn = dtype == b2f::kBFloat16 ? kernel_of<__nv_bfloat16>(kernel)
+                                           : kernel_of<float>(kernel);
+  if (fn == nullptr) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  const void* kernel =
-      dtype == b2f::kBFloat16
-          ? reinterpret_cast<const void*>(warp_bilinear_dimages_tiled_kernel<__nv_bfloat16, 4>)
-          : reinterpret_cast<const void*>(warp_bilinear_dimages_tiled_kernel<float, 4>);
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return e;
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *smem = static_cast<int>(attr.sharedSizeBytes);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, NT, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                       kernel == 0 ? NT : NT_FLOW, 0);
 }

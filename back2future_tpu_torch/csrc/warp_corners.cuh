@@ -15,13 +15,11 @@ struct Corners {
   float wx, wy;           // weights of the left column / top row
 };
 
-// corners of output pixel p = (b, y, x) of a (B, H, W, 2) flow
-template <typename T>
-__device__ __forceinline__ Corners warp_corners(const T* flow, size_t p, int x, int y, int H,
-                                                int W) {
+// corners of output pixel (y, x) moved by the flow (fx, fy)
+__device__ __forceinline__ Corners corners_at(float fx, float fy, int x, int y, int H, int W) {
   Corners k;
-  const float xs = to_f32(flow[2 * p]) + static_cast<float>(x);
-  const float ys = to_f32(flow[2 * p + 1]) + static_cast<float>(y);
+  const float xs = fx + static_cast<float>(x);
+  const float ys = fy + static_cast<float>(y);
   const float xc = fminf(fmaxf(xs, 0.f), static_cast<float>(W - 1));
   const float yc = fminf(fmaxf(ys, 0.f), static_cast<float>(H - 1));
   const float x0f = floorf(xc), y0f = floorf(yc);
@@ -36,6 +34,13 @@ __device__ __forceinline__ Corners warp_corners(const T* flow, size_t p, int x, 
   k.x_clamped = xs < 0.f || xs > static_cast<float>(W - 1);
   k.y_clamped = ys < 0.f || ys > static_cast<float>(H - 1);
   return k;
+}
+
+// corners of output pixel p = (b, y, x) of a (B, H, W, 2) flow
+template <typename T>
+__device__ __forceinline__ Corners warp_corners(const T* flow, size_t p, int x, int y, int H,
+                                                int W) {
+  return corners_at(to_f32(flow[2 * p]), to_f32(flow[2 * p + 1]), x, y, H, W);
 }
 
 // the flow gradient of one pixel from its four corner dot products (the

@@ -30,7 +30,7 @@ from .stem import (
 from .warp import (
     warp_bilinear, warp_bilinear_backward_cuda, warp_bilinear_backward_reference,
     warp_bilinear_backward_thread, warp_bilinear_reference, warp_dimages_routes,
-    warp_dimages_tiled_info,
+    warp_bwd_tiled_info,
 )
 
 __all__ = [
@@ -40,7 +40,7 @@ __all__ = [
     "warp_bilinear_backward_cuda",
     "warp_bilinear_backward_thread",
     "warp_dimages_routes",
-    "warp_dimages_tiled_info",
+    "warp_bwd_tiled_info",
     "cost_volume",
     "cost_volume_multi",
     "cost_volume_reference",

@@ -24,10 +24,11 @@ Layout: NHWC images (B, H, W, C); flow (B, H, W, 2) with channels (u, v)
 = (x-offset, y-offset).
 
 `warp_bilinear` is an autograd Function. On CUDA tensors its forward is
-the hand-written kernel csrc/warp_fwd.cu and its backward the image
-gradient K4 of csrc/warp_bwd_tiled.cu (tiles whose adds are summed per
-window pixel in shared memory, or added directly, by block; launched
-only when the images need a gradient) and the flow gradient of csrc/warp_bwd.cu; on CPU
+the hand-written kernel csrc/warp_fwd.cu and its backward the kernels of
+csrc/warp_bwd_tiled.cu: the image gradient K4 (tiles whose adds are
+summed per window pixel in shared memory, or added directly, by block;
+launched only when the images need a gradient) and the flow gradient
+W-dflow (a thread per pixel at C = 3, lane groups otherwise); on CPU
 tensors the plain twins `warp_bilinear_reference` and
 `warp_bilinear_backward_reference` run instead.
 `warp_bilinear_backward_thread` keeps the first design's kernels
@@ -58,8 +59,11 @@ _DIMAGES_ROUTES = Kernel("b2f_warp_bilinear_dimages_routes",
 _DIMAGES_THREAD = Kernel("b2f_warp_bilinear_dimages_thread", _DIMAGES_ARGS)
 # K4's tile (rows, columns) and channel slice (csrc/warp_bwd_tiled.cu TH, TW, CS)
 DIMAGES_TILE = (16, 16, 32)
-_DFLOW = Kernel("b2f_warp_bilinear_dflow",   # (img, flow, g, d_flow, dtype, B, H, W, C, ref, stream)
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+# (img, flow, g, d_flow, dtype, B, H, W, C, reference_grads, stream)
+_DFLOW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_DFLOW = Kernel("b2f_warp_bilinear_dflow", _DFLOW_ARGS)
+# the first design's W-dflow: for comparison only, nothing on any path
+_DFLOW_THREAD = Kernel("b2f_warp_bilinear_dflow_thread", _DFLOW_ARGS)
 
 
 def _corners(flow: torch.Tensor, h: int, w: int):
@@ -162,7 +166,7 @@ def warp_bilinear_backward_thread(images: torch.Tensor, flow: torch.Tensor, g: t
                                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The same on the first design's kernels (csrc/warp_bwd.cu), CUDA
     tensors only: kept to compare the two on the card."""
-    return _backward(_DIMAGES_THREAD, _DFLOW, images, flow, g, reference_grads, need)
+    return _backward(_DIMAGES_THREAD, _DFLOW_THREAD, images, flow, g, reference_grads, need)
 
 
 def warp_dimages_routes(flow: torch.Tensor, g: torch.Tensor, direct_only: bool = False
@@ -183,13 +187,19 @@ def warp_dimages_routes(flow: torch.Tensor, g: torch.Tensor, direct_only: bool =
     return acc, int(count.item()), blocks
 
 
-def warp_dimages_tiled_info(dtype: torch.dtype = torch.bfloat16) -> dict:
-    """What the build and the runtime made of K4's kernel with 4-channel
-    packs (csrc/warp_bwd_tiled.cu): registers and local memory per thread,
-    static shared memory per block, resident blocks per SM."""
+# the kernels that `warp_bwd_tiled_info` reports (csrc/warp_bwd_tiled.cu)
+TILED_KERNELS = ("dimages", "dflow_rows", "dflow_lanes")
+
+
+def warp_bwd_tiled_info(kernel: str = "dimages", dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What the build and the runtime made of a kernel of
+    csrc/warp_bwd_tiled.cu: K4 with 4-channel packs ("dimages"), W-dflow
+    at C = 3 ("dflow_rows") or in lane groups of 4 with 16-byte packs
+    ("dflow_lanes"). Registers and local memory per thread, static shared
+    memory per block, resident blocks per SM."""
     vals = [ctypes.c_int() for _ in range(4)]
-    query("b2f_warp_dimages_tiled_info", [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4,
-          DTYPE_CODES[dtype], *map(ctypes.byref, vals))
+    query("b2f_warp_bwd_tiled_info", [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4,
+          TILED_KERNELS.index(kernel), DTYPE_CODES[dtype], *map(ctypes.byref, vals))
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
                     (v.value for v in vals)))
 

@@ -159,6 +159,7 @@ SERVING_PER_FORWARD = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_core
                        "b2f_warp_bilinear_dflow": 0, "b2f_warp_bilinear_dimages": 0,
                        "b2f_warp_bilinear_dimages_routes": 0,
                        "b2f_warp_bilinear_dimages_thread": 0,
+                       "b2f_warp_bilinear_dflow_thread": 0,
                        "b2f_stem_unit_a": 0, "b2f_stem_unit_a_cuda_cores": 0,
                        "b2f_stem_unit_b": 0}
 SERVING_STEM_PER_FORWARD = dict(SERVING_PER_FORWARD, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
@@ -169,6 +170,7 @@ TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0
                   "b2f_cost_volume_dframe_cuda_cores": 0,
                   "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8,
                   "b2f_warp_bilinear_dimages_routes": 0, "b2f_warp_bilinear_dimages_thread": 0,
+                  "b2f_warp_bilinear_dflow_thread": 0,
                   "b2f_stem_unit_a": 0, "b2f_stem_unit_a_cuda_cores": 0,
                   "b2f_stem_unit_b": 0}
 SOFT_PER_STEP = dict(TRAIN_PER_STEP, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
@@ -316,7 +318,7 @@ def phase_mma_builds() -> None:
     bf16 tensor-core kernels, and of the warp gradients' bf16 kernels
     (their global reductions and shared-memory atomics)."""
     from back2future_tpu_torch.ops import (
-        cost_volume_bwd_bf16_info, cost_volume_fwd_bf16_info, warp_dimages_tiled_info,
+        cost_volume_bwd_bf16_info, cost_volume_fwd_bf16_info, warp_bwd_tiled_info,
     )
     from back2future_tpu_torch.ops.stem import stem_unit_a_bf16_info, stem_unit_b_bf16_info
 
@@ -331,9 +333,17 @@ def phase_mma_builds() -> None:
     mma_build_report("K6 bf16 (stem_unit_b_mma_kernel)", stem_unit_b_bf16_info(),
                      "stem_unit_b_mma")
     mma_build_report("K4 bf16 (warp_bilinear_dimages_tiled_kernel<bf16, 4>)",
-                     warp_dimages_tiled_info(torch.bfloat16),
+                     warp_bwd_tiled_info("dimages"),
                      "warp_bilinear_dimages_tiled_kernelI13__nv_bfloat16Li4E", ops=(),
                      prefixes=("RED", "ATOM"), required=("RED", "ATOMS"))
+    mma_build_report("W-dflow bf16, C = 3 (warp_bilinear_dflow_rows_kernel<bf16>)",
+                     warp_bwd_tiled_info("dflow_rows"),
+                     "warp_bilinear_dflow_rows_kernelI13__nv_bfloat16E", ops=(),
+                     prefixes=("LDG", "LDS", "STS"), required=("LDG",))
+    mma_build_report("W-dflow bf16, lane groups (warp_bilinear_dflow_lanes_kernel<bf16, 8, 4>)",
+                     warp_bwd_tiled_info("dflow_lanes"),
+                     "warp_bilinear_dflow_lanes_kernelI13__nv_bfloat16Li8ELi4E", ops=(),
+                     prefixes=("LDG", "SHFL"), required=("LDG", "SHFL"))
 
 
 def compare_k1_cuda_cores(label, ref, frame, fwd, c, new, twin, summary) -> None:
@@ -488,6 +498,19 @@ def phase_kernels(dev) -> dict:
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
+    def compare_old(key, label, new, old, twin, new_name, old_name, smooth):
+        """A warp gradient's new kernel beside the first design's, alone,
+        in turns (`compare_cuda_cores`), into the summary's `old_ms` and
+        `new_turn_ms` (with `smooth_` before them for smooth flows); two
+        launches a step."""
+        prefix = "smooth_" if smooth else ""
+        new_ms, _ = compare_cuda_cores(f"{label}, kernels alone", key, new, old, twin, summary,
+                                       per_forward=2, names=(new_name, old_name),
+                                       words=("new", "the first design's"),
+                                       field=prefix + "old_ms")
+        summary[key][prefix + "new_turn_ms"] = \
+            summary[key].get(prefix + "new_turn_ms", 0.0) + 2 * new_ms
+
     smooth_rng = np.random.default_rng(1)
 
     def smooth_flow(shape, dtype):
@@ -570,11 +593,18 @@ def phase_kernels(dev) -> dict:
 
                 where = f"{tag} B={TRAIN_B} {h}x{w}x{c}, {kind} flow"
                 smooth = kind == "smooth"
-                check("warp_dflow", f"warp_bilinear d_flow {where}", dtype,
-                      lambda: ops.warp_bilinear_backward_cuda(img, flow, g, need=(False, True))[1],
-                      lambda: ops.warp_bilinear_backward_reference(img, flow, g)[1],
+                new = lambda: ops.warp_bilinear_backward_cuda(   # noqa: E731
+                    img, flow, g, need=(False, True))[1]
+                twin = lambda: ops.warp_bilinear_backward_reference(img, flow, g)[1]   # noqa: E731
+                check("warp_dflow", f"warp_bilinear d_flow {where}", dtype, new, twin,
                       per_forward=2, work=(8 * img.numel(), 2 * nbytes(img) + 2 * nbytes(flow)),
                       library=library([False, True]), of_largest=True, smooth=smooth)
+                if dtype == torch.bfloat16:
+                    compare_old("warp_dflow", f"warp_bilinear d_flow {where}", new,
+                                lambda: ops.warp_bilinear_backward_thread(
+                                    img, flow, g, need=(False, True))[1], twin,
+                                "_rows_kernel" if c == 3 else "_lanes_kernel", "dflow_kernel",
+                                smooth)
                 if not feature:   # the image warps' inputs need no gradient
                     continue
                 new = lambda: ops.warp_bilinear_backward_cuda(   # noqa: E731
@@ -585,16 +615,10 @@ def phase_kernels(dev) -> dict:
                       library=library([True, False]), of_largest=True, smooth=smooth,
                       kernel_part="dimages_tiled")
                 if dtype == torch.bfloat16:
-                    new_ms, _ = compare_cuda_cores(
-                        f"warp_bilinear d_images {where}, kernels alone", "warp_dimages", new,
-                        lambda: ops.warp_bilinear_backward_thread(
-                            img, flow, g, need=(True, False))[0], twin, summary,
-                        per_forward=2, names=("dimages_tiled", "dimages_kernel"),
-                        words=("K4", "the first design's K4"),
-                        field=f"{'smooth_' if smooth else ''}old_ms")
-                    turns = f"{'smooth_' if smooth else ''}new_turn_ms"
-                    summary["warp_dimages"][turns] = \
-                        summary["warp_dimages"].get(turns, 0.0) + 2 * new_ms
+                    compare_old("warp_dimages", f"warp_bilinear d_images {where}", new,
+                                lambda: ops.warp_bilinear_backward_thread(
+                                    img, flow, g, need=(True, False))[0], twin,
+                                "dimages_tiled", "dimages_kernel", smooth)
                     _, n_window, blocks = ops.warp_dimages_routes(flow, g)
                     log("kernels", f"warp_bilinear d_images {where}: {n_window} of {blocks} "
                                    f"K4 blocks took the window route")
@@ -1394,8 +1418,8 @@ KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches
      "back2future_tpu/ops/cost_volume_pallas.py:203", "train"),
     ("warp_bilinear_dimages", "warp_dimages", "warp_bwd_tiled.cu",
      "back2future_tpu/ops/warp_pallas.py:81", "train"),
-    ("warp_bilinear_dflow", "warp_dflow", "warp_bwd.cu", "back2future_tpu/ops/warp.py:209",
-     "train"),
+    ("warp_bilinear_dflow", "warp_dflow", "warp_bwd_tiled.cu",
+     "back2future_tpu/ops/warp.py:209", "train"),
     ("stem_unit_a", "stem_unit_a", "stem_unit_a_mma.cu",
      "back2future_tpu/ops/stem_pallas.py:264",
      "soft"),

@@ -478,21 +478,24 @@ def test_warp_backward_thread_kernels_match_twin(cuda, dtype, c):
     flow = warp_flow("random", (2, 11, 300), 41, cuda, dtype)
     reset_launches()
     got = ops.warp_bilinear_backward_thread(img, flow, g)
-    assert KERNELS["b2f_warp_bilinear_dimages_thread"].launches == 1
-    assert KERNELS["b2f_warp_bilinear_dimages"].launches == 0
+    for name in ("dimages", "dflow"):
+        assert KERNELS[f"b2f_warp_bilinear_{name}_thread"].launches == 1
+        assert KERNELS[f"b2f_warp_bilinear_{name}"].launches == 0
     want = ops.warp_bilinear_backward_reference(img, flow, g)
     for a, b in zip(got, want):
         close_to_scale(a, b, dtype)
 
 
+@pytest.mark.parametrize("kernel", ["dimages", "dflow_rows", "dflow_lanes"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_warp_dimages_tiled_kernel_info(cuda, dtype):
-    info = ops.warp_dimages_tiled_info(dtype)
+def test_warp_bwd_tiled_kernel_info(cuda, dtype, kernel):
+    info = ops.warp_bwd_tiled_info(kernel, dtype)
     assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0, info
-    # bf16, the model's dtype, keeps 4 blocks on an SM; f32's packs take
-    # twice the registers
-    assert info["smem_bytes"] > 0, info
-    assert info["blocks_per_sm"] >= (4 if dtype == torch.bfloat16 else 2), info
+    # K4 in bf16, the model's dtype, keeps 4 blocks on an SM (f32's packs
+    # take twice the registers); W-dflow's lane groups hold 5 packs a lane
+    want = {"dimages": 4 if dtype == torch.bfloat16 else 2, "dflow_rows": 4, "dflow_lanes": 3}
+    assert info["blocks_per_sm"] >= want[kernel], info
+    assert (info["smem_bytes"] > 0) == (kernel != "dflow_lanes"), info
 
 
 def test_warp_image_grad_kernel_only_where_needed(cuda):

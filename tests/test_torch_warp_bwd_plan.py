@@ -22,6 +22,16 @@ shows here. K4, the image gradient:
   where no add lands or the sum is all 0;
 - direct route: each (pixel, quad) adding its 4 corners straight into the
   image gradient.
+W-dflow, the flow gradient:
+- C = 3: one thread per pixel; a block's g staged as 3 * NT_FLOW
+  contiguous elements; each corner pair (tl, tr) or (bl, br) read as one
+  6-element span where the +1 column is inside the image, 3 elements
+  (and 0 for the +1 corner) where it is not; no bottom row where the +1
+  row is outside;
+- any other C: G lanes a pixel (8 where the channels hold 8 packs of VEC,
+  else 4), lane l summing packs l, l + G, ... of the four dot products,
+  then an xor-shuffle tree over the group; with packs of 16 bytes (VEC 4
+  in f32) or single elements (VEC 1, unaligned tensors).
 Every sum is f32 in another order than the twin's and JAX's: tolerance
 1e-5, relative to the largest value (far past the border, one corner
 pixel collects every pixel's gradient, hundreds of terms).
@@ -55,6 +65,9 @@ WINDOW_PIX = 2 * TP
 
 def close(got, want):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * max(1.0, np.abs(want).max()))
+
+NT_FLOW = 128        # W-dflow's threads per block
+CONSTANTS.update(NT_FLOW=NT_FLOW)
 
 # 28 x 80 leaves partial tiles and holds more than WINDOW_PIX pixels, so
 # that flows can spread past the window
@@ -188,6 +201,58 @@ def k4_model(flow: torch.Tensor, g: torch.Tensor):
     return d_img.view(b, h, w, c), routes
 
 
+def dflow_model(img: torch.Tensor, flow: torch.Tensor, g: torch.Tensor, vec: int,
+                reference_grads: bool = True) -> torch.Tensor:
+    """W-dflow's plan in f32 (`vec`: elements a pack, 4 or 1): the flow
+    gradient (B, H, W, 2)."""
+    b, h, w, c = img.shape
+    (x0, y0, x1, y1), (wx, wy), (x1_in, y1_in), (x_cl, y_cl) = _corners(flow, h, w)
+    flat_img, flat_g = img.reshape(-1), g.reshape(-1, c)
+    row = ((torch.arange(b).view(b, 1, 1) * h + y0) * w + x0).reshape(-1)
+    x1_in, y1_in = x1_in.reshape(-1), y1_in.reshape(-1)
+    npix = row.numel()
+    if c == 3:
+        # g staged per block: 3 * n contiguous elements, thread t's at 3t
+        staged = torch.cat([flat_g.reshape(-1)[3 * p0:3 * min(p0 + NT_FLOW, npix)]
+                            for p0 in range(0, npix, NT_FLOW)]).view(-1, 3)
+        assert torch.equal(staged, flat_g)
+        span = torch.arange(6)
+        top = flat_img[(3 * row)[:, None] + torch.where(x1_in[:, None], span, span % 3)]
+        top[:, 3:] *= x1_in[:, None]
+        bot_row = torch.where(y1_in, row + w, row)
+        bot = flat_img[(3 * bot_row)[:, None] + torch.where(x1_in[:, None], span, span % 3)]
+        bot[:, 3:] *= x1_in[:, None]
+        bot *= y1_in[:, None]
+        tl, tr = (top[:, :3] * staged).sum(1), (top[:, 3:] * staged).sum(1)
+        bl, br = (bot[:, :3] * staged).sum(1), (bot[:, 3:] * staged).sum(1)
+    else:
+        group = 8 if c // vec >= 8 and vec > 1 else 4
+        x1 = torch.where(x1_in, 1, 0)
+        y1 = torch.where(y1_in, w, 0)
+        corners = [row, row + x1, row + y1, row + y1 + x1]
+        lanes = torch.zeros(group, 4, npix)   # lane, corner, pixel
+        for lane in range(group):
+            for c0 in range(lane * vec, c, group * vec):
+                ch = slice(c0, c0 + vec)
+                for j, at in enumerate(corners):
+                    lanes[lane, j] += (img.reshape(-1, c)[at, ch] * flat_g[:, ch]).sum(1)
+        o = group // 2
+        while o:   # __shfl_xor_sync: every lane adds lane ^ o's value
+            lanes = lanes + lanes[torch.arange(group) ^ o]
+            o //= 2
+        assert torch.allclose(lanes, lanes[:1].expand_as(lanes))
+        tl, tr, bl, br = lanes[0]
+        tr, br = tr * x1_in, br * x1_in
+        bl, br = bl * y1_in, br * y1_in
+    wx, wy = wx.reshape(-1), wy.reshape(-1)
+    dfx = -wy * tl + wy * tr - (1 - wy) * bl + (1 - wy) * br
+    dfy = -wx * tl + wx * bl - (1 - wx) * tr + (1 - wx) * br
+    if not reference_grads:
+        dfx = torch.where(x_cl.reshape(-1), 0.0, dfx)
+        dfy = torch.where(y_cl.reshape(-1), 0.0, dfy)
+    return torch.stack([dfx, dfy], -1).view(b, h, w, 2)
+
+
 @pytest.fixture(scope="module")
 def jax_grads():
     """jax.vjp of the JAX package's warp with the Pallas image gradient
@@ -263,3 +328,17 @@ def test_k4_plan_matches_twin_and_jax(jax_grads, c, kind):
     want = {"zero": {"window"}, "smooth": {"window"}, "far": {"window"},
             "random": {"direct"}, "outliers": {"window", "direct"}}[kind]
     assert taken == want, routes
+
+
+@pytest.mark.parametrize("kind", FLOWS)
+@pytest.mark.parametrize("c,vec", [(c, v) for c in CHANNELS for v in ((1,) if c == 3 else (4, 1))])
+def test_dflow_plan_matches_twin_and_jax(jax_grads, c, vec, kind):
+    """At C = 3 the rows kernel (vec unused); else lane groups with 16-byte
+    packs (4 f32) or single elements."""
+    img, flow, g = map(torch.from_numpy, inputs(c, kind))
+    for reference_grads in (True, False):
+        got = dflow_model(img, flow, g, vec, reference_grads)
+        _, twin = ops.warp_bilinear_backward_reference(img, flow, g, reference_grads)
+        close(got.numpy(), twin.numpy())
+        if reference_grads:
+            close(got.numpy(), jax_grads[(c, kind)][1])
