@@ -109,14 +109,14 @@ __device__ __forceinline__ float4 scale4(float w, float4 g) {
 // K4: grid (tiles across W, tiles across H, B * slices). vec_out: C % 4 ==
 // 0 and d_img 16-byte aligned, so 4 channels are added as one 16-byte
 // reduction. VEC: 4 when g's 4-channel packs are aligned, else 1.
-// direct_only forces the direct route (for comparing the two); a block
-// that takes the window route adds one to *window_blocks if it is given.
+// direct_only forces the direct route (for comparing the two); where
+// `routes` is given, every block adds one to routes[1] and a block that
+// takes the window route one to routes[0].
 template <typename T, int VEC>
 __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 4 : 2)   // f32: 8 packs of 4 registers
 warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restrict__ g,
                                    float* __restrict__ d_img, int H, int W, int C, int slices,
-                                   int vec_out, int direct_only,
-                                   int* __restrict__ window_blocks) {
+                                   int vec_out, int direct_only, int* __restrict__ routes) {
   __shared__ int4 corner_s[TP];   // x0, y0 (-1: outside the image), wx, wy as bits
   __shared__ int4 box_s[NT / 32];
   __shared__ Pack<T, 4> g_s[TP * QS];   // the tile's g, pixel-major (window route)
@@ -200,6 +200,7 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
         add_quad(tl + static_cast<size_t>(W + 1) * C, scale4((1.f - wx) * (1.f - wy), gv), nv,
                  vec_out);
     }
+    if (routes != nullptr && t == 0) atomicAdd(&routes[1], 1);   // thread 0 has a quad
     return;
   }
 
@@ -280,7 +281,10 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
       for (col += PIX; col >= ww; col -= ww) ++r;
     }
   }
-  if (window_blocks != nullptr && t == 0) atomicAdd(window_blocks, 1);
+  if (routes != nullptr && t == 0) {
+    atomicAdd(&routes[0], 1);
+    atomicAdd(&routes[1], 1);
+  }
 }
 
 // W-dflow's plan: threads per block of both kernels
@@ -441,7 +445,7 @@ warp_bilinear_dflow_lanes_kernel(const T* __restrict__ img, const T* __restrict_
 
 template <typename T>
 cudaError_t launch_dimages(const void* flow, const void* g, float* d_img, int B, int H, int W,
-                           int C, int direct_only, int* window_blocks, cudaStream_t stream) {
+                           int C, int direct_only, int* routes, cudaStream_t stream) {
   const int slices = (C + CS - 1) / CS;
   const long long z = static_cast<long long>(B) * slices;
   const int tiles_y = (H + TH - 1) / TH;
@@ -452,24 +456,24 @@ cudaError_t launch_dimages(const void* flow, const void* g, float* d_img, int B,
   const T* gp = static_cast<const T*>(g);
   if (C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % (4 * sizeof(T)) == 0)
     warp_bilinear_dimages_tiled_kernel<T, 4><<<grid, NT, 0, stream>>>(
-        fl, gp, d_img, H, W, C, slices, vec_out, direct_only, window_blocks);
+        fl, gp, d_img, H, W, C, slices, vec_out, direct_only, routes);
   else
     warp_bilinear_dimages_tiled_kernel<T, 1><<<grid, NT, 0, stream>>>(
-        fl, gp, d_img, H, W, C, slices, vec_out, direct_only, window_blocks);
+        fl, gp, d_img, H, W, C, slices, vec_out, direct_only, routes);
   return cudaGetLastError();
 }
 
 int dimages(const void* flow, const void* g, void* d_img, int dtype, int B, int H, int W, int C,
-            int direct_only, int* window_blocks, void* stream) {
+            int direct_only, int* routes, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(d_img);
   switch (dtype) {
     case b2f::kFloat32:
-      return launch_dimages<float>(flow, g, out, B, H, W, C, direct_only, window_blocks, s);
+      return launch_dimages<float>(flow, g, out, B, H, W, C, direct_only, routes, s);
     case b2f::kBFloat16:
       return launch_dimages<__nv_bfloat16>(flow, g, out, B, H, W, C, direct_only,
-                                           window_blocks, s);
+                                           routes, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -542,14 +546,13 @@ extern "C" int b2f_warp_bilinear_dimages(const void* flow, const void* g, void* 
 }
 
 // The same kernel for comparing its routes: direct_only 1 sends every
-// block the direct route; each block that takes the window route adds one
-// to the device int *window_blocks (zeroed by the caller).
+// block the direct route; routes: 2 device ints zeroed by the caller, to
+// which the blocks that took the window route and all blocks are added.
 extern "C" int b2f_warp_bilinear_dimages_routes(const void* flow, const void* g, void* d_img,
                                                 int dtype, int B, int H, int W, int C,
-                                                int direct_only, void* window_blocks,
-                                                void* stream) {
-  return dimages(flow, g, d_img, dtype, B, H, W, C, direct_only,
-                 static_cast<int*>(window_blocks), stream);
+                                                int direct_only, void* routes, void* stream) {
+  return dimages(flow, g, d_img, dtype, B, H, W, C, direct_only, static_cast<int*>(routes),
+                 stream);
 }
 
 // W-dflow. img: (B, H, W, C), flow: (B, H, W, 2), g: (B, H, W, C),

@@ -52,13 +52,11 @@ _FWD = Kernel("b2f_warp_bilinear_fwd",   # (img, flow, out, dtype, B, H, W, C, s
 _DIMAGES_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DIMAGES = Kernel("b2f_warp_bilinear_dimages",   # (flow, g, d_img f32, dtype, B, H, W, C, stream)
                   _DIMAGES_ARGS)
-# K4 with (direct_only, window-block counter) before the stream; and the
-# first design's K4: for comparison only, nothing on any path
+# K4 with (direct_only, route counts) before the stream; and the first
+# design's K4: for comparison only, nothing on any path
 _DIMAGES_ROUTES = Kernel("b2f_warp_bilinear_dimages_routes",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
 _DIMAGES_THREAD = Kernel("b2f_warp_bilinear_dimages_thread", _DIMAGES_ARGS)
-# K4's tile (rows, columns) and channel slice (csrc/warp_bwd_tiled.cu TH, TW, CS)
-DIMAGES_TILE = (16, 16, 32)
 # (img, flow, g, d_flow, dtype, B, H, W, C, reference_grads, stream)
 _DFLOW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _DFLOW = Kernel("b2f_warp_bilinear_dflow", _DFLOW_ARGS)
@@ -177,14 +175,13 @@ def warp_dimages_routes(flow: torch.Tensor, g: torch.Tensor, direct_only: bool =
     b, h, w, c = g.shape
     check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), g.dtype)
     check_kernel_input("warp_bilinear grad", g, g.shape, g.dtype)
-    th, tw, cs = DIMAGES_TILE
     acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
-    count = torch.zeros(1, dtype=torch.int32, device=g.device)
+    routes = torch.zeros(2, dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):
         _DIMAGES_ROUTES(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, h, w, c,
-                        int(direct_only), ptr(count), stream_ptr(g.device))
-    blocks = -(-h // th) * -(-w // tw) * b * -(-c // cs)
-    return acc, int(count.item()), blocks
+                        int(direct_only), ptr(routes), stream_ptr(g.device))
+    window, blocks = routes.tolist()
+    return acc, window, blocks
 
 
 # the kernels that `warp_bwd_tiled_info` reports (csrc/warp_bwd_tiled.cu)

@@ -8,8 +8,9 @@ Phases, one line each (any failure raises and exits non-zero):
      (one nvcc per source, in parallel); the bf16 tensor-core kernels of
      K1, K2 and K3 (win 9), K5 and K6: registers, spills, shared memory,
      resident blocks per SM, and the HMMA / LDGSTS / LDSM instructions of
-     their SASS (cuobjdump); the same for the warp's bf16 K4 with the
-     global reductions and shared-memory atomics of its SASS
+     their SASS (cuobjdump); the same for the warp gradients' bf16
+     kernels with the global reductions and shared-memory atomics (K4) or
+     the loads and shuffles (W-dflow) of their SASS
   3. kernels against their plain torch twins, in bf16 and f32, with the
      max abs error, the tolerance, CUDA-event medians of the kernel, the
      twin and (where one PyTorch call computes the same function) that
@@ -25,9 +26,9 @@ Phases, one line each (any failure raises and exits non-zero):
      old CUDA-core kernels of K1, K2, K3 and K5 beside their tensor-core
      kernels at each shape, in turns in one profiler window. The warp
      gradients run on the random flows and on smooth ones (a 2x upsample
-     of a coarse field, as a model's); K4 beside the first design's kernel
-     in turns, its wrapper's zero-fill and cast apart, and its blocks'
-     routes
+     of a coarse field, as a model's), each kernel beside the first
+     design's in turns; K4's wrapper's zero-fill and cast apart, and its
+     blocks' routes
   4. serving path, stem off: init(None, device="cuda") with the flagship
      config (frames 3, levels 7, win 9, skip 2, bf16, random weights from
      seed 0), compute_flow / compute_flow_batch (B=16, three times) /
@@ -316,7 +317,8 @@ def mma_build_report(label: str, info: dict, function: str, ops=("HMMA", "LDGSTS
 def phase_mma_builds() -> None:
     """The build reports of K1's (win 9), K2/K3's (win 9), K5's and K6's
     bf16 tensor-core kernels, and of the warp gradients' bf16 kernels
-    (their global reductions and shared-memory atomics)."""
+    (K4's global reductions and shared-memory atomics, W-dflow's loads and
+    shuffles)."""
     from back2future_tpu_torch.ops import (
         cost_volume_bwd_bf16_info, cost_volume_fwd_bf16_info, warp_bwd_tiled_info,
     )
