@@ -38,7 +38,13 @@
 //    incoherent flows): each (pixel, 4 channels) adds its four corners
 //    with 16-byte reductions, 4x fewer atomic instructions than before.
 // Each block picks its route on the device; both give the exact
-// transpose. Where C is not a multiple of 4 (never on the model's path)
+// transpose. The window route's five phases, each behind a barrier,
+// make a block's latency longer, and a launch whose grid is about one
+// block an SM lasts one block's latency: there the direct route is
+// faster even for a window that fits. So a launch lets its blocks take
+// the window route only where its grid holds 1.5 blocks an SM or more
+// (on an H100, the train step's levels 3-4 but not 5-6, which is where
+// each route was measured to be the faster on the same inputs). Where C is not a multiple of 4 (never on the model's path)
 // the adds are scalar, and where g is not aligned for 4-element packs its
 // loads are. The order of the f32 sums varies from run to run (atomics),
 // so the result is not bitwise deterministic: f32 rounding only.
@@ -109,20 +115,17 @@ __device__ __forceinline__ float4 scale4(float w, float4 g) {
 // K4: grid (tiles across W, tiles across H, B * slices). vec_out: C % 4 ==
 // 0 and d_img 16-byte aligned, so 4 channels are added as one 16-byte
 // reduction. VEC: 4 when g's 4-channel packs are aligned, else 1.
-// direct_only forces the direct route (for comparing the two); where
-// `routes` is given, every block adds one to routes[1] and a block that
-// takes the window route one to routes[0].
-template <typename T, int VEC>
+// WINDOW: a block whose box fits takes the window route (else every
+// block takes the direct route). COUNT (for comparing the routes only):
+// every block adds one to routes[1], and one that takes the window route
+// one to routes[0].
+template <typename T, int VEC, bool WINDOW, bool COUNT>
 __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 4 : 2)   // f32: 8 packs of 4 registers
 warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restrict__ g,
                                    float* __restrict__ d_img, int H, int W, int C, int slices,
-                                   int vec_out, int direct_only, int* __restrict__ routes) {
+                                   int vec_out, int* __restrict__ routes) {
   __shared__ int4 corner_s[TP];   // x0, y0 (-1: outside the image), wx, wy as bits
   __shared__ int4 box_s[NT / 32];
-  __shared__ Pack<T, 4> g_s[TP * QS];   // the tile's g, pixel-major (window route)
-  __shared__ int start_s[WINDOW_PIX + 1];   // per window pixel: its adds, then their start
-  __shared__ int2 list_s[4 * TP];   // the adds by window pixel: tile pixel, weight as bits
-  __shared__ int warp_s[NT / 32];
 
   const int t = threadIdx.x;
   const int q = t % QS;
@@ -163,11 +166,13 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
       box = make_int4(k.y0, k.y1, k.x0, k.x1);
     }
     corner_s[t] = e;
-    box.x = __reduce_min_sync(0xffffffffu, box.x);
-    box.y = __reduce_max_sync(0xffffffffu, box.y);
-    box.z = __reduce_min_sync(0xffffffffu, box.z);
-    box.w = __reduce_max_sync(0xffffffffu, box.w);
-    if (t % 32 == 0) box_s[t / 32] = box;
+    if (WINDOW) {
+      box.x = __reduce_min_sync(0xffffffffu, box.x);
+      box.y = __reduce_max_sync(0xffffffffu, box.y);
+      box.z = __reduce_min_sync(0xffffffffu, box.z);
+      box.w = __reduce_max_sync(0xffffffffu, box.w);
+      if (t % 32 == 0) box_s[t / 32] = box;
+    }
   }
   __syncthreads();
   int4 box = box_s[0];
@@ -178,9 +183,9 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
   }
   const int ylo = box.x, xlo = box.z;
   const int ww = box.w - box.z + 1;
-  const int wpix = (box.y - box.x + 1) * ww;
+  const int wpix = (box.y - box.x + 1) * ww;   // read only where WINDOW
 
-  if (direct_only || wpix > WINDOW_PIX) {
+  if (!WINDOW || wpix > WINDOW_PIX) {
     // direct route: each (pixel, quad)'s four corners, one 16-byte
     // reduction each
     if (nv == 0) return;
@@ -200,7 +205,7 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
         add_quad(tl + static_cast<size_t>(W + 1) * C, scale4((1.f - wx) * (1.f - wy), gv), nv,
                  vec_out);
     }
-    if (routes != nullptr && t == 0) atomicAdd(&routes[1], 1);   // thread 0 has a quad
+    if (COUNT && t == 0) atomicAdd(&routes[1], 1);   // thread 0 has a quad
     return;
   }
 
@@ -210,6 +215,10 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
   // integer shared atomics, which are native), and each (window pixel,
   // quad) sums its own adds in registers and flushes them with one
   // reduction. 1. stage g; count the adds of each window pixel.
+  __shared__ Pack<T, 4> g_s[TP * QS];   // the tile's g, pixel-major
+  __shared__ int start_s[WINDOW_PIX + 1];   // per window pixel: its adds, then their start
+  __shared__ int2 list_s[4 * TP];   // the adds by window pixel: tile pixel, weight as bits
+  __shared__ int warp_s[NT / 32];
   for (int i = t; i <= wpix; i += NT) start_s[i] = 0;
 #pragma unroll
   for (int k = 0; k < TP / PIX; ++k) g_s[(t / QS + PIX * k) * QS + q] = gk[k];
@@ -281,7 +290,7 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
       for (col += PIX; col >= ww; col -= ww) ++r;
     }
   }
-  if (routes != nullptr && t == 0) {
+  if (COUNT && t == 0) {
     atomicAdd(&routes[0], 1);
     atomicAdd(&routes[1], 1);
   }
@@ -443,37 +452,54 @@ warp_bilinear_dflow_lanes_kernel(const T* __restrict__ img, const T* __restrict_
   d_flow[2 * p + 1] = from_f32<T>(d.y);
 }
 
-template <typename T>
+// K4's routes, as a launch allows them: by its grid (the path's), or
+// for comparing the routes only, direct on every block, or the window
+// wherever the box fits
+enum Route { kRouteByGrid = 0, kRouteDirect = 1, kRouteWindow = 2 };
+
+// the window route pays where the grid holds 1.5 blocks an SM or more
+bool window_pays(long long blocks) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return false;
+  return 2 * blocks >= 3LL * sms;
+}
+
+template <typename T, bool COUNT>
 cudaError_t launch_dimages(const void* flow, const void* g, float* d_img, int B, int H, int W,
-                           int C, int direct_only, int* routes, cudaStream_t stream) {
+                           int C, int route, int* routes, cudaStream_t stream) {
   const int slices = (C + CS - 1) / CS;
   const long long z = static_cast<long long>(B) * slices;
   const int tiles_y = (H + TH - 1) / TH;
   if (z > 65535 || tiles_y > 65535) return cudaErrorInvalidValue;
   const dim3 grid((W + TW - 1) / TW, tiles_y, static_cast<unsigned>(z));
+  const bool window = route == kRouteWindow ||
+                      (route == kRouteByGrid &&
+                       window_pays(static_cast<long long>(grid.x) * grid.y * z));
+  const bool vec_in = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % (4 * sizeof(T)) == 0;
+  const auto kernel = vec_in ? (window ? warp_bilinear_dimages_tiled_kernel<T, 4, true, COUNT>
+                                       : warp_bilinear_dimages_tiled_kernel<T, 4, false, COUNT>)
+                             : (window ? warp_bilinear_dimages_tiled_kernel<T, 1, true, COUNT>
+                                       : warp_bilinear_dimages_tiled_kernel<T, 1, false, COUNT>);
   const int vec_out = C % 4 == 0 && reinterpret_cast<uintptr_t>(d_img) % 16 == 0;
-  const T* fl = static_cast<const T*>(flow);
-  const T* gp = static_cast<const T*>(g);
-  if (C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % (4 * sizeof(T)) == 0)
-    warp_bilinear_dimages_tiled_kernel<T, 4><<<grid, NT, 0, stream>>>(
-        fl, gp, d_img, H, W, C, slices, vec_out, direct_only, routes);
-  else
-    warp_bilinear_dimages_tiled_kernel<T, 1><<<grid, NT, 0, stream>>>(
-        fl, gp, d_img, H, W, C, slices, vec_out, direct_only, routes);
+  kernel<<<grid, NT, 0, stream>>>(static_cast<const T*>(flow), static_cast<const T*>(g), d_img,
+                                  H, W, C, slices, vec_out, routes);
   return cudaGetLastError();
 }
 
+template <bool COUNT>
 int dimages(const void* flow, const void* g, void* d_img, int dtype, int B, int H, int W, int C,
-            int direct_only, int* routes, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
+            int route, int* routes, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || route < 0 || route > kRouteWindow)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(d_img);
   switch (dtype) {
     case b2f::kFloat32:
-      return launch_dimages<float>(flow, g, out, B, H, W, C, direct_only, routes, s);
+      return launch_dimages<float, COUNT>(flow, g, out, B, H, W, C, route, routes, s);
     case b2f::kBFloat16:
-      return launch_dimages<__nv_bfloat16>(flow, g, out, B, H, W, C, direct_only,
-                                           routes, s);
+      return launch_dimages<__nv_bfloat16, COUNT>(flow, g, out, B, H, W, C, route, routes, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -525,7 +551,11 @@ cudaError_t launch_dflow(const void* img_, const void* flow_, const void* g_, vo
 template <typename T>
 const void* kernel_of(int kernel) {
   switch (kernel) {
-    case 0: return reinterpret_cast<const void*>(warp_bilinear_dimages_tiled_kernel<T, 4>);
+    case 0:
+      return reinterpret_cast<const void*>(warp_bilinear_dimages_tiled_kernel<T, 4, true, false>);
+    case 3:
+      return reinterpret_cast<const void*>(
+          warp_bilinear_dimages_tiled_kernel<T, 4, false, false>);
     case 1: return reinterpret_cast<const void*>(warp_bilinear_dflow_rows_kernel<T>);
     case 2:
       return reinterpret_cast<const void*>(
@@ -542,17 +572,18 @@ const void* kernel_of(int kernel) {
 extern "C" int b2f_warp_bilinear_dimages(const void* flow, const void* g, void* d_img,
                                          int dtype, int B, int H, int W, int C,
                                          void* stream) {
-  return dimages(flow, g, d_img, dtype, B, H, W, C, 0, nullptr, stream);
+  return dimages<false>(flow, g, d_img, dtype, B, H, W, C, kRouteByGrid, nullptr, stream);
 }
 
-// The same kernel for comparing its routes: direct_only 1 sends every
-// block the direct route; routes: 2 device ints zeroed by the caller, to
-// which the blocks that took the window route and all blocks are added.
+// The same kernel for comparing its routes. route: 0 as the path allows
+// them (by the grid), 1 direct on every block, 2 the window wherever the
+// box fits; routes: 2 device ints zeroed by the caller, to which the
+// blocks that took the window route and all blocks are added.
 extern "C" int b2f_warp_bilinear_dimages_routes(const void* flow, const void* g, void* d_img,
-                                                int dtype, int B, int H, int W, int C,
-                                                int direct_only, void* routes, void* stream) {
-  return dimages(flow, g, d_img, dtype, B, H, W, C, direct_only, static_cast<int*>(routes),
-                 stream);
+                                                int dtype, int B, int H, int W, int C, int route,
+                                                void* routes, void* stream) {
+  return dimages<true>(flow, g, d_img, dtype, B, H, W, C, route, static_cast<int*>(routes),
+                       stream);
 }
 
 // W-dflow. img: (B, H, W, C), flow: (B, H, W, 2), g: (B, H, W, C),
@@ -575,8 +606,9 @@ extern "C" int b2f_warp_bilinear_dflow(const void* img, const void* flow, const 
 }
 
 // What the compiler and the runtime made of the kernels, in f32 (dtype
-// 0) or bf16 (1): kernel 0 K4 with 4-channel packs, 1 W-dflow's C = 3
-// rows, 2 W-dflow's lane groups of 4 with 16-byte packs. Registers and
+// 0) or bf16 (1): kernel 0 K4 with 4-channel packs and the window route,
+// 1 W-dflow's C = 3 rows, 2 W-dflow's lane groups of 4 with 16-byte
+// packs, 3 K4 with 4-channel packs, direct on every block. Registers and
 // local memory (bytes, spills) per thread, static shared memory per block
 // (bytes), resident blocks per SM. Launches nothing.
 extern "C" int b2f_warp_bwd_tiled_info(int kernel, int dtype, int* regs, int* local_bytes,
@@ -591,5 +623,5 @@ extern "C" int b2f_warp_bwd_tiled_info(int kernel, int dtype, int* regs, int* lo
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *smem = static_cast<int>(attr.sharedSizeBytes);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
-                                                       kernel == 0 ? NT : NT_FLOW, 0);
+                                                       kernel % 3 == 0 ? NT : NT_FLOW, 0);
 }

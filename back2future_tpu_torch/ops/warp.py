@@ -26,14 +26,16 @@ Layout: NHWC images (B, H, W, C); flow (B, H, W, 2) with channels (u, v)
 `warp_bilinear` is an autograd Function. On CUDA tensors its forward is
 the hand-written kernel csrc/warp_fwd.cu and its backward the kernels of
 csrc/warp_bwd_tiled.cu: the image gradient K4 (tiles whose adds are
-summed per window pixel in shared memory, or added directly, by block;
-launched only when the images need a gradient) and the flow gradient
+summed per window pixel in shared memory, or added directly, by block
+where the launch's grid holds 1.5 blocks an SM or more, else added
+directly; launched only when the images need a gradient) and the flow gradient
 W-dflow (a thread per pixel at C = 3, lane groups otherwise); on CPU
 tensors the plain twins `warp_bilinear_reference` and
 `warp_bilinear_backward_reference` run instead.
 `warp_bilinear_backward_thread` keeps the first design's kernels
 (csrc/warp_bwd.cu) callable for comparison on the card, and
-`warp_dimages_routes` runs K4 with a count of its window-route blocks.
+`warp_dimages_routes` runs K4 with its routes chosen by the caller and a
+count of its window-route blocks.
 """
 
 from __future__ import annotations
@@ -52,8 +54,8 @@ _FWD = Kernel("b2f_warp_bilinear_fwd",   # (img, flow, out, dtype, B, H, W, C, s
 _DIMAGES_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DIMAGES = Kernel("b2f_warp_bilinear_dimages",   # (flow, g, d_img f32, dtype, B, H, W, C, stream)
                   _DIMAGES_ARGS)
-# K4 with (direct_only, route counts) before the stream; and the first
-# design's K4: for comparison only, nothing on any path
+# K4 with (route, route counts) before the stream; and the first design's
+# K4: for comparison only, nothing on any path
 _DIMAGES_ROUTES = Kernel("b2f_warp_bilinear_dimages_routes",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
 _DIMAGES_THREAD = Kernel("b2f_warp_bilinear_dimages_thread", _DIMAGES_ARGS)
@@ -167,11 +169,18 @@ def warp_bilinear_backward_thread(images: torch.Tensor, flow: torch.Tensor, g: t
     return _backward(_DIMAGES_THREAD, _DFLOW_THREAD, images, flow, g, reference_grads, need)
 
 
-def warp_dimages_routes(flow: torch.Tensor, g: torch.Tensor, direct_only: bool = False
+# K4's routes as `warp_dimages_routes` allows them: as the path does (the
+# window route for a block whose box fits, where the grid holds 1.5
+# blocks an SM or more), direct on every block, or the window route
+# wherever the box fits
+K4_ROUTES = ("grid", "direct", "window")
+
+
+def warp_dimages_routes(flow: torch.Tensor, g: torch.Tensor, route: str = "grid"
                         ) -> Tuple[torch.Tensor, int, int]:
-    """K4 on CUDA tensors, for comparing its routes: (the f32 image
-    gradient, the blocks that took the window route, all blocks);
-    `direct_only` sends every block the direct route."""
+    """K4 on CUDA tensors with its routes allowed by `route` (K4_ROUTES),
+    for comparing them: (the f32 image gradient, the blocks that took the
+    window route, all blocks)."""
     b, h, w, c = g.shape
     check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), g.dtype)
     check_kernel_input("warp_bilinear grad", g, g.shape, g.dtype)
@@ -179,19 +188,20 @@ def warp_dimages_routes(flow: torch.Tensor, g: torch.Tensor, direct_only: bool =
     routes = torch.zeros(2, dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):
         _DIMAGES_ROUTES(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, h, w, c,
-                        int(direct_only), ptr(routes), stream_ptr(g.device))
+                        K4_ROUTES.index(route), ptr(routes), stream_ptr(g.device))
     window, blocks = routes.tolist()
     return acc, window, blocks
 
 
 # the kernels that `warp_bwd_tiled_info` reports (csrc/warp_bwd_tiled.cu)
-TILED_KERNELS = ("dimages", "dflow_rows", "dflow_lanes")
+TILED_KERNELS = ("dimages", "dflow_rows", "dflow_lanes", "dimages_direct")
 
 
 def warp_bwd_tiled_info(kernel: str = "dimages", dtype: torch.dtype = torch.bfloat16) -> dict:
     """What the build and the runtime made of a kernel of
-    csrc/warp_bwd_tiled.cu: K4 with 4-channel packs ("dimages"), W-dflow
-    at C = 3 ("dflow_rows") or in lane groups of 4 with 16-byte packs
+    csrc/warp_bwd_tiled.cu: K4 with 4-channel packs and the window route
+    ("dimages") or direct on every block ("dimages_direct"), W-dflow at
+    C = 3 ("dflow_rows") or in lane groups of 4 with 16-byte packs
     ("dflow_lanes"). Registers and local memory per thread, static shared
     memory per block, resident blocks per SM."""
     vals = [ctypes.c_int() for _ in range(4)]

@@ -27,8 +27,7 @@ Phases, one line each (any failure raises and exits non-zero):
      kernels at each shape, in turns in one profiler window. The warp
      gradients run on the random flows and on smooth ones (a 2x upsample
      of a coarse field, as a model's), each kernel beside the first
-     design's in turns; K4's wrapper's zero-fill and cast apart, and its
-     blocks' routes
+     design's in turns; K4's wrapper's zero-fill and cast apart
   4. serving path, stem off: init(None, device="cuda") with the flagship
      config (frames 3, levels 7, win 9, skip 2, bf16, random weights from
      seed 0), compute_flow / compute_flow_batch (B=16, three times) /
@@ -55,7 +54,8 @@ Phases, one line each (any failure raises and exits non-zero):
      the same state, every parameter gradient compared, and the step in
      turns old / new / new / old, twice: step ms (CUDA events) and K1-K3
      device ms per step (profiler); the same with the warp gradients'
-     first design (old) against K4 and W-dflow (new), warp device ms
+     first design (old) against K4 and W-dflow (new), warp device ms;
+     then K4's routes on the same inputs (`--k4-routes` below)
   7. train path, soft fine-tune recipe (stem on): the hard net of phase 6
      turned into a soft one by convert_net_hard_to_soft (OBGCC,
      past_flow, const_vel 1, second-order smoothness), 6 bf16 steps with
@@ -92,6 +92,15 @@ without its device-memory traffic, at the serving and train shapes.
 does the same for K1's bf16 kernel (win 9, dil 1): without its products,
 its band scatter, its output store, or its device-memory traffic, at the
 serving levels' shapes.
+
+    python3 chip_smoke.py --k4-routes
+
+runs, after phases 1-2, only K4's routes against each other on the same
+bf16 inputs: the train step's feature-warp shapes on random and smooth
+flows, and the hard step's own K4 inputs; per call and per step, the
+blocks that take the window route and the kernel's device ms as the path
+chooses, with every block direct, and with the window wherever a
+block's box fits.
 """
 
 from __future__ import annotations
@@ -334,10 +343,15 @@ def phase_mma_builds() -> None:
                      "stem_unit_a_mma")
     mma_build_report("K6 bf16 (stem_unit_b_mma_kernel)", stem_unit_b_bf16_info(),
                      "stem_unit_b_mma")
-    mma_build_report("K4 bf16 (warp_bilinear_dimages_tiled_kernel<bf16, 4>)",
+    mma_build_report("K4 bf16 (warp_bilinear_dimages_tiled_kernel<bf16, 4, true, false>)",
                      warp_bwd_tiled_info("dimages"),
-                     "warp_bilinear_dimages_tiled_kernelI13__nv_bfloat16Li4E", ops=(),
+                     "warp_bilinear_dimages_tiled_kernelI13__nv_bfloat16Li4ELb1ELb0E", ops=(),
                      prefixes=("RED", "ATOM"), required=("RED", "ATOMS"))
+    mma_build_report("K4 bf16, direct on every block "
+                     "(warp_bilinear_dimages_tiled_kernel<bf16, 4, false, false>)",
+                     warp_bwd_tiled_info("dimages_direct"),
+                     "warp_bilinear_dimages_tiled_kernelI13__nv_bfloat16Li4ELb0ELb0E", ops=(),
+                     prefixes=("RED", "ATOM"), required=("RED",))
     mma_build_report("W-dflow bf16, C = 3 (warp_bilinear_dflow_rows_kernel<bf16>)",
                      warp_bwd_tiled_info("dflow_rows"),
                      "warp_bilinear_dflow_rows_kernelI13__nv_bfloat16E", ops=(),
@@ -403,6 +417,17 @@ def compare_cuda_cores(label, key, new, old, twin, summary, per_forward=1,
                    f"{words[1]} max_abs_err {err:.3e}")
     summary[key][field] = summary[key].get(field, 0.0) + per_forward * old_ms
     return new_ms, old_ms
+
+
+def smooth_flow(rng, shape, dtype, dev):
+    """A model's kind of flow: a 2x bilinear upsample of a coarse random
+    field (1 pixel std at half size), as a decoder level's flow is the 2x
+    upsample of the coarser level's."""
+    b, h, w = shape
+    coarse = torch.from_numpy(rng.standard_normal((b, 2, h // 2, w // 2)).astype(
+        np.float32)).to(dev)
+    return F.interpolate(coarse, scale_factor=2, mode="bilinear", align_corners=False) \
+        .permute(0, 2, 3, 1).contiguous().to(dtype)
 
 
 def phase_kernels(dev) -> dict:
@@ -515,16 +540,6 @@ def phase_kernels(dev) -> dict:
 
     smooth_rng = np.random.default_rng(1)
 
-    def smooth_flow(shape, dtype):
-        """A model's kind of flow: a 2x bilinear upsample of a coarse
-        random field (1 pixel std at half size), as a decoder level's flow
-        is the 2x upsample of the coarser level's."""
-        b, h, w = shape
-        coarse = torch.from_numpy(smooth_rng.standard_normal((b, 2, h // 2, w // 2)).astype(
-            np.float32)).to(dev)
-        return F.interpolate(coarse, scale_factor=2, mode="bilinear", align_corners=False) \
-            .permute(0, 2, 3, 1).contiguous().to(dtype)
-
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for (h, w, c) in LEVEL_SHAPES:
@@ -585,7 +600,7 @@ def phase_kernels(dev) -> dict:
         for (h, w, c), feature in warps:
             img, g = rand((TRAIN_B, h, w, c), dtype), rand((TRAIN_B, h, w, c), dtype)
             flows = {"random": rand((TRAIN_B, h, w, 2), dtype, scale=w / 4),   # past the border
-                     "smooth": smooth_flow((TRAIN_B, h, w), dtype)}
+                     "smooth": smooth_flow(smooth_rng, (TRAIN_B, h, w), dtype, dev)}
             for kind, flow in flows.items():
                 grid = grid_of(flow)
 
@@ -621,9 +636,6 @@ def phase_kernels(dev) -> dict:
                                 lambda: ops.warp_bilinear_backward_thread(
                                     img, flow, g, need=(True, False))[0], twin,
                                 "dimages_tiled", "dimages_kernel", smooth)
-                    _, n_window, blocks = ops.warp_dimages_routes(flow, g)
-                    log("kernels", f"warp_bilinear d_images {where}: {n_window} of {blocks} "
-                                   f"K4 blocks took the window route")
 
         # the fused stem: K5 then K6 on the frame-stacked batch; the twin is
         # the unfused cuDNN conv chain, which is also the library call
@@ -963,6 +975,109 @@ def phase_train_bwd_ab(card: str, dev) -> None:
             old_v, new_v = (statistics.median(v for v, o in zip(vals, turns) if o == side)
                             for side in (True, False))
             log("bwd", f"{tag}: median {label} ms: old {old_v:.3f}, new {new_v:.3f}")
+
+
+@contextlib.contextmanager
+def recording_k4_inputs(into: list):
+    """Inside the block, each image-gradient launch of the warp's backward
+    first appends a copy of its (flow, g) to `into`; restored after. For
+    the route comparison only."""
+    import importlib
+
+    module = importlib.import_module("back2future_tpu_torch.ops.warp")
+    fn = module.warp_bilinear_backward_cuda
+
+    def recording(images, flow, g, reference_grads=True, need=(True, True)):
+        if need[0]:
+            into.append((flow.clone(), g.clone()))
+        return fn(images, flow, g, reference_grads, need)
+
+    module.warp_bilinear_backward_cuda = recording
+    try:
+        yield
+    finally:
+        module.warp_bilinear_backward_cuda = fn
+
+
+def k4_routes_ms(flow, g) -> dict:
+    """K4 on one input with each of its route settings (K4_ROUTES: as the
+    path allows them by the grid, direct on every block, the window
+    wherever the box fits): per setting (window-route blocks, all blocks,
+    ms). The three results agree within 1e-5 of the largest value (f32
+    sums in another order); the times are profiler device times of the
+    kernel alone per call, in turns (each setting once, then in reverse),
+    medians."""
+    from back2future_tpu_torch import ops
+    from back2future_tpu_torch.ops.warp import K4_ROUTES
+
+    res, got = {}, {}
+    for route in K4_ROUTES:
+        got[route], n_window, blocks = ops.warp_dimages_routes(flow, g, route)
+        res[route] = (n_window, blocks, [])
+    scale = max(got["direct"].abs().max().item(), 1e-30)
+    for route in K4_ROUTES:
+        if (got[route] - got["direct"]).abs().max().item() > 1e-5 * scale:
+            raise AssertionError(f"K4's routes disagree: {route} against direct")
+    for route in K4_ROUTES + K4_ROUTES[::-1]:
+        t = device_ms(lambda: ops.warp_dimages_routes(flow, g, route), 20)
+        res[route][2].append(sum(v for n, v in t.items() if "dimages_tiled" in n))
+    return {r: (n, b, statistics.median(ms)) for r, (n, b, ms) in res.items()}
+
+
+def phase_k4_routes(card: str, dev) -> None:
+    """K4's routes against each other on the same bf16 inputs: at the
+    four feature-warp shapes of the train step (B=8, 320x640) on random
+    flows (i.i.d., w/4) and smooth ones (a 2x upsample of a 1-pixel coarse
+    field), and on the hard step's own K4 inputs (the 8 (flow, g) of its
+    third step from the seeded net): per call and per step, the blocks
+    that take the window route and the kernel's device ms as the path
+    chooses (by the grid), with every block direct, and with the window
+    wherever the box fits."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(2)
+
+    def rand(shape, scale=1.0):
+        x = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(dev, torch.bfloat16)
+
+    inputs = {"random": [], "smooth": [], "step": []}   # (flow, g, launches a step)
+    for (h, w, c) in TRAIN_LEVELS[:4]:
+        g = rand((TRAIN_B, h, w, c))
+        inputs["random"].append((rand((TRAIN_B, h, w, 2), w / 4), g, 2))
+        inputs["smooth"].append((smooth_flow(rng, (TRAIN_B, h, w), torch.bfloat16, dev), g, 2))
+    opt = train_options("bfloat16", soft=False)
+    net = train_network(opt, dev)
+    step = make_train_step(net, opt, build_criterions(opt))
+    state, batch = create_train_state(net, opt), train_batch(dev)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    recorded = []
+    with recording_k4_inputs(recorded):
+        step(state, batch)
+    if len(recorded) != TRAIN_PER_STEP["b2f_warp_bilinear_dimages"]:
+        raise AssertionError(f"recorded {len(recorded)} K4 launches of one step")
+    inputs["step"] = [(flow, g, 1) for flow, g in recorded]
+
+    def words(res):
+        return "; ".join(f"{name}: {res[route][0]} of {res[route][1]} blocks windowed, "
+                         f"{res[route][2]:.4f} ms" for route, name in (
+                             ("grid", "the path's choice"), ("direct", "direct"),
+                             ("window", "window wherever it fits")))
+
+    for kind, cases in inputs.items():
+        totals = {}
+        for flow, g, launches in cases:
+            res = k4_routes_ms(flow, g)
+            mag = flow.float().abs()
+            log("k4", f"{kind} flow {'x'.join(map(str, g.shape))} (|flow| mean "
+                      f"{mag.mean().item():.3f}, max {mag.max().item():.3f}), K4 per call "
+                      f"(profiler, in turns): {words(res)}")
+            for route, vals in res.items():
+                totals[route] = tuple(a + launches * b
+                                      for a, b in zip(totals.get(route, (0, 0, 0.0)), vals))
+        log("k4", f"{kind} flows, K4 per hard step (8 launches): {words(totals)}; on {card}")
 
 
 def train_options(dtype: str, soft: bool):
@@ -1448,6 +1563,10 @@ def main() -> None:
     if "--k1-phases" in sys.argv[1:]:
         phase_k1_phases(card, dev)
         return
+    if "--k4-routes" in sys.argv[1:]:
+        with stem(False):
+            phase_k4_routes(card, dev)
+        return
     summary = phase_kernels(dev)
     with stem(False):
         main_path = phase_main_path(card)
@@ -1458,6 +1577,7 @@ def main() -> None:
     with stem(False):
         paths["train"] = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)
         phase_train_bwd_ab(card, dev)
+        phase_k4_routes(card, dev)
     with stem(True):
         paths["soft"] = run_train(card, dev, "soft", soft=True, per_step=SOFT_PER_STEP)
     kernels = []

@@ -356,9 +356,10 @@ def test_bf16_train_step_launches(cuda):
 # the warp's backward: channel counts of the image warps (3), the feature
 # warps (32..128, slices of K4) and between, and the flows K4's routes
 # see: zero, smooth (window route), random (direct), smooth with a few
-# outliers (both in one launch), far past the border
+# outliers (both in one launch), far past the border, and the i.i.d.
+# flow of scale 8 that this test held the kernels to first
 WARP_CHANNELS = [3, 5, 16, 20, 32, 64, 96, 128]
-WARP_FLOWS = ("zero", "smooth", "random", "outliers", "far")
+WARP_FLOWS = ("zero", "smooth", "random", "outliers", "far", "random8")
 
 
 def warp_flow(kind, shape, seed, device, dtype):
@@ -366,8 +367,10 @@ def warp_flow(kind, shape, seed, device, dtype):
     coarse random field (1 pixel std at half size); random, i.i.d. at
     scale W/2; outliers, the smooth flow with 8 pixels per image sent 1-2
     widths away; far, the smooth flow moved 2 widths right and 2 heights
-    up."""
+    up; random8, i.i.d. at scale 8 (`rand`'s draw of `seed`)."""
     b, h, w = shape
+    if kind == "random8":
+        return rand((b, h, w, 2), seed, device, dtype, scale=8.0)
     rng = np.random.default_rng(seed)
     coarse = torch.from_numpy(rng.standard_normal((b, 2, -(-h // 2), -(-w // 2))).astype(
         np.float32))
@@ -449,25 +452,49 @@ def test_warp_backward_kernels_b1_and_offset(cuda, dtype, c, offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("c", [20, 32, 96])
-def test_warp_dimages_routes_agree(cuda, dtype, c):
-    """K4's window and direct routes on one input: smooth flows take the
-    window route in every block, and its result agrees with the direct
-    route forced on every block (f32 sums in another order: 1e-5 of the
-    largest value); random flows at 32 channels a slice go direct."""
+@pytest.mark.parametrize("kind", WARP_FLOWS)
+@pytest.mark.parametrize("c", [5, 20, 32, 96])
+def test_warp_dimages_routes_agree(cuda, dtype, c, kind):
+    """K4 with the window route wherever a block's box fits, against the
+    direct route on every block and the twin, on one input (f32 sums in
+    another order: 1e-5 of the largest value between the routes). At this
+    small grid the path's own choice is the direct route; smooth flows
+    take the window route in every block where it is allowed, random ones
+    at 32 channels a slice in almost none."""
     shape = (2, 40, 80)
     g = rand(shape + (c,), 36, cuda, dtype)
-    flow = warp_flow("smooth", shape, 37, cuda, dtype)
-    window, n_window, blocks = ops.warp_dimages_routes(flow, g)
-    direct, n_direct, _ = ops.warp_dimages_routes(flow, g, direct_only=True)
-    assert n_window == blocks and n_direct == 0
+    flow = warp_flow(kind, shape, 37, cuda, dtype)
+    window, n_window, blocks = ops.warp_dimages_routes(flow, g, "window")
+    direct, n_direct, _ = ops.warp_dimages_routes(flow, g, "direct")
+    _, n_path, _ = ops.warp_dimages_routes(flow, g)
+    assert n_direct == n_path == 0
+    if kind == "smooth":
+        assert n_window == blocks
+    if kind == "random" and c >= 32:
+        assert n_window < blocks // 10
     torch.testing.assert_close(window, direct, rtol=1e-5,
                                atol=1e-5 * direct.abs().max().item())
     want, _ = ops.warp_bilinear_backward_reference(g, flow, g)
     close_to_scale(window, want.float(), dtype)
-    if c >= 32:
-        _, n_random, _ = ops.warp_dimages_routes(warp_flow("random", shape, 38, cuda, dtype), g)
-        assert n_random < blocks // 10
+
+
+@pytest.mark.parametrize("level", [3, 4, 5, 6])
+def test_warp_dimages_route_by_grid(cuda, level):
+    """The path lets K4's blocks take the window route where the grid holds
+    1.5 blocks an SM or more: on the train step's feature warps (B=8,
+    320x640) of an H100, levels 3-4 and not 5-6. Smooth flows: there the
+    blocks the window route allows (all of them, as a rule) take it, and
+    none elsewhere; the result is the twin's."""
+    h, w, c = 320 >> (level - 1), 640 >> (level - 1), {3: 32, 4: 64, 5: 96, 6: 128}[level]
+    g = rand((8, h, w, c), 42, cuda, torch.bfloat16)
+    flow = warp_flow("smooth", (8, h, w), 43, cuda, torch.bfloat16)
+    got, n_window, blocks = ops.warp_dimages_routes(flow, g)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert blocks == 8 * -(-h // 16) * -(-w // 16) * -(-c // 32)
+    _, fits, _ = ops.warp_dimages_routes(flow, g, "window")
+    assert fits > 0 and n_window == (fits if 2 * blocks >= 3 * sms else 0)
+    want, _ = ops.warp_bilinear_backward_reference(g, flow, g)
+    close_to_scale(got, want.float(), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -486,14 +513,15 @@ def test_warp_backward_thread_kernels_match_twin(cuda, dtype, c):
         close_to_scale(a, b, dtype)
 
 
-@pytest.mark.parametrize("kernel", ["dimages", "dflow_rows", "dflow_lanes"])
+@pytest.mark.parametrize("kernel", ["dimages", "dflow_rows", "dflow_lanes", "dimages_direct"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_warp_bwd_tiled_kernel_info(cuda, dtype, kernel):
     info = ops.warp_bwd_tiled_info(kernel, dtype)
     assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0, info
     # K4 in bf16, the model's dtype, keeps 4 blocks on an SM (f32's packs
     # take twice the registers); W-dflow's lane groups hold 5 packs a lane
-    want = {"dimages": 4 if dtype == torch.bfloat16 else 2, "dflow_rows": 4, "dflow_lanes": 3}
+    k4 = 4 if dtype == torch.bfloat16 else 2
+    want = {"dimages": k4, "dimages_direct": k4, "dflow_rows": 4, "dflow_lanes": 3}
     assert info["blocks_per_sm"] >= want[kernel], info
     assert (info["smem_bytes"] > 0) == (kernel != "dflow_lanes"), info
 

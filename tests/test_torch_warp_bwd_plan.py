@@ -12,8 +12,9 @@ shows here. K4, the image gradient:
   thread t takes quad t % QS of the pixels t / QS + PIX * k, and of the
   window pixels t / QS + PIX * k, whose row and column it steps without
   a division;
-- the block's bounding box of all its pixels' corners; the window route
-  when it holds at most WINDOW_PIX pixels, else the direct route;
+- the launch allows the window route where its grid holds 1.5 blocks an
+  SM or more; then a block takes it when the bounding box of all its
+  pixels' corners holds at most WINDOW_PIX pixels, else the direct route;
 - window route: each pixel's (up to) 4 adds counted per window pixel
   (their place among its adds from the count's integer atomic), an
   exclusive scan of the counts (2 window pixels a thread, a shuffle scan
@@ -131,10 +132,23 @@ def exclusive_scan(counts: torch.Tensor) -> torch.Tensor:
     return torch.cat([starts, warp_totals.sum().view(1)])[:WINDOW_PIX + 1]
 
 
-def k4_model(flow: torch.Tensor, g: torch.Tensor):
-    """K4's plan, block by block: (the f32 image gradient, the route of
-    each block as (slice channels, "window" or "direct"))."""
+def k4_blocks(b: int, h: int, w: int, c: int) -> int:
+    """K4's grid: tiles across W and H, slices, images."""
+    return b * -(-h // TH) * -(-w // TW) * -(-c // CS)
+
+
+def k4_window_allowed(blocks: int, sms: int) -> bool:
+    """The launch's rule: the window route where the grid holds 1.5
+    blocks an SM or more."""
+    return 2 * blocks >= 3 * sms
+
+
+def k4_model(flow: torch.Tensor, g: torch.Tensor, sms: int = 1):
+    """K4's plan, block by block, on a card of `sms` SMs: (the f32 image
+    gradient, the route of each block as (slice channels, "window" or
+    "direct"))."""
     b, h, w, c = g.shape
+    window = k4_window_allowed(k4_blocks(b, h, w, c), sms)
     (x0, y0, x1, y1), (wx, wy), (x1_in, y1_in), _ = _corners(flow, h, w)
     d_img = torch.zeros(b * h * w, c)
     routes = []
@@ -160,7 +174,7 @@ def k4_model(flow: torch.Tensor, g: torch.Tensor):
                 for c0 in range(0, c, CS):
                     cs = min(CS, c - c0)
                     gt = g[tile + (slice(c0, c0 + cs),)].reshape(n, cs)
-                    if wpix > WINDOW_PIX:
+                    if not window or wpix > WINDOW_PIX:
                         routes.append((cs, "direct"))
                         gidx = (bi * h + ys) * w + xs
                         d_img[:, c0:c0 + cs].index_add_(
@@ -277,7 +291,7 @@ def test_plan_constants_are_the_kernels():
     for name, value in CONSTANTS.items():
         assert re.search(rf"constexpr int [^;]*\b{name} = {value}[,;]", src), name
     for line in ("constexpr int QS = CS / 4;", "constexpr int PIX = NT / QS;",
-                 "constexpr int WINDOW_PIX = 2 * TP;"):
+                 "constexpr int WINDOW_PIX = 2 * TP;", "return 2 * blocks >= 3LL * sms;"):
         assert line in src, line
 
 
@@ -319,7 +333,7 @@ def test_k4_plan_matches_twin_and_jax(jax_grads, c, kind):
     twin, _ = ops.warp_bilinear_backward_reference(*map(torch.from_numpy, (img, flow, g)))
     close(got.numpy(), twin.numpy())
     close(got.numpy(), jax_grads[(c, kind)][0])
-    assert len(routes) == B * -(-H // TH) * -(-W // TW) * -(-c // CS)
+    assert len(routes) == k4_blocks(B, H, W, c)
     # where each route is taken: smooth flows stay in the window, random
     # ones spread past it (their box is the image), and so do the blocks
     # with an outlier
@@ -341,3 +355,24 @@ def test_dflow_plan_matches_twin_and_jax(jax_grads, c, vec, kind):
         close(got.numpy(), twin.numpy())
         if reference_grads:
             close(got.numpy(), jax_grads[(c, kind)][1])
+
+
+@pytest.mark.parametrize("c", CHANNELS)
+def test_k4_plan_by_grid(jax_grads, c):
+    """On an H100's 132 SMs this grid (20-40 blocks) is too small for the
+    window route: every block adds directly, and the result is the
+    same."""
+    img, flow, g = inputs(c, "smooth")
+    got, routes = k4_model(torch.from_numpy(flow), torch.from_numpy(g), sms=132)
+    assert {route for _, route in routes} == {"direct"}
+    close(got.numpy(), jax_grads[(c, "smooth")][0])
+
+
+def test_k4_window_allowed_at_the_train_levels():
+    """The train step's feature warps (B=8, 320x640, levels 3-6) on an
+    H100's 132 SMs: 400, 240, 144 and 64 blocks, the window route allowed
+    at levels 3-4, where it was measured to be the faster, not at 5-6."""
+    grids = [k4_blocks(8, 320 >> (lv - 1), 640 >> (lv - 1), c)
+             for lv, c in zip(range(3, 7), (32, 64, 96, 128))]
+    assert grids == [400, 240, 144, 64]
+    assert [k4_window_allowed(n, 132) for n in grids] == [True, True, False, False]
