@@ -70,6 +70,8 @@ namespace {
 
 using b2f::Corners;
 using b2f::from_f32;
+using b2f::load_span3;
+using b2f::load_span6;
 using b2f::Pack;
 using b2f::to_f32;
 using b2f::warp_corners;
@@ -299,44 +301,12 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
 // W-dflow's plan: threads per block of both kernels
 constexpr int NT_FLOW = 128;
 
-// the 3 channels of a pixel at p, or the 6 of two neighbouring pixels,
-// through the read-only path: 4-byte (bf16) or 8-byte (f32) pairs from
-// where the span's start allows them, single elements at its ends
-__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld1(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
-
-// the 6 elements at p (a corner pair): 3 pair loads where p is aligned
-// for them, else an element, 2 pairs and an element
-template <typename T>
-__device__ __forceinline__ void load_span6(const T* p, float (&v)[6]) {
-  if (reinterpret_cast<uintptr_t>(p) % (2 * sizeof(T)) == 0) {
-    const float2 a = ld2(p), b = ld2(p + 2), c = ld2(p + 4);
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y; v[4] = c.x; v[5] = c.y;
-  } else {
-    const float2 a = ld2(p + 1), b = ld2(p + 3);
-    v[0] = ld1(p); v[1] = a.x; v[2] = a.y; v[3] = b.x; v[4] = b.y; v[5] = ld1(p + 5);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void load_span3(const T* p, float (&v)[6]) {
-  v[0] = ld1(p); v[1] = ld1(p + 1); v[2] = ld1(p + 2);
-  v[3] = v[4] = v[5] = 0.f;
-}
-
 // the corners of pixel p = (b, y, x), its flow read as one pair where the
 // flow is aligned for it
 template <typename T>
 __device__ __forceinline__ Corners pair_corners(const T* flow, size_t p, int x, int y, int H,
                                                 int W, bool flow_pairs) {
-  const float2 f = flow_pairs ? ld2(flow + 2 * p) : make_float2(ld1(flow + 2 * p),
-                                                                 ld1(flow + 2 * p + 1));
+  const float2 f = b2f::flow_at(flow, p, flow_pairs);
   return b2f::corners_at(f.x, f.y, x, y, H, W);
 }
 

@@ -1,5 +1,6 @@
 // The f32 source coordinate of a warp output pixel and its four corners,
-// shared by the warp's backward kernels (warp_bwd.cu, warp_bwd_tiled.cu).
+// shared by the warp's kernels (warp_fwd_tiled.cu, warp_bwd.cu,
+// warp_bwd_tiled.cu), and the read-only loads of their C = 3 routes.
 // The arithmetic is warp_fwd.cu's: xc = clamp(x + flow_x, 0, W-1),
 // x0 = floor(xc), wx = 1 - (xc - x0); y likewise.
 #pragma once
@@ -41,6 +42,45 @@ template <typename T>
 __device__ __forceinline__ Corners warp_corners(const T* flow, size_t p, int x, int y, int H,
                                                 int W) {
   return corners_at(to_f32(flow[2 * p]), to_f32(flow[2 * p + 1]), x, y, H, W);
+}
+
+// the 3 channels of a pixel at p, or the 6 of two neighbouring pixels,
+// through the read-only path: 4-byte (bf16) or 8-byte (f32) pairs from
+// where the span's start allows them, single elements at its ends
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+// the flow of pixel p as f32 (u, v): one pair load where the flow is
+// aligned for it (flow_pairs)
+template <typename T>
+__device__ __forceinline__ float2 flow_at(const T* flow, size_t p, int flow_pairs) {
+  return flow_pairs ? ld2(flow + 2 * p) : make_float2(ld1(flow + 2 * p), ld1(flow + 2 * p + 1));
+}
+
+// the 6 elements at p (a corner pair): 3 pair loads where p is aligned
+// for them, else an element, 2 pairs and an element
+template <typename T>
+__device__ __forceinline__ void load_span6(const T* p, float (&v)[6]) {
+  if (reinterpret_cast<uintptr_t>(p) % (2 * sizeof(T)) == 0) {
+    const float2 a = ld2(p), b = ld2(p + 2), c = ld2(p + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y; v[4] = c.x; v[5] = c.y;
+  } else {
+    const float2 a = ld2(p + 1), b = ld2(p + 3);
+    v[0] = ld1(p); v[1] = a.x; v[2] = a.y; v[3] = b.x; v[4] = b.y; v[5] = ld1(p + 5);
+  }
+}
+
+// the 3 elements at p, and 0 for the +1 corner
+template <typename T>
+__device__ __forceinline__ void load_span3(const T* p, float (&v)[6]) {
+  v[0] = ld1(p); v[1] = ld1(p + 1); v[2] = ld1(p + 2);
+  v[3] = v[4] = v[5] = 0.f;
 }
 
 // the flow gradient of one pixel from its four corner dot products (the

@@ -1,7 +1,8 @@
-// Bilinear warp with pixel-offset flow, forward.
-//
-// Replaces the XLA quad gather of back2future_tpu/ops/warp.py
-// (`_corners` + `_gather_corners` + `_warp_forward`), which itself is the
+// Bilinear warp with pixel-offset flow, forward: the first design, kept
+// callable for comparison only (b2f_warp_bilinear_fwd_thread; nothing on
+// any path launches it). The path's kernel is warp_fwd_tiled.cu, which
+// replaces the XLA quad gather of back2future_tpu/ops/warp.py
+// (`_corners` + `_gather_corners` + `_warp_forward`), itself the
 // reference's native sampler (extras/stnbhwd/BilinearSamplerBHWD.cu). NHWC:
 //
 //   xc = clamp(x + flow[b,y,x,0], 0, W-1), yc = clamp(y + flow[b,y,x,1], 0, H-1)
@@ -96,11 +97,13 @@ cudaError_t launch(const void* img, const void* flow, void* out, int B, int H,
 
 }  // namespace
 
-// img: (B, H, W, C), flow: (B, H, W, 2), out: (B, H, W, C), all contiguous
-// and of `dtype` (b2f::DType). Launches on `stream`, returns cudaGetLastError().
-extern "C" int b2f_warp_bilinear_fwd(const void* img, const void* flow, void* out,
-                                     int dtype, int B, int H, int W, int C,
-                                     void* stream) {
+// The first design, for comparison only; the arguments are those of
+// b2f_warp_bilinear_fwd (warp_fwd_tiled.cu): img: (B, H, W, C), flow:
+// (B, H, W, 2), out: (B, H, W, C), all contiguous and of `dtype`
+// (b2f::DType). Launches on `stream`, returns cudaGetLastError().
+extern "C" int b2f_warp_bilinear_fwd_thread(const void* img, const void* flow, void* out,
+                                            int dtype, int B, int H, int W, int C,
+                                            void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -29,8 +29,8 @@ from .stem import (
 )
 from .warp import (
     warp_bilinear, warp_bilinear_backward_cuda, warp_bilinear_backward_reference,
-    warp_bilinear_backward_thread, warp_bilinear_reference, warp_dimages_routes,
-    warp_bwd_tiled_info,
+    warp_bilinear_backward_thread, warp_bilinear_fwd_thread, warp_bilinear_reference,
+    warp_dimages_routes, warp_bwd_tiled_info, warp_fwd_tiled_info,
 )
 
 __all__ = [
@@ -39,6 +39,8 @@ __all__ = [
     "warp_bilinear_backward_reference",
     "warp_bilinear_backward_cuda",
     "warp_bilinear_backward_thread",
+    "warp_bilinear_fwd_thread",
+    "warp_fwd_tiled_info",
     "warp_dimages_routes",
     "warp_bwd_tiled_info",
     "cost_volume",

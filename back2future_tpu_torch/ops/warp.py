@@ -24,7 +24,10 @@ Layout: NHWC images (B, H, W, C); flow (B, H, W, 2) with channels (u, v)
 = (x-offset, y-offset).
 
 `warp_bilinear` is an autograd Function. On CUDA tensors its forward is
-the hand-written kernel csrc/warp_fwd.cu and its backward the kernels of
+the hand-written gather of csrc/warp_fwd_tiled.cu (lane groups that read
+and write whole pixel rows in 16-byte packs, or at C = 3 a thread per
+pixel that reads each corner pair as one span; both walk the pixels
+over a persistent grid) and its backward the kernels of
 csrc/warp_bwd_tiled.cu: the image gradient K4 (tiles whose adds are
 summed per window pixel in shared memory, or added directly, by block
 where the launch's grid holds 1.5 blocks an SM or more, else added
@@ -32,8 +35,10 @@ directly; launched only when the images need a gradient) and the flow gradient
 W-dflow (a thread per pixel at C = 3, lane groups otherwise); on CPU
 tensors the plain twins `warp_bilinear_reference` and
 `warp_bilinear_backward_reference` run instead.
-`warp_bilinear_backward_thread` keeps the first design's kernels
-(csrc/warp_bwd.cu) callable for comparison on the card, and
+`warp_bilinear_fwd_thread` and `warp_bilinear_backward_thread` keep the
+first design's kernels (csrc/warp_fwd.cu, csrc/warp_bwd.cu) callable for
+comparison on the card, `warp_fwd_tiled_info` and `warp_bwd_tiled_info`
+report what the build made of the new ones, and
 `warp_dimages_routes` runs K4 with its routes chosen by the caller and a
 count of its window-route blocks.
 """
@@ -49,8 +54,10 @@ import torch
 from ..runtime.cuda_build import Kernel, query
 from .route import DTYPE_CODES, check_kernel_input, ptr, stream_ptr, use_kernel
 
-_FWD = Kernel("b2f_warp_bilinear_fwd",   # (img, flow, out, dtype, B, H, W, C, stream)
-              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FWD = Kernel("b2f_warp_bilinear_fwd", _FWD_ARGS)   # (img, flow, out, dtype, B, H, W, C, stream)
+# the first design's gather: for comparison only, nothing on any path
+_FWD_THREAD = Kernel("b2f_warp_bilinear_fwd_thread", _FWD_ARGS)
 _DIMAGES_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DIMAGES = Kernel("b2f_warp_bilinear_dimages",   # (flow, g, d_img f32, dtype, B, H, W, C, stream)
                   _DIMAGES_ARGS)
@@ -96,6 +103,49 @@ def warp_bilinear_reference(images: torch.Tensor, flow: torch.Tensor) -> torch.T
     out = (wx * wy * im[bi, y0, x0] + (1 - wx) * wy * im[bi, y0, x1]
            + wx * (1 - wy) * im[bi, y1, x0] + (1 - wx) * (1 - wy) * im[bi, y1, x1])
     return out.to(images.dtype)
+
+
+def _forward(kernel: Kernel, images: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = images.shape
+    out = torch.empty_like(images)
+    with torch.cuda.device(images.device):
+        kernel(ptr(images), ptr(flow), ptr(out), DTYPE_CODES[images.dtype], b, h, w, c,
+               stream_ptr(images.device))
+    return out
+
+
+def warp_bilinear_fwd_thread(images: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The first design's gather (csrc/warp_fwd.cu) on CUDA tensors, `flow`
+    in the image dtype: kept to compare the two on the card."""
+    b, h, w, _ = images.shape
+    check_kernel_input("warp_bilinear images", images, images.shape, images.dtype)
+    check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), images.dtype)
+    return _forward(_FWD_THREAD, images, flow)
+
+
+def _info(symbol: str, kernel: int, dtype: torch.dtype) -> dict:
+    """Registers and local memory per thread, static shared memory per
+    block and resident blocks per SM of a kernel, by a query entry point
+    of the library."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    query(symbol, [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4, kernel,
+          DTYPE_CODES[dtype], *map(ctypes.byref, vals))
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
+# the kernels that `warp_fwd_tiled_info` reports (csrc/warp_fwd_tiled.cu)
+FWD_TILED_KERNELS = ("rows", "c32", "c64", "c96", "c128", "elements")
+
+
+def warp_fwd_tiled_info(kernel: str = "c32", dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What the build and the runtime made of a kernel of
+    csrc/warp_fwd_tiled.cu: the rows kernel of C = 3 ("rows"), the lanes
+    kernel with 16-byte packs at C = 32, 64, 96 or 128 ("c32" .. "c128"),
+    or with single elements at any C ("elements"). Registers and local
+    memory per thread, static shared memory per block, resident blocks
+    per SM."""
+    return _info("b2f_warp_fwd_tiled_info", FWD_TILED_KERNELS.index(kernel), dtype)
 
 
 def warp_bilinear_backward_reference(images: torch.Tensor, flow: torch.Tensor,
@@ -204,15 +254,11 @@ def warp_bwd_tiled_info(kernel: str = "dimages", dtype: torch.dtype = torch.bflo
     C = 3 ("dflow_rows") or in lane groups of 4 with 16-byte packs
     ("dflow_lanes"). Registers and local memory per thread, static shared
     memory per block, resident blocks per SM."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    query("b2f_warp_bwd_tiled_info", [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4,
-          TILED_KERNELS.index(kernel), DTYPE_CODES[dtype], *map(ctypes.byref, vals))
-    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"),
-                    (v.value for v in vals)))
+    return _info("b2f_warp_bwd_tiled_info", TILED_KERNELS.index(kernel), dtype)
 
 
 class _WarpFn(torch.autograd.Function):
-    """Kernel-2 forward; backward of the flow gradient (W-dflow) and,
+    """The gather's forward; backward of the flow gradient (W-dflow) and,
     only when the images need it, the image-gradient scatter (K4). The
     route (kernel or twin) is fixed in the forward."""
 
@@ -223,12 +269,7 @@ class _WarpFn(torch.autograd.Function):
         ctx.save_for_backward(images, flow)
         if not ctx.kernel:
             return warp_bilinear_reference(images, flow)
-        b, h, w, c = images.shape
-        out = torch.empty_like(images)
-        with torch.cuda.device(images.device):
-            _FWD(ptr(images), ptr(flow), ptr(out), DTYPE_CODES[images.dtype],
-                 b, h, w, c, stream_ptr(images.device))
-        return out
+        return _forward(_FWD, images, flow)
 
     @staticmethod
     def backward(ctx, g):

@@ -10,7 +10,10 @@ Phases, one line each (any failure raises and exits non-zero):
      resident blocks per SM, and the HMMA / LDGSTS / LDSM instructions of
      their SASS (cuobjdump); the same for the warp gradients' bf16
      kernels with the global reductions and shared-memory atomics (K4) or
-     the loads and shuffles (W-dflow) of their SASS
+     the loads and shuffles (W-dflow) of their SASS, and for the warp
+     gather's bf16 kernels (csrc/warp_fwd_tiled.cu: the rows kernel of
+     C = 3, the lanes kernel at C = 32, 64, 96, 128) with the loads,
+     stores and shuffles of their SASS
   3. kernels against their plain torch twins, in bf16 and f32, with the
      max abs error, the tolerance, CUDA-event medians of the kernel, the
      twin and (where one PyTorch call computes the same function) that
@@ -27,7 +30,14 @@ Phases, one line each (any failure raises and exits non-zero):
      kernels at each shape, in turns in one profiler window. The warp
      gradients run on the random flows and on smooth ones (a 2x upsample
      of a coarse field, as a model's), each kernel beside the first
-     design's in turns; K4's wrapper's zero-fill and cast apart
+     design's in turns; K4's wrapper's zero-fill and cast apart. The warp
+     gather runs at the serving shapes and at the train step's 18 (8
+     feature warps, 10 image warps at C = 3), on random and smooth flows,
+     and on the serving forward's own 8 warp inputs (captured from
+     est.net(x, with_warped=False) of the seeded estimator), beside the
+     first design's kernel (csrc/warp_fwd.cu) in turns; per serving
+     forward and per train step: kernel, first design, twin,
+     F.grid_sample and bound
   4. serving path, stem off: init(None, device="cuda") with the flagship
      config (frames 3, levels 7, win 9, skip 2, bf16, random weights from
      seed 0), compute_flow / compute_flow_batch (B=16, three times) /
@@ -40,7 +50,9 @@ Phases, one line each (any failure raises and exits non-zero):
      occlusion against the stem-off results; device forward ms stem off /
      on / on / off, twice (the in-model A/B; the default stays off); then
      K1's A/B: the device forward with the CUDA-core cost volume (old) and
-     the tensor-core one (new), old / new / new / old, twice
+     the tensor-core one (new), old / new / new / old, twice; and the
+     gather's A/B, the same with the first design's gather (old) and the
+     new one (csrc/warp_fwd_tiled.cu)
   6. train path, hard recipe (stem off): the options of
      tools/train_bench.py (optimize pme, OBCC + L1, bf16, B=8, 320x640,
      weights from seed 0, numpy-seeded images on the device),
@@ -92,6 +104,15 @@ without its device-memory traffic, at the serving and train shapes.
 does the same for K1's bf16 kernel (win 9, dil 1): without its products,
 its band scatter, its output store, or its device-memory traffic, at the
 serving levels' shapes.
+
+    python3 chip_smoke.py --gather-variants
+
+runs, after phases 1-2, only the warp gather's bf16 kernels against
+variants of their design on the same inputs (copies of
+csrc/warp_fwd_tiled.cu with edits: the next pixel's flow loaded ahead,
+C = 3 output staged for 16-byte stores, C = 3 bf16 spans as aligned
+32-bit words or 16-byte chunks, no persistent grid): per serving forward and per train
+step, on random and smooth flows and on each path's own inputs.
 
     python3 chip_smoke.py --k4-routes
 
@@ -160,9 +181,9 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # launches of one serving forward and of one train step, per kernel (the
 # CUDA-core cost volume kernels, K5's CUDA-core kernel, K4's route
-# comparison and the warp gradients' first design are for timing only)
+# comparison and the warp's first design are for timing only)
 SERVING_PER_FORWARD = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
-                       "b2f_warp_bilinear_fwd": 8,
+                       "b2f_warp_bilinear_fwd": 8, "b2f_warp_bilinear_fwd_thread": 0,
                        "b2f_cost_volume_dref": 0, "b2f_cost_volume_dframe": 0,
                        "b2f_cost_volume_dref_cuda_cores": 0,
                        "b2f_cost_volume_dframe_cuda_cores": 0,
@@ -174,7 +195,7 @@ SERVING_PER_FORWARD = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_core
                        "b2f_stem_unit_b": 0}
 SERVING_STEM_PER_FORWARD = dict(SERVING_PER_FORWARD, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
 TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0,
-                  "b2f_warp_bilinear_fwd": 18,
+                  "b2f_warp_bilinear_fwd": 18, "b2f_warp_bilinear_fwd_thread": 0,
                   "b2f_cost_volume_dref": 10, "b2f_cost_volume_dframe": 10,
                   "b2f_cost_volume_dref_cuda_cores": 0,
                   "b2f_cost_volume_dframe_cuda_cores": 0,
@@ -323,13 +344,24 @@ def mma_build_report(label: str, info: dict, function: str, ops=("HMMA", "LDGSTS
                  f"{info['blocks_per_sm']} resident blocks per SM; {sass}")
 
 
+# the warp gather's bf16 kernels that phase 2 reports: warp_fwd_tiled_info's
+# name, C, and the mangled template of the kernel (T, VEC, G, PPL)
+GATHER_BUILDS = (("rows", 3, "warp_bilinear_fwd_rows_kernelI13__nv_bfloat16E"),
+                 ("c32", 32, "warp_bilinear_fwd_lanes_kernelI13__nv_bfloat16Li8ELi4ELi1EE"),
+                 ("c64", 64, "warp_bilinear_fwd_lanes_kernelI13__nv_bfloat16Li8ELi8ELi1EE"),
+                 ("c96", 96, "warp_bilinear_fwd_lanes_kernelI13__nv_bfloat16Li8ELi4ELi3EE"),
+                 ("c128", 128, "warp_bilinear_fwd_lanes_kernelI13__nv_bfloat16Li8ELi8ELi2EE"))
+
+
 def phase_mma_builds() -> None:
     """The build reports of K1's (win 9), K2/K3's (win 9), K5's and K6's
-    bf16 tensor-core kernels, and of the warp gradients' bf16 kernels
-    (K4's global reductions and shared-memory atomics, W-dflow's loads and
+    bf16 tensor-core kernels, of the warp gradients' bf16 kernels (K4's
+    global reductions and shared-memory atomics, W-dflow's loads and
+    shuffles), and of the warp gather's bf16 kernels (loads, stores and
     shuffles)."""
     from back2future_tpu_torch.ops import (
         cost_volume_bwd_bf16_info, cost_volume_fwd_bf16_info, warp_bwd_tiled_info,
+        warp_fwd_tiled_info,
     )
     from back2future_tpu_torch.ops.stem import stem_unit_a_bf16_info, stem_unit_b_bf16_info
 
@@ -360,6 +392,10 @@ def phase_mma_builds() -> None:
                      warp_bwd_tiled_info("dflow_lanes"),
                      "warp_bilinear_dflow_lanes_kernelI13__nv_bfloat16Li8ELi4E", ops=(),
                      prefixes=("LDG", "SHFL"), required=("LDG", "SHFL"))
+    for name, c, function in GATHER_BUILDS:
+        mma_build_report(f"warp gather bf16, C = {c} ({function.split('I', 1)[0]})",
+                         warp_fwd_tiled_info(name), function, ops=("SHFL",),
+                         prefixes=("LDG", "STG", "LDS", "STS"), required=("LDG", "STG"))
 
 
 def compare_k1_cuda_cores(label, ref, frame, fwd, c, new, twin, summary) -> None:
@@ -448,13 +484,14 @@ def phase_kernels(dev) -> dict:
 
     summary = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
                        bytes_ms=0.0, ops_ms=0.0)
-               for k in ("cost_volume", "warp", "cost_volume_dref", "cost_volume_dframe",
-                         "warp_dimages", "warp_dflow", "stem_unit_a", "stem_unit_b")}
+               for k in ("cost_volume", "warp", "warp_train", "cost_volume_dref",
+                         "cost_volume_dframe", "warp_dimages", "warp_dflow", "stem_unit_a",
+                         "stem_unit_b")}
     for k in ("cost_volume", "cost_volume_dref", "cost_volume_dframe", "stem_unit_a"):
         summary[k]["cuda_cores_ms"] = 0.0
 
     def check(kernel, label, dtype, kern, twin, per_forward, work, library=None,
-              of_largest=False, smooth=False, kernel_part=None):
+              of_largest=False, flows="random", kernel_part=None):
         """Compare, time, log; add bf16 results `per_forward` times to the
         summary. `work`: (operations, bytes) of one call, inputs read and
         outputs written once. `library`: one PyTorch call computing the
@@ -463,8 +500,9 @@ def phase_kernels(dev) -> dict:
         terms). bf16 checks are timed also by the profiler's device time
         per call (`device_ms`) of the kernel, twin and library, which the
         summary takes: single-launch event windows carry the wrapper's
-        host time. `smooth`: the warp gradients' smooth-flow case, whose
-        times go to the summary's `smooth_*` entries (its error to `err`).
+        host time. `flows`: the warp's kind of input; other than "random"
+        (smooth flows, or the serving forward's own inputs), its times go
+        to the summary's `<flows>_*` entries (its error to `err`).
         `kernel_part`: a part of the kernel's name; the device time of
         the call's other ops (a wrapper's zero-fill and cast) is then
         summed apart as `wrapper_ms`."""
@@ -496,13 +534,16 @@ def phase_kernels(dev) -> dict:
         if dtype == torch.bfloat16:
             s = summary[kernel]
             s["err"] = max(s["err"], err)
-            prefix = "smooth_" if smooth else ""
+            prefix = "" if flows == "random" else flows + "_"
             if kernel_part is not None:
                 alone = sum(v for n, v in mine.items() if kernel_part in n)
                 for k, v in (("kernel_ms", alone), ("wrapper_ms", ms - alone)):
                     s[prefix + k] = s.get(prefix + k, 0.0) + per_forward * v
-            if smooth:
-                s["smooth_ms"] = s.get("smooth_ms", 0.0) + per_forward * ms
+            if prefix:
+                for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                             ("bound_ms", max(ops_ms, bytes_ms))):
+                    if v is not None:
+                        s[prefix + k] = s.get(prefix + k, 0.0) + per_forward * v
                 return
             s["ms"] += per_forward * ms
             s["plain_ms"] += per_forward * pms
@@ -525,18 +566,44 @@ def phase_kernels(dev) -> dict:
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
-    def compare_old(key, label, new, old, twin, new_name, old_name, smooth):
-        """A warp gradient's new kernel beside the first design's, alone,
-        in turns (`compare_cuda_cores`), into the summary's `old_ms` and
-        `new_turn_ms` (with `smooth_` before them for smooth flows); two
-        launches a step."""
-        prefix = "smooth_" if smooth else ""
+    def compare_old(key, label, new, old, twin, new_name, old_name, flows, per_unit=2):
+        """A warp kernel's new design beside the first design's, alone, in
+        turns (`compare_cuda_cores`), into the summary's `old_ms` and
+        `new_turn_ms` (with `<flows>_` before them for flows other than
+        "random"); `per_unit` launches a step or a serving forward."""
+        prefix = "" if flows == "random" else flows + "_"
         new_ms, _ = compare_cuda_cores(f"{label}, kernels alone", key, new, old, twin, summary,
-                                       per_forward=2, names=(new_name, old_name),
+                                       per_forward=per_unit, names=(new_name, old_name),
                                        words=("new", "the first design's"),
                                        field=prefix + "old_ms")
         summary[key][prefix + "new_turn_ms"] = \
-            summary[key].get(prefix + "new_turn_ms", 0.0) + 2 * new_ms
+            summary[key].get(prefix + "new_turn_ms", 0.0) + per_unit * new_ms
+
+    def check_gather(key, where, dtype, img, flow, flows, per_unit=2):
+        """The warp gather on one input against its twin (`check`, with
+        F.grid_sample as the library call), and in bf16 beside the first
+        design's kernel in turns; `per_unit` launches a serving forward or
+        a train step."""
+        grid = grid_of(flow)
+        new = lambda: ops.warp_bilinear(img, flow)   # noqa: E731
+        twin = lambda: ops.warp_bilinear_reference(img, flow)   # noqa: E731
+        check(key, f"warp_bilinear {where}", dtype, new, twin, per_forward=per_unit,
+              work=(8 * img.numel(), 2 * nbytes(img) + nbytes(flow)), flows=flows,
+              library=lambda: F.grid_sample(nchw(img), grid, mode="bilinear",
+                                            padding_mode="border", align_corners=True))
+        if dtype == torch.bfloat16:
+            compare_old(key, f"warp_bilinear {where}", new,
+                        lambda: ops.warp_bilinear_fwd_thread(img, flow), twin,
+                        "fwd_rows" if img.shape[-1] == 3 else "fwd_lanes",
+                        "warp_bilinear_fwd_kernel", flows, per_unit)
+
+    # the gather's inputs beyond the serving random flows: their own
+    # generators, so that the other kernels' inputs stay as they were
+    gather_rng = np.random.default_rng(3)
+
+    def gather_rand(shape, dtype, scale=1.0):
+        x = gather_rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(dev, dtype)
 
     smooth_rng = np.random.default_rng(1)
 
@@ -558,18 +625,25 @@ def phase_kernels(dev) -> dict:
         for (h, w, c) in LEVEL_SHAPES[:4]:
             img = rand((B, h, w, c), dtype)
             flow = rand((B, h, w, 2), dtype, scale=w / 4)   # reaches past the border
-            grid = grid_of(flow)
-            library = lambda: F.grid_sample(nchw(img), grid, mode="bilinear",   # noqa: E731
-                                            padding_mode="border", align_corners=True)
             if dtype == torch.float32:
-                lib_err = (library().permute(0, 2, 3, 1)
+                lib = F.grid_sample(nchw(img), grid_of(flow), mode="bilinear",
+                                    padding_mode="border", align_corners=True)
+                lib_err = (lib.permute(0, 2, 3, 1)
                            - ops.warp_bilinear_reference(img, flow)).abs().max().item()
                 log("kernels", f"grid_sample(border, align_corners) vs the warp twin, f32 "
                                f"{h}x{w}x{c}: max_abs_err {lib_err:.3e}")
-            check("warp", f"warp_bilinear {tag} B={B} {h}x{w}x{c}", dtype,
-                  lambda: ops.warp_bilinear(img, flow),
-                  lambda: ops.warp_bilinear_reference(img, flow), per_forward=2,
-                  work=(8 * img.numel(), 2 * nbytes(img) + nbytes(flow)), library=library)
+            check_gather("warp", f"{tag} B={B} {h}x{w}x{c}", dtype, img, flow, "random")
+            check_gather("warp", f"{tag} B={B} {h}x{w}x{c}, smooth flow", dtype, img,
+                         smooth_flow(gather_rng, (B, h, w), dtype, dev), "smooth")
+        # the gather at the train step's 18 warps: 8 feature warps (levels
+        # 6..3) and 10 image warps (C = 3, the output sizes of levels 3..7)
+        for (h, w, c) in TRAIN_LEVELS[:4] + IMAGE_WARP_SHAPES:
+            img = gather_rand((TRAIN_B, h, w, c), dtype)
+            flows = {"random": gather_rand((TRAIN_B, h, w, 2), dtype, scale=w / 4),
+                     "smooth": smooth_flow(gather_rng, (TRAIN_B, h, w), dtype, dev)}
+            for kind, flow in flows.items():
+                check_gather("warp_train", f"{tag} B={TRAIN_B} {h}x{w}x{c}, {kind} flow", dtype,
+                             img, flow, kind)
 
         # backward kernels at the train step's shapes: one future and one
         # past volume per level, 8 feature warps (levels 6..3) and 10 image
@@ -609,19 +683,18 @@ def phase_kernels(dev) -> dict:
                         nchw(g), nchw(img), grid, 0, 1, True, mask)
 
                 where = f"{tag} B={TRAIN_B} {h}x{w}x{c}, {kind} flow"
-                smooth = kind == "smooth"
                 new = lambda: ops.warp_bilinear_backward_cuda(   # noqa: E731
                     img, flow, g, need=(False, True))[1]
                 twin = lambda: ops.warp_bilinear_backward_reference(img, flow, g)[1]   # noqa: E731
                 check("warp_dflow", f"warp_bilinear d_flow {where}", dtype, new, twin,
                       per_forward=2, work=(8 * img.numel(), 2 * nbytes(img) + 2 * nbytes(flow)),
-                      library=library([False, True]), of_largest=True, smooth=smooth)
+                      library=library([False, True]), of_largest=True, flows=kind)
                 if dtype == torch.bfloat16:
                     compare_old("warp_dflow", f"warp_bilinear d_flow {where}", new,
                                 lambda: ops.warp_bilinear_backward_thread(
                                     img, flow, g, need=(False, True))[1], twin,
-                                "_rows_kernel" if c == 3 else "_lanes_kernel", "dflow_kernel",
-                                smooth)
+                                "dflow_rows" if c == 3 else "dflow_lanes", "dflow_kernel",
+                                kind)
                 if not feature:   # the image warps' inputs need no gradient
                     continue
                 new = lambda: ops.warp_bilinear_backward_cuda(   # noqa: E731
@@ -629,13 +702,13 @@ def phase_kernels(dev) -> dict:
                 twin = lambda: ops.warp_bilinear_backward_reference(img, flow, g)[0]   # noqa: E731
                 check("warp_dimages", f"warp_bilinear d_images {where}", dtype, new, twin,
                       per_forward=2, work=(8 * img.numel(), 2 * nbytes(img) + nbytes(flow)),
-                      library=library([True, False]), of_largest=True, smooth=smooth,
+                      library=library([True, False]), of_largest=True, flows=kind,
                       kernel_part="dimages_tiled")
                 if dtype == torch.bfloat16:
                     compare_old("warp_dimages", f"warp_bilinear d_images {where}", new,
                                 lambda: ops.warp_bilinear_backward_thread(
                                     img, flow, g, need=(True, False))[0], twin,
-                                "dimages_tiled", "dimages_kernel", smooth)
+                                "dimages_tiled", "dimages_kernel", kind)
 
         # the fused stem: K5 then K6 on the frame-stacked batch; the twin is
         # the unfused cuDNN conv chain, which is also the library call
@@ -664,6 +737,22 @@ def phase_kernels(dev) -> dict:
                             summary, per_forward=int(where == "train"),
                             names=("stem_unit_a_mma", "stem_unit_kernel"))
 
+    # the serving forward's own 8 warp inputs (bf16)
+    for img, flow in serving_warp_inputs(dev):
+        b, h, w, c = img.shape
+        check_gather("warp", f"bf16 B={b} {h}x{w}x{c}, the serving forward's own input",
+                     torch.bfloat16, img, flow, "own", per_unit=1)
+    for key, unit, kinds in (
+            ("warp", f"serving forward (B={B}, 8 launches)", ("random", "smooth", "own")),
+            ("warp_train", f"train step (B={TRAIN_B}, {TRAIN_H}x{TRAIN_W}, 18 launches)",
+             ("random", "smooth"))):
+        s = summary[key]
+        log("kernels", f"warp gather per {unit}, bf16, profiler device time: " + "; ".join(
+            f"{kind} {'inputs' if kind == 'own' else 'flows'}: kernel {s[p + 'ms']:.4f} ms "
+            f"(in turns {s[p + 'new_turn_ms']:.4f} vs the first design's "
+            f"{s[p + 'old_ms']:.4f}), twin {s[p + 'plain_ms']:.4f}, grid_sample "
+            f"{s[p + 'library_ms']:.4f}, bound {s[p + 'bound_ms']:.4f}"
+            for kind in kinds for p in ("" if kind == "random" else kind + "_",)))
     log("kernels", "per serving forward (bf16, B=16, profiler device time): cost volume kernel "
                    f"{summary['cost_volume']['ms']:.3f} ms (its CUDA-core kernel "
                    f"{summary['cost_volume']['cuda_cores_ms']:.3f} ms) vs twin "
@@ -696,6 +785,45 @@ def phase_kernels(dev) -> dict:
                    f"{s['bound_ms']:.4f} ms")
     return summary
 
+
+
+@contextlib.contextmanager
+def recording_gather_inputs(into: list):
+    """Inside the block, each warp gather first appends its (images, flow)
+    to `into` (the flow in the image dtype, as the kernel gets it);
+    restored after."""
+    import importlib
+
+    module = importlib.import_module("back2future_tpu_torch.ops.warp")
+    fn = module._WarpFn
+
+    class Recording:
+        @staticmethod
+        def apply(images, flow, reference_grads):
+            into.append((images.detach().clone(), flow.detach().clone()))
+            return fn.apply(images, flow, reference_grads)
+
+    module._WarpFn = Recording
+    try:
+        yield
+    finally:
+        module._WarpFn = fn
+
+
+def serving_warp_inputs(dev) -> list:
+    """The 8 (images, flow) of the gather in one serving forward of the
+    seeded estimator (as phase 4's, stem off) on a seeded B=16 input."""
+    from back2future_tpu_torch.api import init
+
+    est = init(None, device="cuda", seed=0)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (B, H, W, 9), dtype=np.float32)).to(dev)
+    recorded = []
+    with stem(False), torch.no_grad(), recording_gather_inputs(recorded):
+        est.net(x, with_warped=False)
+    if len(recorded) != SERVING_PER_FORWARD["b2f_warp_bilinear_fwd"]:
+        raise AssertionError(f"recorded {len(recorded)} gathers of one serving forward")
+    return recorded
 
 
 def phase_main_path(card: str) -> dict:
@@ -837,34 +965,55 @@ def k1_cuda_cores():
         module._FWD = kernel
 
 
-def phase_serving_k1(card: str, main: dict) -> None:
-    """K1's in-model A/B: the device forward at B=16 (stem off) with the
-    CUDA-core cost volume (old) and the tensor-core one (new), old / new
-    / new / old, twice; the old forward's flow against the new one's."""
+@contextlib.contextmanager
+def gather_thread():
+    """Inside the block, the warp's forward runs the first design's gather
+    (b2f_warp_bilinear_fwd_thread); restored after. For the A/B only."""
+    import importlib
+
+    module = importlib.import_module("back2future_tpu_torch.ops.warp")
+    kernel = module._FWD
+    module._FWD = module._FWD_THREAD
+    try:
+        yield
+    finally:
+        module._FWD = kernel
+
+
+# the serving A/Bs: (log tag, the old kernel swapped in, what is compared,
+# the old and the new kernel's words)
+SERVING_AB = (("k1", k1_cuda_cores, "CUDA-core vs tensor-core cost volume",
+               ("old (CUDA cores)", "new (tensor cores)")),
+              ("gather", gather_thread, "the first design's vs the new warp gather",
+               ("old (first design)", "new (csrc/warp_fwd_tiled.cu)")))
+
+
+def phase_serving_ab(card: str, main: dict, tag: str, swap, what: str, words) -> None:
+    """An in-model A/B (SERVING_AB): the device forward at B=16 (stem off)
+    with the old kernel swapped in and with the new one, old / new / new /
+    old, twice; the old forward's flow against the new one's."""
     est, x = main["est"], main["x"]
     with torch.inference_mode(), stem(False):
         new_flow = est.net(x, with_warped=False)[0]["flow"].float()
-        with k1_cuda_cores():
+        with swap():
             old_flow = est.net(x, with_warped=False)[0]["flow"].float()
         scale = new_flow.abs().max().item()
         err = (new_flow - old_flow).abs().max().item()
-        log("k1", f"device forward B={B}, finest flow, CUDA-core vs tensor-core cost volume: "
-                  f"max_abs_err {err:.3e} (tol {FLOW_TOL_FRAC} x max|flow| = "
-                  f"{FLOW_TOL_FRAC * scale:.3e})")
+        log(tag, f"device forward B={B}, finest flow, {what}: max_abs_err {err:.3e} (tol "
+                 f"{FLOW_TOL_FRAC} x max|flow| = {FLOW_TOL_FRAC * scale:.3e})")
         if err > FLOW_TOL_FRAC * scale:
-            raise AssertionError("K1 A/B: the two cost volumes give different flows")
+            raise AssertionError(f"{tag} A/B: the two kernels give different flows")
         turns = (True, False, False, True) * 2   # True: the old kernel
         times = []
         for old in turns:
-            with k1_cuda_cores() if old else contextlib.nullcontext():
+            with swap() if old else contextlib.nullcontext():
                 times.append(cuda_ms(lambda: est.net(x, with_warped=False), 5))
     old_ms, new_ms = (statistics.median(t for t, o in zip(times, turns) if o == side)
                       for side in (True, False))
-    log("k1", f"serving forward on the device, B={B} {H}x{W} bf16, stem off, cost volume "
-              + " / ".join("old" if o else "new" for o in turns) + ": "
-              + " / ".join(f"{t:.2f}" for t in times) + f" ms (CUDA events, medians of 5); "
-              f"median old (CUDA cores) {old_ms:.2f} ms, new (tensor cores) {new_ms:.2f} ms "
-              f"on {card}")
+    log(tag, f"serving forward on the device, B={B} {H}x{W} bf16, stem off, {what}, "
+             + " / ".join("old" if o else "new" for o in turns) + ": "
+             + " / ".join(f"{t:.2f}" for t in times) + f" ms (CUDA events, medians of 5); "
+             f"median {words[0]} {old_ms:.2f} ms, {words[1]} {new_ms:.2f} ms on {card}")
 
 
 @contextlib.contextmanager
@@ -1448,6 +1597,204 @@ def phase_k1_phases(card: str, dev) -> None:
         log("k1", f"{name}: {2 * total:.4f} ms per serving forward (10 launches, fwd timings)")
 
 
+# the warp gather's design against variants of it, each a copy of
+# csrc/warp_fwd_tiled.cu with edits: the next pixel's flow loaded ahead of
+# the current pixel's corners (both kernels); at C = 3, the output staged
+# in shared memory and written as 16-byte chunks after a barrier, or the
+# bf16 spans read as the aligned 32-bit words or 16-byte chunks that hold
+# them (one instruction path, where load_span6's pair loads split a warp
+# by the span's parity); one pass of a grid that covers every pixel
+# instead of the persistent grid; and a second copy of the source as it
+# is, last in the turns, for the spread between two copies of one kernel
+_GATHER_LOOP = ("  for (Walk at(p0, H, W, npix <= UINT_MAX); at.p < npix; at.step(stride, H, W)) {\n"
+                "    const float2 f = flow_at(flow, at.p, flow_pairs);\n")
+_GATHER_ROWS_HEAD = ("  const size_t p0 = static_cast<size_t>(blockIdx.x) * NT_ROWS + threadIdx.x;\n"
+                     + _GATHER_LOOP)
+_GATHER_ROWS_TAIL = ("      out[3 * at.p + c] = from_f32<T>(blend(w, top[c], top[3 + c], bot[c], "
+                     "bot[3 + c]));\n  }\n}\n")
+_GATHER_ROWS_KERNEL = "// rows kernel, C = 3:"
+_GATHER_PAIR_LOADER = """__device__ __forceinline__ void load_pair(const float* p, float (&v)[6]) {
+  b2f::load_span6(p, v);
+}
+
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float (&v)[6]) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+%s
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const unsigned pair = __funnelshift_r(u[k], u[k + 1], shift);
+    __nv_bfloat162 h;
+    memcpy(&h, &pair, 4);
+    const float2 f = __bfloat1622float2(h);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+
+"""
+_GATHER_WORDS = """  const unsigned* w = reinterpret_cast<const unsigned*>(a & ~static_cast<uintptr_t>(3));
+  const unsigned shift = static_cast<unsigned>(a & 2) * 8;
+  unsigned u[4] = {__ldg(w), __ldg(w + 1), __ldg(w + 2), 0u};
+  if (shift) u[3] = __ldg(w + 3);"""
+_GATHER_CHUNKS = """  const uint4* chunk = reinterpret_cast<const uint4*>(a & ~static_cast<uintptr_t>(15));
+  const int s = static_cast<int>(a & 15);
+  const uint4 lo = __ldg(chunk);
+  uint4 hi = make_uint4(0u, 0u, 0u, 0u);
+  if (s > 4) hi = __ldg(chunk + 1);
+  const unsigned w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int i = s >> 2;
+  const unsigned shift = (s & 2) * 8;
+  unsigned u[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    u[k] = i == 0 ? w[k] : i == 1 ? w[k + 1] : i == 2 ? w[k + 2] : w[k + 3];"""
+GATHER_VARIANTS = {
+    "as built": [],
+    "flow prefetch": [(_GATHER_LOOP, """  float2 f_next = make_float2(0.f, 0.f);
+  if (p0 < npix) f_next = flow_at(flow, p0, flow_pairs);
+  for (Walk at(p0, H, W, npix <= UINT_MAX); at.p < npix; at.step(stride, H, W)) {
+    const float2 f = f_next;
+    if (at.p + stride.s < npix) f_next = flow_at(flow, at.p + stride.s, flow_pairs);
+""")],
+    "C = 3 staged stores": [(_GATHER_ROWS_HEAD, """  const size_t p0 = static_cast<size_t>(blockIdx.x) * NT_ROWS + threadIdx.x;
+  constexpr int CHUNKS = NT_ROWS * 3 * sizeof(T) / 16;
+  __shared__ uint4 staged_raw[CHUNKS];
+  T* staged = reinterpret_cast<T*>(staged_raw);
+  const size_t tiles = (npix + NT_ROWS - 1) / NT_ROWS;
+  Walk at(p0, H, W, npix <= UINT_MAX);
+  for (size_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, at.step(stride, H, W)) {
+   if (at.p < npix) {
+    const float2 f = flow_at(flow, at.p, flow_pairs);
+"""), (_GATHER_ROWS_TAIL, """      staged[3 * threadIdx.x + c] = from_f32<T>(blend(w, top[c], top[3 + c], bot[c], bot[3 + c]));
+   }
+    __syncthreads();
+    const size_t q0 = tile * NT_ROWS;
+    const int n = static_cast<int>(min(static_cast<size_t>(NT_ROWS), npix - q0));
+    T* dst = out + 3 * q0;
+    if (n == NT_ROWS && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+      if (threadIdx.x < CHUNKS) reinterpret_cast<uint4*>(dst)[threadIdx.x] = staged_raw[threadIdx.x];
+    } else {
+      for (int i = threadIdx.x; i < 3 * n; i += NT_ROWS) dst[i] = staged[i];
+    }
+    __syncthreads();
+  }
+}
+""")],
+    "C = 3 32-bit word spans": [
+        (_GATHER_ROWS_KERNEL, _GATHER_PAIR_LOADER % _GATHER_WORDS + _GATHER_ROWS_KERNEL),
+        ("b2f::load_span6(row", "load_pair(row")],
+    "C = 3 16-byte chunk spans": [
+        (_GATHER_ROWS_KERNEL, _GATHER_PAIR_LOADER % _GATHER_CHUNKS + _GATHER_ROWS_KERNEL),
+        ("b2f::load_span6(row", "load_pair(row")],
+    "no persistent grid": [(
+        "      std::min(needed, static_cast<size_t>(sms) * static_cast<size_t>(std::max(per_sm, 1))));",
+        "      needed);")],
+    "as built, a second copy": [],
+}
+
+
+def train_warp_inputs(dev) -> list:
+    """The 18 (images, flow) of the gather in the third bf16 hard train
+    step of the seeded net (stem off)."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    opt = train_options("bfloat16", soft=False)
+    net = train_network(opt, dev)
+    step = make_train_step(net, opt, build_criterions(opt))
+    state, batch = create_train_state(net, opt), train_batch(dev)
+    with stem(False):
+        for _ in range(2):
+            state, _ = step(state, batch)
+        recorded = []
+        with recording_gather_inputs(recorded):
+            step(state, batch)
+    if len(recorded) != TRAIN_PER_STEP["b2f_warp_bilinear_fwd"]:
+        raise AssertionError(f"recorded {len(recorded)} gathers of one train step")
+    return recorded
+
+
+def phase_gather_variants(card: str, dev) -> None:
+    """The warp gather (bf16) as built against the variants of its design
+    (GATHER_VARIANTS) on the same inputs: the serving forward's 8 shapes
+    and the train step's 18 on random flows (i.i.d., w/4) and smooth ones
+    (a 2x upsample of a 1-pixel coarse field), and the serving forward's
+    and the hard train step's own inputs (seeded nets). Each variant's
+    kernels carry its own name, so that one profiler window times them
+    all, in turns (forward, reversed, forward; medians); each result is
+    held against the twin. Per serving forward and per train step (the
+    image warps, C = 3, apart)."""
+    import ctypes
+
+    from back2future_tpu_torch import ops
+    from back2future_tpu_torch.ops.route import DTYPE_CODES, ptr, stream_ptr
+
+    tags = {name: f"warp_bilinear_fwd_v{i}_" for i, name in enumerate(GATHER_VARIANTS)}
+    libs = build_variants("gather", "warp_fwd_tiled.cu",
+                          {name: edits + [("warp_bilinear_fwd_", tags[name])]
+                           for name, edits in GATHER_VARIANTS.items()},
+                          "", "b2f_warp_bilinear_fwd",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    names = list(libs)
+    rng = np.random.default_rng(5)
+
+    def rand(shape, scale=1.0):
+        x = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(dev, torch.bfloat16)
+
+    def variant_ms(img, flow) -> dict:
+        b, h, w, c = img.shape
+        outs = {name: torch.empty_like(img) for name in names}
+
+        def run(order):
+            for name in order:
+                if libs[name](ptr(img), ptr(flow), ptr(outs[name]), DTYPE_CODES[torch.bfloat16],
+                              b, h, w, c, stream_ptr(dev)):
+                    raise RuntimeError(f"gather variant {name!r} failed to launch")
+
+        run(names)
+        want = ops.warp_bilinear_reference(img, flow).float()
+        tol = KERNEL_TOL[torch.bfloat16]
+        for name, got in outs.items():
+            if not torch.allclose(got.float(), want, rtol=tol,
+                                  atol=tol * max(1.0, want.abs().max().item())):
+                raise AssertionError(f"gather variant {name!r} disagrees with the twin")
+        times = {name: [] for name in names}
+        for order in (names, names[::-1], names):
+            t = device_ms(lambda: run(order), 10)
+            for name in names:
+                times[name].append(sum(v for n, v in t.items() if tags[name] in n))
+        return {name: statistics.median(v) for name, v in times.items()}
+
+    def words(ms: dict) -> str:
+        return "; ".join(f"{name} {v:.4f}" for name, v in ms.items())
+
+    units = (("serving forward", B, LEVEL_SHAPES[:4], serving_warp_inputs(dev)),
+             ("train step", TRAIN_B, TRAIN_LEVELS[:4] + IMAGE_WARP_SHAPES, train_warp_inputs(dev)))
+    for unit, b, shapes, own in units:
+        cases = {"random flows": [], "smooth flows": [], "own inputs": [(img, flow, 1)
+                                                                         for img, flow in own]}
+        for (h, w, c) in shapes:
+            img = rand((b, h, w, c))
+            cases["random flows"].append((img, rand((b, h, w, 2), w / 4), 2))
+            cases["smooth flows"].append(
+                (img, smooth_flow(rng, (b, h, w), torch.bfloat16, dev), 2))
+        for kind, inputs in cases.items():
+            totals = {False: dict.fromkeys(names, 0.0), True: dict.fromkeys(names, 0.0)}
+            for img, flow, n in inputs:
+                ms = variant_ms(img, flow)
+                log("gather", f"{unit}, {kind}, {'x'.join(map(str, img.shape))} (|flow| mean "
+                              f"{flow.float().abs().mean().item():.3f}), ms per call: "
+                              f"{words(ms)}")
+                for name in names:
+                    totals[img.shape[-1] == 3][name] += n * ms[name]
+            both = {name: totals[False][name] + totals[True][name] for name in names}
+            split = (f" (image warps, C = 3: {words(totals[True])})"
+                     if unit == "train step" else "")
+            log("gather", f"per {unit}, {kind}, bf16, profiler device time in turns: "
+                          f"{words(both)}{split}; on {card}")
+
+
 def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
     """6 bf16 steps with launch counts, then an f32 step with the kernels
     against one under plain_ops() from the same initial state."""
@@ -1528,7 +1875,8 @@ def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
 KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches count)
     ("cost_volume_fwd", "cost_volume", "cost_volume_fwd_mma.cu",
      "back2future_tpu/ops/cost_volume_pallas.py:91", "serving"),
-    ("warp_bilinear_fwd", "warp", "warp_fwd.cu", "back2future_tpu/ops/warp.py:96", "serving"),
+    ("warp_bilinear_fwd", "warp", "warp_fwd_tiled.cu", "back2future_tpu/ops/warp.py:96",
+     "serving"),
     ("cost_volume_dref", "cost_volume_dref", "cost_volume_bwd_mma.cu",
      "back2future_tpu/ops/cost_volume_pallas.py:175", "train"),
     ("cost_volume_dframe", "cost_volume_dframe", "cost_volume_bwd_mma.cu",
@@ -1563,6 +1911,9 @@ def main() -> None:
     if "--k1-phases" in sys.argv[1:]:
         phase_k1_phases(card, dev)
         return
+    if "--gather-variants" in sys.argv[1:]:
+        phase_gather_variants(card, dev)
+        return
     if "--k4-routes" in sys.argv[1:]:
         with stem(False):
             phase_k4_routes(card, dev)
@@ -1572,7 +1923,8 @@ def main() -> None:
         main_path = phase_main_path(card)
     paths = {"serving": main_path["launches"]}
     phase_serving_stem(card, main_path)
-    phase_serving_k1(card, main_path)
+    for ab in SERVING_AB:
+        phase_serving_ab(card, main_path, *ab)
     del main_path
     with stem(False):
         paths["train"] = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)

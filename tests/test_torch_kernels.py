@@ -32,6 +32,7 @@ from back2future_tpu_torch.train import create_train_state, make_train_step
 pytestmark = pytest.mark.gpu
 
 CV_MODULE = importlib.import_module("back2future_tpu_torch.ops.cost_volume")
+WARP_MODULE = importlib.import_module("back2future_tpu_torch.ops.warp")
 
 TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5),
         torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -143,6 +144,130 @@ def test_warp_kernel_matches_twin(cuda, dtype, c):
     assert KERNELS["b2f_warp_bilinear_fwd"].launches == before + 1
     want = ops.warp_bilinear_reference(img, flow)
     torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
+
+
+# the gather (csrc/warp_fwd_tiled.cu): its rows kernel at C = 3, lane
+# groups with 16-byte packs at the model's widths (32..128) and at 8, and
+# single elements where C takes no 16-byte packs (20 in bf16); flows
+# i.i.d. at scale 8, smooth, far past the border, and at exact clamp ties
+GATHER_CHANNELS = [3, 8, 20, 32, 64, 96, 128]
+GATHER_FLOWS = ("random8", "smooth", "far", "ties")
+GATHER_NAMES = ("b2f_warp_bilinear_fwd", "b2f_warp_bilinear_fwd_thread")
+
+
+def gather_flow(kind, shape, seed, device, dtype):
+    """`warp_flow`'s kinds, and ties: every source coordinate exactly on
+    the border or inside it, by integer offsets (to column 0 or W-1 and
+    row 0 or H-1 in turns, or 0-2 pixels away)."""
+    if kind != "ties":
+        return warp_flow(kind, shape, seed, device, dtype)
+    b, h, w = shape
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    to = rng.integers(0, 4, (b, h, w))   # 0: column 0, 1: column W-1, 2: both borders, 3: near
+    u = np.where(to == 0, -xs, np.where(to >= 1, w - 1 - xs, 0)).astype(np.float32)
+    v = np.where(to == 2, h - 1 - ys, np.where(to == 0, -ys, 0)).astype(np.float32)
+    near = to == 3
+    u[near] = rng.integers(-2, 3, near.sum())
+    v[near] = rng.integers(-2, 3, near.sum())
+    return torch.from_numpy(np.stack([u, v], -1)).to(device, dtype)
+
+
+def gather_launches():
+    return tuple(KERNELS[k].launches for k in GATHER_NAMES)
+
+
+@pytest.mark.parametrize("kind", GATHER_FLOWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", GATHER_CHANNELS)
+def test_warp_gather_matches_twin(cuda, dtype, c, kind):
+    """The gather against its twin within the dtype's tolerance of the
+    largest value; one launch of the path's kernel, none of the first
+    design's."""
+    img = rand((2, 11, 300, c), 50, cuda, dtype)
+    flow = gather_flow(kind, (2, 11, 300), 51, cuda, dtype)
+    before = gather_launches()
+    got = ops.warp_bilinear(img, flow)
+    assert gather_launches() == (before[0] + 1, before[1])
+    want = ops.warp_bilinear_reference(img, flow)
+    assert got.dtype == dtype and got.shape == img.shape
+    close_to_scale(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [3, 32, 128])
+def test_warp_gather_grid_stride(cuda, dtype, c):
+    """More pixels than the persistent grid takes at once (2.5 times a
+    block's 256 threads on every resident block of every SM), B = 1 and a
+    width whose stride carries into the next row and image: every thread
+    walks several pixels."""
+    kernel = {3: "rows", 32: "c32", 128: "c128"}[c]
+    info = ops.warp_fwd_tiled_info(kernel, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    npix = int(2.5 * sms * info["blocks_per_sm"] * 256)
+    for b in (1, 3):
+        w = 301
+        h = -(-npix // (b * w))
+        img = rand((b, h, w, c), 52, cuda, dtype)
+        flow = gather_flow("random8", (b, h, w), 53, cuda, dtype)
+        close_to_scale(ops.warp_bilinear(img, flow), ops.warp_bilinear_reference(img, flow),
+                       dtype)
+
+
+@pytest.mark.parametrize("offset", [1, 3], ids=["1el", "3el"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [3, 20, 32, 64])
+def test_warp_gather_unaligned(cuda, dtype, c, offset):
+    """Image, flow and output offset by `offset` elements from 16-byte
+    storage: single-element loads and stores, and single flow loads where
+    the flow takes no pair loads."""
+    shape = (2, 13, 70, c)
+    img = storage_at(rand(shape, 54, cuda, dtype), offset)
+    flow = storage_at(gather_flow("smooth", shape[:3], 55, cuda, dtype), offset)
+    out = storage_at(torch.zeros(shape, dtype=dtype, device=cuda), offset)
+    b, h, w, _ = shape
+    WARP_MODULE._FWD(ptr(img), ptr(flow), ptr(out), DTYPE_CODES[dtype], b, h, w, c,
+                     stream_ptr(img.device))
+    torch.cuda.synchronize()
+    close_to_scale(out, ops.warp_bilinear_reference(img, flow), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [3, 20, 32])
+def test_warp_gather_thread_kernel_matches_twin(cuda, dtype, c):
+    """The first design's gather, kept for comparison: against the twin,
+    one launch of it and none of the path's kernel."""
+    img = rand((2, 11, 300, c), 56, cuda, dtype)
+    flow = gather_flow("random8", (2, 11, 300), 57, cuda, dtype)
+    before = gather_launches()
+    got = ops.warp_bilinear_fwd_thread(img, flow)
+    assert gather_launches() == (before[0], before[1] + 1)
+    close_to_scale(got, ops.warp_bilinear_reference(img, flow), dtype)
+
+
+@pytest.mark.parametrize("kernel", list(WARP_MODULE.FWD_TILED_KERNELS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_fwd_tiled_kernel_info(cuda, dtype, kernel):
+    info = ops.warp_fwd_tiled_info(kernel, dtype)
+    assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1 and info["smem_bytes"] == 0, info
+
+
+def test_warp_gather_thread_kernel_on_no_path(cuda):
+    """A serving forward (8 feature warps) and a bf16 train step (8 feature
+    and 10 image warps) launch the path's gather and never the first
+    design's."""
+    net = PWCNet(PWCConfig(), generator=torch.Generator().manual_seed(0)).to(cuda)
+    reset_launches()
+    with torch.inference_mode():
+        net(rand((2, 64, 128, 9), 58, cuda), with_warped=False)
+    assert gather_launches() == (8, 0)
+    opt = Options(optimize="pme", batchSize=2, compute_dtype="bfloat16").derive()
+    net = PWCNet(pwc_config_from_options(opt), generator=torch.Generator().manual_seed(0)).to(cuda)
+    step = make_train_step(net, opt, build_criterions(opt))
+    reset_launches()
+    step(create_train_state(net, opt), {"images": rand((2, 64, 128, 9), 59, cuda)})
+    assert gather_launches() == (18, 0)
 
 
 def test_plain_ops_does_not_launch(cuda):
