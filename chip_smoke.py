@@ -68,12 +68,31 @@ Phases, one line each (any failure raises and exits non-zero):
      device ms per step (profiler); the same with the warp gradients'
      first design (old) against K4 and W-dflow (new), warp device ms;
      then K4's routes on the same inputs (`--k4-routes` below)
-  7. train path, soft fine-tune recipe (stem on): the hard net of phase 6
+  7. data path, the hard recipe from files on disk (stem off): a
+     RoamingImages set of DATA_SCENES scenes at 320x640, 3 frames, written
+     by `python -m back2future_tpu_torch.data.roaming`'s main (seconds,
+     bytes); a FlowDataset on its train split and a process-mode
+     PrefetchLoader (B=8, min(8, host cores) workers; spawn, since CUDA is
+     live) in two configurations: (a) learn_demo's recipe data (augment
+     0, rand_crop 0, the compact wire, scene_batches full) and (b)
+     augment 1 on the f32 wire. For each: the loader alone (samples/s
+     over 16 batches after the first and over the workers' second round,
+     time to the first batch), the pipe alone (as many producer
+     processes as workers, of the same start method, streaming the
+     configuration's batch through one queue: their start-up and ms a
+     batch, its share of the loader's time a batch), a sample's time in
+     sync mode, the first 3 batches bit-identical to sync mode
+     (n_workers=0), then 21 hard bf16 steps fed through
+     device_prefetch(depth=2): exact launch counts per step, finite loss,
+     median step ms over steps 2-21 (CUDA events), triplets/s trained
+     (wall clock) and the mean host wait in next(), over steps 2-21 and
+     the last 8, beside the random-tensor step of phase 6
+  8. train path, soft fine-tune recipe (stem on): the hard net of phase 6
      turned into a soft one by convert_net_hard_to_soft (OBGCC,
      past_flow, const_vel 1, second-order smoothness), 6 bf16 steps with
      exact launch counts for all eight kernels (1 K5 + 1 K6 + 10 / 18 /
      10 / 10 / 18 / 8), then the f32 kernels-vs-plain_ops() step
-  8. one JSON line of the kernels (forward kernels: launches of the
+  9. one JSON line of the kernels (forward kernels: launches of the
      serving path and ms per serving forward; backward kernels: launches
      of the hard train path and ms per train step; K5/K6: launches of the
      soft train path and ms per train step), then the result line
@@ -87,6 +106,22 @@ step at B=8, 320x640: the hard recipe, and the soft recipe with the stem
 off and on; per step the unprofiled step ms (CUDA events), the device
 busy ms (profiled kernel, copy and memset time), the idle share, and the
 device time by kind of op.
+
+    python3 chip_smoke.py --data
+
+runs, after phase 1 and the build, only the hard train steps of phase 6
+(for the random-tensor step) and the data path of phase 7.
+
+    python3 chip_smoke.py --pipe-variants
+
+runs, after phase 1 and the build, only the transfer of one loader batch
+of each wire (compact, f32; B=8, 320x640) from a spawned process to this
+one, by the loader's multiprocessing queue and by alternatives: a
+multiprocessing Connection (the queue's transport without its feeder
+thread), the same with the pipe enlarged to 1 MiB, length-framed
+os.readv into a buffer of the message's size through a 1 MiB pipe, and
+shared memory (the arrays copied in and out, only their names sent):
+median ms a batch.
 
     python3 chip_smoke.py --k6-phases
 
@@ -205,6 +240,25 @@ TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0
                   "b2f_stem_unit_a": 0, "b2f_stem_unit_a_cuda_cores": 0,
                   "b2f_stem_unit_b": 0}
 SOFT_PER_STEP = dict(TRAIN_PER_STEP, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
+
+# the data path (phase 7): a generated RoamingImages set, the loader's two
+# configurations (SampleConfig fields, PrefetchLoader keywords)
+DATA_SCENES = 48
+DATA_BATCHES = 17                      # the first batch, then 16 timed
+DATA_CHECKED = 3                       # batches held against sync mode
+DATA_PIPE_PER_WORKER = 3               # batches each pipe-probe producer sends
+DATA_STEPS = 21                        # the first step, then 20 timed
+DATA_STEADY = 8                        # the last steps, past the workers' prefetch
+PIPE_MESSAGES = 6                      # batches each pipe variant sends
+DATA_LAUNCHES = ("b2f_cost_volume_fwd", "b2f_warp_bilinear_fwd", "b2f_cost_volume_dref",
+                 "b2f_cost_volume_dframe", "b2f_warp_bilinear_dflow", "b2f_warp_bilinear_dimages")
+DATA_CONFIGS = (
+    ("a", "learn_demo's recipe data: augment 0, rand_crop 0, compact wire, "
+          "scene_batches full", dict(augment=0, rand_crop=0, wire="compact"),
+     dict(scene_batches=1_000_000_000)),
+    ("b", "augment 1, gaussian_noise 0, f32 wire",
+     dict(augment=1, gaussian_noise=0.0, wire="f32"), dict()),
+)
 
 
 def log(phase: str, msg: str) -> None:
@@ -1797,7 +1851,8 @@ def phase_gather_variants(card: str, dev) -> None:
 
 def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
     """6 bf16 steps with launch counts, then an f32 step with the kernels
-    against one under plain_ops() from the same initial state."""
+    against one under plain_ops() from the same initial state. Returns
+    the launch counts and the bf16 step ms."""
     from back2future_tpu_torch import ops
     from back2future_tpu_torch.losses import build_criterions
     from back2future_tpu_torch.runtime import reset_launches
@@ -1869,7 +1924,338 @@ def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
                f"{len(grads_p)} parameters; feat_2/feat_3 worst {stem_worst:.3e}")
     if not (abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p) and ratios[worst_name] <= GRAD_TOL_FRAC):
         raise AssertionError(f"{phase}: train step with kernels and under plain_ops() disagree")
-    return launches
+    return {"launches": launches, "step_ms": step_ms}
+
+
+def _probe_batch(shape: tuple, wire: str) -> dict:
+    """A batch as the loader makes one (collate, then the wire's encoding)
+    of B samples of (H, W, C) images; its values do not matter to a pipe."""
+    from back2future_tpu_torch.data import collate, encode_batch
+
+    b, h, w, c = shape
+    sample = (np.zeros((h, w, c), np.float32), np.zeros((h, w, 4), np.float32),
+              np.zeros((h, w), np.float32))
+    return encode_batch(collate([sample] * b), wire)
+
+
+def _pipe_probe(shape: tuple, wire: str, n: int, out_q, go) -> None:
+    """A loader worker without its work: report the wall clock once this
+    process has started (under spawn: imported this script, as the
+    loader's workers do), wait for `go`, then put a batch n times on the
+    queue."""
+    out_q.put(time.time())
+    batch = _probe_batch(shape, wire)
+    go.wait()
+    for _ in range(n):
+        out_q.put(batch)
+
+
+def pickle_ms(batch: dict) -> tuple:
+    """ms of pickle's dumps and loads of `batch` in this process."""
+    import pickle
+
+    t0 = time.perf_counter()
+    blob = pickle.dumps(batch, protocol=pickle.HIGHEST_PROTOCOL)
+    t1 = time.perf_counter()
+    pickle.loads(blob)
+    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def pipe_probe(shape: tuple, wire: str, method: str, producers: int,
+               per_producer: int) -> tuple:
+    """The loader's pipe alone: `producers` processes of the loader's start
+    method stream batches of `shape` on `wire` through one queue, as its
+    workers do, to one consumer. Returns the seconds from the first start
+    to the last producer's being ready (the workers' start-up), and the ms
+    a batch over the arrivals after the first."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context(method)
+    out_q, go = ctx.Queue(maxsize=producers), ctx.Event()
+    t0 = time.time()
+    procs = [ctx.Process(target=_pipe_probe, args=(shape, wire, per_producer, out_q, go),
+                         daemon=True) for _ in range(producers)]
+    for p in procs:
+        p.start()
+    try:
+        ready = [out_q.get(timeout=300) for _ in procs]
+        go.set()
+        arrivals = []
+        for _ in range(producers * per_producer):
+            out_q.get(timeout=300)
+            arrivals.append(time.perf_counter())
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+    return max(ready) - t0, (arrivals[-1] - arrivals[0]) / (len(arrivals) - 1) * 1e3
+
+
+def phase_data(card: str, dev, random_step_ms: float) -> None:
+    """The hard bf16 step fed from files on disk through the port's own
+    generator, loader and device prefetch (module docstring, phase 7)."""
+    import tempfile
+    from pathlib import Path
+
+    from back2future_tpu_torch.data import (
+        FlowDataset, PrefetchLoader, SampleConfig, device_prefetch, load_manifest, load_split,
+    )
+    from back2future_tpu_torch.data import roaming
+    from back2future_tpu_torch.data.loader import _cuda_live
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    phase_t0 = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    method = os.environ.get("B2F_MP_START", "") or ("spawn" if _cuda_live() else "fork")
+    opt = train_options("bfloat16", soft=False)
+    crits = build_criterions(opt)
+    with tempfile.TemporaryDirectory(prefix="b2f_roaming_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        roaming.main(["--out", tmp, "--n", str(DATA_SCENES), "--height", str(TRAIN_H),
+                      "--width", str(TRAIN_W), "--frames", "3", "--seed", "0"])
+        gen_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+        specs = load_manifest(root / "datasets" / "RoamingImages.dat", ground_truth=True,
+                              root=str(root / "data"))
+        train_idx, val_idx = load_split(root / "datasets" / "RoamingImages_split.dat")
+        log("data", f"RoamingImages generated: {DATA_SCENES} scenes at {TRAIN_H}x{TRAIN_W}, "
+                    f"3 frames, in {gen_s:.2f} s ({gen_s / DATA_SCENES * 1e3:.1f} ms a scene), "
+                    f"{size} bytes on disk; split {len(train_idx)} train / {len(val_idx)} val; "
+                    f"host cores {os.cpu_count()}, {workers} loader workers, start method "
+                    f"{method}; on {card}")
+        for tag, words, cfg_kw, loader_kw in DATA_CONFIGS:
+            cfg = SampleConfig(frames=3, ground_truth=True, fine_height=TRAIN_H,
+                               fine_width=TRAIN_W, load_height=TRAIN_H, load_width=TRAIN_W,
+                               **cfg_kw)
+            ds = FlowDataset(specs, cfg, train_idx, train=True)
+
+            def loader(n_batches, n_workers):
+                return PrefetchLoader(ds, TRAIN_B, n_batches, n_workers=n_workers,
+                                      worker_mode="process", **loader_kw)
+
+            # the loader alone, process mode
+            t0 = time.perf_counter()
+            got, arrived = [], []
+            for batch in loader(DATA_BATCHES, workers):
+                got.append(batch)
+                arrived.append(time.perf_counter() - t0)
+            rate = TRAIN_B * (DATA_BATCHES - 1) / (arrived[-1] - arrived[0])
+            batch_ms = (arrived[-1] - arrived[0]) / (DATA_BATCHES - 1) * 1e3
+            second = (arrived[-1] - arrived[-1 - workers]) / workers * 1e3
+            nbytes_batch = sum(v.nbytes for v in got[0].values())
+            startup_s, pipe = pipe_probe(got[0]["images"].shape, cfg.wire, method, workers,
+                                         DATA_PIPE_PER_WORKER)
+            dumps_ms, loads_ms = pickle_ms(got[0])
+
+            # the same seed and epoch in sync mode: bit-identical batches
+            t0 = time.perf_counter()
+            for i, want in enumerate(loader(DATA_CHECKED, 0)):
+                for k, v in want.items():
+                    if got[i][k].dtype != v.dtype or not np.array_equal(got[i][k], v):
+                        raise AssertionError(f"data ({tag}): batch {i} '{k}' differs between "
+                                             f"process and sync mode")
+            sample_ms = (time.perf_counter() - t0) / (DATA_CHECKED * TRAIN_B) * 1e3
+            log("data", f"({tag}) {words}: loader alone {rate:.2f} samples/s over batches "
+                        f"2-{DATA_BATCHES} ({batch_ms:.1f} ms a batch of {nbytes_batch} bytes; "
+                        f"{TRAIN_B * 1e3 / second:.2f} samples/s over the last {workers}, the "
+                        f"workers' second round), first batch after {arrived[0]:.2f} s; "
+                        f"{workers} workers' {method} start-up {startup_s:.2f} s; pipe alone "
+                        f"{pipe:.1f} ms a batch ({workers} {method} producers, one queue; "
+                        f"pickle dumps {dumps_ms:.1f} + loads {loads_ms:.1f} ms in one "
+                        f"process), {pipe / batch_ms:.3f} of the loader's time a batch; a "
+                        f"sample in sync mode {sample_ms:.1f} ms (one process); the first "
+                        f"{DATA_CHECKED} batches of process mode bit-identical to sync mode; "
+                        f"on {card}")
+            del got
+
+            # the hard bf16 step fed by the loader through device_prefetch
+            net = train_network(opt, dev)
+            state = create_train_state(net, opt)
+            step = make_train_step(net, opt, crits)
+            ld = loader(DATA_STEPS, workers)
+            ld.set_epoch(1)
+            host = iter(ld)
+            batches = device_prefetch(host, dev, depth=2)
+            events, waits, logs, marks = [], [], [], []
+            torch.cuda.synchronize()
+            for i in range(DATA_STEPS):
+                if i in (1, DATA_STEPS - DATA_STEADY):
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                t0 = time.perf_counter()
+                batch = next(batches)
+                waits.append(time.perf_counter() - t0)
+                before = counts()
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                state, step_logs = step(state, batch)
+                end.record()
+                events.append((start, end))
+                logs.append(step_logs)
+                done = counts()
+                launched = {k: done[k] - before[k] for k in done}
+                if launched != TRAIN_PER_STEP:
+                    raise AssertionError(f"data ({tag}) step {i + 1} launched {launched}, "
+                                         f"expected {TRAIN_PER_STEP}")
+            torch.cuda.synchronize()
+            wall, steady = (time.perf_counter() - m for m in marks)
+            batches.close()
+            host.close()
+            values = {k: [lg[k].item() for lg in logs] for k in logs[0]}
+            if not all(np.isfinite(v).all() for v in values.values()):
+                raise AssertionError(f"data ({tag}): non-finite loss or component: {values}")
+            times = [a.elapsed_time(b) for a, b in events]
+            step_ms = statistics.median(times[1:])
+            tail = DATA_STEPS - 1 - DATA_STEADY
+            log("data", f"({tag}) hard bf16 step B={TRAIN_B} {TRAIN_H}x{TRAIN_W} from the "
+                        f"loader through device_prefetch, {DATA_STEPS} steps, launches "
+                        f"{' / '.join(str(TRAIN_PER_STEP[k]) for k in DATA_LAUNCHES)} each: "
+                        f"{step_ms:.2f} ms (CUDA events, median of steps 2-{DATA_STEPS}), "
+                        f"{TRAIN_B * (DATA_STEPS - 1) / wall:.2f} triplets/s trained (wall "
+                        f"clock, steps 2-{DATA_STEPS}; {TRAIN_B * DATA_STEADY / steady:.2f} "
+                        f"over the last {DATA_STEADY}), mean host wait in next() "
+                        f"{statistics.mean(waits[1:]) * 1e3:.1f} ms a step "
+                        f"({statistics.mean(waits[1 + tail:]) * 1e3:.1f} over the last "
+                        f"{DATA_STEADY}; the first {waits[0]:.2f} s); random-tensor step "
+                        f"(phase 6) {random_step_ms:.2f} ms, "
+                        f"{TRAIN_B / random_step_ms * 1e3:.2f} triplets/s; loss "
+                        f"{['%.4f' % v for v in values['loss']]}; on {card}")
+            del net, state, step, batch
+    log("data", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+
+
+PIPE_VARIANTS = ("queue", "connection", "connection_1mb", "readv_1mb", "shared_memory")
+
+
+def _pipe_variant_producer(variant: str, shape: tuple, wire: str, n: int, end, go) -> None:
+    """Send the batch n times to the consumer by `variant`."""
+    import pickle
+    import struct
+
+    batch = _probe_batch(shape, wire)
+    if variant == "queue":
+        go.wait()
+        for _ in range(n):
+            end.put(batch)
+        end.close()
+        end.join_thread()
+        return
+    if variant == "shared_memory":
+        from multiprocessing import shared_memory
+
+        go.wait()
+        for _ in range(n):
+            layout, blocks = {}, []
+            for k, v in batch.items():
+                shm = shared_memory.SharedMemory(create=True, size=max(v.nbytes, 1))
+                np.ndarray(v.shape, v.dtype, buffer=shm.buf)[...] = v
+                layout[k] = (shm.name, v.shape, v.dtype.str)
+                blocks.append(shm)
+            end.send(layout)
+            end.recv()                 # the consumer has copied the batch out
+            for shm in blocks:
+                shm.close()
+                shm.unlink()
+        return
+    if variant.endswith("_1mb"):
+        import fcntl
+
+        fcntl.fcntl(end.fileno(), fcntl.F_SETPIPE_SZ, 1 << 20)
+    go.wait()
+    for _ in range(n):
+        blob = pickle.dumps(batch, protocol=pickle.HIGHEST_PROTOCOL)
+        if variant == "readv_1mb":
+            os.write(end.fileno(), struct.pack("!Q", len(blob)))
+            view = memoryview(blob)
+            while view:
+                view = view[os.write(end.fileno(), view):]
+        else:
+            end.send_bytes(blob)
+
+
+def _readv_message(fd: int) -> bytearray:
+    """One length-framed message read straight into a buffer of its size."""
+    import struct
+
+    head = bytearray(8)
+    got = 0
+    while got < 8:
+        got += os.readv(fd, [memoryview(head)[got:]])
+    (size,) = struct.unpack("!Q", head)
+    buf = bytearray(size)
+    view, got = memoryview(buf), 0
+    while got < size:
+        got += os.readv(fd, [view[got:]])
+    return buf
+
+
+def pipe_variant_ms(variant: str, shape: tuple, wire: str, n: int) -> float:
+    """Median ms a batch from one spawned producer to this process, from
+    the wait for a message to the batch as arrays, by `variant`."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    go = ctx.Event()
+    if variant == "queue":
+        here = there = ctx.Queue(maxsize=2)
+    else:
+        here, there = ctx.Pipe(duplex=variant == "shared_memory")
+    p = ctx.Process(target=_pipe_variant_producer, args=(variant, shape, wire, n, there, go),
+                    daemon=True)
+    p.start()
+    if variant.endswith("_1mb"):
+        import fcntl
+
+        fcntl.fcntl(here.fileno(), fcntl.F_SETPIPE_SZ, 1 << 20)
+    go.set()
+    times = []
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            if variant == "queue":
+                batch = here.get(timeout=300)
+            elif variant == "shared_memory":
+                from multiprocessing import shared_memory
+
+                batch = {}
+                for k, (name, shp, dt) in here.recv().items():
+                    shm = shared_memory.SharedMemory(name=name)
+                    batch[k] = np.array(np.ndarray(shp, np.dtype(dt), buffer=shm.buf))
+                    shm.close()
+                here.send(True)
+            elif variant == "readv_1mb":
+                batch = pickle.loads(_readv_message(here.fileno()))
+            else:
+                batch = pickle.loads(here.recv_bytes())
+            times.append((time.perf_counter() - t0) * 1e3)
+            assert batch["images"].shape == shape
+    finally:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.kill()
+    return statistics.median(times[1:])
+
+
+def phase_pipe_variants(card: str) -> None:
+    """A batch of each wire through the loader's queue and through the
+    alternatives, one producer process to this one (module docstring)."""
+    torch.zeros(1, device="cuda")        # a live CUDA context, as in training
+    shape = (TRAIN_B, TRAIN_H, TRAIN_W, 9)
+    for wire in ("compact", "f32"):
+        batch = _probe_batch(shape, wire)
+        nbytes = sum(v.nbytes for v in batch.values())
+        dumps_ms, loads_ms = pickle_ms(batch)
+        ms = {v: pipe_variant_ms(v, shape, wire, PIPE_MESSAGES) for v in PIPE_VARIANTS}
+        log("pipe", f"{wire} wire, a batch of {nbytes} bytes (B={TRAIN_B} {TRAIN_H}x{TRAIN_W}), "
+                    f"ms a batch, median of {PIPE_MESSAGES - 1} after the first: "
+                    + ", ".join(f"{v} {t:.1f}" for v, t in ms.items())
+                    + f"; pickle dumps {dumps_ms:.1f} + loads {loads_ms:.1f} in one process; "
+                      f"on {card}")
 
 
 KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches count)
@@ -1898,6 +2284,14 @@ def main() -> None:
 
     dev = torch.device("cuda")
     phase_build()
+    if "--pipe-variants" in sys.argv[1:]:
+        phase_pipe_variants(card)
+        return
+    if "--data" in sys.argv[1:]:
+        with stem(False):
+            hard = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)
+            phase_data(card, dev, hard["step_ms"])
+        return
     phase_mma_builds()
     if "--profile" in sys.argv[1:]:
         phase_profile(card, dev)
@@ -1927,11 +2321,13 @@ def main() -> None:
         phase_serving_ab(card, main_path, *ab)
     del main_path
     with stem(False):
-        paths["train"] = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)
+        hard = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)
+        paths["train"] = hard["launches"]
         phase_train_bwd_ab(card, dev)
         phase_k4_routes(card, dev)
+        phase_data(card, dev, hard["step_ms"])
     with stem(True):
-        paths["soft"] = run_train(card, dev, "soft", soft=True, per_step=SOFT_PER_STEP)
+        paths["soft"] = run_train(card, dev, "soft", soft=True, per_step=SOFT_PER_STEP)["launches"]
     kernels = []
     for name, key, source, replaces, path in KERNEL_ENTRIES:
         s = summary[key]

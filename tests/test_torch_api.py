@@ -148,13 +148,17 @@ def test_init_cuda_without_card_raises():
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports the port, its train step and losses
-    included, and runs a tiny CPU forward without loading the JAX
-    package, jax, flax, optax or msgpack."""
+    """A fresh interpreter imports the port, its train step, losses, data
+    pipeline and flow I/O included, runs a tiny CPU forward and the host
+    C++ occlusion, without loading the JAX package, jax, flax, optax or
+    msgpack."""
     code = (
         "import sys, numpy as np\n"
         "import back2future_tpu_torch\n"
-        "from back2future_tpu_torch import api, data, losses, ops, models, runtime, train\n"
+        "from back2future_tpu_torch import api, data, io, losses, ops, models, runtime, train\n"
+        "from back2future_tpu_torch.data import roaming\n"
+        "from back2future_tpu_torch.runtime import host_build\n"
+        "assert io.get_occ(np.ones((4, 5)), np.zeros((4, 5, 2))).shape == (4, 5)\n"
         "est = api.init(None, device='cpu', dtype='float32')\n"
         "ims = [np.random.default_rng(k).random((64, 128, 3), dtype=np.float32)"
         " for k in range(3)]\n"

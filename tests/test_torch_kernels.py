@@ -897,3 +897,41 @@ def test_soft_train_step_kernels_match_plain_ops(cuda, monkeypatch):
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * b.abs().max().item())
+
+
+# ------------------------------------------------ the loader's device prefetch
+
+def test_device_prefetch_pinned_side_stream(cuda):
+    """`data.loader.device_prefetch` on the card: each batch is staged in
+    pinned host memory and copied on a side stream, the consumer's stream
+    waits for the copy, and the tensors equal a synchronous copy."""
+    from back2future_tpu_torch.data import loader
+
+    rng = np.random.default_rng(0)
+    host = [{"images": rng.integers(0, 256, (2, 32, 64, 9), dtype=np.uint8),
+             "flow_gt": rng.standard_normal((2, 32, 64, 2)).astype(np.float16),
+             "mask": rng.random((2, 32, 64), dtype=np.float32)} for _ in range(5)]
+    side = torch.cuda.Stream(cuda)
+    loader._stage(host[0], cuda, side)      # warms the pinned host allocator
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(int(5e8))        # keeps the side stream busy a while
+    pinned, dev, done = loader._stage(host[0], cuda, side)
+    assert all(t.is_pinned() for t in pinned.values())
+    assert not done.query()                # the copies queue behind the side stream's work
+    assert torch.cuda.current_stream(cuda).query()   # ... and not on the consumer's stream
+    got = loader._release((pinned, dev, done), cuda)
+    after = torch.cuda.Event()
+    after.record()
+    assert not after.query()               # the consumer's stream waits for the copies
+    torch.cuda.synchronize()
+    for k, v in host[0].items():
+        assert torch.equal(got[k], torch.from_numpy(v).to(cuda)), k
+
+    staged = list(loader.device_prefetch(iter(host), cuda, depth=2))
+    torch.cuda.synchronize()
+    assert len(staged) == len(host)
+    for got, want in zip(staged, host):
+        for k, v in want.items():
+            assert got[k].device.type == "cuda" and got[k].dtype == torch.from_numpy(v).dtype
+            assert torch.equal(got[k], torch.from_numpy(v).to(cuda)), k
