@@ -8,13 +8,20 @@ JAX package: what it needs of that package's framework-free modules
 normalisation, resize) it keeps as its own copies.
 
 Layering, from the entry point down to the device:
+  main, eval — the training CLI (`python -m back2future_tpu_torch.main`)
+              and the eval CLI (`python -m back2future_tpu_torch.eval`)
   api       — init() / FlowEstimator: host pre/post-processing, the
-              serving forward under torch.inference_mode()
+              serving forward under torch.inference_mode(); checkpoint
+              paths load through train.checkpoint
   models    — nn.Modules: PWCNet (multi-frame PWC + occlusion head),
               Conv/ConvUnit/Decoder, the flax-params bridge and the
               hard -> soft surgery
-  train     — the unsupervised train step: multi-scale loss, optimiser
-              chain, TrainState
+  train     — the epoch loop run(), checkpoints (torch files; the JAX
+              package's msgpack pairs read too), the train and eval
+              steps, metrics, multi-scale loss, optimiser chain,
+              TrainState
+  utils     — SymbolLogger / TeeLogger, StepTimer, maybe_profile
+  data, io  — the host data pipeline and flow files
   losses    — the criteria of the hard and soft recipes, reference
               gradients as autograd Functions
   ops       — NHWC tensor ops: pyramid resampling (plain torch), the

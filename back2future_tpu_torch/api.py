@@ -23,7 +23,7 @@ import torch
 
 from .data.augment import color_normalize
 from .data.resample import resize
-from .models import PWCConfig, PWCNet, load_flax_params
+from .models import PWCConfig, PWCNet
 from .models.pwc import DTYPES
 
 Results = Tuple[np.ndarray, np.ndarray, np.ndarray]
@@ -157,7 +157,7 @@ class FlowEstimator:
         return _postprocess_results(flow, occ, w, height, width)
 
 
-def _checkpoint(model) -> Path:
+def _checkpoint(model) -> str:
     """The checkpoint path of a pretrained name or a path, as the JAX
     package resolves it; FileNotFoundError with its message when nothing
     is there."""
@@ -166,7 +166,23 @@ def _checkpoint(model) -> Path:
         raise FileNotFoundError(
             f"no checkpoint at {path!r} (for reference pretrained names, "
             f"convert the .t7 with tools/convert_t7.py first)")
-    return Path(path)
+    return path
+
+
+def _load(path: str) -> Tuple[dict, PWCConfig]:
+    """(params, PWCConfig) of the checkpoint at `path` (a model_<e> file
+    or a directory, newest wins; back2future_tpu/api.py:473-487). The API
+    serves the PWC family only: another netType raises the JAX package's
+    ValueError from the options alone, before any module is built."""
+    from .train.checkpoint import checkpoint_options, load_model_checkpoint, resolve_checkpoint
+
+    file = resolve_checkpoint(path)
+    opt = checkpoint_options(file)
+    if opt is not None and opt.netType == "spynet":
+        raise ValueError(
+            f"checkpoint at {path!r} was trained with netType="
+            f"SPyNetConfig; load() serves the PWC family only")
+    return load_model_checkpoint(file, opt)
 
 
 def init(model: Union[None, str, Path, Tuple[dict, PWCConfig]] = "Ours-Soft-ft-KITTI",
@@ -175,24 +191,23 @@ def init(model: Union[None, str, Path, Tuple[dict, PWCConfig]] = "Ours-Soft-ft-K
 
     `model` is either
       * a reference pretrained name ("Ours-Hard", "Ours-Soft-ft-KITTI",
-        the default, "Ours-Soft-ft-Sintel") or a checkpoint path, as in
-        the JAX package: FileNotFoundError when no checkpoint is there,
-        and NotImplementedError when one is (loading checkpoints is not
-        ported yet: ROADMAP.md queue 1 item 9b);
+        the default, "Ours-Soft-ft-Sintel") or a checkpoint path (a
+        directory, newest model_<e> wins, or a model_<e>.pt /
+        model_<e>.msgpack file, the latter written by the JAX package),
+        as in the JAX package: FileNotFoundError when no checkpoint is
+        there;
       * a (params, PWCConfig) pair: `params` a flax-named tree of numpy
-        arrays (models.bridge), `PWCConfig` the port's; or
+        arrays (models.bridge) or a `state_dict`, `PWCConfig` the
+        port's; or
       * None: random weights from `torch.Generator().manual_seed(seed)`,
         the flagship 3-frame config (frames 3, levels 7, win 9, skip 2).
 
     `dtype` ("bfloat16" / "float32") overrides the compute dtype; the
-    default is the config's own, and bfloat16 for random weights.
-    `device` "cuda" with no card raises.
+    default is the config's own (a checkpoint's options.json), and
+    bfloat16 for random weights. `device` "cuda" with no card raises.
     """
     if model is not None and not isinstance(model, tuple):
-        path = _checkpoint(model)
-        raise NotImplementedError(
-            f"checkpoint at {str(path)!r}: the port does not load checkpoints yet "
-            f"(ROADMAP.md queue 1 item 9b); pass None or (params, PWCConfig)")
+        model = _load(_checkpoint(model))
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init(device='cuda'): no CUDA device is available")
@@ -203,13 +218,15 @@ def init(model: Union[None, str, Path, Tuple[dict, PWCConfig]] = "Ours-Soft-ft-K
         config = PWCConfig(dtype=DTYPES[dtype or "bfloat16"])
         net = PWCNet(config, generator=generator)
     elif len(model) == 2:
+        from .train.checkpoint import load_params
+
         params, config = model
         if not isinstance(config, PWCConfig):
             raise TypeError(f"expected the port's PWCConfig, got {type(config)}")
         if dtype:
             config = dataclasses.replace(config, dtype=DTYPES[dtype])
         net = PWCNet(config, generator=generator)
-        load_flax_params(net, params)
+        load_params(net, params)
     else:
         raise TypeError(f"model as a tuple must be (params, PWCConfig), got {len(model)} items")
     return FlowEstimator(net.to(device), device)

@@ -5,9 +5,12 @@ typed dataclass.
 The port's own copy of the JAX package's `Options`
 (back2future_tpu/config.py), with the same field names and defaults, so
 that an option set written by one package reads in the other and
-`pwc_config_from_options` / `build_criterions` take either. A few fields
-mean nothing to the port and are kept only so option sets round-trip:
-`platform`, `trace_dir`, `mesh_shape`, `mesh_axes`, `use_pallas`, `wire`.
+`pwc_config_from_options` / `build_criterions` take either. `platform`
+picks the device of `train.loop.run`: "", "gpu" or "cuda" mean the card
+(`cuda:{GPU-1}`), "cpu" asks for the CPU. A few fields mean nothing to
+the port and are kept only so option sets round-trip: `trace_dir` (read
+only by `utils.maybe_profile`), `mesh_shape`, `mesh_axes`, `use_pallas`.
+`parse_args` is the training CLI's front end (back2future_tpu/config.py:234).
 """
 
 from __future__ import annotations
@@ -103,10 +106,10 @@ class Options:
     pwc_sum_cvs: bool = False
 
     # ---------- additions without a reference analog ----------
-    platform: str = ""               # inert in the port
+    platform: str = ""               # "", "gpu", "cuda": the card; "cpu"
     datasets_dir: str = "datasets"   # manifest directory (donkey.lua:78)
     data_root: str = ""              # replaces [PATH] in manifests (README.md:76-80)
-    trace_dir: str = ""              # inert in the port
+    trace_dir: str = ""              # torch.profiler trace directory (maybe_profile)
     compute_dtype: str = "bfloat16"  # conv/matmul compute dtype
     param_dtype: str = "float32"
     mesh_shape: Tuple[int, ...] = ()   # inert in the port
@@ -213,4 +216,33 @@ class Options:
         return Options(**d)
 
 
-__all__ = ["Options"]
+def parse_args(argv=None) -> Options:
+    """CLI front end exposing every reference flag (opts.lua:14-100), as
+    back2future_tpu/config.py:234 parses them: bools from "1"/"true"/
+    "yes", `mesh_shape`/`mesh_axes` as comma lists; then
+    `derive(make_dirs=True)`."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Back2Future port: unsupervised multi-frame optical flow with occlusions")
+    for f in dataclasses.fields(Options):
+        if f.name in ("save", "channels", "loadSize"):
+            continue
+        default = f.default if f.default is not dataclasses.MISSING else None
+        if f.type in ("bool", bool):
+            parser.add_argument(f"--{f.name}", type=lambda s: s.lower() in ("1", "true", "yes"),
+                                default=default)
+        elif f.name == "mesh_shape":
+            parser.add_argument("--mesh_shape", default=default, metavar="N[,M...]",
+                                type=lambda s: tuple(int(v) for v in s.split(",") if v))
+        elif f.name == "mesh_axes":
+            parser.add_argument("--mesh_axes", default=default, metavar="AX[,AX...]",
+                                type=lambda s: tuple(v for v in s.split(",") if v))
+        else:
+            ftype = {"int": int, "float": float, "str": str}.get(str(f.type), str)
+            parser.add_argument(f"--{f.name}", type=ftype, default=default)
+    ns = parser.parse_args(argv)
+    return Options(**vars(ns)).derive(make_dirs=True)
+
+
+__all__ = ["Options", "parse_args"]

@@ -5,7 +5,8 @@ readers/writers for Middlebury .flo, Sintel .pfm, KITTI 16-bit .png and
 .disp occlusion maps, HSL flow visualization, flow-aware geometric
 transforms, and z-buffer occlusion derivation. The exports are those of
 back2future_tpu/io/__init__.py:12-29; the `.t7` reader (io/t7.py) is not
-ported (ROADMAP queue 1 item 10).
+ported (ROADMAP queue 1 item 10). `io.flax_msgpack` reads the msgpack
+checkpoints that the JAX package writes through flax.
 """
 
 from .flow_io import (

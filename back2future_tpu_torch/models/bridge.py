@@ -38,34 +38,51 @@ def _flax_path_to_torch(path: tuple) -> str:
     return ".".join(path[:-2] + (_TO_TORCH[path[-1]],))
 
 
-def load_flax_params(module: nn.Module, tree: Mapping) -> None:
-    """Copy a flax param tree (nested dict of arrays, optionally under a
-    top-level "params" key) into `module`'s parameters, in place.
-
-    Raises KeyError on a missing or extra entry and ValueError on a
-    shape mismatch; nothing is copied unless every entry matches."""
+def flax_to_torch_names(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A flax-named tree (nested dict of arrays, optionally under a
+    top-level "params" key) as torch parameter names -> float32 numpy
+    arrays, kernels HWIO -> OIHW. The one name and layout map of the
+    bridge: params and optimiser moments (train/checkpoint.py) cross by it."""
     if set(tree) == {"params"}:
         tree = tree["params"]
-    flat = {}
+    out = {}
     for path, value in _flatten(tree).items():
-        flat[_flax_path_to_torch(path)] = np.asarray(value, np.float32)
+        name = _flax_path_to_torch(path)
+        value = np.asarray(value, np.float32)
+        if name.endswith(".weight"):
+            value = value.transpose(3, 2, 0, 1)   # HWIO -> OIHW
+        out[name] = np.ascontiguousarray(value)
+    return out
+
+
+def check_names(module: nn.Module, flat: Mapping[str, np.ndarray]) -> Dict[str, nn.Parameter]:
+    """`module`'s parameters by name, after checking that `flat` (torch
+    names -> arrays) holds each of them once, at its shape: KeyError on a
+    missing or extra entry, ValueError on a shape mismatch."""
     params = dict(module.named_parameters())
     missing = sorted(set(params) - set(flat))
     extra = sorted(set(flat) - set(params))
     if missing or extra:
         raise KeyError(f"flax tree does not match the module: missing "
                        f"{missing}, extra {extra}")
-    converted = {}
     for name, value in flat.items():
-        if name.endswith(".weight"):
-            value = value.transpose(3, 2, 0, 1)   # HWIO -> OIHW
         if value.shape != tuple(params[name].shape):
             raise ValueError(f"{name}: flax shape {value.shape} does not match "
                              f"torch shape {tuple(params[name].shape)}")
-        converted[name] = value
+    return params
+
+
+def load_flax_params(module: nn.Module, tree: Mapping) -> None:
+    """Copy a flax param tree (nested dict of arrays, optionally under a
+    top-level "params" key) into `module`'s parameters, in place.
+
+    Raises KeyError on a missing or extra entry and ValueError on a
+    shape mismatch; nothing is copied unless every entry matches."""
+    flat = flax_to_torch_names(tree)
+    params = check_names(module, flat)
     with torch.no_grad():
-        for name, value in converted.items():
-            params[name].copy_(torch.from_numpy(np.array(value, order="C")))
+        for name, value in flat.items():
+            params[name].copy_(torch.from_numpy(value))
 
 
 def to_flax_params(module: nn.Module) -> Dict[str, Any]:

@@ -1,10 +1,15 @@
 """Training engine of the port (counterpart of back2future_tpu.train):
-multi-scale loss, optimiser and LR regime, train state, train step.
+multi-scale loss, optimiser and LR regime, train state, the train and
+eval steps, the metrics, checkpoints and the epoch loop (`run`).
 
-The epoch loop, checkpoints and the metrics are not ported yet
-(ROADMAP.md queue 1 item 9).
+Not ported yet: `remat` (ROADMAP.md queue 1 item 9e) and multi-card
+training (item 11).
 """
 
+from .checkpoint import (latest_checkpoint, load_model_checkpoint, load_or_convert,
+                         load_train_checkpoint, save_checkpoint)
+from .loop import build_loaders, build_model, eval_epoch, run, train_epoch
+from .metrics import decode_occ, fl_all, full_res_metrics, occ_f1
 from .multiscale import LEVEL_WEIGHTS, level_weight, multiscale_loss
 from .optim import ChainOptimizer, lr_for_epoch, make_optimizer
 from .state import TrainState, create_train_state
@@ -15,4 +20,8 @@ __all__ = [
     "ChainOptimizer", "lr_for_epoch", "make_optimizer",
     "TrainState", "create_train_state",
     "make_eval_step", "make_train_step",
+    "decode_occ", "fl_all", "occ_f1", "full_res_metrics",
+    "save_checkpoint", "latest_checkpoint", "load_model_checkpoint",
+    "load_train_checkpoint", "load_or_convert",
+    "build_model", "build_loaders", "train_epoch", "eval_epoch", "run",
 ]

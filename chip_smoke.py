@@ -87,6 +87,25 @@ Phases, one line each (any failure raises and exits non-zero):
      median step ms over steps 2-21 (CUDA events), triplets/s trained
      (wall clock) and the mean host wait in next(), over steps 2-21 and
      the last 8, beside the random-tensor step of phase 6
+  7b. loop path (stem off): train.loop.run() on a RoamingImages set of
+     LOOP_SCENES scenes at 320x640 (20 train / 4 val), data configuration
+     (a) without scene batches and with ground truth, the hard recipe in
+     bf16 at B=8, epochSize 4, 2 epochs, a checkpoint each epoch, 8
+     spawned loader workers: exact launch counts of every train step (10 /
+     18 / 10 / 10 / 18 / 8) and every eval step (10 cost volumes, 18
+     warps, no backward kernel), the checkpoint pairs, options.json, the
+     two-row train.log / test.log with finite avg epe, their SVGs and
+     `log`; each epoch's wall time and triplets/s through run() beside
+     phase 7's loader-fed figure, the eval epoch's time, the checkpoint
+     pair's save and load ms; then -cont with persistent Adam moments for
+     a third epoch: the parameters and the Adam state right after the
+     load equal the first run's final state bit for bit, the step counter
+     goes on from 8 to 12; then init(<save dir>) (its ms) serves
+     compute_flow_batch at B=16 on 1242x375 frames with 10 + 8 launches,
+     its flow and occlusion bit-identical to the trained module's own
+     forward on the same input; then the eval CLI
+     (`python -m back2future_tpu_torch.eval`) over the val split prints
+     finite metrics
   8. train path, soft fine-tune recipe (stem on): the hard net of phase 6
      turned into a soft one by convert_net_hard_to_soft (OBGCC,
      past_flow, const_vel 1, second-order smoothness), 6 bf16 steps with
@@ -111,6 +130,10 @@ device time by kind of op.
 
 runs, after phase 1 and the build, only the hard train steps of phase 6
 (for the random-tensor step) and the data path of phase 7.
+
+    python3 chip_smoke.py --loop
+
+runs, after phase 1 and the build, only the loop path of phase 7b.
 
     python3 chip_smoke.py --pipe-variants
 
@@ -252,6 +275,16 @@ DATA_STEADY = 8                        # the last steps, past the workers' prefe
 PIPE_MESSAGES = 6                      # batches each pipe variant sends
 DATA_LAUNCHES = ("b2f_cost_volume_fwd", "b2f_warp_bilinear_fwd", "b2f_cost_volume_dref",
                  "b2f_cost_volume_dframe", "b2f_warp_bilinear_dflow", "b2f_warp_bilinear_dimages")
+# the loop path (phase 7b, --loop): run() on a generated RoamingImages set
+# (val fraction 0.25 at seed 0: 20 train / 4 val scenes), data
+# configuration (a) without scene batches, ground truth on
+LOOP_SCENES = 24
+LOOP_VAL_FRACTION = 0.25
+LOOP_EPOCH_SIZE = 4
+LOOP_OPTIONS = dict(optimize="pme", compute_dtype="bfloat16", augment=0, rand_crop=0,
+                    wire="compact", ground_truth=True)
+EVAL_PER_STEP = dict(dict.fromkeys(TRAIN_PER_STEP, 0), b2f_cost_volume_fwd=10,
+                     b2f_warp_bilinear_fwd=18)
 DATA_CONFIGS = (
     ("a", "learn_demo's recipe data: augment 0, rand_crop 0, compact wire, "
           "scene_batches full", dict(augment=0, rand_crop=0, wire="compact"),
@@ -1992,9 +2025,11 @@ def pipe_probe(shape: tuple, wire: str, method: str, producers: int,
     return max(ready) - t0, (arrivals[-1] - arrivals[0]) / (len(arrivals) - 1) * 1e3
 
 
-def phase_data(card: str, dev, random_step_ms: float) -> None:
+def phase_data(card: str, dev, random_step_ms: float) -> dict:
     """The hard bf16 step fed from files on disk through the port's own
-    generator, loader and device prefetch (module docstring, phase 7)."""
+    generator, loader and device prefetch (module docstring, phase 7).
+    Returns the loader-fed triplets/s (wall clock, steps 2-21) by
+    configuration."""
     import tempfile
     from pathlib import Path
 
@@ -2010,6 +2045,7 @@ def phase_data(card: str, dev, random_step_ms: float) -> None:
     workers = min(8, os.cpu_count() or 1)
     method = os.environ.get("B2F_MP_START", "") or ("spawn" if _cuda_live() else "fork")
     opt = train_options("bfloat16", soft=False)
+    rates = {}
     crits = build_criterions(opt)
     with tempfile.TemporaryDirectory(prefix="b2f_roaming_") as tmp:
         root = Path(tmp)
@@ -2111,6 +2147,7 @@ def phase_data(card: str, dev, random_step_ms: float) -> None:
             times = [a.elapsed_time(b) for a, b in events]
             step_ms = statistics.median(times[1:])
             tail = DATA_STEPS - 1 - DATA_STEADY
+            rates[tag] = TRAIN_B * (DATA_STEPS - 1) / wall
             log("data", f"({tag}) hard bf16 step B={TRAIN_B} {TRAIN_H}x{TRAIN_W} from the "
                         f"loader through device_prefetch, {DATA_STEPS} steps, launches "
                         f"{' / '.join(str(TRAIN_PER_STEP[k]) for k in DATA_LAUNCHES)} each: "
@@ -2126,6 +2163,238 @@ def phase_data(card: str, dev, random_step_ms: float) -> None:
                         f"{['%.4f' % v for v in values['loss']]}; on {card}")
             del net, state, step, batch
     log("data", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+    return rates
+
+
+@contextlib.contextmanager
+def watching_run(loop, seen: dict, check_loaded):
+    """Inside the block `loop.run` records into `seen`: each train and eval
+    step's launches (host-side counters, read without a sync) and the host
+    time after its dispatch, each train and eval epoch's wall interval,
+    each checkpoint save's ms (synchronised), and each
+    load_train_checkpoint's ms; `check_loaded(state)` runs right after a
+    load, before any step changes the state."""
+    names = ("make_train_step", "make_eval_step", "train_epoch", "eval_epoch",
+             "save_checkpoint", "load_train_checkpoint")
+    saved = {n: getattr(loop, n) for n in names}
+
+    def counted(kind, make):
+        def factory(*args, **kw):
+            fn = make(*args, **kw)
+
+            def step(*a):
+                before = counts()
+                out = fn(*a)
+                done = counts()
+                seen[kind].append({k: done[k] - before[k] for k in done})
+                seen[kind + "_t"].append(time.perf_counter())
+                return out
+            return step
+        return factory
+
+    def timed(key, fn, sync=False, after=None):
+        def wrapper(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            seen[key].append((t0, time.perf_counter()))
+            if after is not None:
+                after(out)
+            return out
+        return wrapper
+
+    loop.make_train_step = counted("train", saved["make_train_step"])
+    loop.make_eval_step = counted("eval", saved["make_eval_step"])
+    loop.train_epoch = timed("epoch", saved["train_epoch"])
+    loop.eval_epoch = timed("eval_epoch", saved["eval_epoch"])
+    loop.save_checkpoint = timed("save", saved["save_checkpoint"], sync=True)
+    loop.load_train_checkpoint = timed("load", saved["load_train_checkpoint"], sync=True,
+                                       after=lambda out: check_loaded(out[0]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(loop, n, fn)
+
+
+def phase_loop(card: str, dev, data_rates: dict) -> dict:
+    """The epoch loop on the card (module docstring, phase 7b): run() from
+    files, its checkpoints and logs, a -cont resume, init(path) serving
+    what it saved, and the eval CLI. Returns the loop path's launches."""
+    import collections
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from back2future_tpu_torch import api
+    from back2future_tpu_torch.config import Options
+    from back2future_tpu_torch.data import load_split, roaming
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import loop
+    from back2future_tpu_torch.utils import SymbolLogger
+
+    phase_t0 = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    seen = collections.defaultdict(list)
+    with tempfile.TemporaryDirectory(prefix="b2f_loop_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        roaming.main(["--out", str(root / "set"), "--n", str(LOOP_SCENES), "--height",
+                      str(TRAIN_H), "--width", str(TRAIN_W), "--frames", "3", "--seed", "0",
+                      "--val_fraction", str(LOOP_VAL_FRACTION)])
+        gen_s = time.perf_counter() - t0
+        datasets = root / "set" / "datasets"
+        n_val = len(load_split(datasets / "RoamingImages_split.dat")[1])
+        opt = Options(batchSize=TRAIN_B, dataset="RoamingImages", datasets_dir=str(datasets),
+                      data_root=str(root / "set" / "data"), cache=str(root / "cache"),
+                      expName="loop", epochSize=LOOP_EPOCH_SIZE, nEpochs=2, epochStore=1,
+                      nDonkeys=workers, **LOOP_OPTIONS).derive(make_dirs=True)
+        save = Path(opt.save)
+        log("loop", f"RoamingImages generated: {LOOP_SCENES} scenes at {TRAIN_H}x{TRAIN_W} in "
+                    f"{gen_s:.2f} s, {LOOP_SCENES - n_val} train / {n_val} val; run(): "
+                    f"{opt.pme_criterion} {opt.compute_dtype} B={opt.batchSize} "
+                    f"{opt.fineHeight}x{opt.fineWidth}, epochSize {opt.epochSize}, "
+                    f"{workers} loader workers, wire {opt.wire}, ground_truth {opt.ground_truth}")
+
+        def refuse_load(state):
+            raise AssertionError("the first run loaded a checkpoint")
+
+        reset_launches()
+        with watching_run(loop, seen, refuse_load):
+            first = loop.run(opt)
+        launches = counts()
+        n_train = 2 * LOOP_EPOCH_SIZE
+        if first.step != n_train or len(seen["train"]) != n_train:
+            raise AssertionError(f"loop: the first run took {first.step} steps "
+                                 f"({len(seen['train'])} seen), expected {n_train}")
+        if len(seen["eval"]) != 2 * -(-n_val // TRAIN_B):
+            raise AssertionError(f"loop: {len(seen['eval'])} eval steps for {n_val} val scenes")
+        for kind, want in (("train", TRAIN_PER_STEP), ("eval", EVAL_PER_STEP)):
+            bad = [(i, got) for i, got in enumerate(seen[kind]) if got != want]
+            if bad:
+                raise AssertionError(f"loop: {kind} step {bad[0][0] + 1} launched {bad[0][1]}, "
+                                     f"expected {want}")
+        files = [f"model_{e}.pt" for e in (1, 2)] + [f"optimState_{e}.pt" for e in (1, 2)] + [
+            "options.json", "train.log", "test.log", "train.svg", "test.svg", "log"]
+        missing = [f for f in files if not (save / f).is_file()]
+        if missing:
+            raise AssertionError(f"loop: the first run did not write {missing}")
+        logs = {name: SymbolLogger(save / f"{name}.log").read() for name in ("train", "test")}
+        for name, cols in logs.items():
+            epe = cols[f"avg epe ({name} set)"]
+            if len(epe) != 2 or not np.isfinite(epe).all() or not np.isfinite(
+                    cols[f"avg loss ({name} set)"]).all():
+                raise AssertionError(f"loop: {name}.log {cols}")
+        epochs = [b - a for a, b in seen["epoch"]]
+        firsts = seen["train_t"][::LOOP_EPOCH_SIZE]
+        after_first = [TRAIN_B * (LOOP_EPOCH_SIZE - 1) / (b - t)
+                       for (a, b), t in zip(seen["epoch"], firsts)]
+        evals = [b - a for a, b in seen["eval_epoch"]]
+        save_ms = [(b - a) * 1e3 for a, b in seen["save"]]
+        log("loop", f"run() 2 epochs x {LOOP_EPOCH_SIZE} steps: every train step launched "
+                    f"{' / '.join(str(TRAIN_PER_STEP[k]) for k in DATA_LAUNCHES)}, every eval "
+                    f"step K1 x10 and the gather x18 and no backward kernel; loss "
+                    f"{logs['train']['avg loss (train set)']}, avg epe (train set) "
+                    f"{logs['train']['avg epe (train set)']}, (test set) "
+                    f"{logs['test']['avg epe (test set)']}; launches over the run {launches}")
+        log("loop", f"epoch wall {['%.2f s' % e for e in epochs]} (spawn start-up of the "
+                    f"loader included), {['%.2f' % (TRAIN_B * LOOP_EPOCH_SIZE / e) for e in epochs]}"
+                    f" triplets/s trained through run(), "
+                    f"{['%.2f' % r for r in after_first]} over steps 2-{LOOP_EPOCH_SIZE}; phase 7's "
+                    f"loader-fed step (steps 2-{DATA_STEPS}) "
+                    + (", ".join(f"({k}) {v:.2f}" for k, v in data_rates.items())
+                       if data_rates else "not run") + f" triplets/s; eval epoch "
+                    f"{['%.2f s' % e for e in evals]} ({n_val} samples); checkpoint pair save "
+                    f"{['%.1f ms' % m for m in save_ms]}; on {card}")
+
+        # -cont with persistent Adam moments: the state right after the load
+        # equals the first run's final state, bit for bit
+        def check_loaded(state):
+            if state.step != first.step or state.epoch != 2:
+                raise AssertionError(f"loop: -cont loaded step {state.step} epoch {state.epoch}")
+            ref = dict(first.model.named_parameters())
+            for name, q in state.model.named_parameters():
+                p = ref[name]
+                if not torch.equal(p, q):
+                    raise AssertionError(f"loop: -cont parameter {name} differs from the saved one")
+                want, got = first.optimizer.rule.state[p], state.optimizer.rule.state[q]
+                for k in ("exp_avg", "exp_avg_sq", "step"):
+                    if not torch.equal(want[k], got[k]):
+                        raise AssertionError(f"loop: -cont Adam {k} of {name} differs")
+            seen["checked"].append(True)
+
+        for k in ("train", "eval", "train_t", "epoch", "eval_epoch", "save"):
+            seen[k].clear()
+        with watching_run(loop, seen, check_loaded):
+            resumed = loop.run(dataclasses.replace(opt, cont=True, nEpochs=3,
+                                                   adam_reset_per_epoch=False))
+        if seen["checked"] != [True] or resumed.step != n_train + LOOP_EPOCH_SIZE:
+            raise AssertionError(f"loop: the resume checked {seen['checked']}, ended at step "
+                                 f"{resumed.step}, expected {n_train + LOOP_EPOCH_SIZE}")
+        if any(got != TRAIN_PER_STEP for got in seen["train"]) or any(
+                got != EVAL_PER_STEP for got in seen["eval"]) or not (save / "model_3.pt").is_file():
+            raise AssertionError("loop: the resumed epoch's launches or checkpoint")
+        load_ms = [(b - a) * 1e3 for a, b in seen["load"]]
+        log("loop", f"-cont adam_reset_per_epoch 0: parameters and Adam exp_avg / exp_avg_sq / "
+                    f"step right after the load equal the first run's final state bit for "
+                    f"bit; step {first.step} -> {resumed.step}; checkpoint pair load "
+                    f"{load_ms[0]:.1f} ms, save {(seen['save'][0][1] - seen['save'][0][0]) * 1e3:.1f}"
+                    f" ms; epoch 3 wall {seen['epoch'][0][1] - seen['epoch'][0][0]:.2f} s; on {card}")
+
+        # init(path) serves what was saved: the trained module's own flow
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = api.init(str(save), device=dev)
+        torch.cuda.synchronize()
+        init_ms = (time.perf_counter() - t0) * 1e3
+        if est.config != resumed.model.cfg:
+            raise AssertionError(f"loop: init(path) config {est.config} != {resumed.model.cfg}")
+        rng = np.random.default_rng(3)
+        frames = [rng.random((B, H_IN, W_IN, 3), dtype=np.float32) for _ in range(3)]
+        reset_launches()
+        res = est.compute_flow_batch(*frames)
+        if counts() != SERVING_PER_FORWARD:
+            raise AssertionError(f"loop: init(path) serving launched {counts()}, "
+                                 f"expected {SERVING_PER_FORWARD}")
+        check_results(res, B)
+        imgs, n, h, w = api._preprocess_triplets(frames, 3)
+        x = torch.from_numpy(imgs).to(dev)
+        with torch.inference_mode():
+            got = est.net(x, with_warped=False)[0]
+            want = resumed.model(x, with_warped=False)[0]
+        ref = api._postprocess_results(want["flow"].float().cpu().numpy(),
+                                       want["occ"].float().cpu().numpy(), n, h, w)
+        if not (torch.equal(got["flow"], want["flow"]) and torch.equal(got["occ"], want["occ"])
+                and all(np.array_equal(a, b) for a, b in zip(res, ref))):
+            raise AssertionError("loop: init(path)'s flow differs from the trained module's")
+        log("loop", f"init(path) {init_ms:.1f} ms (model_3.pt, {est.config.dtype}); "
+                    f"compute_flow_batch B={B} {H_IN}x{W_IN}: launches {SERVING_PER_FORWARD['b2f_cost_volume_fwd']}"
+                    f" K1 + {SERVING_PER_FORWARD['b2f_warp_bilinear_fwd']} gathers, flow and "
+                    f"occlusion bit-identical to the trained module's forward on the same "
+                    f"input; on {card}")
+
+        # the eval CLI on the checkpoint over the val split
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "back2future_tpu_torch.eval", "--checkpoint", str(save),
+               "--dataset", "RoamingImages", "--datasets_dir", str(datasets),
+               "--data_root", str(root / "set" / "data"), "--batchSize", str(TRAIN_B),
+               "--cropHeight", str(TRAIN_H), "--cropWidth", str(TRAIN_W)]
+        here = os.path.dirname(os.path.abspath(__file__))
+        res = subprocess.run(cmd + (["--cpu"] if dev.type == "cpu" else []), cwd=here,
+                             env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode:
+            raise AssertionError(f"loop: the eval CLI exited {res.returncode}: {res.stderr}")
+        metrics = json.loads(res.stdout.strip().splitlines()[-1])
+        if metrics["n_samples"] != n_val or not np.isfinite(list(metrics.values())).all():
+            raise AssertionError(f"loop: eval CLI {metrics}")
+        log("loop", f"eval CLI over the val split ({time.perf_counter() - t0:.1f} s, a process "
+                    f"of its own): {metrics}")
+    log("loop", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+    return launches
 
 
 PIPE_VARIANTS = ("queue", "connection", "connection_1mb", "readv_1mb", "shared_memory")
@@ -2292,6 +2561,10 @@ def main() -> None:
             hard = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)
             phase_data(card, dev, hard["step_ms"])
         return
+    if "--loop" in sys.argv[1:]:
+        with stem(False):
+            phase_loop(card, dev, {})
+        return
     phase_mma_builds()
     if "--profile" in sys.argv[1:]:
         phase_profile(card, dev)
@@ -2325,7 +2598,8 @@ def main() -> None:
         paths["train"] = hard["launches"]
         phase_train_bwd_ab(card, dev)
         phase_k4_routes(card, dev)
-        phase_data(card, dev, hard["step_ms"])
+        data_rates = phase_data(card, dev, hard["step_ms"])
+        phase_loop(card, dev, data_rates)
     with stem(True):
         paths["soft"] = run_train(card, dev, "soft", soft=True, per_step=SOFT_PER_STEP)["launches"]
     kernels = []

@@ -131,13 +131,33 @@ def test_init_checkpoint_names_follow_jax(model, tmp_path, monkeypatch):
 
 
 def test_init_existing_checkpoint_is_not_loaded_yet(tmp_path, monkeypatch):
+    """The default name's checkpoint directory, existing but empty, raises
+    the JAX package's FileNotFoundError text; holding a JAX-written
+    model_1.msgpack and options.json, it loads (the name is kept from the
+    slice before checkpoint loading was ported)."""
+    from back2future_tpu.config import Options as JaxOptions
+    from back2future_tpu.train import checkpoint as jax_checkpoint
+    from back2future_tpu.train.state import create_train_state as jax_create_train_state
+
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("B2F_COMPILE_CACHE", "0")
     default = tmp_path / api.PRETRAINED_PATHS["Ours-Soft-ft-KITTI"]
     default.mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
-        api.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9b"):
-        api.init(str(default), device="cpu")
+    for path in ((), (str(default),)):
+        with pytest.raises(FileNotFoundError) as port_err:
+            api.init(*path, device="cpu")
+        with pytest.raises(FileNotFoundError) as jax_err:
+            jax_api.init(*path)
+        assert str(port_err.value) == str(jax_err.value)
+    opt = JaxOptions(levels=4, pwc_ws=3, compute_dtype="float32").derive()
+    cfg = PWCConfig(levels=4, win=3)
+    tree = to_flax_params(PWCNet(cfg, generator=torch.Generator().manual_seed(5)))
+    state = jax_create_train_state(jax.tree_util.tree_map(jnp.asarray, tree), opt)
+    jax_checkpoint.save_checkpoint(default, state, opt, 1)
+    est = api.init(device="cpu")
+    assert est.config == cfg
+    want = PWCNet(cfg, generator=torch.Generator().manual_seed(5)).state_dict()
+    assert all(torch.equal(v, want[k]) for k, v in est.net.state_dict().items())
 
 
 def test_init_cuda_without_card_raises():
@@ -148,14 +168,16 @@ def test_init_cuda_without_card_raises():
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports the port, its train step, losses, data
-    pipeline and flow I/O included, runs a tiny CPU forward and the host
-    C++ occlusion, without loading the JAX package, jax, flax, optax or
-    msgpack."""
+    """A fresh interpreter imports the port, its train step, epoch loop,
+    checkpoints, utilities, CLIs, losses, data pipeline and flow I/O
+    included, runs a tiny CPU forward and the host C++ occlusion, without
+    loading the JAX package, jax, flax, optax or msgpack."""
     code = (
         "import sys, numpy as np\n"
         "import back2future_tpu_torch\n"
         "from back2future_tpu_torch import api, data, io, losses, ops, models, runtime, train\n"
+        "from back2future_tpu_torch import eval, main, utils\n"
+        "from back2future_tpu_torch.train import checkpoint, loop\n"
         "from back2future_tpu_torch.data import roaming\n"
         "from back2future_tpu_torch.runtime import host_build\n"
         "assert io.get_occ(np.ones((4, 5)), np.zeros((4, 5, 2))).shape == (4, 5)\n"

@@ -935,3 +935,108 @@ def test_device_prefetch_pinned_side_stream(cuda):
         for k, v in want.items():
             assert got[k].device.type == "cuda" and got[k].dtype == torch.from_numpy(v).dtype
             assert torch.equal(got[k], torch.from_numpy(v).to(cuda)), k
+
+
+# ------------------------------------------- the eval step, init(path), the drain
+
+EVAL_LAUNCHES = {"b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 18}
+
+
+def gt_batch(device, seed=31, b=2, h=64, w=128):
+    rng = np.random.default_rng(seed)
+    return {"images": rand((b, h, w, 9), seed, device),
+            "flow_gt": rand((b, h, w, 2), seed + 1, device, scale=0.2),
+            "occ_gt": torch.from_numpy(rng.choice(np.array([0.0, 0.5, 1.0], np.float32),
+                                                  (b, h, w, 2))).to(device),
+            "mask": torch.from_numpy((rng.random((b, h, w)) > 0.1).astype(np.float32)).to(device)}
+
+
+def test_eval_step_launches_and_matches_plain_ops(cuda):
+    """The eval step of the flagship model (f32, 64x128, ground truth):
+    10 cost volume and 18 warp launches (8 feature warps, 10 image warps)
+    and no backward kernel; its logs as under plain_ops() (rtol 1e-4; the
+    occlusion accuracies atol 1e-3, a few of 16384 pixels whose decode
+    sits at a tie)."""
+    from back2future_tpu_torch.train import make_eval_step
+
+    opt = Options(optimize="pme", batchSize=2, compute_dtype="float32", ground_truth=True).derive()
+    net = PWCNet(pwc_config_from_options(opt), generator=torch.Generator().manual_seed(0)).to(cuda)
+    eval_step = make_eval_step(net, opt, build_criterions(opt))
+    batch = gt_batch(cuda)
+    reset_launches()
+    logs = eval_step(batch)
+    assert {k: v.launches for k, v in KERNELS.items() if v.launches} == EVAL_LAUNCHES
+    reset_launches()
+    with ops.plain_ops():
+        want = eval_step(batch)
+    assert all(k.launches == 0 for k in KERNELS.values())
+    assert set(logs) == set(want) and "occ_f1" in logs
+    for k in want:
+        np.testing.assert_allclose(logs[k].item(), want[k].item(), rtol=1e-4, atol=1e-3, err_msg=k)
+
+
+def test_init_path_serves_pt_written_on_card(cuda, tmp_path):
+    """A bf16 checkpoint saved on the card serves through init(path): the
+    config's dtype, 10 cost volume and 8 warp launches a forward, and the
+    flow of the module's own forward on the same input, bit for bit."""
+    from back2future_tpu_torch import api
+    from back2future_tpu_torch.train.checkpoint import save_checkpoint
+
+    opt = Options(optimize="pme", batchSize=2, compute_dtype="bfloat16").derive()
+    net = PWCNet(pwc_config_from_options(opt), generator=torch.Generator().manual_seed(3)).to(cuda)
+    save_checkpoint(tmp_path, create_train_state(net, opt), opt, 1)
+    est = api.init(str(tmp_path), device="cuda")
+    assert est.config.dtype == torch.bfloat16 and est.device.type == "cuda"
+    rng = np.random.default_rng(4)
+    frames = [rng.random((2, 70, 140, 3), dtype=np.float32) for _ in range(3)]
+    imgs, n, h, w = api._preprocess_triplets(frames, 3)
+    x = torch.from_numpy(imgs).to(cuda)
+    reset_launches()
+    with torch.inference_mode():
+        got = est.net(x, with_warped=False)[0]
+        assert {k: v.launches for k, v in KERNELS.items() if v.launches} == {
+            "b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 8}
+        want = net(x, with_warped=False)[0]
+    assert torch.equal(got["flow"], want["flow"]) and torch.equal(got["occ"], want["occ"])
+    flows, fwd_occ, bwd_occ = est.compute_flow_batch(*frames)
+    ref = api._postprocess_results(want["flow"].float().cpu().numpy(),
+                                   want["occ"].float().cpu().numpy(), n, h, w)
+    assert np.array_equal(flows, ref[0]) and np.array_equal(fwd_occ, ref[1])
+
+
+def test_metric_drain_does_not_synchronise(cuda):
+    """The loop's drain: a step's logs go to pinned host memory by a
+    non-blocking copy; no train step nor the copies call
+    cudaStreamSynchronize or cudaDeviceSynchronize, and reading the
+    oldest copy waits on its event only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from back2future_tpu_torch.train.loop import _read, _to_host
+
+    opt = Options(optimize="pme", batchSize=2, compute_dtype="bfloat16", ground_truth=True).derive()
+    net = PWCNet(pwc_config_from_options(opt), generator=torch.Generator().manual_seed(0)).to(cuda)
+    state = create_train_state(net, opt)
+    step = make_train_step(net, opt, build_criterions(opt))
+    batch = gt_batch(cuda)
+    state, logs = step(state, batch)          # warm-up: allocator, cuDNN plans
+    _read(_to_host(logs))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pending = []
+        with record_function("window"):
+            for _ in range(3):
+                state, logs = step(state, batch)
+                pending.append(_to_host(logs))
+        names, host, done = pending[0]
+        assert host.is_pinned() and host.device.type == "cpu"
+    # the profiler's own exit synchronises the device: only the window counts
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    window = next(e.time_range for e in events if e.name == "window")
+    inside = [e for e in events if window.start <= e.time_range.start <= window.end]
+    assert any("LaunchKernel" in e.name for e in inside)
+    syncs = [e.name for e in inside if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
+    assert not syncs, syncs
+    read = [_read(p) for p in pending]
+    assert all(set(r) == set(names) and np.isfinite(list(r.values())).all() for r in read)
+    assert read[-1]["loss"] == logs["loss"].item()

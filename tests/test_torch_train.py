@@ -140,11 +140,20 @@ def test_train_steps_match_jax(jax_steps):
 
 
 def test_train_step_rejects_unported():
+    """`remat` still raises; `ground_truth` (ported since) makes the step
+    return the metric logs when the batch holds ground truth."""
     net = PWCNet(pwc_config_from_options(tiny_options()))
-    for kw in (dict(remat=1), dict(ground_truth=True)):
-        opt = tiny_options(**kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(net, opt, build_criterions(opt))
+    opt = tiny_options(remat=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_step(net, opt, build_criterions(opt))
+    opt = tiny_options(ground_truth=True)
+    rng = np.random.default_rng(2)
+    batch = {"images": torch.from_numpy(rng.standard_normal((2, 32, 64, 9)).astype(np.float32)),
+             "flow_gt": torch.zeros(2, 32, 64, 2), "occ_gt": torch.full((2, 32, 64, 2), 0.5),
+             "mask": torch.ones(2, 32, 64)}
+    _, logs = make_train_step(net, opt, build_criterions(opt))(create_train_state(net, opt), batch)
+    assert {"epe", "epe_nocc", "epe_occ", "fl_all", "occ_acc", "occ_f1"} <= set(logs)
+    assert all(torch.isfinite(v) and v.shape == () for v in logs.values())
 
 
 # ------------------------------------------------------------------ optimiser
