@@ -154,7 +154,45 @@ def render_scene(rng: np.random.Generator, h: int, w: int, frames: int,
     return imgs, flow, depth
 
 
-def main(argv=None) -> None:
+def _write_scene(job) -> SampleSpec:
+    """Render scene `s` from rng((seed, s)) and write its frames, flow and
+    occlusions under `data`; its manifest entry."""
+    args, s, data = job
+    if args.images:
+        pool = sorted(Path(args.images).glob("*.png"))
+        texture_fn = lambda rng, h, w: _photo_texture(rng, pool, h, w)  # noqa: E731
+    else:
+        texture_fn = _smooth_texture
+    rc1 = (args.frames - 1) // 2 + 1  # 1-based reference frame index
+    rng = np.random.default_rng((args.seed, s))
+    n_layers = int(rng.integers(1, args.layers + 1))
+    imgs, flow, depth = render_scene(
+        rng, args.height, args.width, args.frames, n_layers,
+        args.max_speed, texture_fn)
+
+    scene = data / f"s{s:05d}"
+    scene.mkdir(exist_ok=True)
+    for t, img in enumerate(imgs, start=1):
+        write_png(scene / f"frame_{t:02d}.png",
+                  (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    write_flo(scene / f"flow_{rc1:02d}.flo", flow)
+    # z-buffer occlusions exactly as the reference derives them;
+    # wider windows scale the flow by their max frame distance
+    for f_win in (3, 5, 7):
+        if f_win > args.frames:
+            break
+        occ = get_occ(depth, flow * ((f_win - 1) // 2))
+        write_disp(scene / f"flow_{rc1:02d}_occ_{f_win}.disp",
+                   occ.astype(np.float32))
+
+    rel = f"[PATH]/s{s:05d}"
+    return SampleSpec(f"{rel}/frame_%02d.png", f"{rel}/flow_%02d.flo", rc1, 1)
+
+
+def main(argv=None, workers: int = 1) -> None:
+    """The generator's CLI; `workers` > 1 renders the scenes in that many
+    spawned processes (each scene depends only on (seed, index), so the
+    files are the same)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", required=True, help="dataset root (creates "
                     "<out>/data scenes and <out>/datasets manifests)")
@@ -182,45 +220,23 @@ def main(argv=None) -> None:
     data.mkdir(parents=True, exist_ok=True)
     ds_dir.mkdir(parents=True, exist_ok=True)
 
-    if args.images:
-        pool = sorted(Path(args.images).glob("*.png"))
-        if not pool:
-            raise SystemExit(f"--images {args.images}: no .png files")
-        texture_fn = lambda rng, h, w: _photo_texture(rng, pool, h, w)  # noqa: E731
+    if args.images and not sorted(Path(args.images).glob("*.png")):
+        raise SystemExit(f"--images {args.images}: no .png files")
+
+    jobs = [(args, s, data) for s in range(args.n)]
+    if workers > 1:
+        import multiprocessing as mp
+
+        with mp.get_context("spawn").Pool(workers) as pool:
+            specs = pool.map(_write_scene, jobs)
     else:
-        texture_fn = _smooth_texture
-
-    rc1 = (args.frames - 1) // 2 + 1  # 1-based reference frame index
-    specs, split = [], []
+        specs = []
+        for s, job in enumerate(jobs):
+            specs.append(_write_scene(job))
+            if (s + 1) % 50 == 0 or s + 1 == args.n:
+                print(f"{s + 1}/{args.n} scenes", flush=True)
     rng_split = np.random.default_rng(args.seed + 1)
-    for s in range(args.n):
-        rng = np.random.default_rng((args.seed, s))
-        n_layers = int(rng.integers(1, args.layers + 1))
-        imgs, flow, depth = render_scene(
-            rng, args.height, args.width, args.frames, n_layers,
-            args.max_speed, texture_fn)
-
-        scene = data / f"s{s:05d}"
-        scene.mkdir(exist_ok=True)
-        for t, img in enumerate(imgs, start=1):
-            write_png(scene / f"frame_{t:02d}.png",
-                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
-        write_flo(scene / f"flow_{rc1:02d}.flo", flow)
-        # z-buffer occlusions exactly as the reference derives them;
-        # wider windows scale the flow by their max frame distance
-        for f_win in (3, 5, 7):
-            if f_win > args.frames:
-                break
-            occ = get_occ(depth, flow * ((f_win - 1) // 2))
-            write_disp(scene / f"flow_{rc1:02d}_occ_{f_win}.disp",
-                       occ.astype(np.float32))
-
-        rel = f"[PATH]/s{s:05d}"
-        specs.append(SampleSpec(f"{rel}/frame_%02d.png",
-                                f"{rel}/flow_%02d.flo", rc1, 1))
-        split.append("2" if rng_split.random() < args.val_fraction else "1")
-        if (s + 1) % 50 == 0 or s + 1 == args.n:
-            print(f"{s + 1}/{args.n} scenes", flush=True)
+    split = ["2" if rng_split.random() < args.val_fraction else "1" for _ in specs]
 
     write_manifest(ds_dir / f"{args.name}.dat", specs)
     (ds_dir / f"{args.name}_split.dat").write_text("\n".join(split) + "\n")

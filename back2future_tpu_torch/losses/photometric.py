@@ -1,11 +1,16 @@
 """Photometric criterions (counterpart of back2future_tpu/losses/photometric.py).
 
 OBCC, occlusion-aware brightness constancy (criterions/OBCCriterion.lua),
-the criterion of the hard recipe, and OBGCC, brightness + gradient
-constancy (criterions/OBGCCriterion.lua), the criterion of the soft
-fine-tune recipe. Under `reference_grads=True` each is an autograd
-Function with the reference's hand-written backward, which deviates from
-the true gradient (photometric.py:129-165, 212-256):
+the criterion of the hard recipe; OBGCC, brightness + gradient constancy
+(criterions/OBGCCriterion.lua), the criterion of the soft fine-tune
+recipe; MBCC, brightness constancy without occlusion masking
+(criterions/MBCCriterion.lua), what `-pme_criterion BCC` runs; the SSIM
+family, MSSIM(L1) and its occlusion-aware OSSIM(L1)
+(criterions/MSSIML1Criterion.lua, OSSIML1Criterion.lua); and the
+2-frame `bcc` and `ssim`. Under `reference_grads=True` each of the
+multi-frame criteria is an autograd Function with the reference's
+hand-written backward, which deviates from the true gradient
+(photometric.py:129-165, 212-256, 285-305, 386-434):
 
   * the occlusion gradient also receives the constant out-of-image
     penalty (OBCCriterion.lua:180-190);
@@ -17,11 +22,12 @@ the true gradient (photometric.py:129-165, 212-256):
     being re-zeroed (OBGCCriterion.lua:91-92), while each frame's
     gradient comes from its own term alone; and the occlusion gradient
     carries the image-gradient transpose structure (OBGCCriterion.lua:
-    215-219).
+    215-219);
+  * the SSIM family: the backward takes the centre-Gaussian-weight
+    approximation of the SSIM derivative and omits the 1/(mx-mn) chain of
+    the min/max normalisation (MSSIML1Criterion.lua:218-224).
 
-With `reference_grads=False` each is plain autograd of the same value. The
-other criteria of the family (BCC/MBCC, the SSIM variants) are not ported
-yet (ROADMAP.md queue 1 item 8).
+With `reference_grads=False` each is plain autograd of the same value.
 
 Group layout (NHWC): flow (B,H,W,2); flow_past (B,H,W,2) or None; occ
 (B,H,W,2) with channel 0 = "visible or past occluded" (torch channel 1) and
@@ -32,10 +38,12 @@ of F-1 images (B,H,W,C) in frame order; target = reference frame (B,H,W,C).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from .common import coord_grid, fwd_diff_x, fwd_diff_y, in_image_mask
+from .common import (coord_grid, depthwise_gauss3, fwd_diff_x, fwd_diff_y,
+                     gaussian3_center_weight, in_image_mask)
 from .penalty import make_penalty
 
 # occ channel used to weight a frame: past frames -> torch ch2 (ours 1),
@@ -249,3 +257,232 @@ def make_obgcc(cfg: PhotoConfig, scale: float):
         return _obgcc_value(cfg, scale, flow, flow_past, occ, warped, target)
 
     return obgcc
+
+
+# --------------------------------------------------------------------------
+# MBCC — brightness constancy without occlusion masking
+# (criterions/MBCCriterion.lua)
+# --------------------------------------------------------------------------
+
+def _mbcc_value(cfg, scale, flow, flow_past, warped, target):
+    p = make_penalty(cfg.penalty)
+    h, w = target.shape[1], target.shape[2]
+    inner, size_norm = _norms(cfg, target)
+    masks = _masks(cfg, flow, flow_past, scale, h, w)
+    acc = 0.0
+    for f in range(1, cfg.frames):
+        acc = acc + p.apply(warped[f - 1] - target).sum(-1) * masks[f]
+    return acc.sum() * inner * size_norm
+
+
+class _MBCCFn(torch.autograd.Function):
+    """MBCC with the reference backward (photometric.py:293-302): gradients
+    to the warped frames only."""
+
+    @staticmethod
+    def forward(ctx, cfg, scale, flow, flow_past, target, *warped):
+        ctx.cfg, ctx.scale = cfg, scale
+        ctx.save_for_backward(flow, flow_past, target, *warped)
+        return _mbcc_value(cfg, scale, flow, flow_past, warped, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg, scale = ctx.cfg, ctx.scale
+        flow, flow_past, target, *warped = ctx.saved_tensors
+        p = make_penalty(cfg.penalty)
+        h, w = target.shape[1], target.shape[2]
+        inner, size_norm = _norms(cfg, target)
+        masks = _masks(cfg, flow, flow_past, scale, h, w)
+        d_warped = [p.der(warped[f - 1] - target) * masks[f][..., None] * g * inner * size_norm
+                    for f in range(1, cfg.frames)]
+        return (None, None, None, None, None, *d_warped)
+
+
+@functools.lru_cache(maxsize=None)
+def make_mbcc(cfg: PhotoConfig, scale: float):
+    """MBCC at one level: fn(flow, flow_past, occ, warped, target) -> scalar;
+    occ is not read."""
+
+    def mbcc(flow, flow_past, occ, warped, target):
+        if cfg.reference_grads:
+            return _MBCCFn.apply(cfg, scale, flow, flow_past, target, *warped)
+        return _mbcc_value(cfg, scale, flow, flow_past, warped, target)
+
+    return mbcc
+
+
+# --------------------------------------------------------------------------
+# SSIM family (criterions/MSSIML1Criterion.lua, OSSIML1Criterion.lua)
+# --------------------------------------------------------------------------
+
+_C1 = 0.01 ** 2  # (0.01 L)^2 with L=1
+_C2 = 0.03 ** 2
+
+
+def _minmax(*arrays):
+    """The min and max over every element of `arrays`; no gradient."""
+    with torch.no_grad():
+        mn = torch.stack([a.min() for a in arrays]).min()
+        mx = torch.stack([a.max() for a in arrays]).max()
+    return mn, mx
+
+
+def _ssim_terms(img_n, target_n, mu_y, sigma_y):
+    mu_x = depthwise_gauss3(img_n)
+    sigma_x = depthwise_gauss3(img_n * img_n) - mu_x * mu_x
+    sigma_xy = depthwise_gauss3(img_n * target_n) - mu_x * mu_y
+    ssim_l = (2 * mu_x * mu_y + _C1) / (mu_x * mu_x + mu_y * mu_y + _C1)
+    ssim_cs = (2 * sigma_xy + _C2) / (sigma_x + sigma_y + _C2)
+    return mu_x, sigma_x, ssim_l, ssim_cs
+
+
+def _ssim_penalty(cfg):
+    """SSIM variants default to L1 (their ctor, MSSIML1Criterion.lua:28),
+    but model.lua:189-193 swaps in L1/Lorentzian when -pme_penalty names
+    one; any other value (e.g. the 'Quadratic' default) keeps L1."""
+    return make_penalty(cfg.penalty if cfg.penalty in ("L1", "Lorentzian") else "L1")
+
+
+def _ssim_normalization(cfg, occlusion_aware, flow_past, occ, warped, target):
+    """MSSIM: min/max over target + every input after the future flow —
+    the past flow (when past_flow), occ, and the warped frames
+    (MSSIML1Criterion.lua:62-68); OSSIM: target + warped images only
+    (OSSIML1Criterion.lua:61-67)."""
+    if occlusion_aware:
+        return _minmax(target, *warped)
+    extra = ()
+    if cfg.past_flow and flow_past is not None:
+        extra += (flow_past,)
+    if occ is not None and cfg.frames > 2:
+        extra += (occ,)
+    return _minmax(target, *extra, *warped)
+
+
+def _ssim_setup(cfg, occlusion_aware, flow_past, occ, warped, target):
+    """(mn, rng, target_n, mu_y, sigma_y) of the normalised target."""
+    mn, mx = _ssim_normalization(cfg, occlusion_aware, flow_past, occ, warped, target)
+    rng = mx - mn
+    target_n = (target - mn) / rng
+    mu_y = depthwise_gauss3(target_n)
+    sigma_y = depthwise_gauss3(target_n * target_n) - mu_y * mu_y
+    return mn, rng, target_n, mu_y, sigma_y
+
+
+def _ssim_value(cfg, scale, occlusion_aware, flow, flow_past, occ, warped, target):
+    p = _ssim_penalty(cfg)
+    ref = 0.5 * (cfg.frames - 1)
+    h, w = target.shape[1], target.shape[2]
+    inner, size_norm = _norms(cfg, target)
+    masks = _masks(cfg, flow, flow_past, scale, h, w)
+    mn, rng, target_n, mu_y, sigma_y = _ssim_setup(cfg, occlusion_aware, flow_past, occ,
+                                                   warped, target)
+    acc = 0.0
+    for f in range(1, cfg.frames):
+        img_n = (warped[f - 1] - mn) / rng
+        _, _, ssim_l, ssim_cs = _ssim_terms(img_n, target_n, mu_y, sigma_y)
+        tmp = (cfg.alpha * (1.0 - ssim_l * ssim_cs).sum(-1)
+               + (1 - cfg.alpha) * p.apply(img_n - target_n).sum(-1))
+        m = masks[f]
+        if occlusion_aware:
+            ow = _occ_w(occ, f, ref)
+            tmp = (tmp * m if ow is None else tmp * ow * m) + (1.0 - m) * cfg.penalty_out
+        else:
+            tmp = tmp * m
+        acc = acc + tmp
+    return acc.sum() * inner * size_norm
+
+
+class _SSIMFn(torch.autograd.Function):
+    """MSSIM / OSSIM with the reference backward (photometric.py:394-431):
+    the centre-weight approximation of the SSIM derivative, gradients to
+    the warped frames and (OSSIM) to occ."""
+
+    @staticmethod
+    def forward(ctx, cfg, scale, occlusion_aware, flow, flow_past, occ, target, *warped):
+        ctx.cfg, ctx.scale, ctx.occlusion_aware = cfg, scale, occlusion_aware
+        ctx.save_for_backward(flow, flow_past, occ, target, *warped)
+        return _ssim_value(cfg, scale, occlusion_aware, flow, flow_past, occ, warped, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg, scale, occlusion_aware = ctx.cfg, ctx.scale, ctx.occlusion_aware
+        flow, flow_past, occ, target, *warped = ctx.saved_tensors
+        p = _ssim_penalty(cfg)
+        ref = 0.5 * (cfg.frames - 1)
+        gw = gaussian3_center_weight()
+        h, w = target.shape[1], target.shape[2]
+        inner, size_norm = _norms(cfg, target)
+        masks = _masks(cfg, flow, flow_past, scale, h, w)
+        mn, rng, target_n, mu_y, sigma_y = _ssim_setup(cfg, occlusion_aware, flow_past, occ,
+                                                       warped, target)
+        scale_all = g * inner * size_norm
+        occ_grad = occlusion_aware and occ is not None
+        d_occ = torch.zeros_like(occ) if occ_grad else None
+        d_warped = []
+        for f in range(1, cfg.frames):
+            img_n = (warped[f - 1] - mn) / rng
+            mu_x, sigma_x, ssim_l, ssim_cs = _ssim_terms(img_n, target_n, mu_y, sigma_y)
+            # centre-weight derivative approximation (MSSIML1Criterion.lua:216-224)
+            d_l = 2 * gw * (mu_y - mu_x * ssim_l) / (mu_x * mu_x + mu_y * mu_y + _C1)
+            d_cs = 2 * gw * ((target_n - mu_y) - ssim_cs * (img_n - mu_x)) \
+                / (sigma_x + sigma_y + _C2)
+            gi = (-cfg.alpha * (d_l * ssim_cs + ssim_l * d_cs)
+                  + (1 - cfg.alpha) * p.der(img_n - target_n))
+            m = masks[f]
+            gi = gi * m[..., None]
+            if occ_grad:
+                ch = _OCC_PAST if f <= ref else _OCC_FUTURE
+                per_pix = (cfg.alpha * (1.0 - ssim_l * ssim_cs).sum(-1)
+                           + (1 - cfg.alpha) * p.apply(img_n - target_n).sum(-1))
+                d_occ[..., ch] += (per_pix * m + (1.0 - m) * cfg.penalty_out) * scale_all
+                gi = gi * occ[..., ch][..., None]
+            d_warped.append(gi * scale_all)
+        return (None, None, None, None, None, d_occ, None, *d_warped)
+
+
+def _make_ssim(cfg: PhotoConfig, scale: float, occlusion_aware: bool):
+
+    def crit(flow, flow_past, occ, warped, target):
+        if cfg.reference_grads:
+            return _SSIMFn.apply(cfg, scale, occlusion_aware, flow, flow_past, occ, target,
+                                 *warped)
+        return _ssim_value(cfg, scale, occlusion_aware, flow, flow_past, occ, warped, target)
+
+    return crit
+
+
+@functools.lru_cache(maxsize=None)
+def make_mssim_l1(cfg: PhotoConfig, scale: float):
+    """MSSIM(L1) at one level: fn(flow, flow_past, occ, warped, target) -> scalar."""
+    return _make_ssim(cfg, scale, occlusion_aware=False)
+
+
+@functools.lru_cache(maxsize=None)
+def make_ossim_l1(cfg: PhotoConfig, scale: float):
+    """OSSIM(L1), the occlusion-aware variant, at one level."""
+    return _make_ssim(cfg, scale, occlusion_aware=True)
+
+
+# --------------------------------------------------------------------------
+# Simple 2-frame variants (criterions/BCCriterion.lua, SSIMCriterion.lua)
+# --------------------------------------------------------------------------
+
+def bcc(input_img, target, penalty="Quadratic"):
+    """Plain brightness constancy mean penalty (BCCriterion.lua:26-36).
+    The reference backward references an undefined buffer (latent bug,
+    BCCriterion.lua:48); this is the working analytic gradient."""
+    p = make_penalty(penalty)
+    return p.apply(input_img - target).sum() / input_img.numel()
+
+
+def ssim(input_img, target, size_average=True):
+    """2-frame SSIM criterion (SSIMCriterion.lua:40-77); autograd gradient."""
+    mn, mx = _minmax(input_img, target)
+    rng = mx - mn
+    x = (input_img - mn) / rng
+    y = (target - mn) / rng
+    mu_y = depthwise_gauss3(y)
+    sigma_y = depthwise_gauss3(y * y) - mu_y * mu_y
+    _, _, ssim_l, ssim_cs = _ssim_terms(x, y, mu_y, sigma_y)
+    val = (0.5 * (1.0 - ssim_l * ssim_cs)).sum()
+    return val / x.numel() if size_average else val

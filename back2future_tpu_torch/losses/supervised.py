@@ -1,17 +1,70 @@
-"""The endpoint-error map of the supervised criterion (counterpart of
-back2future_tpu/losses/supervised.py:18; criterions/L2Criterion.lua).
+"""Supervised endpoint-error criterion (counterpart of
+back2future_tpu/losses/supervised.py; criterions/L2Criterion.lua).
 
-Only `epe_map` is ported: the metrics (train/metrics.py) read it. The L2
-criterion itself is not ported yet (ROADMAP.md queue 1 item 8;
-`build_criterions` raises for it).
+Masked average EPE; also returns the per-pixel EPE map for the occluded /
+non-occluded metric breakdown (train.lua:337-375). Under
+`reference_grads=True` the backward replicates the reference's
+eps-stabilised denominator.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+_EPS = 1e-12
 
 
 def epe_map(flow: torch.Tensor, target_flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-pixel masked endpoint error (B,H,W)."""
     diff = flow - target_flow
     return torch.sqrt(torch.sum(diff * diff, dim=-1)) * mask
+
+
+def _l2_value(flow, target_flow, mask, size_average):
+    mask = mask.reshape(mask.shape[:3])
+    m = epe_map(flow, target_flow, mask)
+    out = m.sum()
+    if size_average:
+        out = out / mask.sum()
+    return out, m
+
+
+class _L2Fn(torch.autograd.Function):
+    """L2 with the reference backward (supervised.py:47-58): to the flow
+    only; the gradient through the EPE map is dropped."""
+
+    @staticmethod
+    def forward(ctx, flow, target_flow, mask, size_average):
+        ctx.size_average = size_average
+        ctx.save_for_backward(flow, target_flow, mask)
+        out, m = _l2_value(flow, target_flow, mask, size_average)
+        ctx.mark_non_differentiable(m)
+        return out, m
+
+    @staticmethod
+    def backward(ctx, g, _g_map):
+        flow, target_flow, mask = ctx.saved_tensors
+        mask3 = mask.reshape(mask.shape[:3])
+        diff = flow - target_flow
+        denom = torch.sqrt((diff * diff).sum(-1) * mask3) + _EPS
+        d = diff / denom[..., None] * mask3[..., None]
+        if ctx.size_average:
+            d = d / mask3.sum()
+        return d * g, None, None, None
+
+
+@functools.lru_cache(maxsize=None)
+def make_l2_criterion(size_average: bool = True, reference_grads: bool = True):
+    """Returns fn(flow, target_flow, mask) -> (loss, epe_map).
+
+    mask is (B,H,W) (or (B,H,W,1)); npixels = mask.sum().
+    """
+
+    def l2(flow, target_flow, mask):
+        if reference_grads:
+            return _L2Fn.apply(flow, target_flow, mask, size_average)
+        return _l2_value(flow, target_flow, mask, size_average)
+
+    return l2

@@ -2,8 +2,7 @@
 multi-scale loss, optimiser and LR regime, train state, the train and
 eval steps, the metrics, checkpoints and the epoch loop (`run`).
 
-Not ported yet: `remat` (ROADMAP.md queue 1 item 9e) and multi-card
-training (item 11).
+Not ported yet: multi-card training (ROADMAP.md queue 1 item 11).
 """
 
 from .checkpoint import (latest_checkpoint, load_model_checkpoint, load_or_convert,

@@ -68,6 +68,19 @@ Phases, one line each (any failure raises and exits non-zero):
      device ms per step (profiler); the same with the warp gradients'
      first design (old) against K4 and W-dflow (new), warp device ms;
      then K4's routes on the same inputs (`--k4-routes` below)
+  6b. criteria (stem off): per criterion and loss branch beyond the hard
+     and soft recipes (pme_criterion BCC, SSIM, SSIML1, OSSIM, OSSIML1;
+     smooth_occ_penalty KL; optimize epe --epe 1 with seeded flow_gt,
+     occ_gt and mask on the device) 3 bf16 steps from the weights of seed
+     0: finite loss and components, exact launch counts per step (10 / 18 /
+     10 / 10 / 18 / 8; for epe, whose forward skips the 10 image warps,
+     10 / 8 / 10 / 10 / 8 / 8), step ms; then the f32 step with the
+     kernels against plain_ops()
+  6c. remat (stem off): one bf16 hard step with -remat 1 and one without
+     from the same state, the loss and every parameter gradient compared
+     (within 2e-2 of max|g|); launches a step with remat: cost volume fwd
+     20, gather 36, the backward's as without; then steps 2-5 of each:
+     step ms and peak device memory, the remat step's the lower
   7. data path, the hard recipe from files on disk (stem off): a
      RoamingImages set of DATA_SCENES scenes at 320x640, 3 frames, written
      by `python -m back2future_tpu_torch.data.roaming`'s main (seconds,
@@ -110,7 +123,8 @@ Phases, one line each (any failure raises and exits non-zero):
      turned into a soft one by convert_net_hard_to_soft (OBGCC,
      past_flow, const_vel 1, second-order smoothness), 6 bf16 steps with
      exact launch counts for all eight kernels (1 K5 + 1 K6 + 10 / 18 /
-     10 / 10 / 18 / 8), then the f32 kernels-vs-plain_ops() step
+     10 / 10 / 18 / 8), then the f32 kernels-vs-plain_ops() step; then
+     6c's remat comparison on the soft step (K5 and K6 twice with remat)
   9. one JSON line of the kernels (forward kernels: launches of the
      serving path and ms per serving forward; backward kernels: launches
      of the hard train path and ms per train step; K5/K6: launches of the
@@ -134,6 +148,28 @@ runs, after phase 1 and the build, only the hard train steps of phase 6
     python3 chip_smoke.py --loop
 
 runs, after phase 1 and the build, only the loop path of phase 7b.
+
+    python3 chip_smoke.py --criteria
+
+runs, after phase 1 and the build, only phases 6b and 6c and the soft
+step's remat comparison of phase 8.
+
+    python3 chip_smoke.py --learn [--scenes N] [--escape_scenes N] [learn_demo flags]
+
+runs, after phase 1 and the build, only the learning demonstration on the
+card (tens of minutes): a 300-scene RoamingImages set (seed 0, 320x640,
+the generator's other defaults: 7 frames, val fraction 0.1) and a
+10-scene escape set (seed 1) in a temporary directory, then
+`python -m back2future_tpu_torch.learn_demo` with its defaults (escape 2
+epochs, curriculum 30 x 2, hard 20, soft 3, epoch size 250, B=16, the
+compact wire, the synchronous loader) or the flags given, which may name
+its `--out` (default docs/evidence/learning_demo_torch).
+It prints per stage the val EPE and occlusion accuracy per epoch, an
+epoch's wall time and triplets/s, the zero-flow baseline, the escape
+checkpoint's transfer probe, the evals and the past-flow sanity, then
+K4's routes (as `--k4-routes`) on the trained hard net's own K4 inputs
+(B=8, the first val scenes), and fails unless the hard stage's val EPE
+is below the zero-flow baseline and the soft stage's is finite.
 
     python3 chip_smoke.py --pipe-variants
 
@@ -263,6 +299,20 @@ TRAIN_PER_STEP = {"b2f_cost_volume_fwd": 10, "b2f_cost_volume_fwd_cuda_cores": 0
                   "b2f_stem_unit_a": 0, "b2f_stem_unit_a_cuda_cores": 0,
                   "b2f_stem_unit_b": 0}
 SOFT_PER_STEP = dict(TRAIN_PER_STEP, b2f_stem_unit_a=1, b2f_stem_unit_b=1)
+# the criteria phase: 3 bf16 steps of the hard step with each criterion and
+# loss branch this port added, stem off, from the weights of seed 0
+CRITERIA_CASES = (("BCC", dict(pme_criterion="BCC")), ("SSIM", dict(pme_criterion="SSIM")),
+                  ("SSIML1", dict(pme_criterion="SSIML1")), ("OSSIM", dict(pme_criterion="OSSIM")),
+                  ("OSSIML1", dict(pme_criterion="OSSIML1")),
+                  ("KL", dict(smooth_occ_penalty="KL")), ("epe", dict(optimize="epe", epe=1.0)))
+CRITERIA_STEPS = 3
+# optimize="epe" reads no image warp, so the forward skips the 10 image
+# warps and the backward their 10 flow gradients
+EPE_PER_STEP = dict(TRAIN_PER_STEP, b2f_warp_bilinear_fwd=8, b2f_warp_bilinear_dflow=8)
+# -remat 1: the forward runs again during the backward; the backward as before
+REMAT_PER_STEP = dict(TRAIN_PER_STEP, b2f_cost_volume_fwd=20, b2f_warp_bilinear_fwd=36)
+SOFT_REMAT_PER_STEP = dict(REMAT_PER_STEP, b2f_stem_unit_a=2, b2f_stem_unit_b=2)
+REMAT_STEPS = 5                        # the first compared, steps 2-5 timed
 
 # the data path (phase 7): a generated RoamingImages set, the loader's two
 # configurations (SampleConfig fields, PrefetchLoader keywords)
@@ -285,6 +335,10 @@ LOOP_OPTIONS = dict(optimize="pme", compute_dtype="bfloat16", augment=0, rand_cr
                     wire="compact", ground_truth=True)
 EVAL_PER_STEP = dict(dict.fromkeys(TRAIN_PER_STEP, 0), b2f_cost_volume_fwd=10,
                      b2f_warp_bilinear_fwd=18)
+# the learning demo (--learn): the main set and the escape set of
+# docs/evidence/learning_demo/attempt2/README.md:3-8
+LEARN_SCENES = 300
+LEARN_ESCAPE_SCENES = 10
 DATA_CONFIGS = (
     ("a", "learn_demo's recipe data: augment 0, rand_crop 0, compact wire, "
           "scene_batches full", dict(augment=0, rand_crop=0, wire="compact"),
@@ -1260,7 +1314,7 @@ def k4_routes_ms(flow, g) -> dict:
     return {r: (n, b, statistics.median(ms)) for r, (n, b, ms) in res.items()}
 
 
-def phase_k4_routes(card: str, dev) -> None:
+def phase_k4_routes(card: str, dev, trained=None) -> None:
     """K4's routes against each other on the same bf16 inputs: at the
     four feature-warp shapes of the train step (B=8, 320x640) on random
     flows (i.i.d., w/4) and smooth ones (a 2x upsample of a 1-pixel coarse
@@ -1268,7 +1322,8 @@ def phase_k4_routes(card: str, dev) -> None:
     third step from the seeded net): per call and per step, the blocks
     that take the window route and the kernel's device ms as the path
     chooses (by the grid), with every block direct, and with the window
-    wherever the box fits."""
+    wherever the box fits. With `trained` = (label, opt, net, batch),
+    only the K4 inputs of that net's third step on that batch."""
     from back2future_tpu_torch.losses import build_criterions
     from back2future_tpu_torch.train import create_train_state, make_train_step
 
@@ -1278,15 +1333,21 @@ def phase_k4_routes(card: str, dev) -> None:
         x = rng.standard_normal(shape).astype(np.float32) * scale
         return torch.from_numpy(x).to(dev, torch.bfloat16)
 
-    inputs = {"random": [], "smooth": [], "step": []}   # (flow, g, launches a step)
-    for (h, w, c) in TRAIN_LEVELS[:4]:
-        g = rand((TRAIN_B, h, w, c))
-        inputs["random"].append((rand((TRAIN_B, h, w, 2), w / 4), g, 2))
-        inputs["smooth"].append((smooth_flow(rng, (TRAIN_B, h, w), torch.bfloat16, dev), g, 2))
-    opt = train_options("bfloat16", soft=False)
-    net = train_network(opt, dev)
+    inputs = {"random": [], "smooth": []}   # (flow, g, launches a step)
+    if trained is None:
+        for (h, w, c) in TRAIN_LEVELS[:4]:
+            g = rand((TRAIN_B, h, w, c))
+            inputs["random"].append((rand((TRAIN_B, h, w, 2), w / 4), g, 2))
+            inputs["smooth"].append((smooth_flow(rng, (TRAIN_B, h, w), torch.bfloat16, dev), g,
+                                     2))
+        label = "step"
+        opt = train_options("bfloat16", soft=False)
+        net, batch = train_network(opt, dev), train_batch(dev)
+    else:
+        inputs = {}
+        label, opt, net, batch = trained
     step = make_train_step(net, opt, build_criterions(opt))
-    state, batch = create_train_state(net, opt), train_batch(dev)
+    state = create_train_state(net, opt)
     for _ in range(2):
         state, _ = step(state, batch)
     recorded = []
@@ -1294,7 +1355,7 @@ def phase_k4_routes(card: str, dev) -> None:
         step(state, batch)
     if len(recorded) != TRAIN_PER_STEP["b2f_warp_bilinear_dimages"]:
         raise AssertionError(f"recorded {len(recorded)} K4 launches of one step")
-    inputs["step"] = [(flow, g, 1) for flow, g in recorded]
+    inputs[label] = [(flow, g, 1) for flow, g in recorded]
 
     def words(res):
         return "; ".join(f"{name}: {res[route][0]} of {res[route][1]} blocks windowed, "
@@ -1313,15 +1374,19 @@ def phase_k4_routes(card: str, dev) -> None:
             for route, vals in res.items():
                 totals[route] = tuple(a + launches * b
                                       for a, b in zip(totals.get(route, (0, 0, 0.0)), vals))
-        log("k4", f"{kind} flows, K4 per hard step (8 launches): {words(totals)}; on {card}")
+        log("k4", f"{kind} flows, K4 per hard step ({sum(c[2] for c in cases)} launches): "
+                  f"{words(totals)}; on {card}")
 
 
-def train_options(dtype: str, soft: bool):
+def train_options(dtype: str, soft: bool, **kw):
+    """The options of the hard (or soft) train phases; `kw` overrides."""
     from back2future_tpu_torch.config import Options
 
     extra = (dict(pme_criterion="OBGCC", past_flow=True, const_vel=1.0,
                   smooth_second_order=True) if soft else {})
-    return Options(optimize="pme", compute_dtype=dtype, batchSize=TRAIN_B, **extra).derive()
+    extra.update(kw)
+    return Options(**dict(dict(optimize="pme", compute_dtype=dtype, batchSize=TRAIN_B),
+                          **extra)).derive()
 
 
 def train_network(opt, dev):
@@ -1340,11 +1405,20 @@ def train_network(opt, dev):
     return convert_net_hard_to_soft(hard, PWCNet(pwc_config_from_options(opt))).to(dev)
 
 
-def train_batch(dev) -> dict:
-    """The seeded B=8 320x640 batch of the train phases, on the device."""
+def train_batch(dev, ground_truth: bool = False) -> dict:
+    """The seeded B=8 320x640 batch of the train phases, on the device;
+    with `ground_truth`, also a seeded flow (in flownet units), a
+    three-state occlusion (0 / 0.5 / 1, both channels) and a 0/1 mask."""
     rng = np.random.RandomState(0)
     images = rng.randn(TRAIN_B, TRAIN_H, TRAIN_W, 9).astype(np.float32)
-    return {"images": torch.from_numpy(images).to(dev)}
+    batch = {"images": images}
+    if ground_truth:
+        shape = (TRAIN_B, TRAIN_H, TRAIN_W)
+        batch.update(flow_gt=(rng.randn(*shape, 2) * 0.2).astype(np.float32),
+                     occ_gt=rng.choice(np.float32([0.0, 0.5, 1.0]), size=shape + (2,),
+                                       p=[0.1, 0.8, 0.1]),
+                     mask=(rng.rand(*shape) > 0.1).astype(np.float32))
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
 # device ops by kind, first match of the kernel name wins
@@ -1882,26 +1956,11 @@ def phase_gather_variants(card: str, dev) -> None:
                           f"{words(both)}{split}; on {card}")
 
 
-def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
-    """6 bf16 steps with launch counts, then an f32 step with the kernels
-    against one under plain_ops() from the same initial state. Returns
-    the launch counts and the bf16 step ms."""
-    from back2future_tpu_torch import ops
-    from back2future_tpu_torch.losses import build_criterions
-    from back2future_tpu_torch.runtime import reset_launches
-    from back2future_tpu_torch.train import create_train_state, make_train_step
-
-    opt = train_options("bfloat16", soft)
-    batch = train_batch(dev)
-
-    net = train_network(opt, dev)
-    state = create_train_state(net, opt)
-    step = make_train_step(net, opt, build_criterions(opt))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+def train_steps(phase: str, step, state, batch: dict, n: int, per_step: dict):
+    """`n` steps, each launching exactly `per_step`; returns the state,
+    every step's logs as floats (all finite) and the step ms (CUDA events)."""
     events, logs = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(n):
         before = counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1914,23 +1973,26 @@ def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
         if got != per_step:
             raise AssertionError(f"{phase} step {i + 1} launched {got}, expected {per_step}")
     torch.cuda.synchronize()
-    launches = counts()
-    times = [a.elapsed_time(b) for a, b in events]
     values = {k: [lg[k].item() for lg in logs] for k in logs[0]}
     if not all(np.isfinite(v).all() for v in values.values()):
         raise AssertionError(f"{phase}: non-finite loss or component: {values}")
-    log(phase, f"6 bf16 steps B={TRAIN_B} {TRAIN_H}x{TRAIN_W}: loss "
-               f"{['%.4f' % v for v in values['loss']]}; step 6 components "
-               + ", ".join(f"{k} {v[-1]:.5g}" for k, v in values.items() if k != "loss"))
-    log(phase, f"launches over {TRAIN_STEPS} steps {launches} ({per_step} per step)")
-    step_ms = statistics.median(times[1:])
-    log(phase, f"bf16 train step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}: {step_ms:.2f} ms "
-               f"(CUDA events, median of steps 2-{TRAIN_STEPS}; all {['%.2f' % t for t in times]}), "
-               f"{TRAIN_B / step_ms * 1e3:.2f} triplets/s trained, peak device memory "
-               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
+    return state, values, [a.elapsed_time(b) for a, b in events]
 
-    # f32, one step each way from the same initial state: kernels, plain_ops()
-    opt32 = train_options("float32", soft)
+
+def gradient_ratios(grads: dict, want: dict) -> dict:
+    """max |grad - want| / max |want| per parameter."""
+    return {name: (grads[name] - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            for name, w in want.items()}
+
+
+def f32_step_vs_plain(phase: str, opt32, batch: dict, dev) -> None:
+    """One f32 step with the kernels and one under plain_ops() from the
+    same initial state (the net of `opt32` from seed 0): the loss and
+    every parameter gradient compared."""
+    from back2future_tpu_torch import ops
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
     crits32 = build_criterions(opt32)
     net32 = train_network(opt32, dev)
     init = {k: v.clone() for k, v in net32.state_dict().items()}
@@ -1947,8 +2009,7 @@ def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
         results.append((lg["loss"].item(),
                         {n: p.grad.clone() for n, p in net32.named_parameters()}))
     (loss_k, grads_k), (loss_p, grads_p) = results
-    ratios = {name: (grads_k[name] - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
-              for name, gp in grads_p.items()}
+    ratios = gradient_ratios(grads_k, grads_p)
     worst_name = max(ratios, key=ratios.get)
     stem_worst = max(v for k, v in ratios.items() if k.startswith(("feat_2.", "feat_3.")))
     log(phase, f"f32 step, kernels vs plain_ops(): loss {loss_k:.6f} vs {loss_p:.6f} "
@@ -1957,7 +2018,234 @@ def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
                f"{len(grads_p)} parameters; feat_2/feat_3 worst {stem_worst:.3e}")
     if not (abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p) and ratios[worst_name] <= GRAD_TOL_FRAC):
         raise AssertionError(f"{phase}: train step with kernels and under plain_ops() disagree")
+
+
+def run_train(card: str, dev, phase: str, soft: bool, per_step: dict) -> dict:
+    """6 bf16 steps with launch counts, then an f32 step with the kernels
+    against one under plain_ops() from the same initial state. Returns
+    the launch counts and the bf16 step ms."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    opt = train_options("bfloat16", soft)
+    batch = train_batch(dev)
+
+    net = train_network(opt, dev)
+    state = create_train_state(net, opt)
+    step = make_train_step(net, opt, build_criterions(opt))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, values, times = train_steps(phase, step, state, batch, TRAIN_STEPS, per_step)
+    launches = counts()
+    log(phase, f"6 bf16 steps B={TRAIN_B} {TRAIN_H}x{TRAIN_W}: loss "
+               f"{['%.4f' % v for v in values['loss']]}; step 6 components "
+               + ", ".join(f"{k} {v[-1]:.5g}" for k, v in values.items() if k != "loss"))
+    log(phase, f"launches over {TRAIN_STEPS} steps {launches} ({per_step} per step)")
+    step_ms = statistics.median(times[1:])
+    log(phase, f"bf16 train step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}: {step_ms:.2f} ms "
+               f"(CUDA events, median of steps 2-{TRAIN_STEPS}; all {['%.2f' % t for t in times]}), "
+               f"{TRAIN_B / step_ms * 1e3:.2f} triplets/s trained, peak device memory "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
+    f32_step_vs_plain(phase, train_options("float32", soft), batch, dev)
     return {"launches": launches, "step_ms": step_ms}
+
+
+def phase_criteria(card: str, dev) -> None:
+    """The criteria and loss branches of the port beyond the hard and soft
+    recipes (CRITERIA_CASES), stem off: per case 3 bf16 steps from the
+    weights of seed 0 with exact launch counts (EPE_PER_STEP for epe,
+    whose batch holds seeded ground truth), finite loss and components,
+    step ms; then the f32 step with the kernels against plain_ops()."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    phase_t0 = time.perf_counter()
+    batch = train_batch(dev, ground_truth=True)
+    net = train_network(train_options("bfloat16", soft=False), dev)
+    init = {k: v.clone() for k, v in net.state_dict().items()}
+    for name, kw in CRITERIA_CASES:
+        opt = train_options("bfloat16", soft=False, **kw)
+        per_step = EPE_PER_STEP if opt.optimize == "epe" else TRAIN_PER_STEP
+        net.load_state_dict(init)
+        step = make_train_step(net, opt, build_criterions(opt))
+        reset_launches()
+        _, values, times = train_steps(f"criteria {name}", step, create_train_state(net, opt),
+                                       batch, CRITERIA_STEPS, per_step)
+        launches = counts()
+        log("criteria", f"{name}: {CRITERIA_STEPS} bf16 steps B={TRAIN_B} {TRAIN_H}x{TRAIN_W}, "
+                        f"loss {['%.4f' % v for v in values['loss']]}; step {CRITERIA_STEPS} "
+                        + ", ".join(f"{k} {v[-1]:.5g}" for k, v in values.items() if k != "loss")
+                        + f"; launches a step {' / '.join(str(per_step[k]) for k in DATA_LAUNCHES)}"
+                        f" ({sum(launches.values())} in all); step ms "
+                        f"{['%.2f' % t for t in times]} (CUDA events), on {card}")
+        f32_step_vs_plain(f"criteria {name}", train_options("float32", soft=False, **kw), batch,
+                          dev)
+    log("criteria", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+
+
+def phase_remat(card: str, dev, soft: bool) -> None:
+    """-remat 1 against the plain step: one bf16 step each from the same
+    state (loss and every parameter gradient compared; K4's f32 atomics
+    add in a varying order), exact launch counts (REMAT_PER_STEP: the
+    forward kernels twice), then steps 2-5 of each: step ms (CUDA events)
+    and peak device memory. The remat step must hold the lower peak."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    tag = "remat soft" if soft else "remat"
+    phase_t0 = time.perf_counter()
+    batch = train_batch(dev)
+    net = train_network(train_options("bfloat16", soft), dev)
+    init = {k: v.clone() for k, v in net.state_dict().items()}
+    res = {}
+    for remat in (0, 1):
+        opt = train_options("bfloat16", soft, remat=remat)
+        per_step = {(0, False): TRAIN_PER_STEP, (0, True): SOFT_PER_STEP,
+                    (1, False): REMAT_PER_STEP, (1, True): SOFT_REMAT_PER_STEP}[remat, soft]
+        net.load_state_dict(init)
+        step = make_train_step(net, opt, build_criterions(opt))
+        reset_launches()
+        state, values, _ = train_steps(tag, step, create_train_state(net, opt), batch, 1,
+                                       per_step)
+        # on the host, so that the other run's peak does not hold them
+        grads = {n: p.grad.float().cpu() for n, p in net.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, times = train_steps(tag, step, state, batch, REMAT_STEPS - 1, per_step)
+        res[remat] = (values["loss"][0], grads, torch.cuda.max_memory_allocated(),
+                      statistics.median(times))
+        del state, step
+    (loss0, grads0, peak0, ms0), (loss1, grads1, peak1, ms1) = res[0], res[1]
+    ratios = gradient_ratios(grads1, grads0)
+    worst = max(ratios, key=ratios.get)
+    log(tag, f"bf16 step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}, remat 1 vs 0 from the same state: loss "
+             f"{loss1:.6f} vs {loss0:.6f} (rtol {LOSS_RTOL}); worst gradient max_abs_err / max|g| "
+             f"{ratios[worst]:.3e} ({worst}; tol {BF16_GRAD_TOL_FRAC}); launches a step with "
+             f"remat: cost volume fwd {REMAT_PER_STEP['b2f_cost_volume_fwd']}, gather "
+             f"{REMAT_PER_STEP['b2f_warp_bilinear_fwd']}"
+             + (", K5 2, K6 2" if soft else "") + "; the backward's as without")
+    log(tag, f"peak device memory over steps 2-{REMAT_STEPS}: remat 0 {peak0 / 2**30:.3f} GiB, "
+             f"remat 1 {peak1 / 2**30:.3f} GiB ({peak1 / peak0:.3f}x); step ms (CUDA events, "
+             f"median of steps 2-{REMAT_STEPS}) remat 0 {ms0:.2f}, remat 1 {ms1:.2f} "
+             f"({ms1 / ms0:.3f}x), on {card}; the phase took "
+             f"{time.perf_counter() - phase_t0:.1f} s")
+    if abs(loss1 - loss0) > LOSS_RTOL * abs(loss0) or ratios[worst] > BF16_GRAD_TOL_FRAC:
+        raise AssertionError(f"{tag}: the remat step and the plain step disagree")
+    if peak1 >= peak0:
+        raise AssertionError(f"{tag}: remat did not lower the peak memory ({peak1} >= {peak0})")
+
+
+def _flag(argv: list, name: str, default: int) -> int:
+    """The integer value of `name` in argv (removed from it), or `default`."""
+    if name not in argv:
+        return default
+    i = argv.index(name)
+    value = int(argv[i + 1])
+    del argv[i:i + 2]
+    return value
+
+
+def phase_learn(card: str, dev, argv: list) -> None:
+    """The learning demonstration on the card (module docstring, --learn):
+    a LEARN_SCENES-scene RoamingImages set (seed 0, 320x640, the
+    generator's other defaults) and a LEARN_ESCAPE_SCENES-scene escape set
+    (seed 1) in a temporary directory, then back2future_tpu_torch.learn_demo
+    with its defaults (or the flags in `argv`) on them: per stage the val
+    EPE and occlusion accuracy per epoch, an epoch's wall time and
+    triplets/s; the zero-flow baseline, the transfer probe, the evals and
+    the past-flow sanity; then K4's routes on the trained hard net's own
+    K4 inputs. Raises unless the hard stage's held-out EPE is below the
+    zero-flow baseline."""
+    import tempfile
+    from pathlib import Path
+
+    from back2future_tpu_torch import learn_demo
+    from back2future_tpu_torch.data import FlowDataset, SampleConfig, load_manifest, load_split
+    from back2future_tpu_torch.data import roaming
+    from back2future_tpu_torch.train.checkpoint import build_from_params, load_model_checkpoint
+    from back2future_tpu_torch.utils import SymbolLogger
+
+    argv = list(argv)
+    scenes = _flag(argv, "--scenes", LEARN_SCENES)
+    escape_scenes = _flag(argv, "--escape_scenes", LEARN_ESCAPE_SCENES)
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="b2f_learn_") as tmp:
+        root = Path(tmp)
+        main_set, escape_set, cache = root / "roaming", root / "roam_escape", root / "ckpt"
+        t0 = time.perf_counter()
+        workers = min(8, os.cpu_count() or 1)
+        roaming.main(["--out", str(main_set), "--n", str(scenes), "--seed", "0"], workers)
+        gen_s = time.perf_counter() - t0
+        roaming.main(["--out", str(escape_set), "--n", str(escape_scenes), "--seed", "1"],
+                     workers)
+        n_val = len(load_split(main_set / "datasets" / "RoamingImages_split.dat")[1])
+        log("learn", f"RoamingImages generated: {scenes} scenes (seed 0, {scenes - n_val} train / "
+                     f"{n_val} val) in {gen_s:.1f} s by {workers} processes, and "
+                     f"{escape_scenes} escape scenes (seed 1)")
+        args = ["--data", str(main_set), "--escape_data", str(escape_set),
+                "--cache", str(cache)] + argv
+        t0 = time.perf_counter()
+        learn_demo.main(args)
+        learn_s = time.perf_counter() - t0
+        i = args.index("--out") if "--out" in args else None
+        out = learn_demo.REPO / (args[i + 1] if i is not None else "docs/evidence/learning_demo_torch")
+        report = json.loads((out / "learning_demo.json").read_text())
+        batch_size, epoch_size = report["batch"], report["epoch_size"]
+
+        log("learn", f"learn_demo took {learn_s:.1f} s (B={batch_size}, epoch size "
+                     f"{epoch_size}, wire {report['wire']}); report {out / 'learning_demo.json'}")
+        stages = ["escape"] + sorted((p.name for p in cache.glob("cur*")),
+                                     key=lambda n: int(n[3:])) + ["hard", "soft"]
+        for exp in stages:
+            d = cache / exp
+            if not (d / "train.log").exists():
+                continue
+            train = SymbolLogger(d / "train.log").read()
+            test = SymbolLogger(d / "test.log").read() if (d / "test.log").exists() else {}
+            walls = [float(m) for m in re.findall(
+                r"\[TRAINING SUMMARY\] Total Time\(s\): ([0-9.]+)", (d / "log").read_text())]
+            rates = [batch_size * epoch_size / w for w in walls]
+            log("learn", f"{exp}: {len(walls)} epochs; train EPE per epoch "
+                         f"{['%.3f' % v for v in train.get('avg epe (train set)', [])]}; val EPE "
+                         f"{['%.3f' % v for v in test.get('avg epe (test set)', [])]}; val occ acc "
+                         f"{['%.3f' % v for v in test.get('avg occ acc (test set)', [])]}; epoch "
+                         f"wall s {['%.1f' % w for w in walls]} (median "
+                         f"{statistics.median(walls):.2f}); triplets/s (median) "
+                         f"{statistics.median(rates):.2f}; on {card}")
+        baseline = report["baseline"]
+        log("learn", f"zero-flow baseline: EPE {baseline['zero_flow_epe']:.4f} px, all-visible "
+                     f"occ acc {baseline['all_visible_occ_acc']:.4f}, {baseline['n_val']} val")
+        for key in ("eval_escape_transfer", "eval_hard", "eval_soft"):
+            ev = report.get(key, {})
+            words = (f"EPE {ev['epe']:.4f} px, occ acc {ev['occ_acc']:.4f}, Fl-all "
+                     f"{ev['fl_all']:.4f}, {ev['n_samples']} samples" if "epe" in ev else str(ev))
+            log("learn", f"{key}: {words}")
+        log("learn", f"past-flow sanity: {report.get('past_flow_sanity')}")
+
+        # K4's routes on the trained hard net's own K4 inputs (B=8, the
+        # first val scenes, the learn demo's hard recipe)
+        params, cfg = load_model_checkpoint(cache / "hard" / f"model_{report['epochs'][0]}.pt")
+        net = build_from_params(cfg, params).to(dev)
+        opt = train_options("bfloat16", soft=False, pme=1.0, pme_criterion="OBCC",
+                            smooth_flow=2.0, dataset="RoamingImages", ground_truth=True,
+                            rand_crop=0)
+        specs = load_manifest(main_set / "datasets" / "RoamingImages.dat", ground_truth=True,
+                              root=str(main_set / "data"))
+        _, val = load_split(main_set / "datasets" / "RoamingImages_split.dat")
+        ds = FlowDataset(specs, SampleConfig.from_options(opt), val[:TRAIN_B], train=False)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.get(0, TRAIN_B).items()}
+        phase_k4_routes(card, dev, trained=("trained hard net", opt, net, batch))
+    log("learn", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+    hard = report["eval_hard"]
+    if not ("epe" in hard and hard["epe"] < baseline["zero_flow_epe"]):
+        raise AssertionError(f"learn: the hard stage's val EPE {hard} is not below the zero-flow "
+                             f"baseline {baseline['zero_flow_epe']}")
+    if not np.isfinite(report["eval_soft"].get("epe", np.nan)):
+        raise AssertionError(f"learn: the soft stage's val EPE is not finite: {report['eval_soft']}")
 
 
 def _probe_batch(shape: tuple, wire: str) -> dict:
@@ -2565,6 +2853,17 @@ def main() -> None:
         with stem(False):
             phase_loop(card, dev, {})
         return
+    if "--criteria" in sys.argv[1:]:
+        with stem(False):
+            phase_criteria(card, dev)
+            phase_remat(card, dev, soft=False)
+        with stem(True):
+            phase_remat(card, dev, soft=True)
+        return
+    if "--learn" in sys.argv[1:]:
+        with stem(False):
+            phase_learn(card, dev, [a for a in sys.argv[1:] if a != "--learn"])
+        return
     phase_mma_builds()
     if "--profile" in sys.argv[1:]:
         phase_profile(card, dev)
@@ -2596,12 +2895,15 @@ def main() -> None:
     with stem(False):
         hard = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)
         paths["train"] = hard["launches"]
+        phase_criteria(card, dev)
+        phase_remat(card, dev, soft=False)
         phase_train_bwd_ab(card, dev)
         phase_k4_routes(card, dev)
         data_rates = phase_data(card, dev, hard["step_ms"])
         phase_loop(card, dev, data_rates)
     with stem(True):
         paths["soft"] = run_train(card, dev, "soft", soft=True, per_step=SOFT_PER_STEP)["launches"]
+        phase_remat(card, dev, soft=True)
     kernels = []
     for name, key, source, replaces, path in KERNEL_ENTRIES:
         s = summary[key]

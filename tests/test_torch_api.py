@@ -169,14 +169,17 @@ def test_init_cuda_without_card_raises():
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports the port, its train step, epoch loop,
-    checkpoints, utilities, CLIs, losses, data pipeline and flow I/O
-    included, runs a tiny CPU forward and the host C++ occlusion, without
-    loading the JAX package, jax, flax, optax or msgpack."""
+    checkpoints, utilities, CLIs, learning demo, every criterion, data
+    pipeline and flow I/O included, runs a tiny CPU forward and the host
+    C++ occlusion, without loading the JAX package, jax, flax, optax or
+    msgpack."""
     code = (
         "import sys, numpy as np\n"
         "import back2future_tpu_torch\n"
         "from back2future_tpu_torch import api, data, io, losses, ops, models, runtime, train\n"
-        "from back2future_tpu_torch import eval, main, utils\n"
+        "from back2future_tpu_torch import eval, learn_demo, main, utils\n"
+        "from back2future_tpu_torch.losses import (make_kl_smoothness, make_l2_criterion,"
+        " make_mbcc, make_ossim_l1)\n"
         "from back2future_tpu_torch.train import checkpoint, loop\n"
         "from back2future_tpu_torch.data import roaming\n"
         "from back2future_tpu_torch.runtime import host_build\n"

@@ -558,6 +558,21 @@ def test_generator_files_byte_identical_to_jax_tool(tmp_path, jax_numpy):
         assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes(), rel
 
 
+def test_generator_workers_write_the_same_files(tmp_path):
+    """Scenes rendered by spawned processes (`main(argv, workers)`) are
+    byte for byte the serial run's: each depends only on (seed, index)."""
+    args = ["--n", "3", "--height", "32", "--width", "64", "--frames", "3",
+            "--val_fraction", "0.34", "--seed", "5"]
+    roaming.main(["--out", str(tmp_path / "serial"), *args])
+    roaming.main(["--out", str(tmp_path / "pool"), *args], workers=2)
+    files = sorted(p.relative_to(tmp_path / "serial")
+                   for p in (tmp_path / "serial").rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(tmp_path / "pool")
+                           for p in (tmp_path / "pool").rglob("*") if p.is_file())
+    for rel in files:
+        assert (tmp_path / "pool" / rel).read_bytes() == (tmp_path / "serial" / rel).read_bytes()
+
+
 def test_generator_cli(tmp_path):
     res = subprocess.run([sys.executable, "-m", "back2future_tpu_torch.data.roaming", "--out",
                           str(tmp_path), "--n", "2", "--height", "32", "--width", "64",

@@ -12,31 +12,14 @@ package (back2future_tpu/train/metrics.py, train/step.py).
   f32 config: levels 4, win 3, B=2, 32x64): rtol/atol 1e-4.
 """
 
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from dynamo_import import import_dynamo_from_stdlib_path
 
-def _import_dynamo_from_stdlib_path():
-    """torch.optim imports torch._dynamo, which imports the standard
-    library's `profile`; tools/profile.py would shadow it where an earlier
-    test file put tools/ on sys.path (tests/test_torch_train.py)."""
-    tools = Path(__file__).resolve().parent.parent / "tools"
-    saved = sys.path[:]
-    sys.path[:] = [p for p in saved if Path(p or ".").resolve() != tools]
-    shadow = sys.modules.get("profile")
-    if shadow is not None and Path(getattr(shadow, "__file__", "") or ".").parent == tools:
-        del sys.modules["profile"]
-    try:
-        import torch._dynamo  # noqa: F401
-    finally:
-        sys.path[:] = saved
-
-
-_import_dynamo_from_stdlib_path()
+import_dynamo_from_stdlib_path()
 
 import jax
 import jax.numpy as jnp

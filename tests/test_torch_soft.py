@@ -24,33 +24,14 @@ its port, in f32:
   tests/test_torch_train.py::test_train_steps_match_jax.
 """
 
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from dynamo_import import import_dynamo_from_stdlib_path
 
-def _import_dynamo_from_stdlib_path():
-    """torch.optim imports torch._dynamo at its first call, which imports
-    the standard library's `profile` through cProfile. Test files that
-    are collected earlier in the same worker put tools/ first on sys.path,
-    where tools/profile.py would shadow it: import torch._dynamo with
-    tools/ off the path."""
-    tools = Path(__file__).resolve().parent.parent / "tools"
-    saved = sys.path[:]
-    sys.path[:] = [p for p in saved if Path(p or ".").resolve() != tools]
-    shadow = sys.modules.get("profile")
-    if shadow is not None and Path(getattr(shadow, "__file__", "") or ".").parent == tools:
-        del sys.modules["profile"]
-    try:
-        import torch._dynamo  # noqa: F401
-    finally:
-        sys.path[:] = saved
-
-
-_import_dynamo_from_stdlib_path()
+import_dynamo_from_stdlib_path()
 
 import jax
 import jax.numpy as jnp

@@ -16,34 +16,14 @@
 """
 
 import dataclasses
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from dynamo_import import import_dynamo_from_stdlib_path
 
-def _import_dynamo_from_stdlib_path():
-    """torch.optim imports torch._dynamo at its first call, which imports
-    the standard library's `profile` through cProfile. Test files that
-    are collected earlier in the same worker (test_learn_demo.py,
-    test_parity_demo.py) put tools/ first on sys.path, where
-    tools/profile.py would shadow it: import torch._dynamo with tools/
-    off the path."""
-    tools = Path(__file__).resolve().parent.parent / "tools"
-    saved = sys.path[:]
-    sys.path[:] = [p for p in saved if Path(p or ".").resolve() != tools]
-    shadow = sys.modules.get("profile")
-    if shadow is not None and Path(getattr(shadow, "__file__", "") or ".").parent == tools:
-        del sys.modules["profile"]
-    try:
-        import torch._dynamo  # noqa: F401
-    finally:
-        sys.path[:] = saved
-
-
-_import_dynamo_from_stdlib_path()
+import_dynamo_from_stdlib_path()
 
 import jax
 import jax.numpy as jnp
@@ -140,12 +120,17 @@ def test_train_steps_match_jax(jax_steps):
 
 
 def test_train_step_rejects_unported():
-    """`remat` still raises; `ground_truth` (ported since) makes the step
-    return the metric logs when the batch holds ground truth."""
+    """`remat` (ported since) builds a step that trains; `ground_truth`
+    makes the step return the metric logs when the batch holds ground
+    truth."""
     net = PWCNet(pwc_config_from_options(tiny_options()))
     opt = tiny_options(remat=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(net, opt, build_criterions(opt))
+    images = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 32, 64, 9))
+                              .astype(np.float32))
+    state, logs = make_train_step(net, opt, build_criterions(opt))(
+        create_train_state(net, opt), {"images": images})
+    assert state.step == 1 and torch.isfinite(logs["loss"])
+    assert all(torch.isfinite(p).all() for p in net.parameters())
     opt = tiny_options(ground_truth=True)
     rng = np.random.default_rng(2)
     batch = {"images": torch.from_numpy(rng.standard_normal((2, 32, 64, 9)).astype(np.float32)),

@@ -255,14 +255,22 @@ def test_occ_prior_matches_jax(channels, reference_grads):
 
 
 def test_build_criterions_rejects_unported():
+    """What raised NotImplementedError before the remaining criteria were
+    ported (BCC, the SSIM family, KL occlusion smoothness, the L2) now
+    builds and computes; only a name the JAX factory lacks is refused."""
     base = dict(levels=4, pwc_ws=3, batchSize=2, dataset="synthetic")
+    flow, occ, warped, target = group(65)
+    flow, occ, target = (torch.tensor(x) for x in (flow, occ, target))
+    warped = tuple(torch.tensor(x) for x in warped)
     for kw in (dict(pme_criterion="SSIML1"), dict(pme_criterion="BCC"),
                dict(smooth_occ_penalty="KL")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_criterions(Options(**base, **kw).derive())
-    crits = build_criterions(Options(**base).derive())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        crits.l2(torch.zeros(1, 2, 2, 2), torch.zeros(1, 2, 2, 2), torch.ones(1, 2, 2))
+        crits = build_criterions(Options(**base, **kw).derive())
+        assert torch.isfinite(crits.pme(1.0)(flow, None, occ, warped, target))
+        assert torch.isfinite(crits.occ_smooth(occ, target))
+    loss, epe = crits.l2(torch.zeros(1, 2, 2, 2), torch.ones(1, 2, 2, 2), torch.ones(1, 2, 2))
+    assert loss.item() == pytest.approx(4 * 2 ** 0.5) and epe.shape == (1, 2, 2)   # summed
+    with pytest.raises(ValueError, match="pme_criterion"):
+        build_criterions(Options(**base, pme_criterion="NCC").derive())
 
 
 def test_decode_batch_matches_jax():
