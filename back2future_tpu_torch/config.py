@@ -120,8 +120,8 @@ class Options:
     # batch wire format: 'f32' or 'compact' (u8 images, normalised on the
     # device by data.wire.decode_batch)
     wire: str = "f32"
-    # recompute the forward in the backward (not ported yet: the train
-    # step raises on it)
+    # recompute the forward in the backward (train/step.py: one
+    # activation-checkpoint region over the net)
     remat: int = 0
     # the reference rebuilds optimState each epoch, resetting Adam
     # moments (train.lua:112-121); False keeps them across epochs

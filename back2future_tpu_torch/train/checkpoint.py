@@ -35,8 +35,7 @@ import torch
 from ..config import Options
 from ..io.flax_msgpack import load as load_msgpack
 from ..models.bridge import check_names, flax_to_torch_names, load_flax_params
-from ..models.factory import config_for_options, model_for_config
-from ..models.pwc import PWCConfig, PWCNet
+from ..models.factory import Model, ModelConfig, config_for_options, model_for_config
 from ..models.surgery import convert_net_hard_to_soft
 from .optim import make_optimizer
 from .state import TrainState
@@ -107,7 +106,7 @@ def resolve_checkpoint(path: str | Path) -> Path:
 
 
 def load_model_checkpoint(path: str | Path, opt: Optional[Options] = None
-                          ) -> Tuple[Any, PWCConfig]:
+                          ) -> Tuple[Any, ModelConfig]:
     """-> (params, model config). `path` may be a model_<e>.pt or
     model_<e>.msgpack file or a directory holding them (newest wins); the
     options.json sidecar (or an explicit `opt`, else `Options().derive()`)
@@ -130,7 +129,7 @@ def load_params(net: torch.nn.Module, params: Mapping) -> None:
         net.load_state_dict(params)
 
 
-def build_from_params(cfg: PWCConfig, params: Mapping) -> PWCNet:
+def build_from_params(cfg: ModelConfig, params: Mapping) -> Model:
     """The module of `cfg` (on the CPU) holding `params`."""
     net = model_for_config(cfg, generator=torch.Generator())
     load_params(net, params)
@@ -213,14 +212,14 @@ def load_train_checkpoint(save_dir: str | Path, opt: Options, epoch: Optional[in
     return state, epoch + 1
 
 
-def load_or_convert(opt: Options) -> Tuple[PWCNet, PWCConfig, int]:
+def load_or_convert(opt: Options) -> Tuple[Model, ModelConfig, int]:
     """The model.lua:38-142 startup decision -> (module on the CPU,
     config, epoch0). Order: -cont auto-resume > -retrain
     (+ convert_to_soft surgery) > fresh init."""
     cfg = config_for_options(opt)
 
-    def fresh() -> PWCNet:
-        return PWCNet(cfg, generator=torch.Generator().manual_seed(opt.manualSeed))
+    def fresh() -> Model:
+        return model_for_config(cfg, generator=torch.Generator().manual_seed(opt.manualSeed))
 
     if opt.cont:
         mp, epoch = latest_checkpoint(opt.save)
@@ -231,7 +230,7 @@ def load_or_convert(opt: Options) -> Tuple[PWCNet, PWCConfig, int]:
     if opt.retrain != "none":
         if opt.convert_to_soft:
             # load hard weights into a past_flow graph (model.lua:56-116);
-            # config_for_options above has refused every netType but pwc
+            # Options.derive() clears convert_to_soft for every netType but pwc
             if not opt.past_flow:
                 raise ValueError("convert_to_soft requires -past_flow 1 "
                                  "(the soft graph it converts into)")

@@ -125,12 +125,44 @@ Phases, one line each (any failure raises and exits non-zero):
      exact launch counts for all eight kernels (1 K5 + 1 K6 + 10 / 18 /
      10 / 10 / 18 / 8), then the f32 kernels-vs-plain_ops() step; then
      6c's remat comparison on the soft step (K5 and K6 twice with remat)
-  9. one JSON line of the kernels (forward kernels: launches of the
+  10. netType spynet (stem off; frames 3, levels 7, widths 32-64-32-16,
+     no stem and no cost volume; seed-0 weights): the bf16 serving
+     forward at B=16 320x1216 (with_warped=False: 12 gathers and no other
+     kernel; finest flow and occlusion against plain_ops(); device ms,
+     CUDA events; peak memory); 6 bf16 pme steps of the hard recipe at
+     B=8 320x640 (26 gathers, 12 K4, 26 W-dflow a step; finite loss;
+     step ms, median of steps 2-6; triplets/s; peak memory); the gather,
+     K4 and W-dflow on the first step's own 26 warp inputs against their
+     twins, with profiler device ms per step beside the twins', the
+     library calls' (F.grid_sample, aten.grid_sampler_2d_backward) and
+     the bound; the f32 pme step with the kernels against plain_ops();
+     one bf16 epe step on seeded ground truth (12 / 0 / 12) and its f32
+     step against plain_ops(); then train.loop.run() with netType spynet
+     on a 12-scene 320x640 RoamingImages set (1 epoch of 2 steps, the
+     synchronous loader, a checkpoint; every train step 26 / 12 / 26,
+     every eval step 26 gathers), the eval CLI over its val split
+     (finite metrics), and init(<save dir>) refusing it with the JAX
+     package's error
+  11. .t7 conversion: a seeded flagship PWCNet (bf16, levels 7, win 9,
+     skip 2, frames 3), with past_flow 0 and 1, written as a reference
+     nn.gModule module tree (frame-2 and frame-3 pyramid convs as
+     value-equal copies) by the port's save_t7, converted by
+     `python -m back2future_tpu_torch.convert_t7`, served by init(out):
+     compute_flow_batch at B=16 on 1242x375 frames with 10 K1 + 8
+     gathers, bit-identical to the seeded net's own forward
+  12. one JSON line of the kernels (forward kernels: launches of the
      serving path and ms per serving forward; backward kernels: launches
      of the hard train path and ms per train step; K5/K6: launches of the
-     soft train path and ms per train step), then the result line
+     soft train path and ms per train step; then the gather, K4 and
+     W-dflow of the SPyNet path: launches over its 6 pme steps, ms per
+     pme step on the step's own inputs), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 It imports nothing of JAX and never runs on the CPU.
+
+    python3 chip_smoke.py --spynet
+
+runs, after phase 1 and the build, only phases 10 and 11 and prints the
+SPyNet path's kernel entries and the result line.
 
     python3 chip_smoke.py --profile
 
@@ -335,6 +367,17 @@ LOOP_OPTIONS = dict(optimize="pme", compute_dtype="bfloat16", augment=0, rand_cr
                     wire="compact", ground_truth=True)
 EVAL_PER_STEP = dict(dict.fromkeys(TRAIN_PER_STEP, 0), b2f_cost_volume_fwd=10,
                      b2f_warp_bilinear_fwd=18)
+# netType spynet (phase 10, --spynet), frames 3, levels 7: 12 input warps
+# (2 frames x levels 2-7) a forward; the pme step adds 14 output warps
+# (levels 1-7), K4 on the 12 whose images are warped frames (level 1
+# warps the pooled input), W-dflow on all 26; epe reads no image warp
+SPY_SERVING_PER_FORWARD = dict(dict.fromkeys(TRAIN_PER_STEP, 0), b2f_warp_bilinear_fwd=12)
+SPY_PME_PER_STEP = dict(SPY_SERVING_PER_FORWARD, b2f_warp_bilinear_fwd=26,
+                        b2f_warp_bilinear_dimages=12, b2f_warp_bilinear_dflow=26)
+SPY_EPE_PER_STEP = dict(SPY_SERVING_PER_FORWARD, b2f_warp_bilinear_dflow=12)
+# the pme eval step's loss reads the output warps, so it runs them too
+SPY_EVAL_PER_STEP = dict(SPY_SERVING_PER_FORWARD, b2f_warp_bilinear_fwd=26)
+SPY_SCENES = 12                        # run()'s set (val fraction 0.25: 9 train / 3 val)
 # the learning demo (--learn): the main set and the escape set of
 # docs/evidence/learning_demo/attempt2/README.md:3-8
 LEARN_SCENES = 300
@@ -607,6 +650,21 @@ def smooth_flow(rng, shape, dtype, dev):
         .permute(0, 2, 3, 1).contiguous().to(dtype)
 
 
+def grid_of(flow):
+    """The warp's pixel offsets as grid_sample's normalised grid
+    (align_corners=True); with padding_mode="border" grid_sample clamps
+    as the warp does."""
+    b, h, w, _ = flow.shape
+    fl = flow.float()
+    gx = (fl[..., 0] + torch.arange(w, device=flow.device).view(1, 1, w)) * (2.0 / (w - 1)) - 1
+    gy = (fl[..., 1] + torch.arange(h, device=flow.device).view(1, h, 1)) * (2.0 / (h - 1)) - 1
+    return torch.stack([gx, gy], -1).to(flow.dtype)
+
+
+def nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its twin at every main-path shape; returns the
     per-kernel summary over the bf16 checks: max error, and the kernel,
@@ -693,19 +751,6 @@ def phase_kernels(dev) -> dict:
             s["ops_ms"] += per_forward * ops_ms
             if lms is not None:
                 s["library_ms"] = (s["library_ms"] or 0.0) + per_forward * lms
-
-    def grid_of(flow):
-        """The warp's pixel offsets as grid_sample's normalised grid
-        (align_corners=True); with padding_mode="border" grid_sample
-        clamps as the warp does."""
-        b, h, w, _ = flow.shape
-        fl = flow.float()
-        gx = (fl[..., 0] + torch.arange(w, device=dev).view(1, 1, w)) * (2.0 / (w - 1)) - 1
-        gy = (fl[..., 1] + torch.arange(h, device=dev).view(1, h, 1)) * (2.0 / (h - 1)) - 1
-        return torch.stack([gx, gy], -1).to(flow.dtype)
-
-    def nchw(t):
-        return t.permute(0, 3, 1, 2)
 
     def compare_old(key, label, new, old, twin, new_name, old_name, flows, per_unit=2):
         """A warp kernel's new design beside the first design's, alone, in
@@ -879,7 +924,7 @@ def phase_kernels(dev) -> dict:
                             names=("stem_unit_a_mma", "stem_unit_kernel"))
 
     # the serving forward's own 8 warp inputs (bf16)
-    for img, flow in serving_warp_inputs(dev):
+    for img, flow, _ in serving_warp_inputs(dev):
         b, h, w, c = img.shape
         check_gather("warp", f"bf16 B={b} {h}x{w}x{c}, the serving forward's own input",
                      torch.bfloat16, img, flow, "own", per_unit=1)
@@ -930,9 +975,9 @@ def phase_kernels(dev) -> dict:
 
 @contextlib.contextmanager
 def recording_gather_inputs(into: list):
-    """Inside the block, each warp gather first appends its (images, flow)
-    to `into` (the flow in the image dtype, as the kernel gets it);
-    restored after."""
+    """Inside the block, each warp gather first appends its (images, flow,
+    whether the images need a gradient) to `into` (detached copies, the
+    flow in the image dtype, as the kernels get them); restored after."""
     import importlib
 
     module = importlib.import_module("back2future_tpu_torch.ops.warp")
@@ -941,7 +986,7 @@ def recording_gather_inputs(into: list):
     class Recording:
         @staticmethod
         def apply(images, flow, reference_grads):
-            into.append((images.detach().clone(), flow.detach().clone()))
+            into.append((images.detach().clone(), flow.detach().clone(), images.requires_grad))
             return fn.apply(images, flow, reference_grads)
 
     module._WarpFn = Recording
@@ -952,7 +997,7 @@ def recording_gather_inputs(into: list):
 
 
 def serving_warp_inputs(dev) -> list:
-    """The 8 (images, flow) of the gather in one serving forward of the
+    """The 8 (images, flow, needs grad) of the gather in one serving forward of the
     seeded estimator (as phase 4's, stem off) on a seeded B=16 input."""
     from back2future_tpu_torch.api import init
 
@@ -1395,6 +1440,9 @@ def train_network(opt, dev):
     from back2future_tpu_torch.models import (
         PWCNet, convert_net_hard_to_soft, pwc_config_from_options,
     )
+
+    if opt.netType == "spynet":
+        return spynet_network(opt, dev)
 
     def seeded(o):
         return PWCNet(pwc_config_from_options(o), generator=torch.Generator().manual_seed(0))
@@ -1855,7 +1903,7 @@ GATHER_VARIANTS = {
 
 
 def train_warp_inputs(dev) -> list:
-    """The 18 (images, flow) of the gather in the third bf16 hard train
+    """The 18 (images, flow, needs grad) of the gather in the third bf16 hard train
     step of the seeded net (stem off)."""
     from back2future_tpu_torch.losses import build_criterions
     from back2future_tpu_torch.train import create_train_state, make_train_step
@@ -1934,7 +1982,7 @@ def phase_gather_variants(card: str, dev) -> None:
              ("train step", TRAIN_B, TRAIN_LEVELS[:4] + IMAGE_WARP_SHAPES, train_warp_inputs(dev)))
     for unit, b, shapes, own in units:
         cases = {"random flows": [], "smooth flows": [], "own inputs": [(img, flow, 1)
-                                                                         for img, flow in own]}
+                                                                         for img, flow, _ in own]}
         for (h, w, c) in shapes:
             img = rand((b, h, w, c))
             cases["random flows"].append((img, rand((b, h, w, 2), w / 4), 2))
@@ -2011,11 +2059,12 @@ def f32_step_vs_plain(phase: str, opt32, batch: dict, dev) -> None:
     (loss_k, grads_k), (loss_p, grads_p) = results
     ratios = gradient_ratios(grads_k, grads_p)
     worst_name = max(ratios, key=ratios.get)
-    stem_worst = max(v for k, v in ratios.items() if k.startswith(("feat_2.", "feat_3.")))
+    stem = [v for k, v in ratios.items() if k.startswith(("feat_2.", "feat_3."))]
     log(phase, f"f32 step, kernels vs plain_ops(): loss {loss_k:.6f} vs {loss_p:.6f} "
                f"(rtol {LOSS_RTOL}); worst gradient max_abs_err / max|g| "
                f"{ratios[worst_name]:.3e} ({worst_name}; tol {GRAD_TOL_FRAC}) over "
-               f"{len(grads_p)} parameters; feat_2/feat_3 worst {stem_worst:.3e}")
+               f"{len(grads_p)} parameters"
+               + (f"; feat_2/feat_3 worst {max(stem):.3e}" if stem else ""))
     if not (abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p) and ratios[worst_name] <= GRAD_TOL_FRAC):
         raise AssertionError(f"{phase}: train step with kernels and under plain_ops() disagree")
 
@@ -2815,6 +2864,388 @@ def phase_pipe_variants(card: str) -> None:
                       f"on {card}")
 
 
+# ------------------------------------------------------------------ SPyNet
+
+def spynet_kernels(card: str, calls: list, dev) -> dict:
+    """The gather, W-dflow and K4 on one SPyNet pme step's own warp inputs
+    (`calls`: its 26 warps; K4 only where the images need a gradient),
+    each call against its twin (KERNEL_TOL, the gradients relative to
+    their largest value), then per step: the kernels', the twins' and the
+    library calls' profiler device ms and the bound. The backward's
+    upstream gradient is seeded noise of the warp's output shape."""
+    from back2future_tpu_torch import ops
+
+    rng = np.random.default_rng(6)
+    grads = [torch.from_numpy(rng.standard_normal(img.shape).astype(np.float32)).to(dev, img.dtype)
+             for img, _, _ in calls]
+
+    grids = [grid_of(flow) for _, flow, _ in calls]
+    which = {"warp_bilinear_fwd": list(range(len(calls))),
+             "warp_bilinear_dflow": list(range(len(calls))),
+             "warp_bilinear_dimages": [i for i, c in enumerate(calls) if c[2]]}
+
+    def kernel(name, i, plain=False):
+        img, flow, _ = calls[i]
+        g = grads[i]
+        if name == "warp_bilinear_fwd":
+            return (ops.warp_bilinear_reference if plain else ops.warp_bilinear)(img, flow)
+        if plain:
+            return ops.warp_bilinear_backward_reference(img, flow, g)[
+                int(name == "warp_bilinear_dflow")]
+        need = (name == "warp_bilinear_dimages", name == "warp_bilinear_dflow")
+        return ops.warp_bilinear_backward_cuda(img, flow, g, need=need)[need.index(True)]
+
+    def library(name, i):
+        img, _, _ = calls[i]
+        if name == "warp_bilinear_fwd":
+            return F.grid_sample(nchw(img), grids[i], mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+        mask = [name == "warp_bilinear_dimages", name == "warp_bilinear_dflow"]
+        return torch.ops.aten.grid_sampler_2d_backward(nchw(grads[i]), nchw(img), grids[i],
+                                                       0, 1, True, mask)
+
+    def work(name, i):
+        img, flow, _ = calls[i]
+        extra = nbytes(flow) if name == "warp_bilinear_dflow" else 0
+        return 8 * img.numel(), 2 * nbytes(img) + nbytes(flow) + extra
+
+    summary = {}
+    for name, idx in which.items():
+        err, worst = 0.0, 0.0
+        for i in idx:
+            got, want = kernel(name, i).float(), kernel(name, i, plain=True).float()
+            tol = KERNEL_TOL[calls[i][0].dtype]
+            atol = tol if name == "warp_bilinear_fwd" else tol * max(1.0, want.abs().max().item())
+            e = (got - want).abs().max().item()
+            err = max(err, e)
+            worst = max(worst, e / atol)
+            if not torch.allclose(got, want, rtol=tol, atol=atol):
+                img = calls[i][0]
+                raise AssertionError(f"spynet {name} call {i} {tuple(img.shape)}: outside "
+                                     f"tolerance ({e:.3e}, atol {atol:.3e})")
+        ops_s = sum(work(name, i)[0] for i in idx) / PEAK_OPS_PER_S[calls[0][0].dtype]
+        bytes_s = sum(work(name, i)[1] for i in idx) / HBM_BYTES_PER_S
+        by_name = device_ms(lambda: [kernel(name, i) for i in idx], 10)
+        ms = sum(by_name.values())
+        plain_ms = sum(device_ms(lambda: [kernel(name, i, plain=True) for i in idx], 3).values())
+        lib_ms = sum(device_ms(lambda: [library(name, i) for i in idx], 10).values())
+        shapes = sorted({tuple(calls[i][0].shape) for i in idx}, key=lambda s: -s[1])
+        summary[name] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=max(ops_s, bytes_s) * 1e3, bytes_ms=bytes_s * 1e3,
+                             ops_ms=ops_s * 1e3, calls=len(idx))
+        log("spynet", f"{name} on the pme step's own {len(idx)} inputs "
+                      f"({', '.join('x'.join(map(str, s)) for s in shapes)}; "
+                      f"{calls[0][0].dtype}): max_abs_err {err:.3e} (worst {worst:.3f} of its "
+                      f"tolerance); per step (profiler device time) kernel {ms:.4f} ms, twin "
+                      f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                      f"{summary[name]['bound_ms']:.4f} ms (the kernel's by name: " + ", ".join(
+                          f"{n[:40]} {v:.4f}" for n, v in sorted(by_name.items(),
+                                                                 key=lambda kv: -kv[1]))
+                      + f"); on {card}")
+    return summary
+
+
+def spynet_network(opt, dev):
+    """SPyNet of `opt` with weights from seed 0, on `dev`."""
+    from back2future_tpu_torch.models import SPyNet, spynet_config_from_options
+
+    return SPyNet(spynet_config_from_options(opt),
+                  generator=torch.Generator().manual_seed(0)).to(dev)
+
+
+def phase_spynet(card: str, dev) -> dict:
+    """netType spynet on the card (module docstring, phase 10): the bf16
+    serving forward, the pme and epe steps with exact launch counts, f32
+    steps against plain_ops(), the warp kernels on the step's own inputs,
+    and run() / the eval CLI / init's refusal. Returns the launches of its
+    pme steps and the kernels' per-step summary."""
+    import collections
+    import tempfile
+    from pathlib import Path
+
+    from back2future_tpu_torch import api, ops
+    from back2future_tpu_torch.config import Options
+    from back2future_tpu_torch.data import load_split, roaming
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.models import SPyNet
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import create_train_state, loop, make_train_step
+
+    phase_t0 = time.perf_counter()
+    # serving forward, bf16, B=16 at the snapped KITTI size
+    opt = Options(netType="spynet", compute_dtype="bfloat16").derive()
+    net = spynet_network(opt, dev).eval()
+    cfg = net.cfg
+    assert (cfg.frames, cfg.levels, cfg.dtype) == (3, 7, torch.bfloat16), cfg
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (B, H, W, 9), dtype=np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        reset_launches()
+        got = net(x, with_warped=False)
+        if counts() != SPY_SERVING_PER_FORWARD:
+            raise AssertionError(f"spynet serving forward launched {counts()}, expected "
+                                 f"{SPY_SERVING_PER_FORWARD}")
+        serving_launches = counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        with ops.plain_ops():
+            want = net(x, with_warped=False)
+        if counts() != serving_launches:
+            raise AssertionError("spynet: plain_ops() launched kernels")
+        fwd_ms = cuda_ms(lambda: net(x, with_warped=False), 5)
+    flow, flow_p = got[0]["flow"].float(), want[0]["flow"].float()
+    occ, occ_p = got[0]["occ"].float(), want[0]["occ"].float()
+    if len(got) != cfg.levels or flow.shape != (B, H, W, 2) or not torch.isfinite(flow).all() \
+            or not torch.isfinite(occ).all():
+        raise AssertionError(f"spynet serving forward: {len(got)} levels, flow {flow.shape}")
+    scale = flow_p.abs().max().item()
+    flow_err = (flow - flow_p).abs().max().item()
+    occ_diff = ((occ[..., 1] >= api.OCC_THRESHOLD) != (occ_p[..., 1] >= api.OCC_THRESHOLD)) \
+        .float().mean().item()
+    log("spynet", f"serving forward bf16 B={B} {H}x{W} (frames 3, levels 7, seed-0 weights): "
+                  f"launches {SPY_SERVING_PER_FORWARD['b2f_warp_bilinear_fwd']} gathers and no "
+                  f"other kernel; finest flow vs plain_ops() max_abs_err {flow_err:.3e} (tol "
+                  f"{FLOW_TOL_FRAC} x max|flow| = {FLOW_TOL_FRAC * scale:.3e}), forward "
+                  f"occlusion mask differs on {occ_diff:.2e} of pixels (tol {OCC_TOL}); "
+                  f"{fwd_ms:.2f} ms (CUDA events, median of 5), peak device memory "
+                  f"{peak / 2**30:.2f} GiB; on {card}")
+    if flow_err > FLOW_TOL_FRAC * scale or occ_diff > OCC_TOL:
+        raise AssertionError("spynet: the serving forward disagrees with plain_ops()")
+    del net, got, want, x
+
+    # the pme hard recipe, bf16, B=8 at 320x640, from the weights of seed 0
+    opt = train_options("bfloat16", soft=False, netType="spynet")
+    batch = train_batch(dev)
+    net = spynet_network(opt, dev)
+    init = {k: v.clone() for k, v in net.state_dict().items()}
+    step = make_train_step(net, opt, build_criterions(opt))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, values, times = train_steps("spynet pme", step, create_train_state(net, opt), batch,
+                                       TRAIN_STEPS, SPY_PME_PER_STEP)
+    pme_launches = counts()
+    step_ms = statistics.median(times[1:])
+    log("spynet", f"pme {opt.pme_criterion} {TRAIN_STEPS} bf16 steps B={TRAIN_B} "
+                  f"{TRAIN_H}x{TRAIN_W}: loss {['%.4f' % v for v in values['loss']]}; step "
+                  f"{TRAIN_STEPS} components " + ", ".join(
+                      f"{k} {v[-1]:.5g}" for k, v in values.items() if k != "loss")
+                  + f"; launches a step gather {SPY_PME_PER_STEP['b2f_warp_bilinear_fwd']}, K4 "
+                  f"{SPY_PME_PER_STEP['b2f_warp_bilinear_dimages']}, W-dflow "
+                  f"{SPY_PME_PER_STEP['b2f_warp_bilinear_dflow']}, nothing else ({pme_launches} "
+                  f"over the steps)")
+    log("spynet", f"pme bf16 train step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}: {step_ms:.2f} ms (CUDA "
+                  f"events, median of steps 2-{TRAIN_STEPS}; all {['%.2f' % t for t in times]}), "
+                  f"{TRAIN_B / step_ms * 1e3:.2f} triplets/s trained, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
+    # the warp kernels on the first step's own inputs
+    calls = []
+    net.load_state_dict(init)
+    with recording_gather_inputs(calls):
+        train_steps("spynet pme", step, create_train_state(net, opt), batch, 1, SPY_PME_PER_STEP)
+    if len(calls) != SPY_PME_PER_STEP["b2f_warp_bilinear_fwd"] or sum(
+            c[2] for c in calls) != SPY_PME_PER_STEP["b2f_warp_bilinear_dimages"]:
+        raise AssertionError(f"spynet: recorded {len(calls)} warps, "
+                             f"{sum(c[2] for c in calls)} with image gradients")
+    summary = spynet_kernels(card, calls, dev)
+    del calls, state, step, net
+    f32_step_vs_plain("spynet pme", train_options("float32", soft=False, netType="spynet"),
+                      batch, dev)
+
+    # one epe step on seeded ground truth
+    opt = train_options("bfloat16", soft=False, netType="spynet", optimize="epe", epe=1.0)
+    gt_batch = train_batch(dev, ground_truth=True)
+    net = spynet_network(opt, dev)
+    reset_launches()
+    _, values, times = train_steps("spynet epe", make_train_step(net, opt, build_criterions(opt)),
+                                   create_train_state(net, opt), gt_batch, 1, SPY_EPE_PER_STEP)
+    log("spynet", f"epe bf16 step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}: loss {values['loss'][0]:.4f}, "
+                  f"sup_flow {values['sup_flow'][0]:.5g}, sup_occ {values['sup_occ'][0]:.5g}; "
+                  f"launches gather {SPY_EPE_PER_STEP['b2f_warp_bilinear_fwd']}, K4 0, W-dflow "
+                  f"{SPY_EPE_PER_STEP['b2f_warp_bilinear_dflow']}; {times[0]:.2f} ms (the first "
+                  f"step, CUDA events)")
+    del net
+    f32_step_vs_plain("spynet epe", train_options("float32", soft=False, netType="spynet",
+                                                  optimize="epe", epe=1.0), gt_batch, dev)
+
+    # run() from files, the eval CLI, and init's refusal
+    with tempfile.TemporaryDirectory(prefix="b2f_spynet_") as tmp:
+        root = Path(tmp)
+        roaming.main(["--out", str(root / "set"), "--n", str(SPY_SCENES), "--height",
+                      str(TRAIN_H), "--width", str(TRAIN_W), "--frames", "3", "--seed", "0",
+                      "--val_fraction", str(LOOP_VAL_FRACTION)])
+        datasets = root / "set" / "datasets"
+        n_val = len(load_split(datasets / "RoamingImages_split.dat")[1])
+        opt = Options(netType="spynet", batchSize=TRAIN_B, dataset="RoamingImages",
+                      datasets_dir=str(datasets), data_root=str(root / "set" / "data"),
+                      cache=str(root / "cache"), expName="spynet", epochSize=2, nEpochs=1,
+                      epochStore=1, nDonkeys=0, **LOOP_OPTIONS).derive(make_dirs=True)
+        save = Path(opt.save)
+        seen = collections.defaultdict(list)
+
+        def refuse_load(state):
+            raise AssertionError("spynet run() loaded a checkpoint")
+
+        t0 = time.perf_counter()
+        with watching_run(loop, seen, refuse_load):
+            trained = loop.run(opt)
+        run_s = time.perf_counter() - t0
+        bad = [got for got in seen["train"] if got != SPY_PME_PER_STEP] + [
+            got for got in seen["eval"] if got != SPY_EVAL_PER_STEP]
+        if trained.step != 2 or len(seen["eval"]) != -(-n_val // TRAIN_B) or bad:
+            raise AssertionError(f"spynet run(): step {trained.step}, {len(seen['eval'])} eval "
+                                 f"steps, launches {bad[:1]}")
+        missing = [f for f in ("model_1.pt", "optimState_1.pt", "options.json", "train.log",
+                               "test.log") if not (save / f).is_file()]
+        if missing or not isinstance(trained.model, SPyNet):
+            raise AssertionError(f"spynet run(): missing {missing}")
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "back2future_tpu_torch.eval", "--checkpoint",
+                              str(save), "--dataset", "RoamingImages", "--datasets_dir",
+                              str(datasets), "--data_root", str(root / "set" / "data"),
+                              "--batchSize", str(TRAIN_B), "--cropHeight", str(TRAIN_H),
+                              "--cropWidth", str(TRAIN_W)], cwd=here,
+                             env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode:
+            raise AssertionError(f"spynet: the eval CLI exited {res.returncode}: {res.stderr}")
+        metrics = json.loads(res.stdout.strip().splitlines()[-1])
+        if metrics["n_samples"] != n_val or not np.isfinite(list(metrics.values())).all():
+            raise AssertionError(f"spynet: eval CLI {metrics}")
+        eval_s = time.perf_counter() - t0
+        try:
+            api.init(str(save), device=dev)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("spynet: init(<save dir>) served a SPyNet checkpoint")
+        if "serves the PWC family only" not in refusal:
+            raise AssertionError(f"spynet: init's error {refusal!r}")
+        log("spynet", f"run() netType spynet, 1 epoch x 2 steps (B={TRAIN_B} {TRAIN_H}x{TRAIN_W} "
+                      f"bf16, {SPY_SCENES - n_val} train / {n_val} val scenes, the synchronous "
+                      f"loader): {run_s:.1f} s; every train step launched gather / K4 / W-dflow "
+                      f"{SPY_PME_PER_STEP['b2f_warp_bilinear_fwd']} / "
+                      f"{SPY_PME_PER_STEP['b2f_warp_bilinear_dimages']} / "
+                      f"{SPY_PME_PER_STEP['b2f_warp_bilinear_dflow']}, every eval step "
+                      f"{SPY_EVAL_PER_STEP['b2f_warp_bilinear_fwd']} gathers; model_1.pt written; "
+                      f"the eval CLI ({eval_s:.1f} s): {metrics}; init(<save dir>) refuses it: "
+                      f"{refusal}")
+    log("spynet", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+    return {"launches": pme_launches, "summary": summary, "step_ms": step_ms}
+
+
+def pwc_t7_tree(net) -> dict:
+    """A PWCNet's weights as a Torch7 nn.gModule module tree in the
+    reference's construction order (models/pwc.lua:87-508): the frame-1
+    pyramid convs, value-equal copies of them for frames 2..F (the
+    reference's clones), then per level coarsest -> finest the occlusion,
+    flow and past-flow decoders; weights OIHW float32."""
+    cfg = net.cfg
+    params = {n: p.detach().float().cpu().numpy() for n, p in net.named_parameters()}
+
+    def conv(prefix):
+        w = params[prefix + ".weight"]
+        return {"torch_type": "cudnn.SpatialConvolution", "weight": w,
+                "bias": params[prefix + ".bias"], "nInputPlane": w.shape[1],
+                "nOutputPlane": w.shape[0], "kW": w.shape[3], "kH": w.shape[2],
+                "dW": 1, "dH": 1, "padW": w.shape[3] // 2, "padH": w.shape[2] // 2}
+
+    pyramid = [conv(f"feat_{l}.{c}") for l in range(2, cfg.levels + 1) for c in ("c0", "c1")]
+    mods = list(pyramid)
+    for _ in range(cfg.frames - 1):
+        mods += [dict(m, weight=m["weight"].copy(), bias=m["bias"].copy()) for m in pyramid]
+    for l in range(cfg.levels, cfg.l_st - 1, -1):
+        decoders = (["occ"] if cfg.frames > 2 else []) + ["flow"] + (
+            ["past"] if cfg.past_flow else [])
+        for d in decoders:
+            mods += [conv(f"{d}_decoder_{l}.{c}") for c in ("c0", "c1", "c2", "c3", "c4", "out")]
+    return {"torch_type": "nn.DataParallelTable",
+            "modules": [{"torch_type": "nn.gModule", "modules": mods}]}
+
+
+def phase_t7(card: str, dev) -> None:
+    """.t7 conversion on the card (module docstring, phase 11): a seeded
+    flagship PWCNet, with and without the past-flow decoders, written as
+    a reference module tree by the port's save_t7, converted by
+    `python -m back2future_tpu_torch.convert_t7` (the two conversions in
+    two processes at once), served by init(out): compute_flow_batch at
+    B=16 on 1242x375 frames equals the seeded net's own forward bit for
+    bit, with 10 K1 and 8 gather launches."""
+    import tempfile
+    from pathlib import Path
+
+    from back2future_tpu_torch import api
+    from back2future_tpu_torch.io import save_t7
+    from back2future_tpu_torch.models import PWCConfig, PWCNet
+    from back2future_tpu_torch.runtime import reset_launches
+
+    phase_t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(8)
+    frames = [rng.random((B, H_IN, W_IN, 3), dtype=np.float32) for _ in range(3)]
+    imgs, n, h, w = api._preprocess_triplets(frames, 3)
+    x = torch.from_numpy(imgs).to(dev)
+    with tempfile.TemporaryDirectory(prefix="b2f_t7_") as tmp:
+        runs = {}
+        for past_flow in (False, True):
+            seeded = PWCNet(PWCConfig(dtype=torch.bfloat16, past_flow=past_flow),
+                            generator=torch.Generator().manual_seed(11)).to(dev).eval()
+            t7 = Path(tmp) / f"model_past{int(past_flow)}.t7"
+            out = Path(tmp) / f"out_past{int(past_flow)}"
+            t0 = time.perf_counter()
+            save_t7(t7, pwc_t7_tree(seeded))
+            write_s = time.perf_counter() - t0
+            proc = subprocess.Popen([sys.executable, "-m", "back2future_tpu_torch.convert_t7",
+                                     str(t7), str(out), "--past_flow", str(int(past_flow))],
+                                    cwd=here, env=dict(os.environ, PYTHONPATH=here),
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            runs[past_flow] = (seeded, t7, out, write_s, proc, time.perf_counter())
+        done = {}
+        try:
+            for k, r in runs.items():   # each conversion's wall time from its start
+                done[k] = (*r[4].communicate(timeout=300), time.perf_counter() - r[5])
+        finally:
+            for r in runs.values():
+                r[4].kill()
+        for past_flow, (seeded, t7, out, write_s, proc, _) in runs.items():
+            stdout, stderr, convert_s = done[past_flow]
+            if proc.returncode:
+                raise AssertionError(f"t7: convert_t7 exited {proc.returncode}: {stderr}")
+            est = api.init(str(out), device=dev)
+            if est.config != seeded.cfg:
+                raise AssertionError(f"t7: init(out) config {est.config} != {seeded.cfg}")
+            reset_launches()
+            got = est.compute_flow_batch(*frames)
+            if counts() != SERVING_PER_FORWARD:
+                raise AssertionError(f"t7: init(out) serving launched {counts()}, expected "
+                                     f"{SERVING_PER_FORWARD}")
+            check_results(got, B)
+            with torch.inference_mode():
+                want = seeded(x, with_warped=False)[0]
+                mine = est.net(x, with_warped=False)[0]
+            ref = api._postprocess_results(want["flow"].float().cpu().numpy(),
+                                           want["occ"].float().cpu().numpy(), n, h, w)
+            if not (torch.equal(mine["flow"], want["flow"]) and torch.equal(mine["occ"], want["occ"])
+                    and all(np.array_equal(a, b) for a, b in zip(got, ref))):
+                raise AssertionError("t7: the converted net's flow differs from the seeded net's")
+            log("t7", f"flagship PWCNet past_flow {int(past_flow)} (seed 11): .t7 of "
+                      f"{t7.stat().st_size} bytes written by save_t7 in {write_s:.2f} s, "
+                      f"convert_t7 CLI {convert_s:.1f} s ({stdout.strip()}); init(out) "
+                      f"compute_flow_batch B={B} {H_IN}x{W_IN}: launches "
+                      f"{SERVING_PER_FORWARD['b2f_cost_volume_fwd']} K1 + "
+                      f"{SERVING_PER_FORWARD['b2f_warp_bilinear_fwd']} gathers, flow and "
+                      f"occlusion bit-identical to the seeded net's own forward; on {card}")
+    log("t7", f"phase took {time.perf_counter() - phase_t0:.1f} s")
+
+
+SPY_KERNEL_ENTRIES = [   # (name, source, replaces) of the SPyNet path's kernels
+    ("warp_bilinear_fwd", "warp_fwd_tiled.cu", "back2future_tpu/ops/warp.py:96"),
+    ("warp_bilinear_dimages", "warp_bwd_tiled.cu", "back2future_tpu/ops/warp_pallas.py:81"),
+    ("warp_bilinear_dflow", "warp_bwd_tiled.cu", "back2future_tpu/ops/warp.py:209"),
+]
 KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches count)
     ("cost_volume_fwd", "cost_volume", "cost_volume_fwd_mma.cu",
      "back2future_tpu/ops/cost_volume_pallas.py:91", "serving"),
@@ -2864,6 +3295,13 @@ def main() -> None:
         with stem(False):
             phase_learn(card, dev, [a for a in sys.argv[1:] if a != "--learn"])
         return
+    if "--spynet" in sys.argv[1:]:
+        with stem(False):
+            spynet = phase_spynet(card, dev)
+            phase_t7(card, dev)
+        print(json.dumps({"kernels": spynet_kernel_entries(spynet)}), flush=True)
+        print_result()
+        return
     phase_mma_builds()
     if "--profile" in sys.argv[1:]:
         phase_profile(card, dev)
@@ -2904,6 +3342,9 @@ def main() -> None:
     with stem(True):
         paths["soft"] = run_train(card, dev, "soft", soft=True, per_step=SOFT_PER_STEP)["launches"]
         phase_remat(card, dev, soft=True)
+    with stem(False):
+        spynet = phase_spynet(card, dev)
+        phase_t7(card, dev)
     kernels = []
     for name, key, source, replaces, path in KERNEL_ENTRIES:
         s = summary[key]
@@ -2913,7 +3354,26 @@ def main() -> None:
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
                         "library_ms": s["library_ms"]})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels + spynet_kernel_entries(spynet)}), flush=True)
+    print_result()
+
+
+def spynet_kernel_entries(spynet: dict) -> list:
+    """The kernels line's entries of the SPyNet path: launches over its 6
+    pme steps, ms per pme step on the step's own inputs."""
+    entries = []
+    for name, source, replaces in SPY_KERNEL_ENTRIES:
+        s = spynet["summary"][name]
+        entries.append({"name": f"{name} (spynet pme step)", "route": "cuda",
+                        "source": f"back2future_tpu_torch/csrc/{source}", "replaces": replaces,
+                        "launches": spynet["launches"][f"b2f_{name}"], "max_abs_err": s["err"],
+                        "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
+                        "library_ms": s["library_ms"]})
+    return entries
+
+
+def print_result() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

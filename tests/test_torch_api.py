@@ -169,15 +169,25 @@ def test_init_cuda_without_card_raises():
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports the port, its train step, epoch loop,
-    checkpoints, utilities, CLIs, learning demo, every criterion, data
-    pipeline and flow I/O included, runs a tiny CPU forward and the host
-    C++ occlusion, without loading the JAX package, jax, flax, optax or
-    msgpack."""
+    checkpoints, utilities, CLIs (the .t7 converter, the parity harness
+    and the tool counterparts too), learning demo, every criterion, the
+    .t7 reader, SPyNet, data pipeline and flow I/O included, runs a tiny
+    CPU forward of each model family and the host C++ occlusion, without
+    loading the JAX package, jax, flax, optax or msgpack."""
     code = (
         "import sys, numpy as np\n"
         "import back2future_tpu_torch\n"
         "from back2future_tpu_torch import api, data, io, losses, ops, models, runtime, train\n"
         "from back2future_tpu_torch import eval, learn_demo, main, utils\n"
+        "from back2future_tpu_torch import (convert_t7, flow_viz_demo, make_manifests,"
+        " overfit_probe, parity)\n"
+        "from back2future_tpu_torch.io import t7\n"
+        "from back2future_tpu_torch.models import convert, factory, spynet\n"
+        "import torch\n"
+        "spy, _ = factory.model_and_config(back2future_tpu_torch.config.Options("
+        "netType='spynet', levels=3).derive())\n"
+        "assert spy(torch.zeros(1, 16, 16, 9), with_warped=False)[0]['flow'].shape =="
+        " (1, 16, 16, 2)\n"
         "from back2future_tpu_torch.losses import (make_kl_smoothness, make_l2_criterion,"
         " make_mbcc, make_ossim_l1)\n"
         "from back2future_tpu_torch.train import checkpoint, loop\n"

@@ -225,8 +225,24 @@ def test_model_factory_follows_jax():
     net, cfg = model_and_config(tiny(), generator=torch.Generator().manual_seed(0))
     assert isinstance(net, PWCNet) and cfg == net.cfg == pwc_config_from_options(tiny())
     assert isinstance(model_for_config(cfg), PWCNet)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        model_and_config(tiny(netType="spynet"))
+    # netType spynet builds what JAX's factory builds: the same config
+    # fields (the dtype as each package spells it) and the same parameter
+    # names and shapes (JAX's created by an init at the tiny size)
+    spy_net, spy_cfg = model_and_config(tiny(netType="spynet"),
+                                        generator=torch.Generator().manual_seed(0))
+    jax_net, jax_cfg = jax_model_and_config(tiny(JaxOptions, netType="spynet"))
+    assert type(spy_net).__name__ == type(jax_net).__name__ == "SPyNet"
+    assert isinstance(model_for_config(spy_cfg), type(spy_net))
+    want_fields = dataclasses.asdict(jax_cfg)
+    got_fields = dataclasses.asdict(spy_cfg)
+    assert set(got_fields) == set(want_fields)
+    assert {k: v for k, v in got_fields.items() if k != "dtype"} == \
+        {k: v for k, v in want_fields.items() if k != "dtype"}
+    assert str(got_fields["dtype"]).split(".")[-1] == jnp.dtype(want_fields["dtype"]).name
+    jax_params = jax_net.init(jax.random.PRNGKey(0),
+                              jnp.zeros((1, 32, 64, 3 * jax_cfg.frames)))["params"]
+    assert {name: tuple(v.shape) for name, v in flax_to_torch_names(jax_params).items()} == \
+        {name: tuple(p.shape) for name, p in spy_net.named_parameters()}
     bogus = dataclasses.replace(tiny(), netType="bogus")
     with pytest.raises(ValueError) as jax_err:
         jax_model_and_config(dataclasses.replace(tiny(JaxOptions), netType="bogus"))

@@ -1004,6 +1004,65 @@ def test_init_path_serves_pt_written_on_card(cuda, tmp_path):
     assert np.array_equal(flows, ref[0]) and np.array_equal(fwd_occ, ref[1])
 
 
+# ------------------------------------------------------------------ SPyNet
+
+# levels 4, frames 3: 2 frames x levels 2-4 input warps a forward; the pme
+# step adds 2 x 4 output warps, K4 on the 6 whose images are warped frames
+SPY_SERVING = {"b2f_warp_bilinear_fwd": 6}
+SPY_PME = {"b2f_warp_bilinear_fwd": 14, "b2f_warp_bilinear_dimages": 6,
+           "b2f_warp_bilinear_dflow": 14}
+
+
+def test_spynet_forward_launches_and_matches_plain_ops(cuda):
+    """The bf16 SPyNet forward (levels 4, B=2 at 64x128) without the output
+    warps: 6 gathers and no other kernel; the finest flow within 5% of
+    max|flow| of its plain_ops() rerun (bf16 roundings through 4 levels)."""
+    from back2future_tpu_torch.models import SPyNet, SPyNetConfig
+
+    net = SPyNet(SPyNetConfig(levels=4, dtype=torch.bfloat16),
+                 generator=torch.Generator().manual_seed(1)).to(cuda)
+    x = rand((2, 64, 128, 9), 41, cuda)
+    reset_launches()
+    with torch.inference_mode():
+        got = net(x, with_warped=False)
+        assert {k: v.launches for k, v in KERNELS.items() if v.launches} == SPY_SERVING
+        with ops.plain_ops():
+            want = net(x, with_warped=False)
+    assert len(got) == 4 and got[0]["warped"] == []
+    flow, flow_p = got[0]["flow"].float(), want[0]["flow"].float()
+    assert (flow - flow_p).abs().max().item() <= 0.05 * flow_p.abs().max().item()
+
+
+def test_spynet_pme_step_launches_and_matches_plain_ops(cuda):
+    """One f32 pme step of SPyNet (levels 4, B=2 at 64x128): 14 gathers, 6
+    K4 and 14 W-dflow; the loss (rtol 1e-4) and every parameter gradient
+    (1e-3 of its max|g|) as under plain_ops() from the same state."""
+    from back2future_tpu_torch.models import SPyNet, spynet_config_from_options
+
+    opt = Options(netType="spynet", levels=4, optimize="pme", batchSize=2,
+                  compute_dtype="float32").derive()
+    net = SPyNet(spynet_config_from_options(opt), generator=torch.Generator().manual_seed(2)).to(cuda)
+    init = {k: v.clone() for k, v in net.state_dict().items()}
+    batch = {"images": rand((2, 64, 128, 9), 43, cuda)}
+    results = []
+    for plain in (False, True):
+        net.load_state_dict(init)
+        step = make_train_step(net, opt, build_criterions(opt))
+        reset_launches()
+        if plain:
+            with ops.plain_ops():
+                _, logs = step(create_train_state(net, opt), batch)
+            assert all(k.launches == 0 for k in KERNELS.values())
+        else:
+            _, logs = step(create_train_state(net, opt), batch)
+            assert {k: v.launches for k, v in KERNELS.items() if v.launches} == SPY_PME
+        results.append((logs["loss"].item(), {n: p.grad.clone() for n, p in net.named_parameters()}))
+    (loss, grads), (loss_p, grads_p) = results
+    assert loss == pytest.approx(loss_p, rel=1e-4)
+    for name, want in grads_p.items():
+        assert (grads[name] - want).abs().max().item() <= 1e-3 * want.abs().max().item(), name
+
+
 def test_metric_drain_does_not_synchronise(cuda):
     """The loop's drain: a step's logs go to pinned host memory by a
     non-blocking copy; no train step nor the copies call
