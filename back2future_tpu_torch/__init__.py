@@ -11,8 +11,11 @@ Layering, from the entry point down to the device:
   main, eval — the training CLI (`python -m back2future_tpu_torch.main`)
               and the eval CLI (`python -m back2future_tpu_torch.eval`)
   api       — init() / FlowEstimator: host pre/post-processing, the
-              serving forward under torch.inference_mode(); checkpoint
-              paths load through train.checkpoint
+              serving forward under torch.inference_mode(), warmup();
+              export() / load_exported(): one torch.export program per
+              shape bucket, served without model code; checkpoint paths
+              load through train.checkpoint
+  demo, serve_bench, export_serving — the serving CLIs
   models    — nn.Modules: PWCNet (multi-frame PWC + occlusion head),
               Conv/ConvUnit/Decoder, the flax-params bridge and the
               hard -> soft surgery
@@ -26,9 +29,10 @@ Layering, from the entry point down to the device:
               gradients as autograd Functions
   ops       — NHWC tensor ops: pyramid resampling (plain torch), the
               multi-frame cost volume, the bilinear warp and the fused
-              feature stem, each a hand-written CUDA kernel on CUDA
-              tensors and a plain torch twin on CPU tensors
-              (`ops.plain_ops()` forces the twins)
+              feature stem, each `torch.library` custom ops (`b2f::*`):
+              a hand-written CUDA kernel on CUDA tensors, a plain torch
+              twin on CPU tensors, a fake for tracing and an autograd
+              formula (`ops.plain_ops()` forces the twins)
   runtime   — nvcc build of csrc/*.cu into one shared library, loaded
               with ctypes; per-kernel launch counters
   csrc      — the CUDA C++ kernels (sm_90a)

@@ -1,5 +1,6 @@
-"""Library inference API: `init(...) -> FlowEstimator`, the port of
-back2future_tpu/api.py (the reference's library mode, back2future.lua:47-130).
+"""Library inference API: `init(...) -> FlowEstimator` and the serving
+export, the port of back2future_tpu/api.py (the reference's library
+mode, back2future.lua:47-130).
 
 The numpy pre- and post-processing is a copy of the JAX package's
 (back2future_tpu/api.py:35-102): frames are channel-stacked,
@@ -10,21 +11,31 @@ is in raw network units (multiply by `flownet_factor`, 20, for pixels).
 
 The forward runs under `torch.inference_mode()` with
 `with_warped=False`: the image warps feed only the training losses.
+
+`FlowEstimator.export(path, sizes)` writes one `torch.export` program per
+(batch, H64, W64) bucket and `load_exported(path)` serves them
+(`ExportedFlowEstimator`) with the same pre- and post-processing and no
+model code: this module imports `models` only inside the functions that
+build nets. It does import `ops`, which registers the `b2f` custom ops
+that an exported program calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import TYPE_CHECKING, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from . import ops  # noqa: F401  (registers the b2f ops an exported program calls)
 from .data.augment import color_normalize
 from .data.resample import resize
-from .models import PWCConfig, PWCNet
-from .models.pwc import DTYPES
+
+if TYPE_CHECKING:
+    from .models import PWCConfig, PWCNet
 
 Results = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
@@ -38,9 +49,20 @@ PRETRAINED_PATHS = {
     "Ours-Soft-ft-Sintel": "models/RoamingImages_H_Sintel_S",
 }
 
+EXPORT_FORMAT = "back2future_tpu_torch.export.v1"
+Size = Sequence[int]   # (height, width) or (batch, height, width)
+
 
 def _round_down_64(x: int) -> int:
     return max(x - (x % 64), 64)
+
+
+def _bucket(size: Size) -> Tuple[int, int, int]:
+    """(batch, H64, W64) of a `(height, width)` (batch 1) or
+    `(batch, height, width)` size, snapped down to the /64 grid as
+    compute_flow snaps its input."""
+    b, (h, w) = (1, tuple(size)) if len(size) == 2 else (size[0], tuple(size[1:]))
+    return int(b), _round_down_64(h), _round_down_64(w)
 
 
 def _preprocess_triplets(frame_stacks, frames: int):
@@ -98,7 +120,11 @@ def _numpy(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
 
 
 class FlowEstimator:
-    """compute_flow over one PWCNet on one device."""
+    """compute_flow over one PWCNet on one device.
+
+    Eager PyTorch compiles nothing per input shape, so unlike the JAX
+    estimator there are no shape buckets to warn about: `warmup` only
+    takes the one-time costs out of the first request."""
 
     def __init__(self, net: PWCNet, device: torch.device):
         self.net = net.eval()
@@ -108,6 +134,61 @@ class FlowEstimator:
     def _finest(self, outputs) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         g = outputs[0]
         return _numpy(g["flow"]), _numpy(g["occ"])
+
+    def _zeros(self, size: Size) -> torch.Tensor:
+        return torch.zeros((*_bucket(size), 3 * self.config.frames), dtype=torch.float32,
+                           device=self.device)
+
+    def warmup(self, sizes: Sequence[Size]) -> None:
+        """One forward per size in `sizes`, each ``(height, width)`` or
+        ``(batch, height, width)`` (raw input resolutions, snapped down to
+        the /64 grid like compute_flow; batch defaults to 1), on the
+        estimator's device. On the card that builds the kernel library,
+        makes each kernel's first launch (which sets its shared-memory
+        attribute) and lets cuDNN choose its plans for these shapes."""
+        with torch.inference_mode():
+            for size in sizes:
+                self.net(self._zeros(size), with_warped=False)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def export(self, path: Union[str, Path], sizes: Sequence[Size]) -> None:
+        """Serving export: for each bucket of `sizes` (as `warmup` takes
+        them), `torch.export.export` of the forward that returns the
+        finest level's (flow, occ) (occ None for a model without an
+        occlusion head), traced on this estimator's device under
+        `torch.no_grad()` and saved with its parameters as
+        `forward_{b}x{h64}x{w64}.pt2`, beside a `meta.json`; served by
+        `load_exported(path)`. The program holds the eager ops and the
+        `b2f` kernel ops, so it rounds as this estimator does; whether the
+        fused stem runs (`B2F_STEM_PALLAS`) is read while tracing and
+        kept. Each bucket is warmed up first, so that the pyramid's
+        resize taps enter its program as constants, not as ops run on
+        every call. Each bucket's file holds its own copy of the
+        weights."""
+        from .ops.stem import stem_enabled
+
+        out = Path(path)
+        out.mkdir(parents=True, exist_ok=True)
+        module = _FinestForward(self.net)
+        buckets = []
+        for size in sizes:
+            b, h64, w64 = _bucket(size)
+            self.warmup([size])
+            with torch.no_grad():
+                program = torch.export.export(module, (self._zeros(size),))
+            program.example_inputs = None   # a zero batch: not worth its bytes in the file
+            torch.export.save(program, out / f"forward_{b}x{h64}x{w64}.pt2")
+            buckets.append([b, h64, w64])
+        (out / "meta.json").write_text(json.dumps({
+            "format": EXPORT_FORMAT,
+            "frames": self.config.frames,
+            "buckets": buckets,
+            "dtype": str(self.config.dtype).replace("torch.", ""),
+            "device": self.device.type,
+            "stem": stem_enabled(),
+            "torch_version": torch.__version__,
+        }, indent=1))
 
     def __call__(self, *ims: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """compute_flow (back2future.lua:47-95): one (H, W, 3) image in
@@ -155,6 +236,77 @@ class FlowEstimator:
             x = torch.cat([frames_t[f - 1:f - 1 + w] for f in range(1, F + 1)], dim=-1)
             flow, occ = self._finest(self.net.from_pyramids(x, cs, with_warped=False))
         return _postprocess_results(flow, occ, w, height, width)
+
+
+class _FinestForward(torch.nn.Module):
+    """The exported function: the finest level's (flow, occ) of the net's
+    serving forward."""
+
+    def __init__(self, net: torch.nn.Module):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x: torch.Tensor):
+        g = self.net(x, with_warped=False)[0]
+        return g["flow"], g["occ"]
+
+
+class ExportedFlowEstimator:
+    """compute_flow over a `FlowEstimator.export()` artifact: the same
+    pre- and post-processing, the forward from the deserialised programs,
+    served under `torch.inference_mode()`; no model code, checkpoint or
+    tracing in the serving process. Only exported (batch, H64, W64)
+    buckets are callable; anything else raises. Each bucket's program is
+    loaded at its first call."""
+
+    def __init__(self, path: Union[str, Path], device="cuda"):
+        self.path = Path(path)
+        meta = json.loads((self.path / "meta.json").read_text())
+        if meta.get("format") != EXPORT_FORMAT:
+            raise ValueError(f"{path}: not a back2future_tpu_torch export artifact "
+                             f"(format={meta.get('format')!r})")
+        self.device = torch.device(device)
+        if meta["device"] != self.device.type:
+            raise ValueError(f"{path}: exported for device {meta['device']!r}, asked to "
+                             f"serve on {self.device.type!r}; re-export on the serving device")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("load_exported(device='cuda'): no CUDA device is available")
+        self.frames = int(meta["frames"])
+        self.buckets = {tuple(b) for b in meta["buckets"]}
+        self._modules: Dict[Tuple[int, int, int], torch.nn.Module] = {}
+
+    def module(self, bucket: Tuple[int, int, int]) -> torch.nn.Module:
+        """The loaded program of `bucket` (batch, H64, W64): x (B, H64,
+        W64, 3F) float32 on the device -> (flow, occ)."""
+        if bucket not in self.buckets:
+            raise ValueError(f"no exported executable for (batch, H, W)={bucket}; "
+                             f"artifact has {sorted(self.buckets)}; re-export with "
+                             f"this bucket in `sizes`")
+        mod = self._modules.get(bucket)
+        if mod is None:
+            b, h, w = bucket
+            program = torch.export.load(self.path / f"forward_{b}x{h}x{w}.pt2")
+            mod = self._modules[bucket] = program.module()
+        return mod
+
+    def __call__(self, *ims: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        flows, fwd_occs, bwd_occs = self.compute_flow_batch(
+            *(np.asarray(im, np.float32)[None] for im in ims))
+        return flows[0], fwd_occs[0], bwd_occs[0]
+
+    def compute_flow_batch(self, *frame_stacks) -> Results:
+        imgs, n, height, width = _preprocess_triplets(frame_stacks, self.frames)
+        mod = self.module(imgs.shape[:3])
+        with torch.inference_mode():
+            flow, occ = mod(torch.from_numpy(imgs).to(self.device))
+            flow, occ = _numpy(flow), _numpy(occ)
+        return _postprocess_results(flow, occ, n, height, width)
+
+
+def load_exported(path: Union[str, Path], device="cuda") -> ExportedFlowEstimator:
+    """Open a serving artifact written by `FlowEstimator.export()` on
+    `device`, which must be of the type it was exported on."""
+    return ExportedFlowEstimator(path, device)
 
 
 def _checkpoint(model) -> str:
@@ -206,6 +358,9 @@ def init(model: Union[None, str, Path, Tuple[dict, PWCConfig]] = "Ours-Soft-ft-K
     default is the config's own (a checkpoint's options.json), and
     bfloat16 for random weights. `device` "cuda" with no card raises.
     """
+    from .models import PWCConfig, PWCNet
+    from .models.pwc import DTYPES
+
     if model is not None and not isinstance(model, tuple):
         model = _load(_checkpoint(model))
     device = torch.device(device)

@@ -10,20 +10,22 @@ i enumerates qx outer, qy inner: i = qx_idx * win + qy_idx.
 
 Layout: NHWC; output (B, H, W, win*win) in the input dtype.
 
-`cost_volume` is an autograd Function (the port of the `custom_vjp` of
-`cost_volume_pallas`). On CUDA tensors its forward is the hand-written
-kernel behind `b2f_cost_volume_fwd` (the Pallas `_fwd_kernel`: bf16 on
-the tensor cores, csrc/cost_volume_fwd_mma.cu; f32 on the CUDA cores,
-csrc/cost_volume_fwd.cu) and its backward the kernels of `_dref_kernel`
-and `_dframe_kernel`, each launched only for an input that needs its
-gradient: bf16 on the tensor cores (csrc/cost_volume_bwd_mma.cu, one
+`cost_volume` calls the op `b2f::cost_volume` (ops/route.py), the port
+of `cost_volume_pallas` and its `custom_vjp`. Its CUDA implementation is
+the hand-written kernel behind `b2f_cost_volume_fwd` (the Pallas
+`_fwd_kernel`: bf16 on the tensor cores, csrc/cost_volume_fwd_mma.cu;
+f32 on the CUDA cores, csrc/cost_volume_fwd.cu), its CPU implementation
+the plain twin `cost_volume_reference`, and its fake the output's shape.
+Its Autograd kernel (`register_function`, ops/route.py) calls
+`b2f::cost_volume_dref` and `b2f::cost_volume_dframe`, the kernels of
+`_dref_kernel` and `_dframe_kernel`, each only for an input that needs
+its gradient: bf16 on the tensor cores (csrc/cost_volume_bwd_mma.cu, one
 kernel body for both: d_frame is d_ref's form on the shifted gradient,
 see `cost_volume_gshift_reference`), f32 on the CUDA cores
-(csrc/cost_volume_bwd.cu); on CPU tensors the plain twins
-`cost_volume_reference` and `cost_volume_backward_reference` run
-instead. The op is bilinear, so the
-twins' sums are its exact gradient; the output gradient is cast to the
-input dtype first, as in the JAX rule, and every sum is f32, rounded once.
+(csrc/cost_volume_bwd.cu); their CPU implementations are the twins
+`dref_form` and `dframe_reference`. The op is bilinear, so the twins'
+sums are its exact gradient; the output gradient is cast to the input
+dtype first, as in the JAX rule, and every sum is f32, rounded once.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from ..runtime.cuda_build import Kernel, query
-from .route import DTYPE_CODES, check_kernel_input, ptr, stream_ptr, use_kernel
+from .route import (DTYPE_CODES, below_autograd, check_kernel_input, define, plain_active, ptr,
+                    register_function, stream_ptr, use_kernel)
 
 # (a, b, out, dtype, B, H, W, C, win, dilation, fwd, scale, stream)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
@@ -105,15 +108,11 @@ def cost_volume_gshift_reference(g: torch.Tensor, win: int, dilation: int = 1,
     return torch.stack(planes, dim=-1)
 
 
-def cost_volume_backward_reference(g: torch.Tensor, ref: torch.Tensor,
-                                   frame: torch.Tensor, win: int, dilation: int = 1,
-                                   fwd: bool = True, scale: float = 1.0
-                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch twin of the backward kernels: for the output gradient
-    `g` (B, H, W, win*win), explicit shifted products summed in f32,
-    times `scale`, in the input dtype (no autograd):
-      d_ref[y,x]   = sum_q g[y,x,q]       * frame[y-qy, x-qx]   (dref_form)
-      d_frame[y,x] = sum_q g[y+qy,x+qx,q] * ref[y+qy, x+qx]"""
+def dframe_reference(g: torch.Tensor, ref: torch.Tensor, win: int, dilation: int = 1,
+                     fwd: bool = True, scale: float = 1.0) -> torch.Tensor:
+    """Plain torch twin of the d_frame kernel, summed in f32, times
+    `scale`, in the input dtype: d_frame[y,x] = sum_q g[y+qy,x+qx,q] *
+    ref[y+qy, x+qx], as explicit shifted products."""
     b, h, w, c = ref.shape
     pad = (win - 1) // 2 * dilation
     gf, r = g.float(), ref.float()
@@ -122,7 +121,20 @@ def cost_volume_backward_reference(g: torch.Tensor, ref: torch.Tensor,
     for q, (qy, qx) in enumerate(displacements(win, dilation, fwd)):
         d_frame_p[:, pad - qy:pad - qy + h, pad - qx:pad - qx + w] += gf[..., q:q + 1] * r
     d_frame = d_frame_p[:, pad:pad + h, pad:pad + w]
-    return dref_form(g, frame, win, dilation, fwd, scale), (d_frame * scale).to(frame.dtype)
+    return (d_frame * scale).to(ref.dtype)
+
+
+def cost_volume_backward_reference(g: torch.Tensor, ref: torch.Tensor,
+                                   frame: torch.Tensor, win: int, dilation: int = 1,
+                                   fwd: bool = True, scale: float = 1.0
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch twin of the backward kernels: for the output gradient
+    `g` (B, H, W, win*win), explicit shifted products summed in f32,
+    times `scale`, in the input dtype (no autograd):
+      d_ref[y,x]   = sum_q g[y,x,q]       * frame[y-qy, x-qx]   (dref_form)
+      d_frame[y,x] = sum_q g[y+qy,x+qx,q] * ref[y+qy, x+qx]     (dframe_reference)"""
+    return (dref_form(g, frame, win, dilation, fwd, scale),
+            dframe_reference(g, ref, win, dilation, fwd, scale))
 
 
 def _launch(kernel: Kernel, a: torch.Tensor, b_: torch.Tensor, out_channels: int,
@@ -145,10 +157,7 @@ def cost_volume_cuda_cores(ref: torch.Tensor, frame: torch.Tensor, win: int,
     """The forward on the CUDA-core kernel, f32 or bf16, CUDA tensors only
     (no autograd): the bf16 design that the tensor-core kernel replaced,
     kept to compare the two on the card."""
-    if win not in KERNEL_WINDOWS:
-        raise ValueError(f"cost_volume kernel: win {win} not in {KERNEL_WINDOWS}")
-    for name, t in (("ref", ref), ("frame", frame)):
-        check_kernel_input(f"cost_volume {name}", t, ref.shape, ref.dtype)
+    _check_inputs(ref, frame, win)
     return _launch(_FWD_CUDA_CORES, ref, frame, win * win, win, dilation, fwd, scale)
 
 
@@ -174,27 +183,84 @@ def cost_volume_bwd_bf16_info(dframe: bool = False) -> dict:
     return _bf16_info("b2f_cost_volume_bwd_bf16_info", int(dframe))
 
 
-def _check_backward_inputs(g, ref, frame, win):
-    shape = tuple(ref.shape)
+def _check_window(win: int) -> None:
     if win not in KERNEL_WINDOWS:
         raise ValueError(f"cost_volume kernel: win {win} not in {KERNEL_WINDOWS}")
-    check_kernel_input("cost_volume grad", g, shape[:3] + (win * win,), ref.dtype)
+
+
+def _check_inputs(ref, frame, win):
+    _check_window(win)
     for name, t in (("ref", ref), ("frame", frame)):
-        check_kernel_input(f"cost_volume {name}", t, shape, ref.dtype)
+        check_kernel_input(f"cost_volume {name}", t, ref.shape, ref.dtype)
 
 
-def cost_volume_backward_cuda(g: torch.Tensor, ref: torch.Tensor, frame: torch.Tensor,
-                              win: int, dilation: int = 1, fwd: bool = True,
-                              scale: float = 1.0, need: Tuple[bool, bool] = (True, True)
-                              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """The backward kernels on CUDA tensors: (d_ref by K2, d_frame by K3),
-    each None where `need` says so; `g` in the input dtype. bf16 runs the
-    tensor-core kernels, f32 the CUDA-core ones."""
-    _check_backward_inputs(g, ref, frame, win)
-    c = ref.shape[-1]
-    d_ref = _launch(_DREF, g, frame, c, win, dilation, fwd, scale) if need[0] else None
-    d_frame = _launch(_DFRAME, g, ref, c, win, dilation, fwd, scale) if need[1] else None
-    return d_ref, d_frame
+def _check_grad_inputs(g, other, win):
+    _check_window(win)
+    check_kernel_input("cost_volume input", other, other.shape, other.dtype)
+    check_kernel_input("cost_volume grad", g, tuple(other.shape[:3]) + (win * win,), other.dtype)
+
+
+def _fwd_kernel(ref, frame, win, dilation, fwd, scale):
+    """K1 on CUDA tensors: `b2f::cost_volume`'s CUDA implementation."""
+    _check_inputs(ref, frame, win)
+    return _launch(_FWD, ref, frame, win * win, win, dilation, fwd, scale)
+
+
+def _dref_kernel(g, frame, win, dilation, fwd, scale):
+    """K2 on CUDA tensors: `b2f::cost_volume_dref`'s CUDA implementation."""
+    _check_grad_inputs(g, frame, win)
+    return _launch(_DREF, g, frame, frame.shape[-1], win, dilation, fwd, scale)
+
+
+def _dframe_kernel(g, ref, win, dilation, fwd, scale):
+    """K3 on CUDA tensors: `b2f::cost_volume_dframe`'s CUDA implementation."""
+    _check_grad_inputs(g, ref, win)
+    return _launch(_DFRAME, g, ref, ref.shape[-1], win, dilation, fwd, scale)
+
+
+# the twins are looked up when called (a test counts their calls)
+_CV_SCHEMA = "(Tensor {}, Tensor {}, int win, int dilation, bool fwd, float scale) -> Tensor"
+_COST_VOLUME = define(
+    "cost_volume", _CV_SCHEMA.format("ref", "frame"), lambda *a: cost_volume_reference(*a),
+    _fwd_kernel,
+    lambda ref, frame, win, dilation, fwd, scale: ref.new_empty((*ref.shape[:3], win * win)))
+_DREF_OP = define(
+    "cost_volume_dref", _CV_SCHEMA.format("g", "frame"), lambda *a: dref_form(*a),
+    _dref_kernel, lambda g, frame, win, dilation, fwd, scale: torch.empty_like(frame))
+_DFRAME_OP = define(
+    "cost_volume_dframe", _CV_SCHEMA.format("g", "ref"), lambda *a: dframe_reference(*a),
+    _dframe_kernel, lambda g, ref, win, dilation, fwd, scale: torch.empty_like(ref))
+
+
+class _CostVolumeGrad(torch.autograd.Function):
+    """`b2f::cost_volume`'s Autograd kernel (`register_function`): the op
+    below autograd; d_ref by K2 and d_frame by K3, each only where it is
+    needed, or the twins on the plain route, which the forward records;
+    `scale` folded in."""
+
+    @staticmethod
+    def forward(ctx, ref, frame, win, dilation, fwd, scale):
+        ctx.args = (win, dilation, fwd, scale)
+        ctx.plain = plain_active()
+        ctx.save_for_backward(ref, frame)
+        return below_autograd(torch.ops.b2f.cost_volume.default, ref, frame, win, dilation, fwd,
+                              scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        ref, frame = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        g = g.to(ref.dtype).contiguous()
+        if ctx.plain:
+            d_ref, d_frame = cost_volume_backward_reference(g, ref, frame, *ctx.args)
+        else:
+            d_ref = _DREF_OP(g, frame, *ctx.args) if need[0] else None
+            d_frame = _DFRAME_OP(g, ref, *ctx.args) if need[1] else None
+        return d_ref if need[0] else None, d_frame if need[1] else None, \
+            None, None, None, None
+
+
+register_function("cost_volume", _CostVolumeGrad)
 
 
 def cost_volume_backward_cuda_cores(g: torch.Tensor, ref: torch.Tensor, frame: torch.Tensor,
@@ -202,63 +268,35 @@ def cost_volume_backward_cuda_cores(g: torch.Tensor, ref: torch.Tensor, frame: t
                                     scale: float = 1.0, need: Tuple[bool, bool] = (True, True)
                                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The backward on the CUDA-core kernels, f32 or bf16, CUDA tensors
-    only (no autograd): the bf16 design that the tensor-core kernel
-    replaced, kept to compare the two on the card."""
-    _check_backward_inputs(g, ref, frame, win)
+    only (no autograd): (d_ref, d_frame), each None where `need` says so;
+    the bf16 design that the tensor-core kernels of `b2f::cost_volume_dref`
+    and `b2f::cost_volume_dframe` replaced, kept to compare the two on the
+    card."""
+    _check_inputs(ref, frame, win)
+    _check_grad_inputs(g, ref, win)
     c = ref.shape[-1]
-    d_ref = _launch(_DREF_CUDA_CORES, g, frame, c, win, dilation, fwd, scale) \
-        if need[0] else None
-    d_frame = _launch(_DFRAME_CUDA_CORES, g, ref, c, win, dilation, fwd, scale) \
-        if need[1] else None
+    d_ref = _launch(_DREF_CUDA_CORES, g, frame, c, win, dilation, fwd, scale) if need[0] else None
+    d_frame = (_launch(_DFRAME_CUDA_CORES, g, ref, c, win, dilation, fwd, scale) if need[1]
+               else None)
     return d_ref, d_frame
-
-
-class _CostVolumeFn(torch.autograd.Function):
-    """Kernel 1 forward; K2 (d_ref) and K3 (d_frame) backward, `scale`
-    folded in. The route (kernel or twin) is fixed in the forward."""
-
-    @staticmethod
-    def forward(ctx, ref, frame, win, dilation, fwd, scale):
-        ctx.args = (win, dilation, fwd, scale)
-        ctx.kernel = use_kernel(ref)
-        ctx.save_for_backward(ref, frame)
-        if not ctx.kernel:
-            return cost_volume_reference(ref, frame, win, dilation, fwd, scale)
-        return _launch(_FWD, ref, frame, win * win, win, dilation, fwd, scale)
-
-    @staticmethod
-    def backward(ctx, g):
-        ref, frame = ctx.saved_tensors
-        need = ctx.needs_input_grad[:2]
-        g = g.to(ref.dtype).contiguous()
-        if ctx.kernel:
-            d_ref, d_frame = cost_volume_backward_cuda(g, ref, frame, *ctx.args, need=need)
-        else:
-            d_ref, d_frame = cost_volume_backward_reference(g, ref, frame, *ctx.args)
-        return d_ref if need[0] else None, d_frame if need[1] else None, \
-            None, None, None, None
 
 
 def cost_volume(ref: torch.Tensor, frame: torch.Tensor, win: int,
                 dilation: int = 1, fwd: bool = True,
                 scale: float = 1.0) -> torch.Tensor:
     """Single-frame cost volume term, times `scale` (1: unnormalised, as
-    the JAX `cost_volume`), differentiable in `ref` and `frame`. The CUDA
-    kernels on CUDA tensors, the twins on CPU tensors."""
+    the JAX `cost_volume`), differentiable in `ref` and `frame`: the op
+    `b2f::cost_volume`, the CUDA kernels on CUDA tensors, the twins on
+    CPU tensors."""
     if ref.shape != frame.shape or ref.dim() != 4:
         raise ValueError(f"expected two equal NHWC shapes, got "
                          f"{tuple(ref.shape)} vs {tuple(frame.shape)}")
     if win % 2 != 1 or dilation < 1:
         raise ValueError(f"win must be odd and dilation >= 1, got "
                          f"win={win} dilation={dilation}")
-    if use_kernel(ref):
-        if frame.device != ref.device:
-            raise ValueError(f"ref on {ref.device}, frame on {frame.device}")
-        if win not in KERNEL_WINDOWS:
-            raise ValueError(f"cost_volume kernel: win {win} not in {KERNEL_WINDOWS}")
-        for name, t in (("ref", ref), ("frame", frame)):
-            check_kernel_input(f"cost_volume {name}", t, ref.shape, ref.dtype)
-    return _CostVolumeFn.apply(ref, frame, win, dilation, fwd, scale)
+    if use_kernel(ref) and frame.device != ref.device:
+        raise ValueError(f"ref on {ref.device}, frame on {frame.device}")
+    return _COST_VOLUME(ref, frame, win, dilation, fwd, scale)
 
 
 def cost_volume_multi(ref: torch.Tensor, frames: Sequence[torch.Tensor],

@@ -17,8 +17,6 @@ in f32), so the two agree to float rounding.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 
@@ -39,8 +37,7 @@ def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
-@functools.lru_cache(maxsize=128)
-def _interp_taps(in_size: int, out_size: int, device: torch.device):
+def _interp_taps_uncached(in_size: int, out_size: int, device: torch.device):
     """Align-corners taps: src = dst*(in-1)/(out-1) in float64, as the
     JAX package builds its interpolation matrix -> (i0, i1, w0, w1).
     Made outside inference mode: the cached tensors may later meet
@@ -54,13 +51,45 @@ def _interp_taps(in_size: int, out_size: int, device: torch.device):
         return i0, i1, 1.0 - fr, fr
 
 
-@functools.lru_cache(maxsize=128)
-def _nearest_index(in_size: int, out_size: int, device: torch.device):
+def _nearest_index_uncached(in_size: int, out_size: int, device: torch.device):
     """src = floor(dst*in/out), in float64 like the JAX package."""
     with torch.inference_mode(False):
         pos = torch.arange(out_size, dtype=torch.float64, device=device) * (
             in_size / out_size)
         return torch.clamp(pos.long(), max=in_size - 1)
+
+
+_CACHE_SIZE = 128   # entries per table; the oldest goes first
+_TAPS: dict = {}
+_NEAREST: dict = {}
+
+
+def _cached(table: dict, build, in_size: int, out_size: int, device: torch.device):
+    """`build(in_size, out_size, device)`, kept per arguments in `table`.
+
+    Eager calls fill the table. While torch.export or torch.compile
+    traces, whose tensors are fakes that must never reach the table (a
+    later eager call would get them back), an entry an eager call made is
+    read, and enters the traced program as a constant; a missing one is
+    built and traced, and not kept."""
+    key = (in_size, out_size, device)
+    hit = table.get(key)
+    if hit is not None:
+        return hit
+    value = build(in_size, out_size, device)
+    if not torch.compiler.is_compiling():
+        if len(table) >= _CACHE_SIZE:
+            del table[next(iter(table))]
+        table[key] = value
+    return value
+
+
+def _interp_taps(in_size: int, out_size: int, device: torch.device):
+    return _cached(_TAPS, _interp_taps_uncached, in_size, out_size, device)
+
+
+def _nearest_index(in_size: int, out_size: int, device: torch.device):
+    return _cached(_NEAREST, _nearest_index_uncached, in_size, out_size, device)
 
 
 def _axis_linear(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:

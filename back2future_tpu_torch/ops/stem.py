@@ -3,20 +3,25 @@ kernels (counterpart of back2future_tpu/ops/stem_pallas.py).
 
 `fused_stem(x, unit2, unit3)` computes `(f2, f3) = (unit2(x),
 unit3(unit2(x)))` for the default net's stem (3 -> 16 -> 16 stride 2,
-then 16 -> 32 -> 32 stride 2; models/pwc.lua:58-65). It is an autograd
-Function over the input and the eight conv parameters:
+then 16 -> 32 -> 32 stride 2; models/pwc.lua:58-65) by the op `b2f::stem`
+(ops/route.py), which takes the frames and both units' raw OIHW
+parameters:
 
-  * forward, on a CUDA tensor: kernel K5 (`b2f_stem_unit_a`, unit 2) then
-    K6 (`b2f_stem_unit_b`, unit 3), each one fused ConvUnit whose mid map
-    stays in shared memory: in bf16 on the tensor cores
-    (csrc/stem_unit_a_mma.cu, csrc/stem_unit_b_mma.cu), in f32 on the
-    CUDA cores (csrc/stem_fwd.cu); on a CPU tensor, or under
-    `plain_ops()`, the plain twin `stem_reference`. The route is fixed in
-    the forward. `stem_unit_a_cuda_cores` keeps K5's old bf16 kernel
+  * on CUDA tensors it launches K5 (`b2f_stem_unit_a`, unit 2) and then
+    K6 (`b2f_stem_unit_b`, unit 3) on K5's output, each one fused
+    ConvUnit whose mid map stays in shared memory: in bf16 on the tensor
+    cores (csrc/stem_unit_a_mma.cu, csrc/stem_unit_b_mma.cu), in f32 on
+    the CUDA cores (csrc/stem_fwd.cu); on CPU tensors, or under
+    `plain_ops()`, the plain twin `stem_reference`; a fake gives both
+    outputs' shapes. `stem_unit_a_cuda_cores` keeps K5's old bf16 kernel
     callable, for comparison on the card only.
-  * backward: as `_stem_bwd` (stem_pallas.py:463-466), the twin chain is
-    recomputed on detached inputs and differentiated by autograd; the TPU
-    kernel has no backward kernel, so none is written here.
+  * its Autograd kernel (`register_function`, ops/route.py) has
+    `_stem_bwd`'s formula (stem_pallas.py:463-466): the twin chain is
+    recomputed from the detached frames and parameters and
+    differentiated by autograd, so unit 3's gradients are taken at the
+    twin's f2, not the kernel's; the TPU kernel has no backward kernel,
+    so none is written here. One op and not one per unit for that
+    reason.
 
 As in the JAX package the fused stem is off by default; `B2F_STEM_PALLAS=1`
 turns it on in both packages, for the shapes `stem_eligible` admits.
@@ -33,7 +38,8 @@ import torch.nn.functional as F
 
 from ..runtime.cuda_build import Kernel
 from .cost_volume import _bf16_info
-from .route import DTYPE_CODES, check_kernel_input, ptr, stream_ptr, use_kernel
+from .route import (DTYPE_CODES, below_autograd, check_kernel_input, define, ptr,
+                    register_function, stream_ptr)
 
 # (x, w1, b1, w2, b2, out, dtype, N, H, W, stream)
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -135,17 +141,27 @@ def stem_unit_b_bf16_info() -> dict:
     return _bf16_info("b2f_stem_unit_b_bf16_info")
 
 
-class _StemFn(torch.autograd.Function):
-    """K5 + K6 forward (or the twin); backward through the twin chain."""
+def _stem_kernels(x: torch.Tensor, *params: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5, then K6 on its output: `b2f::stem`'s CUDA implementation."""
+    f2 = stem_unit_cuda(x, params[:4], "a")
+    return f2, stem_unit_cuda(f2, params[4:], "b")
+
+
+def _stem_fake(x, *params):
+    n, h, w = x.shape[:3]
+    f2 = x.new_empty((n, (h + 1) // 2, (w + 1) // 2, 16))
+    return f2, x.new_empty((n, (h + 3) // 4, (w + 3) // 4, 32))
+
+
+class _StemGrad(torch.autograd.Function):
+    """`b2f::stem`'s Autograd kernel (`register_function`): the op below
+    autograd; backward as `_stem_bwd`, the twin chain recomputed from x
+    and differentiated."""
 
     @staticmethod
     def forward(ctx, x, *params):
         ctx.save_for_backward(x, *params)
-        p2, p3 = params[:4], params[4:]
-        if not use_kernel(x):
-            return stem_reference(x, p2, p3)
-        f2 = stem_unit_cuda(x, p2, "a")
-        return f2, stem_unit_cuda(f2, p3, "b")
+        return below_autograd(torch.ops.b2f.stem.default, x, *params)
 
     @staticmethod
     def backward(ctx, g2, g3):
@@ -158,6 +174,12 @@ class _StemFn(torch.autograd.Function):
         return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
+_STEM = define("stem", "(Tensor x, Tensor w1a, Tensor b1a, Tensor w2a, Tensor b2a, Tensor w1b, "
+                       "Tensor b1b, Tensor w2b, Tensor b2b) -> (Tensor, Tensor)",
+               lambda x, *p: stem_reference(x, p[:4], p[4:]), _stem_kernels, _stem_fake)
+register_function("stem", _StemGrad)
+
+
 def fused_stem(x: torch.Tensor, unit2: torch.nn.Module, unit3: torch.nn.Module
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Levels 2 and 3 of the pyramid, (f2, f3) = (unit2(x), unit3(f2)),
@@ -166,4 +188,4 @@ def fused_stem(x: torch.Tensor, unit2: torch.nn.Module, unit3: torch.nn.Module
     caller checks `stem_eligible` first, as in the JAX package."""
     if x.dim() != 4 or x.shape[-1] != 3:
         raise ValueError(f"fused_stem takes (N, H, W, 3) frames, got {tuple(x.shape)}")
-    return _StemFn.apply(x.contiguous(), *unit_params(unit2), *unit_params(unit3))
+    return _STEM(x.contiguous(), *unit_params(unit2), *unit_params(unit3))

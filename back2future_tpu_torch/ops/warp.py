@@ -23,24 +23,28 @@ coordinate clamps (the two differ from JAX only at exact clamp ties).
 Layout: NHWC images (B, H, W, C); flow (B, H, W, 2) with channels (u, v)
 = (x-offset, y-offset).
 
-`warp_bilinear` is an autograd Function. On CUDA tensors its forward is
-the hand-written gather of csrc/warp_fwd_tiled.cu (lane groups that read
-and write whole pixel rows in 16-byte packs, or at C = 3 a thread per
-pixel that reads each corner pair as one span; both walk the pixels
-over a persistent grid) and its backward the kernels of
-csrc/warp_bwd_tiled.cu: the image gradient K4 (tiles whose adds are
-summed per window pixel in shared memory, or added directly, by block
-where the launch's grid holds 1.5 blocks an SM or more, else added
-directly; launched only when the images need a gradient) and the flow gradient
-W-dflow (a thread per pixel at C = 3, lane groups otherwise); on CPU
-tensors the plain twins `warp_bilinear_reference` and
-`warp_bilinear_backward_reference` run instead.
+`warp_bilinear` calls the op `b2f::warp_bilinear` (ops/route.py). Its
+CUDA implementation is the hand-written gather of csrc/warp_fwd_tiled.cu
+(lane groups that read and write whole pixel rows in 16-byte packs, or
+at C = 3 a thread per pixel that reads each corner pair as one span;
+both walk the pixels over a persistent grid), its CPU implementation the
+plain twin `warp_bilinear_reference`, and its fake the output's shape.
+Its Autograd kernel (`register_function`, ops/route.py) calls two ops
+of csrc/warp_bwd_tiled.cu: `b2f::warp_dimages`, the image gradient K4
+(tiles whose adds are summed per window pixel in shared memory, or added
+directly, by block where the launch's grid holds 1.5 blocks an SM or
+more, else added directly; into a zeroed f32 buffer, cast once; called
+only when the images need a gradient), and `b2f::warp_dflow`, the flow
+gradient W-dflow (a thread per pixel at C = 3, lane groups otherwise;
+`reference_grads` an argument); their CPU implementations are the twins
+`warp_dimages_reference` and `warp_dflow_reference`.
 `warp_bilinear_fwd_thread` and `warp_bilinear_backward_thread` keep the
 first design's kernels (csrc/warp_fwd.cu, csrc/warp_bwd.cu) callable for
 comparison on the card, `warp_fwd_tiled_info` and `warp_bwd_tiled_info`
 report what the build made of the new ones, and
 `warp_dimages_routes` runs K4 with its routes chosen by the caller and a
-count of its window-route blocks.
+count of its window-route blocks; these call the library by ctypes, not
+as ops.
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..runtime.cuda_build import Kernel, query
-from .route import DTYPE_CODES, check_kernel_input, ptr, stream_ptr, use_kernel
+from .route import (DTYPE_CODES, below_autograd, check_kernel_input, define, plain_active, ptr,
+                    register_function, stream_ptr, use_kernel)
 
 _FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _FWD = Kernel("b2f_warp_bilinear_fwd", _FWD_ARGS)   # (img, flow, out, dtype, B, H, W, C, stream)
@@ -107,6 +112,8 @@ def warp_bilinear_reference(images: torch.Tensor, flow: torch.Tensor) -> torch.T
 
 def _forward(kernel: Kernel, images: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     b, h, w, c = images.shape
+    check_kernel_input("warp_bilinear images", images, images.shape, images.dtype)
+    check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), images.dtype)
     out = torch.empty_like(images)
     with torch.cuda.device(images.device):
         kernel(ptr(images), ptr(flow), ptr(out), DTYPE_CODES[images.dtype], b, h, w, c,
@@ -117,9 +124,6 @@ def _forward(kernel: Kernel, images: torch.Tensor, flow: torch.Tensor) -> torch.
 def warp_bilinear_fwd_thread(images: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """The first design's gather (csrc/warp_fwd.cu) on CUDA tensors, `flow`
     in the image dtype: kept to compare the two on the card."""
-    b, h, w, _ = images.shape
-    check_kernel_input("warp_bilinear images", images, images.shape, images.dtype)
-    check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), images.dtype)
     return _forward(_FWD_THREAD, images, flow)
 
 
@@ -148,26 +152,43 @@ def warp_fwd_tiled_info(kernel: str = "c32", dtype: torch.dtype = torch.bfloat16
     return _info("b2f_warp_fwd_tiled_info", FWD_TILED_KERNELS.index(kernel), dtype)
 
 
-def warp_bilinear_backward_reference(images: torch.Tensor, flow: torch.Tensor,
-                                     g: torch.Tensor, reference_grads: bool = True
-                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch twin of the backward kernels, for the output gradient
-    `g` (B, H, W, C): (d_images in the image dtype, d_flow in the flow
-    dtype), f32 sums, no autograd. d_images adds w*g at the four corners
-    (+1 corners outside the image have weight exactly 0); d_flow is the
+def _dimages_sum(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The image gradient for the output gradient `g` (B, H, W, C): w*g
+    added at the four corners (+1 corners outside the image have weight
+    exactly 0), in f32."""
+    b, h, w, c = g.shape
+    (x0, y0, x1, y1), (wx, wy), _, _ = _corners(flow, h, w)
+    gf = g.float()
+    base = torch.arange(b, device=g.device).view(b, 1, 1) * h
+    corners = (((y0, x0), wx * wy), ((y0, x1), (1 - wx) * wy),
+               ((y1, x0), wx * (1 - wy)), ((y1, x1), (1 - wx) * (1 - wy)))
+    d_img = torch.zeros(b * h * w, c, dtype=torch.float32, device=g.device)
+    for (yy, xx), weight in corners:
+        idx = ((base + yy) * w + xx).reshape(-1)
+        d_img.index_add_(0, idx, (weight.unsqueeze(-1) * gf).reshape(-1, c))
+    return d_img.reshape(b, h, w, c)
+
+
+def warp_dimages_reference(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain torch twin of K4, for the output gradient `g` in the image
+    dtype: the image gradient, f32 sums, in g's dtype, no autograd."""
+    return _dimages_sum(flow, g).to(g.dtype)
+
+
+def warp_dflow_reference(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                         reference_grads: bool = True) -> torch.Tensor:
+    """Plain torch twin of W-dflow, for the output gradient `g`: the
     reference formula (module docstring), zeroed where the coordinate
-    clamps when `reference_grads` is False."""
+    clamps when `reference_grads` is False; f32 sums, in the flow dtype,
+    no autograd."""
     b, h, w, c = images.shape
     (x0, y0, x1, y1), (wx, wy), (x1_in, y1_in), (x_cl, y_cl) = _corners(flow, h, w)
     gf, im = g.float(), images.float()
     base = torch.arange(b, device=images.device).view(b, 1, 1) * h
-    corners = (((y0, x0), wx * wy, None), ((y0, x1), (1 - wx) * wy, x1_in),
-               ((y1, x0), wx * (1 - wy), y1_in), ((y1, x1), (1 - wx) * (1 - wy), x1_in & y1_in))
-    d_img = torch.zeros(b * h * w, c, dtype=torch.float32, device=images.device)
+    corners = (((y0, x0), None), ((y0, x1), x1_in), ((y1, x0), y1_in), ((y1, x1), x1_in & y1_in))
     dots = []
-    for (yy, xx), weight, inside in corners:
+    for (yy, xx), inside in corners:
         idx = ((base + yy) * w + xx).reshape(-1)
-        d_img.index_add_(0, idx, (weight.unsqueeze(-1) * gf).reshape(-1, c))
         dot = (im.reshape(-1, c)[idx].reshape(b, h, w, c) * gf).sum(-1)
         dots.append(dot if inside is None else torch.where(inside, dot, 0.0))
     tl, tr, bl, br = dots
@@ -175,48 +196,60 @@ def warp_bilinear_backward_reference(images: torch.Tensor, flow: torch.Tensor,
     dfy = -wx * tl + wx * bl - (1 - wx) * tr + (1 - wx) * br
     if not reference_grads:
         dfx, dfy = torch.where(x_cl, 0.0, dfx), torch.where(y_cl, 0.0, dfy)
-    d_flow = torch.stack([dfx, dfy], dim=-1)
-    return d_img.reshape(b, h, w, c).to(images.dtype), d_flow.to(flow.dtype)
+    return torch.stack([dfx, dfy], dim=-1).to(flow.dtype)
 
 
-def _backward(dimages: Kernel, dflow: Kernel, images: torch.Tensor, flow: torch.Tensor,
-              g: torch.Tensor, reference_grads: bool, need: Tuple[bool, bool]
-              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+def warp_bilinear_backward_reference(images: torch.Tensor, flow: torch.Tensor,
+                                     g: torch.Tensor, reference_grads: bool = True
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch twin of the backward kernels, for the output gradient
+    `g` (B, H, W, C): (d_images in the image dtype, d_flow in the flow
+    dtype), f32 sums, no autograd (`warp_dimages_reference`,
+    `warp_dflow_reference`)."""
+    return (_dimages_sum(flow, g).to(images.dtype),
+            warp_dflow_reference(images, flow, g, reference_grads))
+
+
+def _check_backward(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor) -> None:
     b, h, w, c = images.shape
     check_kernel_input("warp_bilinear images", images, images.shape, images.dtype)
     check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), images.dtype)
     check_kernel_input("warp_bilinear grad", g, images.shape, images.dtype)
-    code, stream = DTYPE_CODES[images.dtype], stream_ptr(images.device)
-    d_images = d_flow = None
+
+
+def _launch_dimages(kernel: Kernel, flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = g.shape
+    acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        kernel(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, h, w, c,
+               stream_ptr(g.device))
+    return acc.to(g.dtype)
+
+
+def _launch_dflow(kernel: Kernel, images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                  reference_grads: bool) -> torch.Tensor:
+    b, h, w, c = images.shape
+    d_flow = torch.empty_like(flow)
     with torch.cuda.device(images.device):
-        if need[0]:
-            acc = torch.zeros(images.shape, dtype=torch.float32, device=images.device)
-            dimages(ptr(flow), ptr(g), ptr(acc), code, b, h, w, c, stream)
-            d_images = acc.to(images.dtype)
-        if need[1]:
-            d_flow = torch.empty_like(flow)
-            dflow(ptr(images), ptr(flow), ptr(g), ptr(d_flow), code, b, h, w, c,
-                  int(reference_grads), stream)
-    return d_images, d_flow
-
-
-def warp_bilinear_backward_cuda(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
-                                reference_grads: bool = True,
-                                need: Tuple[bool, bool] = (True, True)
-                                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """The backward kernels on CUDA tensors: (d_images by K4 into a zeroed
-    f32 buffer, cast once; d_flow by W-dflow), each None where `need`
-    says so; `flow` and `g` in the image dtype."""
-    return _backward(_DIMAGES, _DFLOW, images, flow, g, reference_grads, need)
+        kernel(ptr(images), ptr(flow), ptr(g), ptr(d_flow), DTYPE_CODES[images.dtype], b, h, w,
+               c, int(reference_grads), stream_ptr(images.device))
+    return d_flow
 
 
 def warp_bilinear_backward_thread(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
                                   reference_grads: bool = True,
                                   need: Tuple[bool, bool] = (True, True)
                                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """The same on the first design's kernels (csrc/warp_bwd.cu), CUDA
-    tensors only: kept to compare the two on the card."""
-    return _backward(_DIMAGES_THREAD, _DFLOW_THREAD, images, flow, g, reference_grads, need)
+    """The backward on the first design's kernels (csrc/warp_bwd.cu), CUDA
+    tensors only: (d_images into a zeroed f32 buffer, cast once; d_flow),
+    each None where `need` says so; `flow` and `g` in the image dtype.
+    Kept to compare them with `b2f::warp_dimages` and `b2f::warp_dflow`
+    on the card."""
+    _check_backward(images, flow, g)
+    d_images = _launch_dimages(_DIMAGES_THREAD, flow, g) if need[0] else None
+    d_flow = (_launch_dflow(_DFLOW_THREAD, images, flow, g, reference_grads) if need[1]
+              else None)
+    return d_images, d_flow
 
 
 # K4's routes as `warp_dimages_routes` allows them: as the path does (the
@@ -257,37 +290,73 @@ def warp_bwd_tiled_info(kernel: str = "dimages", dtype: torch.dtype = torch.bflo
     return _info("b2f_warp_bwd_tiled_info", TILED_KERNELS.index(kernel), dtype)
 
 
-class _WarpFn(torch.autograd.Function):
-    """The gather's forward; backward of the flow gradient (W-dflow) and,
-    only when the images need it, the image-gradient scatter (K4). The
-    route (kernel or twin) is fixed in the forward."""
+def _fwd_kernel(images: torch.Tensor, flow: torch.Tensor, reference_grads: bool) -> torch.Tensor:
+    """The gather on CUDA tensors: `b2f::warp_bilinear`'s CUDA implementation."""
+    return _forward(_FWD, images, flow)
+
+
+def _dimages_kernel(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K4 on CUDA tensors: `b2f::warp_dimages`'s CUDA implementation."""
+    b, h, w, _ = g.shape
+    check_kernel_input("warp_bilinear grad", g, g.shape, g.dtype)
+    check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), g.dtype)
+    return _launch_dimages(_DIMAGES, flow, g)
+
+
+def _dflow_kernel(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
+                  reference_grads: bool) -> torch.Tensor:
+    """W-dflow on CUDA tensors: `b2f::warp_dflow`'s CUDA implementation."""
+    _check_backward(images, flow, g)
+    return _launch_dflow(_DFLOW, images, flow, g, reference_grads)
+
+
+# the twins are looked up when called (a test counts their calls)
+_WARP = define("warp_bilinear", "(Tensor images, Tensor flow, bool reference_grads) -> Tensor",
+               lambda images, flow, reference_grads: warp_bilinear_reference(images, flow),
+               _fwd_kernel, lambda images, flow, reference_grads: torch.empty_like(images))
+_DIMAGES_OP = define("warp_dimages", "(Tensor flow, Tensor g) -> Tensor",
+                     lambda *a: warp_dimages_reference(*a), _dimages_kernel,
+                     lambda flow, g: torch.empty_like(g))
+_DFLOW_OP = define("warp_dflow",
+                   "(Tensor images, Tensor flow, Tensor g, bool reference_grads) -> Tensor",
+                   lambda *a: warp_dflow_reference(*a), _dflow_kernel,
+                   lambda images, flow, g, reference_grads: torch.empty_like(flow))
+
+
+class _WarpGrad(torch.autograd.Function):
+    """`b2f::warp_bilinear`'s Autograd kernel (`register_function`): the op
+    below autograd; the flow gradient by W-dflow and, only when the
+    images need it, the image gradient by K4, or the twins on the plain
+    route, which the forward records."""
 
     @staticmethod
     def forward(ctx, images, flow, reference_grads):
         ctx.reference_grads = reference_grads
-        ctx.kernel = use_kernel(images)
+        ctx.plain = plain_active()
         ctx.save_for_backward(images, flow)
-        if not ctx.kernel:
-            return warp_bilinear_reference(images, flow)
-        return _forward(_FWD, images, flow)
+        return below_autograd(torch.ops.b2f.warp_bilinear.default, images, flow, reference_grads)
 
     @staticmethod
     def backward(ctx, g):
         images, flow = ctx.saved_tensors
         need = ctx.needs_input_grad[:2]
         g = g.to(images.dtype).contiguous()
-        if ctx.kernel:
-            d_images, d_flow = warp_bilinear_backward_cuda(images, flow, g,
-                                                           ctx.reference_grads, need)
-        else:
+        if ctx.plain:
             d_images, d_flow = warp_bilinear_backward_reference(images, flow, g,
                                                                 ctx.reference_grads)
+        else:
+            d_images = _DIMAGES_OP(flow, g) if need[0] else None
+            d_flow = _DFLOW_OP(images, flow, g, ctx.reference_grads) if need[1] else None
         return d_images if need[0] else None, d_flow if need[1] else None, None
+
+
+register_function("warp_bilinear", _WarpGrad)
 
 
 def warp_bilinear(images: torch.Tensor, flow: torch.Tensor, *,
                   reference_grads: bool = True) -> torch.Tensor:
-    """Warp `images` by pixel-offset `flow` (NHWC; see module docstring).
+    """Warp `images` by pixel-offset `flow` (NHWC; see module docstring):
+    the op `b2f::warp_bilinear`.
 
     `reference_grads` selects the flow gradient (the reference's formula,
     or autodiff through the clamp); the forward and the image gradient are
@@ -301,9 +370,6 @@ def warp_bilinear(images: torch.Tensor, flow: torch.Tensor, *,
     if use_kernel(images):
         if flow.device != images.device:
             raise ValueError(f"images on {images.device}, flow on {flow.device}")
-        b, h, w, c = images.shape
-        check_kernel_input("warp_bilinear images", images, images.shape, images.dtype)
-        check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), images.dtype)
         if images.numel() == 0:
             return torch.empty_like(images)
-    return _WarpFn.apply(images, flow, reference_grads)
+    return _WARP(images, flow, reference_grads)

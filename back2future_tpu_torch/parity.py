@@ -22,7 +22,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from pathlib import Path
 
 import numpy as np
 
@@ -55,23 +54,16 @@ def run_triplet(model, frame_paths, out_dir=None, device="cuda"):
     (params, PWCConfig) tuple, a pretrained name...).
     -> (flow raw-units (H,W,2), fwd_occ bool, bwd_occ bool)
     """
-    from back2future_tpu_torch import io as fio
     from back2future_tpu_torch.api import init
     from back2future_tpu_torch.data.sample import default_image_loader
-    from back2future_tpu_torch.io.png16 import write_png
+    from back2future_tpu_torch.demo import write_results
 
     ims = [default_image_loader(p) for p in frame_paths]
     compute_flow = init(model, device=device)
     flow, fwd_occ, bwd_occ = compute_flow(*ims)
 
     if out_dir is not None:
-        out = Path(out_dir)
-        out.mkdir(parents=True, exist_ok=True)
-        fio.write_flo(out / "flow.flo", flow)
-        rgb, _ = fio.xy2rgb(flow)
-        write_png(out / "flow.png", (rgb * 255).astype(np.uint8))
-        write_png(out / "fwd_occ.png", (fwd_occ * 255).astype(np.uint8))
-        write_png(out / "bwd_occ.png", (bwd_occ * 255).astype(np.uint8))
+        write_results(out_dir, flow, fwd_occ, bwd_occ)
     return flow, fwd_occ, bwd_occ
 
 

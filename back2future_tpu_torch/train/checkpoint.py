@@ -184,10 +184,11 @@ def load_optax_state(optimizer, net: torch.nn.Module, opt_state: Mapping) -> Non
 
 
 def load_train_checkpoint(save_dir: str | Path, opt: Options, epoch: Optional[int] = None,
-                          device="cpu") -> Tuple[TrainState, int]:
+                          device="cuda") -> Tuple[TrainState, int]:
     """Full resume: -> (TrainState on `device`, next_epoch). Restores the
     params AND the optimiser moments (model.lua:51-130 retrain +
-    optimState; `epoch` None picks the newest, as -cont does)."""
+    optimState; `epoch` None picks the newest, as -cont does). `device`
+    defaults to the card, as `api.init`'s does; "cpu" loads on the CPU."""
     d = Path(save_dir)
     if epoch is None:
         mp, epoch = latest_checkpoint(d)

@@ -150,7 +150,28 @@ Phases, one line each (any failure raises and exits non-zero):
      `python -m back2future_tpu_torch.convert_t7`, served by init(out):
      compute_flow_batch at B=16 on 1242x375 frames with 10 K1 + 8
      gathers, bit-identical to the seeded net's own forward
-  12. one JSON line of the kernels (forward kernels: launches of the
+  12. serving export (stem off): torch.library.opcheck of every b2f op
+     on CUDA tensors in bf16 and f32, at a small shape and at a
+     main-path shape; then, only where `--parent DIR` names an unpacked
+     tree of another commit (the parent, to A/B a change), that tree and
+     this one each in a worker process that loads this tree's kernel
+     library: SHA-256 digests of the eager serving forward's (flow, occ)
+     at B=16 320x1216 on a seeded input (equal) and of a seeded hard
+     bf16 step's loss (equal) and parameter gradients at B=8 320x640,
+     twice each (K4's f32 atomics vary the gradients from run to run,
+     so across the trees each must be within GRAD_SPREAD_FACTOR times
+     the largest difference between a tree's own two runs; the
+     bit-identical ones counted), then the serving forward's and the
+     hard step's ms and an op call's host µs in turns (parent / this /
+     this / parent, twice); then the flagship exported at B=16 320x1216 bf16
+     (FlowEstimator.export: s, MiB), served by load_exported from a fresh
+     `python` process on the card (load s, first-call s; K1 10 and the
+     gather 8 a call; no module of back2future_tpu_torch.models imported;
+     results equal to eager compute_flow_batch bit for bit); the device
+     forward exported vs eager in turns, CUDA events; then
+     `back2future_tpu_torch.serve_bench --export`, in this process (B=1 at the
+     kitti and sintel resolutions, eager and exported)
+  13. one JSON line of the kernels (forward kernels: launches of the
      serving path and ms per serving forward; backward kernels: launches
      of the hard train path and ms per train step; K5/K6: launches of the
      soft train path and ms per train step; then the gather, K4 and
@@ -163,6 +184,12 @@ It imports nothing of JAX and never runs on the CPU.
 
 runs, after phase 1 and the build, only phases 10 and 11 and prints the
 SPyNet path's kernel entries and the result line.
+
+    python3 chip_smoke.py --serving-export [--parent DIR]
+
+runs, after phase 1 and the build, only phase 12 and prints the result
+line; DIR is an unpacked tree of the parent commit (`git archive`), which
+the default run also takes as `python3 chip_smoke.py --parent DIR`.
 
     python3 chip_smoke.py --profile
 
@@ -253,6 +280,8 @@ block's box fits.
 from __future__ import annotations
 
 import contextlib
+import functools
+import hashlib
 import json
 import os
 import re
@@ -300,6 +329,9 @@ GRAD_TOL_FRAC = 1e-3                   # of max |gradient| per parameter
 # decoder and the features (5 levels, 4 warps) and the image gradient's
 # atomics
 BF16_GRAD_TOL_FRAC = 2e-2              # of max |gradient| per parameter
+# phase 12 with --parent: the hard bf16 step's gradients of two trees may
+# differ by this many times the most that one tree's two runs differ
+GRAD_SPREAD_FACTOR = 3.0
 
 # the card's published peaks (H100 SXM, dense): memory, and operations by type
 HBM_BYTES_PER_S = 3.35e12
@@ -455,6 +487,35 @@ def device_ms(fn, reps: int, attempts: int = 3) -> dict:
     raise AssertionError(f"the profiler recorded no device time in {attempts} windows")
 
 
+def device_total_ms(fn, reps: int) -> float:
+    """The device time per call of `fn`, all its kernels summed
+    (`device_ms`); for a twin or a library call, which is timed beside a
+    kernel but holds nothing of the port, a median of CUDA-event windows
+    (`cuda_ms`, host gaps included, said so in the log) where the
+    profiler records no device time in any of `device_ms`'s windows."""
+    try:
+        return sum(device_ms(fn, reps).values())
+    except AssertionError as e:
+        ms = cuda_ms(fn, reps)
+        log("kernels", f"{e}; CUDA events instead: {ms:.4f} ms a call")
+        return ms
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median over `reps` calls of the host time `fn` takes to return
+    (the enqueue; the device is idle at each call's start), after a
+    warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -509,9 +570,7 @@ def mma_build_report(label: str, info: dict, function: str, ops=("HMMA", "LDGSTS
     if tool is None:
         sass = "cuobjdump not found (PATH, $CUDA_HOME/bin): SASS not read"
     else:
-        dump = subprocess.run([tool, "-sass", str(so)], check=True, capture_output=True,
-                              text=True, timeout=300).stdout
-        body = next((f for f in dump.split("Function : ")[1:]
+        body = next((f for f in sass_dump(tool, str(so)).split("Function : ")[1:]
                      if function in f.split(None, 1)[0]), "")
         n = {op: len(re.findall(rf"\b{op}\b", body)) for op in ops}
         opcodes = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][\w.]*)", body)
@@ -526,6 +585,13 @@ def mma_build_report(label: str, info: dict, function: str, ops=("HMMA", "LDGSTS
                  f"{info['local_bytes']} bytes local memory per thread ({spills}), "
                  f"{info['smem_bytes']} bytes shared memory per block, "
                  f"{info['blocks_per_sm']} resident blocks per SM; {sass}")
+
+
+@functools.lru_cache(maxsize=None)
+def sass_dump(tool: str, so: str) -> str:
+    """`cuobjdump -sass` of the library, run once for all the reports."""
+    return subprocess.run([tool, "-sass", so], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
 
 
 # the warp gather's bf16 kernels that phase 2 reports: warp_fwd_tiled_info's
@@ -722,8 +788,8 @@ def phase_kernels(dev) -> dict:
                        f"operations {ops_ms:.4f})")
         if dtype == torch.bfloat16:
             mine = device_ms(kern, 20)
-            ms, pms = sum(mine.values()), sum(device_ms(twin, 5).values())
-            lms = sum(device_ms(library, 20).values()) if library is not None else None
+            ms, pms = sum(mine.values()), device_total_ms(twin, 5)
+            lms = device_total_ms(library, 20) if library is not None else None
             lib = f" library {lms:.4f} ms" if lms is not None else ""
             log("kernels", f"{label}: device time per call (profiler) kernel {ms:.4f} ms "
                            f"(" + ", ".join(f"{n[:48]} {v:.4f}" for n, v in sorted(
@@ -844,8 +910,8 @@ def phase_kernels(dev) -> dict:
                 for i, name in enumerate(("d_ref", "d_frame")):
                     need = (i == 0, i == 1)
                     key = f"cost_volume_{name.replace('_', '')}"
-                    new = lambda: ops.cost_volume_backward_cuda(   # noqa: E731
-                        g, ref, frame, *args, need=need)[i]
+                    op = getattr(torch.ops.b2f, key)
+                    new = lambda: op(g, frame if i == 0 else ref, *args)   # noqa: E731
                     twin = lambda: ops.cost_volume_backward_reference(   # noqa: E731
                         g, ref, frame, *args)[i]
                     check(key, f"cost_volume {name} {where}", dtype, new, twin, per_forward=1,
@@ -869,8 +935,7 @@ def phase_kernels(dev) -> dict:
                         nchw(g), nchw(img), grid, 0, 1, True, mask)
 
                 where = f"{tag} B={TRAIN_B} {h}x{w}x{c}, {kind} flow"
-                new = lambda: ops.warp_bilinear_backward_cuda(   # noqa: E731
-                    img, flow, g, need=(False, True))[1]
+                new = lambda: torch.ops.b2f.warp_dflow(img, flow, g, True)   # noqa: E731
                 twin = lambda: ops.warp_bilinear_backward_reference(img, flow, g)[1]   # noqa: E731
                 check("warp_dflow", f"warp_bilinear d_flow {where}", dtype, new, twin,
                       per_forward=2, work=(8 * img.numel(), 2 * nbytes(img) + 2 * nbytes(flow)),
@@ -883,8 +948,7 @@ def phase_kernels(dev) -> dict:
                                 kind)
                 if not feature:   # the image warps' inputs need no gradient
                     continue
-                new = lambda: ops.warp_bilinear_backward_cuda(   # noqa: E731
-                    img, flow, g, need=(True, False))[0]
+                new = lambda: torch.ops.b2f.warp_dimages(flow, g)   # noqa: E731
                 twin = lambda: ops.warp_bilinear_backward_reference(img, flow, g)[0]   # noqa: E731
                 check("warp_dimages", f"warp_bilinear d_images {where}", dtype, new, twin,
                       per_forward=2, work=(8 * img.numel(), 2 * nbytes(img) + nbytes(flow)),
@@ -981,19 +1045,17 @@ def recording_gather_inputs(into: list):
     import importlib
 
     module = importlib.import_module("back2future_tpu_torch.ops.warp")
-    fn = module._WarpFn
+    op = module._WARP
 
-    class Recording:
-        @staticmethod
-        def apply(images, flow, reference_grads):
-            into.append((images.detach().clone(), flow.detach().clone(), images.requires_grad))
-            return fn.apply(images, flow, reference_grads)
+    def recording(images, flow, reference_grads):
+        into.append((images.detach().clone(), flow.detach().clone(), images.requires_grad))
+        return op(images, flow, reference_grads)
 
-    module._WarpFn = Recording
+    module._WARP = recording
     try:
         yield
     finally:
-        module._WarpFn = fn
+        module._WARP = op
 
 
 def serving_warp_inputs(dev) -> list:
@@ -1204,34 +1266,34 @@ def phase_serving_ab(card: str, main: dict, tag: str, swap, what: str, words) ->
 
 @contextlib.contextmanager
 def bwd_cuda_cores():
-    """Inside the block, the cost volume's backward runs the CUDA-core
+    """Inside the block, the cost volume's backward ops run the CUDA-core
     kernels (b2f_cost_volume_d*_cuda_cores), the bf16 design
     before the tensor cores; restored after. For the A/B only."""
     import importlib
 
     module = importlib.import_module("back2future_tpu_torch.ops.cost_volume")
-    fn = module.cost_volume_backward_cuda
-    module.cost_volume_backward_cuda = module.cost_volume_backward_cuda_cores
+    kernels = module._DREF, module._DFRAME
+    module._DREF, module._DFRAME = module._DREF_CUDA_CORES, module._DFRAME_CUDA_CORES
     try:
         yield
     finally:
-        module.cost_volume_backward_cuda = fn
+        module._DREF, module._DFRAME = kernels
 
 
 @contextlib.contextmanager
 def warp_bwd_thread():
-    """Inside the block, the warp's backward runs the first design's
+    """Inside the block, the warp's backward ops run the first design's
     kernels (b2f_warp_bilinear_*_thread); restored after. For the A/B
     only."""
     import importlib
 
     module = importlib.import_module("back2future_tpu_torch.ops.warp")
-    fn = module.warp_bilinear_backward_cuda
-    module.warp_bilinear_backward_cuda = module.warp_bilinear_backward_thread
+    kernels = module._DIMAGES, module._DFLOW
+    module._DIMAGES, module._DFLOW = module._DIMAGES_THREAD, module._DFLOW_THREAD
     try:
         yield
     finally:
-        module.warp_bilinear_backward_cuda = fn
+        module._DIMAGES, module._DFLOW = kernels
 
 
 # the hard-step A/Bs: (label, the old kernels swapped in, what they
@@ -1314,24 +1376,23 @@ def phase_train_bwd_ab(card: str, dev) -> None:
 
 @contextlib.contextmanager
 def recording_k4_inputs(into: list):
-    """Inside the block, each image-gradient launch of the warp's backward
-    first appends a copy of its (flow, g) to `into`; restored after. For
-    the route comparison only."""
+    """Inside the block, each call of the warp's image-gradient op
+    (`b2f::warp_dimages`, K4) first appends a copy of its (flow, g) to
+    `into`; restored after. For the route comparison only."""
     import importlib
 
     module = importlib.import_module("back2future_tpu_torch.ops.warp")
-    fn = module.warp_bilinear_backward_cuda
+    op = module._DIMAGES_OP
 
-    def recording(images, flow, g, reference_grads=True, need=(True, True)):
-        if need[0]:
-            into.append((flow.clone(), g.clone()))
-        return fn(images, flow, g, reference_grads, need)
+    def recording(flow, g):
+        into.append((flow.clone(), g.clone()))
+        return op(flow, g)
 
-    module.warp_bilinear_backward_cuda = recording
+    module._DIMAGES_OP = recording
     try:
         yield
     finally:
-        module.warp_bilinear_backward_cuda = fn
+        module._DIMAGES_OP = op
 
 
 def k4_routes_ms(flow, g) -> dict:
@@ -2892,8 +2953,9 @@ def spynet_kernels(card: str, calls: list, dev) -> dict:
         if plain:
             return ops.warp_bilinear_backward_reference(img, flow, g)[
                 int(name == "warp_bilinear_dflow")]
-        need = (name == "warp_bilinear_dimages", name == "warp_bilinear_dflow")
-        return ops.warp_bilinear_backward_cuda(img, flow, g, need=need)[need.index(True)]
+        if name == "warp_bilinear_dimages":
+            return torch.ops.b2f.warp_dimages(flow, g)
+        return torch.ops.b2f.warp_dflow(img, flow, g, True)
 
     def library(name, i):
         img, _, _ = calls[i]
@@ -2927,8 +2989,8 @@ def spynet_kernels(card: str, calls: list, dev) -> dict:
         bytes_s = sum(work(name, i)[1] for i in idx) / HBM_BYTES_PER_S
         by_name = device_ms(lambda: [kernel(name, i) for i in idx], 10)
         ms = sum(by_name.values())
-        plain_ms = sum(device_ms(lambda: [kernel(name, i, plain=True) for i in idx], 3).values())
-        lib_ms = sum(device_ms(lambda: [library(name, i) for i in idx], 10).values())
+        plain_ms = device_total_ms(lambda: [kernel(name, i, plain=True) for i in idx], 3)
+        lib_ms = device_total_ms(lambda: [library(name, i) for i in idx], 10)
         shapes = sorted({tuple(calls[i][0].shape) for i in idx}, key=lambda s: -s[1])
         summary[name] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=max(ops_s, bytes_s) * 1e3, bytes_ms=bytes_s * 1e3,
@@ -3267,8 +3329,492 @@ KERNEL_ENTRIES = [   # (name, summary key, source, replaces, path whose launches
 ]
 
 
+# ------------------------------------------------ phase 12: serving export
+
+EXPORT_SEED = 7                        # the B=16 requests served eager and exported
+EXPORT_REPS = 10                       # CUDA-event reps of a timed forward
+EXPORT_STEPS = 20                      # hard steps timed a turn
+OP_CALLS = 200                         # host-timed calls of an op a turn
+SERVE_BENCH_ITERS = 5                  # serve_bench's --iters
+# (tree, then the other): parent / this tree / this tree / parent, twice
+TREE_TURNS = ("parent", "pr", "pr", "parent") * 2
+EXPORT_TURNS = ("eager", "exported", "exported", "eager") * 2
+SERVE_BENCH_KEYS = {"warmup_s", "total_ms", "pre_ms", "forward_ms", "fetch_ms", "post_ms"}
+
+
+def digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def serving_input(dev) -> torch.Tensor:
+    """The seeded (B, H, W, 9) input of the digests and the forward A/Bs."""
+    return torch.from_numpy(np.random.default_rng(EXPORT_SEED).standard_normal(
+        (B, H, W, 9), dtype=np.float32)).to(dev)
+
+
+def export_requests() -> list:
+    """The seeded B=16 KITTI-sized requests (one stack per frame) served
+    eager and exported."""
+    rng = np.random.default_rng(EXPORT_SEED)
+    return [rng.random((B, H_IN, W_IN, 3), dtype=np.float32) for _ in range(3)]
+
+
+def tree_worker(build_dir: str) -> None:
+    """A worker process of phase 12, importing the package of one tree
+    (its root first on sys.path; `TreeWorker` starts it) with its kernel
+    library looked up in `build_dir`, this tree's build directory (a tree
+    whose kernel sources are this tree's finds the library built; another
+    builds its own there, and nothing is written into its tree): the flagship
+    estimator (seed 0) and the hard bf16 step at B=8 320x640 (weights of
+    seed 0), then commands from stdin, each answered by one `@@`-prefixed
+    JSON line: `digests DIR` (SHA-256 of the serving forward's finest
+    (flow, occ) on the seeded input; of the hard step's loss and every
+    parameter gradient, twice from the same initial state, the gradients
+    also saved to DIR), `time` (the serving forward's and the hard step's
+    ms, CUDA events, medians of EXPORT_REPS forwards and EXPORT_STEPS
+    steps after a warm-up; and the host µs a call of the cost volume and
+    of the warp at a tiny bf16 shape, forward alone under inference mode
+    and forward + backward, OP_CALLS calls ending in a synchronise),
+    `quit`."""
+    from pathlib import Path
+
+    import back2future_tpu_torch
+    from back2future_tpu_torch.runtime import cuda_build
+
+    cuda_build.BUILD_DIR = Path(build_dir)
+    from back2future_tpu_torch import ops
+    from back2future_tpu_torch.api import init
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    est = init(None, device="cuda", seed=0)
+    x = serving_input(dev)
+    opt = train_options("bfloat16", soft=False)
+    batch = train_batch(dev)
+    net = train_network(opt, dev)
+    init_state = {k: v.clone() for k, v in net.state_dict().items()}
+    crits = build_criterions(opt)
+
+    def answer(obj):
+        print("@@" + json.dumps(obj), flush=True)
+
+    def forward():
+        out = est.net(x, with_warped=False)[0]
+        return out["flow"], out["occ"]
+
+    def tiny(seed, c=32, grad=True):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        t = torch.randn((1, 8, 16, c), generator=g, device=dev).to(torch.bfloat16)
+        return t.requires_grad_(grad)
+
+    ref, frame, images, flow = tiny(1), tiny(2), tiny(3), tiny(4, c=2)
+    calls = {"cost_volume": lambda: ops.cost_volume(ref, frame, 9, 1, True, 0.1),
+             "warp_bilinear": lambda: ops.warp_bilinear(images, flow)}
+
+    def host_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / OP_CALLS * 1e6
+
+    def op_us() -> dict:
+        out = {}
+        for name, fn in calls.items():
+            with torch.inference_mode():
+                out[f"{name} forward"] = host_us(fn)
+            out[f"{name} forward+backward"] = host_us(lambda: fn().sum().backward())
+        return out
+
+    answer({"package": back2future_tpu_torch.__file__})
+    state = step = None
+    for line in sys.stdin:
+        cmd = line.split()
+        if cmd[0] == "digests":
+            with torch.inference_mode():
+                serve = digest(forward())
+            losses, grads = [], []
+            for run in range(2):
+                net.load_state_dict(init_state)
+                _, logs = make_train_step(net, opt, crits)(create_train_state(net, opt), batch)
+                named = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+                torch.save({n: g.cpu() for n, g in named.items()}, f"{cmd[1]}/grads{run}.pt")
+                losses.append(digest([logs["loss"]]))
+                grads.append(digest(named[n] for n in sorted(named)))
+            answer({"serve": serve, "loss": losses, "grads": grads})
+        elif cmd[0] == "time":
+            if state is None:
+                net.load_state_dict(init_state)
+                state = create_train_state(net, opt)
+                step = make_train_step(net, opt, crits)
+            with torch.inference_mode():
+                serve_ms = cuda_ms(forward, EXPORT_REPS)
+            state, _ = step(state, batch)
+            times = []
+            for _ in range(EXPORT_STEPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, _ = step(state, batch)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            answer({"serve_ms": serve_ms, "step_ms": statistics.median(times), **op_us()})
+        elif cmd[0] == "quit":
+            return
+
+
+def tree_process(root, entry: str, *args, **popen) -> subprocess.Popen:
+    """A `python` process that imports this script as a module and calls
+    `entry(*args)` with `root` first on sys.path, so that it imports the
+    package of the tree at `root` (PYTHONPATH cleared)."""
+    code = ("import importlib.util, sys\n"
+            f"sys.path.insert(0, {str(root)!r})\n"
+            f"spec = importlib.util.spec_from_file_location('chip_smoke', "
+            f"{os.path.abspath(__file__)!r})\n"
+            "module = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(module)\n"
+            f"module.{entry}(*{args!r})\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(root), env=env, **popen)
+
+
+class TreeWorker:
+    """`tree_worker` in its own process for the tree at `root`."""
+
+    def __init__(self, label: str, root):
+        self.label = label
+        from back2future_tpu_torch.runtime.cuda_build import BUILD_DIR
+
+        self.proc = tree_process(root, "tree_worker", str(BUILD_DIR), stdin=subprocess.PIPE,
+                                 stdout=subprocess.PIPE, text=True)
+
+    def ask(self, command: str = "") -> dict:
+        """Send `command` (none: read the greeting) and return the answer."""
+        if command:
+            self.proc.stdin.write(command + "\n")
+            self.proc.stdin.flush()
+        for line in self.proc.stdout:
+            if line.startswith("@@"):
+                return json.loads(line[2:])
+            log("export", f"{self.label} worker: {line.rstrip()}")
+        raise RuntimeError(f"the {self.label} worker ended with code {self.proc.wait()}")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.write("quit\n")
+                self.proc.stdin.close()
+                self.proc.wait(timeout=60)
+            except (OSError, subprocess.TimeoutExpired):
+                self.proc.kill()
+                self.proc.wait()
+
+
+def parent_tree(argv: list):
+    """The tree that `--parent DIR` names, or None."""
+    from pathlib import Path
+
+    if "--parent" not in argv:
+        return None
+    return Path(argv[argv.index("--parent") + 1]).resolve()
+
+
+# opcheck's eager-vs-AOT comparison (rtol, atol): torch's defaults for bf16;
+# in f32 a relative 1e-5 (torch's default 1.3e-6), since K4's atomics sum
+# in an order that varies from run to run. cuDNN's weight gradients in the
+# stem twin's backward (a sum of 1.2M-4.7M products a weight at the
+# main-path shapes) vary too unless cuDNN is held to deterministic
+# algorithms, as it is for the opchecks
+OPCHECK_TOL = {torch.bfloat16: (None, None), torch.float32: (1e-5, 1e-5)}
+
+
+def phase_opcheck(card: str, dev) -> None:
+    """torch.library.opcheck of every b2f op on CUDA tensors, bf16 and
+    f32, at a small shape and at a main-path shape, with cuDNN held to
+    deterministic algorithms (OPCHECK_TOL)."""
+    # (cost volume, warp, stem input without its channels)
+    shapes = {"small": ((2, 9, 37, 32), (2, 9, 37, 32), (1, 16, 64)),
+              "main path": ((B, *LEVEL_SHAPES[0]), (TRAIN_B, *TRAIN_LEVELS[0]),
+                            STEM_SHAPES["serving"])}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for size, (cv, wp, st) in shapes.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                opcheck_cases(f"{size} shapes (cost volume {cv}, warp {wp}, stem {st})",
+                              opcheck_args(cv, wp, st, dtype, gen, dev), dtype)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("export", f"opcheck: {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def opcheck_args(cv: tuple, wp: tuple, st: tuple, dtype, gen, dev) -> dict:
+    """The arguments of each b2f op: cost volume inputs of shape `cv`,
+    warp inputs `wp`, stem input `st` (N, H, W); seeded by `gen`."""
+    from back2future_tpu_torch import ops
+    from back2future_tpu_torch.models import ConvUnit
+
+    def rand(shape, scale=1.0, grad=False):
+        t = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
+        return t.to(dtype).requires_grad_(grad)
+
+    unit2, unit3 = ConvUnit(3, 16, stride=2).to(dev), ConvUnit(16, 32, stride=2).to(dev)
+    g_cv = rand(cv[:3] + (WIN * WIN,))
+    images, flow, g_w = rand(wp), rand(wp[:3] + (2,), 3.0), rand(wp)
+    return {
+        "cost_volume": (rand(cv, grad=True), rand(cv, grad=True), WIN, 2, False, 1.0 / cv[-1]),
+        "cost_volume_dref": (g_cv, rand(cv), WIN, 1, True, 0.5),
+        "cost_volume_dframe": (g_cv, rand(cv), WIN, 1, False, 0.5),
+        "warp_bilinear": (images.clone().requires_grad_(), flow.clone().requires_grad_(), True),
+        "warp_dimages": (flow, g_w),
+        "warp_dflow": (images, flow, g_w, False),
+        "stem": (rand((*st, 3), grad=True), *ops.unit_params(unit2), *ops.unit_params(unit3)),
+    }
+
+
+def opcheck_cases(label: str, cases: dict, dtype) -> None:
+    rtol, atol = OPCHECK_TOL[dtype]
+    for name, args in cases.items():
+        result = torch.library.opcheck(getattr(torch.ops.b2f, name).default, args, rtol=rtol,
+                                       atol=atol)
+        if set(result.values()) != {"SUCCESS"}:
+            raise AssertionError(f"opcheck b2f::{name}: {result}")
+    log("export", f"opcheck of {len(cases)} ops on CUDA tensors, {label}, {str(dtype)[6:]} "
+                  f"(rtol, atol {OPCHECK_TOL[dtype]}; None: torch's): all "
+                  f"{', '.join(sorted(result))} pass")
+
+
+def compare_grad_files(tmp: str) -> None:
+    """The hard step's gradients of the parent and this tree, two runs
+    each from one state. K4's f32 atomics add in an order that varies
+    from run to run, so a tree's two runs differ in some parameters and
+    no gradient digest need repeat, not even the parent's own. The
+    largest difference (max_abs_err / max|g| of a parameter) between the
+    trees must stay within GRAD_SPREAD_FACTOR times the largest between a
+    tree's own two runs; the counts of parameters bit-identical within
+    each tree and across the trees are reported beside them."""
+    runs = {(tree, run): torch.load(f"{tmp}/{tree}/grads{run}.pt")
+            for tree in ("parent", "pr") for run in range(2)}
+    names = sorted(runs["parent", 0])
+
+    def ratio(a, b):
+        return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+
+    within = {t: [n for n in names if torch.equal(runs[t, 0][n], runs[t, 1][n])]
+              for t in ("parent", "pr")}
+    across = [n for n in names if all(torch.equal(runs["pr", r][n], runs["parent", r][n])
+                                      for r in range(2))]
+    within_max = max(ratio(runs[t, 0][n], runs[t, 1][n]) for t in ("parent", "pr") for n in names)
+    ratios = {n: max(ratio(runs["pr", r][n], runs["parent", r][n]) for r in range(2))
+              for n in names}
+    worst = max(ratios, key=ratios.get)
+    log("export", f"hard step gradients, {len(names)} parameters: bit-identical in both runs "
+                  f"of the parent {len(within['parent'])}, of this tree {len(within['pr'])}, "
+                  f"across the trees (both runs) {len(across)}; worst max_abs_err / max|g| "
+                  f"{within_max:.3e} between a tree's two runs, {ratios[worst]:.3e} across the "
+                  f"trees ({worst}; tol {GRAD_SPREAD_FACTOR} x {within_max:.3e})")
+    if ratios[worst] > GRAD_SPREAD_FACTOR * within_max:
+        raise AssertionError(f"the hard step's gradients differ from the parent's: {worst}")
+
+
+def phase_parent(card: str, argv: list, tmp: str) -> None:
+    """This tree against the parent commit's, each in its own worker
+    process on this card: the digests of the eager serving forward and of
+    the hard step, then the serving forward's and the hard step's ms in
+    turns (parent / this / this / parent, twice)."""
+    from pathlib import Path
+
+    parent = parent_tree(argv)
+    if parent is None:
+        log("export", "parent tree: none (no --parent DIR); the parent comparison is not run")
+        return
+    workers = {}
+    try:
+        for label, root in (("parent", parent), ("pr", Path(__file__).resolve().parent)):
+            workers[label] = TreeWorker(label, root)
+        for label, root in (("parent", parent), ("pr", Path(__file__).resolve().parent)):
+            package = workers[label].ask()["package"]
+            if not Path(package).resolve().is_relative_to(root):
+                raise AssertionError(f"the {label} worker imported {package}, not {root}'s")
+        digests = {}
+        for label, worker in workers.items():
+            os.makedirs(f"{tmp}/{label}")
+            digests[label] = worker.ask(f"digests {tmp}/{label}")
+            d = digests[label]
+            log("export", f"{label} tree SHA-256: serving forward B={B} {H}x{W} (flow, occ) "
+                          f"{d['serve']}; hard step B={TRAIN_B} {TRAIN_H}x{TRAIN_W} loss "
+                          f"{d['loss'][0]} / {d['loss'][1]}, gradients {d['grads'][0]} / "
+                          f"{d['grads'][1]} (two runs)")
+        if digests["parent"]["serve"] != digests["pr"]["serve"]:
+            raise AssertionError("the serving forward's digest differs from the parent's")
+        if len({*digests["parent"]["loss"], *digests["pr"]["loss"]}) != 1:
+            raise AssertionError("the hard step's loss digest differs from the parent's")
+        log("export", "serving forward and hard-step loss: bit-identical to the parent's")
+        compare_grad_files(tmp)
+        times = [(label, workers[label].ask("time")) for label in TREE_TURNS]
+        whats = {"serve_ms": f"serving forward B={B} {H}x{W} bf16, ms (CUDA events, medians "
+                             f"of {EXPORT_REPS})",
+                 "step_ms": f"hard bf16 step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}, ms (CUDA events, "
+                            f"medians of {EXPORT_STEPS})"}
+        for key in times[0][1]:
+            what = whats.get(key, f"{key} at 1x8x16 bf16, host µs a call (means of {OP_CALLS})")
+            med = {side: statistics.median(t[key] for label, t in times if label == side)
+                   for side in ("parent", "pr")}
+            log("export", f"{what}, the parent tree vs this one, "
+                          + " / ".join(label for label, _ in times) + ": "
+                          + " / ".join(f"{t[key]:.3f}" for _, t in times)
+                          + f"; median parent {med['parent']:.3f}, this tree {med['pr']:.3f} "
+                          f"({med['pr'] - med['parent']:+.3f}) on {card}")
+    finally:
+        for worker in workers.values():
+            worker.close()
+
+
+def serve_exported(art: str, out: str) -> None:
+    """The serving process of phase 12 (started by `tree_process`): loads
+    the artifact on the card, serves the seeded B=16 requests twice with
+    the launch counts of each call, saves the second call's results to
+    `out` and prints one `@@` JSON line of times and counts."""
+    t0 = time.perf_counter()
+    from back2future_tpu_torch.api import _bucket, load_exported
+    from back2future_tpu_torch.runtime import reset_launches
+
+    served = load_exported(art, device="cuda")
+    served.module(_bucket((B, H_IN, W_IN)))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    requests = export_requests()
+    launches, walls = [], []
+    for _ in range(2):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = served.compute_flow_batch(*requests)
+        walls.append(time.perf_counter() - t0)
+        launches.append({k: v for k, v in counts().items() if v})
+    np.savez(out, flow=res[0], fwd=res[1], bwd=res[2])
+    models = sorted(m for m in sys.modules if m.startswith("back2future_tpu_torch.models"))
+    print("@@" + json.dumps({"load_s": load_s, "first_call_s": walls[0], "second_call_s": walls[1],
+                             "launches": launches, "models": models}), flush=True)
+
+
+def phase_serving_export(card: str, dev, argv: list) -> None:
+    """Phase 12, serving export (module docstring); `argv` may name the
+    parent commit's tree (`--parent DIR`)."""
+    import tempfile
+    from pathlib import Path
+
+    from back2future_tpu_torch.api import _bucket, init
+    from back2future_tpu_torch.runtime import reset_launches
+
+    t_phase = time.perf_counter()
+    phase_opcheck(card, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_parent(card, argv, tmp)
+
+        est = init(None, device="cuda", seed=0)
+        art = Path(tmp) / "artifact"
+        bucket = _bucket((B, H_IN, W_IN))
+        t0 = time.perf_counter()
+        est.export(art, [(B, H_IN, W_IN)])
+        export_s = time.perf_counter() - t0
+        mib = sum(p.stat().st_size for p in art.iterdir()) / 2**20
+        log("export", f"exported the flagship (bf16, seed 0) at bucket {bucket}: {export_s:.2f} s, "
+                      f"artifact {mib:.2f} MiB ({', '.join(sorted(p.name for p in art.iterdir()))})")
+        proc = tree_process(Path(__file__).resolve().parent, "serve_exported", str(art),
+                            f"{tmp}/served.npz", stdout=subprocess.PIPE, text=True)
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the serving process failed with code {proc.returncode}")
+        served = json.loads(next(line for line in out.splitlines() if line.startswith("@@"))[2:])
+        want_calls = {k: v for k, v in SERVING_PER_FORWARD.items() if v}
+        if served["launches"] != [want_calls] * 2:
+            raise AssertionError(f"the exported forward launched {served['launches']}, "
+                                 f"expected {want_calls} a call")
+        if served["models"]:
+            raise AssertionError(f"the serving process imported {served['models']}")
+        got = np.load(f"{tmp}/served.npz")
+        want = est.compute_flow_batch(*export_requests())
+        same = [np.array_equal(got[k], w) for k, w in zip(("flow", "fwd", "bwd"), want)]
+        log("export", f"a fresh process served the artifact on the card: load {served['load_s']:.2f} s, "
+                      f"first call {served['first_call_s']:.2f} s, second "
+                      f"{served['second_call_s']:.2f} s (B={B} {H_IN}x{W_IN}, host pre/post-"
+                      f"processing included); launches a call {served['launches'][1]}; no module "
+                      f"of back2future_tpu_torch.models imported; flow, fwd_occ, bwd_occ equal to "
+                      f"eager compute_flow_batch bit for bit: {same}")
+        if not all(same):
+            raise AssertionError("the exported forward's results differ from eager's")
+
+        module = torch.export.load(art / f"forward_{B}x{H}x{W}.pt2").module()
+        x = serving_input(dev)
+        with torch.inference_mode():
+            g = est.net(x, with_warped=False)[0]
+            eager_out = (g["flow"], g["occ"])
+            reset_launches()
+            exported_out = module(x)
+            if {k: v for k, v in counts().items() if v} != want_calls:
+                raise AssertionError(f"the exported forward launched {counts()}")
+            if digest(exported_out) != digest(eager_out):
+                raise AssertionError("the exported forward differs from eager's on the device")
+            fns = {"eager": lambda: est.net(x, with_warped=False),
+                   "exported": lambda: module(x)}
+            times = [cuda_ms(fns[side], EXPORT_REPS) for side in EXPORT_TURNS]
+            parts = {side: (host_ms(fn, EXPORT_REPS), device_ms(fn, EXPORT_REPS))
+                     for side, fn in fns.items()}
+        med = {side: statistics.median(t for s, t in zip(EXPORT_TURNS, times) if s == side)
+               for side in fns}
+        log("export", f"device forward B={B} {H}x{W} bf16, " + " / ".join(EXPORT_TURNS) + ": "
+                      + " / ".join(f"{t:.3f}" for t in times) + f" ms (CUDA events, medians of "
+                      f"{EXPORT_REPS}; the exported output bit-identical to eager's); median "
+                      f"eager {med['eager']:.3f} ms, exported {med['exported']:.3f} ms on {card}")
+        for side, (host, by_name) in parts.items():
+            log("export", f"{side} forward: host {host:.3f} ms to enqueue (median of "
+                          f"{EXPORT_REPS}), device busy {sum(by_name.values()):.3f} ms over "
+                          f"{len(by_name)} kernel names (profiler, per forward)")
+        same = set(parts["eager"][1]) == set(parts["exported"][1])
+        log("export", f"the exported forward runs the same kernels as eager: {same}")
+        del module, est
+
+    from back2future_tpu_torch import serve_bench
+
+    records = serve_bench.main(["--export", "--iters", str(SERVE_BENCH_ITERS)])
+    if sorted((r["path"], r["resolution"]) for r in records) != sorted(
+            (p, r) for p in ("eager", "exported") for r in ("kitti", "sintel")) or \
+            not all(SERVE_BENCH_KEYS <= set(r) for r in records):
+        raise AssertionError(f"serve_bench returned {records}")
+    for r in records:
+        log("export", f"serve_bench B=1 {r['resolution']} {r['raw_hw'][0]}x{r['raw_hw'][1]} "
+                      f"{r['path']}: " + ", ".join(f"{k} {r[k]}" for k in sorted(SERVE_BENCH_KEYS))
+                      + f" on {card}")
+    log("export", f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
+def elapsed_marks():
+    """A function that logs the seconds since it was made and since its
+    last call, after a phase of the default run."""
+    t0 = last = time.perf_counter()
+
+    def mark(label: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        log("time", f"{label}: {now - last:.1f} s ({now - t0:.1f} s since the build began)")
+        last = now
+    return mark
+
+
 def main() -> None:
     card = phase_environment()
+    mark = elapsed_marks()
 
     dev = torch.device("cuda")
     phase_build()
@@ -3295,6 +3841,11 @@ def main() -> None:
         with stem(False):
             phase_learn(card, dev, [a for a in sys.argv[1:] if a != "--learn"])
         return
+    if "--serving-export" in sys.argv[1:]:
+        with stem(False):
+            phase_serving_export(card, dev, sys.argv[1:])
+        print_result()
+        return
     if "--spynet" in sys.argv[1:]:
         with stem(False):
             spynet = phase_spynet(card, dev)
@@ -3303,6 +3854,7 @@ def main() -> None:
         print_result()
         return
     phase_mma_builds()
+    mark("build (2)")
     if "--profile" in sys.argv[1:]:
         phase_profile(card, dev)
         return
@@ -3323,6 +3875,7 @@ def main() -> None:
             phase_k4_routes(card, dev)
         return
     summary = phase_kernels(dev)
+    mark("kernels (3)")
     with stem(False):
         main_path = phase_main_path(card)
     paths = {"serving": main_path["launches"]}
@@ -3330,6 +3883,7 @@ def main() -> None:
     for ab in SERVING_AB:
         phase_serving_ab(card, main_path, *ab)
     del main_path
+    mark("serving (4, 5)")
     with stem(False):
         hard = run_train(card, dev, "train", soft=False, per_step=TRAIN_PER_STEP)
         paths["train"] = hard["launches"]
@@ -3337,14 +3891,21 @@ def main() -> None:
         phase_remat(card, dev, soft=False)
         phase_train_bwd_ab(card, dev)
         phase_k4_routes(card, dev)
+        mark("train (6, 6b, 6c)")
         data_rates = phase_data(card, dev, hard["step_ms"])
+        mark("data (7)")
         phase_loop(card, dev, data_rates)
+        mark("loop (7b)")
     with stem(True):
         paths["soft"] = run_train(card, dev, "soft", soft=True, per_step=SOFT_PER_STEP)["launches"]
         phase_remat(card, dev, soft=True)
+    mark("soft (8)")
     with stem(False):
         spynet = phase_spynet(card, dev)
         phase_t7(card, dev)
+        mark("spynet, t7 (10, 11)")
+        phase_serving_export(card, dev, sys.argv[1:])
+        mark("serving export (12)")
     kernels = []
     for name, key, source, replaces, path in KERNEL_ENTRIES:
         s = summary[key]

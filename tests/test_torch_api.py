@@ -169,8 +169,8 @@ def test_init_cuda_without_card_raises():
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports the port, its train step, epoch loop,
-    checkpoints, utilities, CLIs (the .t7 converter, the parity harness
-    and the tool counterparts too), learning demo, every criterion, the
+    checkpoints, utilities, CLIs (the .t7 converter, the parity harness,
+    the tool counterparts and the serving CLIs too), learning demo, every criterion, the
     .t7 reader, SPyNet, data pipeline and flow I/O included, runs a tiny
     CPU forward of each model family and the host C++ occlusion, without
     loading the JAX package, jax, flax, optax or msgpack."""
@@ -179,8 +179,8 @@ def test_port_imports_no_jax():
         "import back2future_tpu_torch\n"
         "from back2future_tpu_torch import api, data, io, losses, ops, models, runtime, train\n"
         "from back2future_tpu_torch import eval, learn_demo, main, utils\n"
-        "from back2future_tpu_torch import (convert_t7, flow_viz_demo, make_manifests,"
-        " overfit_probe, parity)\n"
+        "from back2future_tpu_torch import (convert_t7, demo, export_serving, flow_viz_demo,"
+        " make_manifests, op_overhead, overfit_probe, parity, serve_bench)\n"
         "from back2future_tpu_torch.io import t7\n"
         "from back2future_tpu_torch.models import convert, factory, spynet\n"
         "import torch\n"

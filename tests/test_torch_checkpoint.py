@@ -206,7 +206,7 @@ def test_port_format_round_trips(tmp_path):
     assert (model_path.name, optim_path.name) == ("model_5.pt", "optimState_5.pt")
     assert Options.from_json((tmp_path / "options.json").read_text()) == opt
 
-    loaded, next_epoch = checkpoint.load_train_checkpoint(tmp_path, opt)
+    loaded, next_epoch = checkpoint.load_train_checkpoint(tmp_path, opt, device="cpu")
     assert next_epoch == 6 and loaded.step == 11 and loaded.epoch == 5
     for (name, p), q in zip(net.named_parameters(), loaded.model.parameters()):
         assert torch.equal(p, q), name
@@ -272,7 +272,7 @@ def test_latest_checkpoint_over_mixed_names(tmp_path):
 def test_optax_state_lands_in_the_torch_rule(jax_written, layout):
     d, jax_opt, params, opt_state = jax_written[layout]
     opt = tiny(**LAYOUTS[layout])
-    state, next_epoch = checkpoint.load_train_checkpoint(d, opt)
+    state, next_epoch = checkpoint.load_train_checkpoint(d, opt, device="cpu")
     assert next_epoch == 3 and state.step == 7 and state.epoch == 2
     want_params = flax_to_torch_names(params)
     node = checkpoint._rule_state(serialization.to_state_dict(opt_state))
@@ -288,7 +288,7 @@ def test_optax_state_lands_in_the_torch_rule(jax_written, layout):
             assert rule_state["step"].item() == 2.0
     other = dict(optimizer="adam") if layout == "sgd" else dict(optimizer="sgd")
     with pytest.raises(ValueError, match="the options ask for"):
-        checkpoint.load_train_checkpoint(d, tiny(**other))
+        checkpoint.load_train_checkpoint(d, tiny(**other), device="cpu")
 
 
 def test_init_serves_jax_checkpoint_like_jax_init(jax_written, monkeypatch):

@@ -10,7 +10,9 @@ round once. The warp's image gradient adds with f32 atomics in an order
 that varies from run to run: f32 1e-5 of the largest value. The fused
 stem (K5, K6) against its twin: bf16 1e-2 of the largest value (the mid
 map and the output each round once to bf16, the twin rounds again after
-the bias and after leaky).
+the bias and after leaky). Each `b2f::*` op also passes
+`torch.library.opcheck` on CUDA tensors, and the exported flagship
+launches the kernels.
 """
 
 import importlib
@@ -329,6 +331,14 @@ def test_cost_volume_backward_kernels_match_twin(cuda, dtype, win, dil, fwd):
     close_to_scale(frame.grad, want_frame, dtype)
 
 
+def cv_backward_ops(g, ref, frame, win, dil, fwd, scale, need=(True, True)):
+    """(d_ref, d_frame) by the ops `b2f::cost_volume_dref` and
+    `b2f::cost_volume_dframe`, each None where `need` says so."""
+    args = (win, dil, fwd, scale)
+    return (torch.ops.b2f.cost_volume_dref(g, frame, *args) if need[0] else None,
+            torch.ops.b2f.cost_volume_dframe(g, ref, *args) if need[1] else None)
+
+
 def backward_launches(fn):
     """fn's launches of the backward kernels (main and CUDA-core entry
     points), by name, after a synchronise."""
@@ -354,7 +364,7 @@ def test_cost_volume_bf16_backward_train_levels(cuda, level, scale, fwd):
     ref, frame = (rand((2, h, w, c), 40 + k, cuda, torch.bfloat16, scale) for k in range(2))
     g = rand((2, h, w, 81), 42, cuda, torch.bfloat16, scale)
     (d_ref, d_frame), launches = backward_launches(
-        lambda: ops.cost_volume_backward_cuda(g, ref, frame, 9, 1, fwd, 1.0 / c))
+        lambda: cv_backward_ops(g, ref, frame, 9, 1, fwd, 1.0 / c))
     assert launches == {"b2f_cost_volume_dref": 1, "b2f_cost_volume_dframe": 1}
     want_ref, want_frame = ops.cost_volume_backward_reference(g, ref, frame, 9, 1, fwd, 1.0 / c)
     assert d_ref.dtype == d_frame.dtype == torch.bfloat16
@@ -375,7 +385,7 @@ def test_cost_volume_bf16_backward_windows(cuda, win, dil, fwd, c):
     for i, need, names in ((0, (True, False), {"b2f_cost_volume_dref": 1}),
                            (1, (False, True), {"b2f_cost_volume_dframe": 1})):
         got, launches = backward_launches(
-            lambda: ops.cost_volume_backward_cuda(g, ref, frame, win, dil, fwd, 0.05, need=need))
+            lambda: cv_backward_ops(g, ref, frame, win, dil, fwd, 0.05, need=need))
         assert launches == names and got[1 - i] is None
         close_to_scale(got[i], want[i], torch.bfloat16)
 
@@ -424,7 +434,7 @@ def test_cost_volume_bf16_backward_halos(cuda, shape, win, dil, fwd):
     ref, frame = (rand(shape, 70 + k, cuda, torch.bfloat16) for k in range(2))
     g = rand(shape[:3] + (win * win,), 72, cuda, torch.bfloat16)
     got, launches = backward_launches(
-        lambda: ops.cost_volume_backward_cuda(g, ref, frame, win, dil, fwd, 0.5))
+        lambda: cv_backward_ops(g, ref, frame, win, dil, fwd, 0.5))
     assert launches == {"b2f_cost_volume_dref": 1, "b2f_cost_volume_dframe": 1}
     want = ops.cost_volume_backward_reference(g, ref, frame, win, dil, fwd, 0.5)
     for a, b in zip(got, want):
@@ -449,7 +459,7 @@ def test_cost_volume_backward_cuda_cores_kernels(cuda, dtype, win, dil, fwd):
         close_to_scale(a, b, dtype)
     if dtype == torch.float32:
         main, launches = backward_launches(
-            lambda: ops.cost_volume_backward_cuda(g, ref, frame, win, dil, fwd, 0.05))
+            lambda: cv_backward_ops(g, ref, frame, win, dil, fwd, 0.05))
         assert launches == {"b2f_cost_volume_dref": 1, "b2f_cost_volume_dframe": 1}
         for a, b in zip(main, got):
             assert torch.equal(a, b)
@@ -516,6 +526,14 @@ def warp_flow(kind, shape, seed, device, dtype):
     return flow.to(device, dtype)
 
 
+def warp_backward_ops(img, flow, g, need=(True, True)):
+    """(d_images, d_flow) by the ops `b2f::warp_dimages` and
+    `b2f::warp_dflow` (the reference flow gradient), each None where
+    `need` says so."""
+    return (torch.ops.b2f.warp_dimages(flow, g) if need[0] else None,
+            torch.ops.b2f.warp_dflow(img, flow, g, True) if need[1] else None)
+
+
 @pytest.mark.parametrize("reference_grads", [True, False], ids=["ref_grads", "autodiff"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kind", WARP_FLOWS)
@@ -544,7 +562,7 @@ def test_warp_backward_kernels_where_needed(cuda, dtype, need):
     flow = warp_flow("smooth", (2, 20, 40), 31, cuda, dtype)
     g = rand((2, 20, 40, 32), 32, cuda, dtype)
     reset_launches()
-    got = ops.warp_bilinear_backward_cuda(img, flow, g, need=need)
+    got = warp_backward_ops(img, flow, g, need=need)
     assert KERNELS["b2f_warp_bilinear_dimages"].launches == int(need[0])
     assert KERNELS["b2f_warp_bilinear_dflow"].launches == int(need[1])
     want = ops.warp_bilinear_backward_reference(img, flow, g)
@@ -570,7 +588,7 @@ def test_warp_backward_kernels_b1_and_offset(cuda, dtype, c, offset):
 
     img, g = shifted(33), shifted(34)
     flow = warp_flow("outliers", shape[:3], 35, cuda, dtype)
-    got = ops.warp_bilinear_backward_cuda(img, flow, g)
+    got = warp_backward_ops(img, flow, g)
     want = ops.warp_bilinear_backward_reference(img, flow, g)
     for a, b in zip(got, want):
         close_to_scale(a, b, dtype)
@@ -824,7 +842,7 @@ def test_stem_unit_a_bf16_kernel_info(cuda):
 
 
 def test_stem_backward_is_the_twin_chain(cuda):
-    """Gradients of x and the 8 parameters through the kernels' Function
+    """Gradients of x and the 8 parameters through the kernels' ops
     equal autograd through the twin chain (the backward recomputes it)."""
     unit2, unit3 = stem_units(cuda)
     x = rand((1, 32, 64, 3), 23, cuda).requires_grad_()
@@ -1099,3 +1117,75 @@ def test_metric_drain_does_not_synchronise(cuda):
     read = [_read(p) for p in pending]
     assert all(set(r) == set(names) and np.isfinite(list(r.values())).all() for r in read)
     assert read[-1]["loss"] == logs["loss"].item()
+
+
+# ------------------------------------------------------------ the custom ops
+
+def op_cases(device, dtype):
+    """(op name, args) of every b2f op at small shapes, on the card."""
+    unit2, unit3 = stem_units(device)
+    cv, wp = (2, 9, 37, 32), (2, 9, 37, 20)
+    g_cv = rand(cv[:3] + (81,), 40, device, dtype)
+    images, flow, g = rand(wp, 41, device, dtype), rand(wp[:3] + (2,), 42, device, dtype, 3.0), \
+        rand(wp, 43, device, dtype)
+    return {
+        "cost_volume": (rand(cv, 44, device, dtype).requires_grad_(),
+                        rand(cv, 45, device, dtype).requires_grad_(), 9, 2, False, 0.05),
+        "cost_volume_dref": (g_cv, rand(cv, 46, device, dtype), 9, 1, True, 0.5),
+        "cost_volume_dframe": (g_cv, rand(cv, 47, device, dtype), 9, 1, False, 0.5),
+        "warp_bilinear": (images.clone().requires_grad_(), flow.clone().requires_grad_(), True),
+        "warp_dimages": (flow, g),
+        "warp_dflow": (images, flow, g, False),
+        "stem": (rand((1, 16, 64, 3), 48, device, dtype).requires_grad_(),
+                 *ops.unit_params(unit2), *ops.unit_params(unit3)),
+    }
+
+
+OP_NAMES = ("cost_volume", "cost_volume_dref", "cost_volume_dframe", "warp_bilinear",
+            "warp_dimages", "warp_dflow", "stem")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_op_opcheck_on_cuda(cuda, dtype, name):
+    """opcheck of each op on CUDA tensors: the schema, the autograd
+    registration, the fake against the kernel's output, and eager against
+    AOT dispatch (f32 at rtol 1e-5: K4's atomics sum in a varying order)."""
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else {}
+    result = torch.library.opcheck(getattr(torch.ops.b2f, name).default,
+                                   op_cases(cuda, dtype)[name], **tol)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_op_launch_failure_raises(cuda, monkeypatch):
+    """A kernel that fails to launch raises through the op; it never falls
+    back to the twin."""
+    def failing(*args):
+        raise RuntimeError("b2f_cost_volume_fwd: CUDA error 1 (invalid argument)")
+
+    monkeypatch.setattr(CV_MODULE, "_FWD", failing)
+    x = rand((1, 8, 16, 32), 50, cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops.cost_volume(x, x, 9)
+
+
+def test_exported_forward_launches_the_kernels(cuda, tmp_path):
+    """The flagship (bf16, seed 0) exported on the card and served by
+    load_exported: 10 K1 and 8 gathers a call, results equal to the live
+    estimator's bit for bit."""
+    from back2future_tpu_torch import api
+
+    est = api.init(None, device="cuda", seed=0)
+    est.export(tmp_path / "art", [(2, 64, 128)])
+    served = api.load_exported(tmp_path / "art", device="cuda")
+    rng = np.random.default_rng(51)
+    stacks = [rng.random((2, 64, 128, 3), dtype=np.float32) for _ in range(3)]
+    want = est.compute_flow_batch(*stacks)
+    reset_launches()
+    got = served.compute_flow_batch(*stacks)
+    launched = {k: v.launches for k, v in KERNELS.items() if v.launches}
+    assert launched == {"b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 8}
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="exported for device 'cuda'"):
+        api.load_exported(tmp_path / "art", device="cpu")

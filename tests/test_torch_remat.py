@@ -113,12 +113,13 @@ def test_remat_recomputes_the_forward(monkeypatch, remat):
     """Under remat the module's forward and every forward twin of the
     kernels run twice a step, their backward twins once: autograd saved
     only the forward's input, and the recompute rebuilt the tensors that
-    the kernels' autograd Functions saved."""
+    the ops' autograd formulas saved."""
     calls = {}
     for module, name in ((cv_module, "cost_volume_reference"),
-                         (cv_module, "cost_volume_backward_reference"),
+                         (cv_module, "dref_form"), (cv_module, "dframe_reference"),
                          (warp_module, "warp_bilinear_reference"),
-                         (warp_module, "warp_bilinear_backward_reference")):
+                         (warp_module, "warp_dimages_reference"),
+                         (warp_module, "warp_dflow_reference")):
         _counting(monkeypatch, module, name, calls)
     opt = _options(remat)
     net = PWCNet(pwc_config_from_options(opt), generator=torch.Generator().manual_seed(0))
@@ -130,10 +131,13 @@ def test_remat_recomputes_the_forward(monkeypatch, remat):
                                                      {"images": torch.from_numpy(_images())})
     # levels 4, skip 2: 2 decoded levels (2 cost volumes each, for the past
     # and the future frame), 1 feature warp per non-reference frame between
-    # them, and the image warps of both non-reference frames at 2 levels
-    once = {"cost_volume_reference": 4, "cost_volume_backward_reference": 4,
-            "warp_bilinear_reference": 6, "warp_bilinear_backward_reference": 6}
-    want = {k: v * (1 + remat if "backward" not in k else 1) for k, v in once.items()}
+    # them, and the image warps of both non-reference frames at 2 levels;
+    # the image gradient only for the feature warps (the frames need none)
+    once = {"cost_volume_reference": 4, "dref_form": 4, "dframe_reference": 4,
+            "warp_bilinear_reference": 6, "warp_dimages_reference": 2,
+            "warp_dflow_reference": 6}
+    forward = ("cost_volume_reference", "warp_bilinear_reference")
+    want = {k: v * (1 + remat if k in forward else 1) for k, v in once.items()}
     assert calls == want
     assert len(forwards) == 1 + remat
 

@@ -296,7 +296,7 @@ def test_checkpoint_round_trip_and_cont(tmp_path):
     state.optimizer.step()
     state = dataclasses.replace(state, step=5)
     checkpoint.save_checkpoint(opt.save, state, opt, 2)
-    loaded, next_epoch = checkpoint.load_train_checkpoint(opt.save, opt)
+    loaded, next_epoch = checkpoint.load_train_checkpoint(opt.save, opt, device="cpu")
     assert next_epoch == 3 and loaded.step == 5 and isinstance(loaded.model, SPyNet)
     for (name, p), q in zip(net.named_parameters(), loaded.model.parameters()):
         assert torch.equal(p, q), name
@@ -332,7 +332,7 @@ def jax_written(tmp_path_factory):
 
 def test_jax_msgpack_pair_reads(jax_written):
     d, params, opt_state = jax_written
-    state, next_epoch = checkpoint.load_train_checkpoint(d, tiny_options())
+    state, next_epoch = checkpoint.load_train_checkpoint(d, tiny_options(), device="cpu")
     assert next_epoch == 3 and state.step == 4 and isinstance(state.model, SPyNet)
     want = flax_to_torch_names(params)
     node = checkpoint._rule_state(opt_state)

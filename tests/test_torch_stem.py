@@ -2,8 +2,8 @@
 JAX package's (back2future_tpu/ops/stem_pallas.py).
 
 On CPU tensors the port's `fused_stem` runs its plain twin inside the
-autograd Function, so these tests hold the twin and the Function's
-backward wiring against JAX; the CUDA kernels K5/K6 are held against the
+op `b2f::stem`, so these tests hold the twin and the op's autograd
+formula against JAX; the CUDA kernels K5/K6 are held against the
 twin on the card (tests/test_torch_kernels.py). JAX references are
 computed once per module: `fused_stem` with B2F_STEM_PALLAS=1 runs the
 Pallas kernels in interpret mode, as tests/test_pallas.py runs them.
@@ -148,7 +148,7 @@ def jax_model_with_stem(monkeypatch_module):
 @pytest.mark.parametrize("on", [True, False], ids=["stem_on", "stem_off"])
 def test_model_with_stem_matches_jax(jax_model_with_stem, on, monkeypatch):
     """The port net with B2F_STEM_PALLAS on matches the JAX net with the
-    fused stem; the stem Function is entered once per forward when on,
+    fused stem; the fused stem is entered once per forward when on,
     never when off (and the outputs are the same either way)."""
     net, x, want = jax_model_with_stem
     calls = []

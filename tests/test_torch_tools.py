@@ -13,9 +13,17 @@ tools on the same inputs:
   tools/overfit_probe.py's at rtol 1e-3, both from the port's seeded
   weights (JAX's fresh init is replaced by them) and one tiny f32 config
   added to both tools' fixed flags (crop 32x64, levels 4, win 3).
+* `.demo`: flow.flo of the same JAX-written checkpoint on the same PNG
+  frames within 1e-4 of tools/demo.py's, the PNGs of the same shapes.
+* `.export_serving`: an artifact that `load_exported` serves bit for bit
+  as the live estimator; `.serve_bench --cpu --iters 1 --export`: one
+  JSON line per resolution and path with the timing keys (the
+  checkpoint's tiny net, at two small resolutions in place of the
+  KITTI and Sintel sizes).
 """
 
 import importlib.util
+import json
 import re
 from pathlib import Path
 
@@ -37,9 +45,12 @@ from back2future_tpu.io.png16 import read_png
 from back2future_tpu.train import checkpoint as jax_checkpoint
 from back2future_tpu.train.state import create_train_state as jax_create_train_state
 from back2future_tpu_torch import config as port_config
-from back2future_tpu_torch import flow_viz_demo, make_manifests, overfit_probe
+from back2future_tpu_torch import (api, demo, export_serving, flow_viz_demo, make_manifests,
+                                   overfit_probe, serve_bench)
 from back2future_tpu_torch.config import Options
 from back2future_tpu_torch.data import roaming
+from back2future_tpu_torch.io import load_flo
+from back2future_tpu_torch.io.png16 import write_png
 from back2future_tpu_torch.models import PWCNet, pwc_config_from_options, to_flax_params
 
 torch.set_num_threads(1)
@@ -172,3 +183,70 @@ def test_overfit_probe_first_step_matches_the_tool(roaming_set, tmp_path, capsys
         assert "done in" in out
     np.testing.assert_allclose(values["port"], values["jax"], rtol=1e-3)
     assert np.isfinite(values["port"]).all() and values["port"][0] > 0
+
+
+@pytest.fixture(scope="module")
+def demo_frames(tmp_path_factory):
+    """Three seeded 8-bit PNG frames, 96x130 (snapped to 64x128 inside)."""
+    root = tmp_path_factory.mktemp("demo_frames")
+    rng = np.random.default_rng(11)
+    paths = []
+    for k in range(3):
+        paths.append(str(root / f"frame_{k}.png"))
+        write_png(paths[-1], rng.integers(0, 256, (96, 130, 3), dtype=np.uint8))
+    return paths
+
+
+def test_demo_matches_the_tool(roaming_set, demo_frames, tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("B2F_COMPILE_CACHE", "0")
+    for name, main in (("jax", load_tool("demo").main), ("port", demo.main)):
+        main([*demo_frames, "--model", str(roaming_set / "ckpt"), "--out", str(tmp_path / name),
+              "--cpu"])
+        assert capsys.readouterr().out.startswith(f"wrote {tmp_path / name}/flow.flo")
+    want, got = (load_flo(tmp_path / name / "flow.flo") for name in ("jax", "port"))
+    assert got.shape == want.shape == (96, 130, 2)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    for png in ("flow.png", "fwd_occ.png", "bwd_occ.png"):
+        assert read_png(tmp_path / "port" / png).shape == read_png(tmp_path / "jax" / png).shape
+
+
+def test_export_serving_writes_a_served_artifact(roaming_set, demo_frames, tmp_path, capsys):
+    ckpt = str(roaming_set / "ckpt")
+    export_serving.main(["--model", ckpt, "--out", str(tmp_path / "art"), "--sizes", "96x130",
+                         "2x96x130", "--dtype", "float32", "--cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == f"exported 2 bucket(s) to {tmp_path / 'art'}:"
+    assert [line.strip() for line in out[1:]] == ["forward_1x64x128.pt2", "forward_2x64x128.pt2",
+                                                  "meta.json"]
+    served = api.load_exported(tmp_path / "art", device="cpu")
+    live = api.init(ckpt, device="cpu", dtype="float32")
+    ims = [read_png(p).astype(np.float32) / 255 for p in demo_frames]
+    for a, b in zip(served(*ims), live(*ims)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_serve_bench_prints_a_line_per_path(roaming_set, capsys, monkeypatch):
+    monkeypatch.setattr(serve_bench, "RESOLUTIONS", [("kitti", 70, 140), ("sintel", 96, 130)])
+    serve_bench.main(["--cpu", "--iters", "1", "--export", "--checkpoint",
+                      str(roaming_set / "ckpt")])
+    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [(r["path"], r["resolution"]) for r in records] == [
+        ("eager", "kitti"), ("exported", "kitti"), ("eager", "sintel"), ("exported", "sintel")]
+    keys = ("warmup_s", "total_ms", "pre_ms", "forward_ms", "fetch_ms", "post_ms")
+    for r in records:
+        assert all(isinstance(r[k], float) and r[k] >= 0 for k in keys), r
+        assert r["device"] == "cpu" and r["iters"] == 1
+
+
+def test_op_overhead_times_every_way(capsys):
+    """`op_overhead --cpu` times the four registrations, forward and
+    forward + backward, and can run twice in one process."""
+    from back2future_tpu_torch import op_overhead
+
+    for _ in range(2):
+        medians = op_overhead.main(["--cpu", "--turns", "2", "--calls", "3"])
+    ways = ("function", "op", "op_setup", "generated")
+    assert sorted(medians) == sorted(f"{w} {m}" for w in ways
+                                     for m in ("forward", "forward+backward"))
+    assert all(v > 0 for v in medians.values()), medians
+    assert capsys.readouterr().out.count("µs a call") == 16

@@ -4,11 +4,13 @@ The same numpy inputs, made from a seed, go through the JAX function and
 its port (on CPU tensors the port runs the plain twin of each CUDA
 kernel), in f32:
 
-* cost-volume backward (`_CostVolumeFn`, the twin of kernels K2/K3)
+* cost-volume backward (the op `b2f::cost_volume`'s autograd formula, on
+  the CPU the twins of kernels K2/K3)
   against `jax.vjp` of `cost_volume_pallas` in interpret mode (the
   Pallas `_dref_kernel`/`_dframe_kernel`): rtol/atol 1e-5, the sums run
   in another order;
-* warp backward (`_WarpFn`, the twin of K4 and the flow-gradient kernel)
+* warp backward (the op `b2f::warp_bilinear`'s autograd formula, on the
+  CPU the twins of K4 and the flow-gradient kernel)
   against `jax.vjp` of `warp_bilinear` (XLA scatter, and the Pallas
   `d_images_pallas` in interpret mode) and `_warp_autodiff`: atol 1e-5;
 * each ported criterion, value and gradient, against JAX's value and
@@ -20,6 +22,7 @@ kernel), in f32:
 """
 
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -52,6 +55,9 @@ from back2future_tpu_torch.models import PWCNet, pwc_config_from_options, to_fla
 from back2future_tpu_torch.train import multiscale_loss
 
 torch.set_num_threads(1)
+
+CV_MODULE = importlib.import_module("back2future_tpu_torch.ops.cost_volume")
+WARP_MODULE = importlib.import_module("back2future_tpu_torch.ops.warp")
 
 
 def rand(shape, seed, scale=1.0):
@@ -91,7 +97,7 @@ def test_cost_volume_backward_matches_pallas(cv_grads, win, dilation, fwd):
     ops.cost_volume(ref, frame, win, dilation, fwd, scale=CV_SCALE).backward(torch.from_numpy(g))
     np.testing.assert_allclose(ref.grad.numpy(), want_ref, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(frame.grad.numpy(), want_frame, rtol=1e-5, atol=1e-5)
-    # the Function's CPU backward is the twin
+    # the op's CPU backward is the twin
     d_ref, d_frame = ops.cost_volume_backward_reference(
         torch.from_numpy(g), ref.detach(), frame.detach(), win, dilation, fwd, CV_SCALE)
     np.testing.assert_array_equal(d_ref.numpy(), ref.grad.numpy())
@@ -135,7 +141,7 @@ def test_warp_backward_matches_jax(scale):
     want = jax_vjp(jax_warp_bilinear, img, flow, g)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
-    # the Function's CPU backward is the twin
+    # the op's CPU backward is the twin
     twin = ops.warp_bilinear_backward_reference(*map(torch.from_numpy, (img, flow, g)))
     for a, b in zip(twin, got):
         np.testing.assert_array_equal(a.numpy(), b)
@@ -341,10 +347,14 @@ def test_multiscale_loss_and_param_grads_match_jax(multiscale_case):
 
 
 def test_backward_kernel_entry_points_reject_cpu_tensors():
-    """`*_backward_cuda` launch kernels only: a CPU tensor raises, it never
-    falls back to the twin."""
+    """The backward ops' CUDA implementations launch kernels only: a CPU
+    tensor raises, they never fall back to the twin."""
     x = torch.zeros(1, 4, 4, 2)
+    g = torch.zeros(1, 4, 4, 9)
+    for kernel in (CV_MODULE._dref_kernel, CV_MODULE._dframe_kernel):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernel(g, x, 3, 1, True, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.cost_volume_backward_cuda(torch.zeros(1, 4, 4, 9), x, x, 3)
+        WARP_MODULE._dimages_kernel(x, x)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.warp_bilinear_backward_cuda(x, x, x)
+        WARP_MODULE._dflow_kernel(x, x, x, True)
