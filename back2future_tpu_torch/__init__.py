@@ -11,18 +11,25 @@ Layering, from the entry point down to the device:
   main, eval — the training CLI (`python -m back2future_tpu_torch.main`)
               and the eval CLI (`python -m back2future_tpu_torch.eval`)
   api       — init() / FlowEstimator: host pre/post-processing, the
-              serving forward under torch.inference_mode(), warmup();
+              serving forward under torch.inference_mode() (on one
+              device, or one replica per slot of a mesh), warmup();
               export() / load_exported(): one torch.export program per
               shape bucket, served without model code; checkpoint paths
               load through train.checkpoint
   demo, serve_bench, export_serving — the serving CLIs
+  graft_entry — entry() (the flagship forward from the JAX package's
+              PRNGKey(0) weights) and dryrun_multichip(n) (one train
+              step over data-parallel ranks)
   models    — nn.Modules: PWCNet (multi-frame PWC + occlusion head),
-              Conv/ConvUnit/Decoder, the flax-params bridge and the
-              hard -> soft surgery
-  train     — the epoch loop run(), checkpoints (torch files; the JAX
-              package's msgpack pairs read too), the train and eval
-              steps, metrics, multi-scale loss, optimiser chain,
-              TrainState
+              Conv/ConvUnit/Decoder, the flax-params bridge, the JAX
+              package's seeded init in numpy and the hard -> soft surgery
+  parallel  — process groups (NCCL, gloo) and the ranks `run` starts,
+              the cross-rank resume check and DDP's reductions; a
+              device mesh for serving over replicas
+  train     — the epoch loop run() (one rank per device under DDP),
+              checkpoints (torch files; the JAX package's msgpack pairs
+              read too), the train and eval steps, metrics, multi-scale
+              loss, optimiser chain, TrainState
   utils     — SymbolLogger / TeeLogger, StepTimer, maybe_profile
   data, io  — the host data pipeline and flow files
   losses    — the criteria of the hard and soft recipes, reference

@@ -12,6 +12,14 @@ is in raw network units (multiply by `flownet_factor`, 20, for pixels).
 The forward runs under `torch.inference_mode()` with
 `with_warped=False`: the image warps feed only the training losses.
 
+On a mesh (`init(..., mesh=make_mesh([...]))`, parallel/mesh.py) the
+estimator holds one replica of the net per slot of the mesh's `data`
+axis; `compute_flow_batch` pads the batch to a multiple of the axis by
+repeating the last sample (as the JAX package does), enqueues each
+slice's forward on its replica's device before reading any result, and
+trims the padding. Slots may share a device. The video path and the
+export are single-device, as in the JAX package.
+
 `FlowEstimator.export(path, sizes)` writes one `torch.export` program per
 (batch, H64, W64) bucket and `load_exported(path)` serves them
 (`ExportedFlowEstimator`) with the same pre- and post-processing and no
@@ -25,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import TYPE_CHECKING, Dict, Optional, Sequence, Tuple, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -120,16 +128,39 @@ def _numpy(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
 
 
 class FlowEstimator:
-    """compute_flow over one PWCNet on one device.
+    """compute_flow over one PWCNet on one device, or over its replicas
+    on a mesh (module docstring).
 
     Eager PyTorch compiles nothing per input shape, so unlike the JAX
     estimator there are no shape buckets to warn about: `warmup` only
     takes the one-time costs out of the first request."""
 
-    def __init__(self, net: PWCNet, device: torch.device):
-        self.net = net.eval()
+    def __init__(self, net: PWCNet, device: torch.device, mesh=None, spatial: bool = False):
+        """`net` on `device`, which is the mesh's first data slot's device
+        when there is a mesh. Without a mesh the estimator is one slot
+        that holds `net` itself."""
+        from .parallel.mesh import make_mesh, replicate, spatial_not_ported
+
+        if spatial:
+            raise spatial_not_ported()
         self.config: PWCConfig = net.cfg
+        self.mesh = mesh
         self.device = device
+        self._slots = make_mesh([device]) if mesh is None else mesh
+        self.replicas = [r.eval() for r in ([net] if mesh is None else replicate(net, mesh))]
+        self.net = self.replicas[0]
+
+    def _padded_batch(self, n: int) -> int:
+        """Batch size after mesh padding: a multiple of the `data` axis."""
+        return n + (-n) % len(self.replicas)
+
+    def _forward(self, x: torch.Tensor) -> List[Dict]:
+        """The finest level of each replica's forward on its slice of `x`
+        (all enqueued before any is read)."""
+        from .parallel.mesh import shard_batch
+
+        return [net(part, with_warped=False)[0]
+                for net, part in zip(self.replicas, shard_batch(x, self._slots))]
 
     def _finest(self, outputs) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         g = outputs[0]
@@ -148,9 +179,13 @@ class FlowEstimator:
         attribute) and lets cuDNN choose its plans for these shapes."""
         with torch.inference_mode():
             for size in sizes:
-                self.net(self._zeros(size), with_warped=False)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                b, h64, w64 = _bucket(size)
+                self._forward(torch.zeros((self._padded_batch(b), h64, w64,
+                                           3 * self.config.frames)))
+        for net in self.replicas:
+            device = next(net.parameters()).device
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
     def export(self, path: Union[str, Path], sizes: Sequence[Size]) -> None:
         """Serving export: for each bucket of `sizes` (as `warmup` takes
@@ -168,6 +203,10 @@ class FlowEstimator:
         weights."""
         from .ops.stem import stem_enabled
 
+        if self.mesh is not None:
+            raise ValueError("export() supports single-device estimators; "
+                             "serve a mesh by loading the artifact once "
+                             "per chip")
         out = Path(path)
         out.mkdir(parents=True, exist_ok=True)
         module = _FinestForward(self.net)
@@ -203,9 +242,14 @@ class FlowEstimator:
         (H, W, 3) images) in [0,1]; one forward serves the whole batch.
         Returns (flows (B,H,W,2), fwd_occs (B,H,W), bwd_occs (B,H,W))."""
         imgs, n, height, width = _preprocess_triplets(frame_stacks, self.config.frames)
+        pad = self._padded_batch(n) - n
+        if pad:
+            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
         with torch.inference_mode():
-            x = torch.from_numpy(imgs).to(self.device)
-            flow, occ = self._finest(self.net(x, with_warped=False))
+            finest = self._forward(torch.from_numpy(imgs))
+            flow = np.concatenate([_numpy(g["flow"]) for g in finest])
+            occ = (None if finest[0]["occ"] is None
+                   else np.concatenate([_numpy(g["occ"]) for g in finest]))
         return _postprocess_results(flow, occ, n, height, width)
 
     def compute_flow_video(self, frames) -> Results:
@@ -215,6 +259,11 @@ class FlowEstimator:
         every frame's feature pyramid computed once. Window t covers
         frames[t:t+F], flow at its reference (centre) frame."""
         F = self.config.frames
+        if self.mesh is not None:
+            raise ValueError(
+                "compute_flow_video is single-device (the window batch is "
+                "coupled across frames); shard a workload by scene/chunk "
+                "across chips instead, one estimator each")
         arr = (np.asarray(frames, np.float32) if isinstance(frames, np.ndarray)
                else np.stack([np.asarray(f, np.float32) for f in frames]))
         if arr.ndim != 4 or arr.shape[-1] != 3:
@@ -338,7 +387,8 @@ def _load(path: str) -> Tuple[dict, PWCConfig]:
 
 
 def init(model: Union[None, str, Path, Tuple[dict, PWCConfig]] = "Ours-Soft-ft-KITTI",
-         device="cuda", dtype: str = "", seed: int = 0) -> FlowEstimator:
+         device="cuda", dtype: str = "", seed: int = 0, mesh=None,
+         spatial: bool = False) -> FlowEstimator:
     """Build a FlowEstimator on `device`.
 
     `model` is either
@@ -357,13 +407,15 @@ def init(model: Union[None, str, Path, Tuple[dict, PWCConfig]] = "Ours-Soft-ft-K
     `dtype` ("bfloat16" / "float32") overrides the compute dtype; the
     default is the config's own (a checkpoint's options.json), and
     bfloat16 for random weights. `device` "cuda" with no card raises.
+    `mesh` (parallel.make_mesh) serves on one replica per `data` slot
+    instead of on `device`; `spatial=True` raises (not ported).
     """
     from .models import PWCConfig, PWCNet
     from .models.pwc import DTYPES
 
     if model is not None and not isinstance(model, tuple):
         model = _load(_checkpoint(model))
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.data_devices()[0]
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init(device='cuda'): no CUDA device is available")
     if dtype and dtype not in DTYPES:
@@ -384,4 +436,4 @@ def init(model: Union[None, str, Path, Tuple[dict, PWCConfig]] = "Ours-Soft-ft-K
         load_params(net, params)
     else:
         raise TypeError(f"model as a tuple must be (params, PWCConfig), got {len(model)} items")
-    return FlowEstimator(net.to(device), device)
+    return FlowEstimator(net.to(device), device, mesh, spatial)

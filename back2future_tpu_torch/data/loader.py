@@ -30,8 +30,12 @@ process mode (each epoch's workers start empty), and the round-robin
 sweep of `scene_batches` restarts at slot 0 every epoch, so when the
 epoch's samples are not a multiple of the scenes the leading scenes get
 one more visit each epoch. `device_prefetch` (loader.py:453-486) is
-rewritten for torch, without the mesh: a multi-host batch
-(`make_global_batch`) belongs to the port's DDP (ROADMAP queue 1 item 11).
+rewritten for torch, without the mesh: in a data-parallel run each rank's
+loader yields its local slice of the global batch (`shard`) and
+`device_prefetch` puts that slice on the rank's device, which is the
+local-slice half of the JAX package's `make_global_batch` branch; the
+other half, assembling the global array, is DDP's
+(parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -474,7 +478,11 @@ def device_prefetch(host_batches: Iterator[Dict[str, np.ndarray]], device,
                     depth: int = 2) -> Iterator[Dict[str, object]]:
     """Keep `depth` batches in flight on `device` ahead of the consumer
     (the H2D side of the donkey pipeline, train.lua:206-208; the torch
-    counterpart of loader.py:453-486, without the mesh).
+    counterpart of loader.py:453-486, without the mesh). Under DDP a
+    rank passes its loader's local slices and its own device: each
+    batch stays the rank's slice (the JAX package's multi-host branch
+    assembles the global array with `make_global_batch`, which the port
+    does not need).
 
     On a CUDA device each array is copied into pinned host memory and
     sent `non_blocking` on a side stream; the consumer's stream waits on

@@ -4,7 +4,10 @@ back2future_tpu/losses/supervised.py; criterions/L2Criterion.lua).
 Masked average EPE; also returns the per-pixel EPE map for the occluded /
 non-occluded metric breakdown (train.lua:337-375). Under
 `reference_grads=True` the backward replicates the reference's
-eps-stabilised denominator.
+eps-stabilised denominator. With `size_average` the normaliser is the
+mask's sum over the global batch: under data parallelism the ranks'
+counts are all-reduced (it has no gradient), in the value and in the
+reference backward alike.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from ..parallel.distributed import all_reduce_sum
 
 _EPS = 1e-12
 
@@ -27,7 +32,7 @@ def _l2_value(flow, target_flow, mask, size_average):
     m = epe_map(flow, target_flow, mask)
     out = m.sum()
     if size_average:
-        out = out / mask.sum()
+        out = out / all_reduce_sum(mask.sum())
     return out, m
 
 
@@ -51,7 +56,7 @@ class _L2Fn(torch.autograd.Function):
         denom = torch.sqrt((diff * diff).sum(-1) * mask3) + _EPS
         d = diff / denom[..., None] * mask3[..., None]
         if ctx.size_average:
-            d = d / mask3.sum()
+            d = d / all_reduce_sum(mask3.sum())
         return d * g, None, None, None
 
 

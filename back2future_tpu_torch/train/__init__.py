@@ -1,8 +1,7 @@
 """Training engine of the port (counterpart of back2future_tpu.train):
 multi-scale loss, optimiser and LR regime, train state, the train and
-eval steps, the metrics, checkpoints and the epoch loop (`run`).
-
-Not ported yet: multi-card training (ROADMAP.md queue 1 item 11).
+eval steps, the metrics, checkpoints and the epoch loop (`run`), on one
+device or over data-parallel ranks (DDP; parallel/).
 """
 
 from .checkpoint import (latest_checkpoint, load_model_checkpoint, load_or_convert,

@@ -54,13 +54,19 @@ def _orbax_error(path) -> ValueError:
 
 def save_checkpoint(save_dir: str | Path, state: TrainState, opt: Options,
                     epoch: int) -> Tuple[Path, Path]:
-    """Save model_<e>.pt + optimState_<e>.pt (+ the options.json sidecar)."""
+    """Save model_<e>.pt + optimState_<e>.pt (+ the options.json sidecar).
+    The model's keys are the bare net's, under DDP too: a
+    DistributedDataParallel wrapper is unwrapped first, so a file never
+    holds its `module.` prefix and loads in `init(path)` as any other."""
+    model = state.model
+    if isinstance(model, torch.nn.parallel.DistributedDataParallel):
+        model = model.module
     d = Path(save_dir)
     d.mkdir(parents=True, exist_ok=True)
     (d / "options.json").write_text(opt.to_json())
     model_path = d / f"model_{epoch}.pt"
     optim_path = d / f"optimState_{epoch}.pt"
-    torch.save(state.model.state_dict(), model_path)
+    torch.save(model.state_dict(), model_path)
     torch.save({"optimizer": state.optimizer.rule.state_dict(), "step": int(state.step),
                 "epoch": int(epoch)}, optim_path)
     return model_path, optim_path

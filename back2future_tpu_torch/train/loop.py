@@ -7,11 +7,35 @@ train/validate cycle (main.lua:35-39), per-batch console lines and TSV
 epoch logs (train.lua:510-518, :162-173), and checkpoints every
 `epochStore` epochs (train.lua:179-185).
 
-One process, one device: `opt.platform` "cpu" asks for the CPU, "",
+One process per device: `opt.platform` "cpu" asks for the CPU, "",
 "gpu" or "cuda" for the card `cuda:{GPU-1}` (RuntimeError when there is
-none; nothing falls back to the CPU). Multi-card and multi-host training
-(`nGPU > 1`, meshes, the cross-host resume fingerprint) are ROADMAP.md
-queue 1 item 11.
+none; nothing falls back to the CPU).
+
+Data parallelism runs one rank per device in a `torch.distributed`
+group (parallel/distributed.py), with DDP in the train step:
+
+* `-nGPU n > 1` with no group: `run` starts ranks 1..n-1 with the
+  spawn method and is rank 0 itself; rank r trains on `cuda:{GPU-1+r}`
+  over NCCL, or on the CPU over gloo with `--platform cpu`. `-nGPU`
+  beyond the host's cards raises ValueError. A rank's failure fails
+  `run` with that rank's error; rank 0 returns its state, and the group
+  is torn down at the end. The kernels are built once, before the ranks
+  start.
+* In a cluster (the B2F_COORDINATOR / B2F_NUM_PROCESSES / B2F_PROCESS_ID
+  spec, torchrun's env, or a group the caller made) every process runs
+  `run` as one rank on `cuda:{GPU-1+LOCAL_RANK}` (LOCAL_RANK 0 when
+  unset) and `-nGPU` is ignored, as the JAX package ignores it across
+  hosts. The JAX package runs one process per host instead.
+
+`opt.batchSize` is the global batch; each rank loads its slice of every
+batch. A resume is checked across ranks (`_state_fingerprint`) before
+DDP broadcasts rank 0's parameters. Rank 0 owns the console,
+`train.log`/`test.log` and the checkpoints (of the bare net); the other
+ranks keep `train.log.host{r}`/`test.log.host{r}` side logs.
+Multi-rank validation keeps full global batches only and logs how many
+samples that skips. `opt.mesh_shape`/`opt.mesh_axes` describe the
+ranks as the JAX package's mesh: the `data` axis must hold every rank,
+and a `spatial` axis raises NotImplementedError (ROADMAP.md item 11 (e)).
 
 The steps' logs are 0-d device tensors. After each step they are
 stacked and copied into pinned host memory with `non_blocking=True`, and
@@ -23,6 +47,7 @@ step waits for the device.
 from __future__ import annotations
 
 import collections
+import os
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -35,6 +60,8 @@ from ..data import (FlowDataset, PrefetchLoader, SampleConfig, device_prefetch,
                     load_manifest_cached, load_split)
 from ..losses import build_criterions
 from ..models.factory import model_and_config
+from ..parallel import distributed
+from ..parallel.mesh import spatial_not_ported
 from ..utils import StepTimer, SymbolLogger
 from .checkpoint import load_or_convert, load_train_checkpoint, save_checkpoint
 from .optim import lr_for_epoch
@@ -51,10 +78,16 @@ def build_model(opt: Options):
     return model_and_config(opt, generator=torch.Generator().manual_seed(opt.manualSeed))[0]
 
 
-def build_loaders(opt: Options) -> Tuple[PrefetchLoader, Optional[PrefetchLoader]]:
-    """Manifest + split -> train/val loaders (donkey.lua). Validation
-    covers the whole split, the final partial batch included (improving
-    on test.lua:52-64, which drops the remainder)."""
+def build_loaders(opt: Options, shard=(0, 1)
+                  ) -> Tuple[PrefetchLoader, Optional[PrefetchLoader]]:
+    """Manifest + split -> train/val loaders (donkey.lua).
+
+    `shard=(rank, world)`: each rank loads only its slice of every
+    global batch; `opt.batchSize` stays the GLOBAL batch size. One
+    rank's validation covers the whole split, the final partial batch
+    included (improving on test.lua:52-64, which drops the remainder);
+    multi-rank validation keeps full global batches only, and
+    eval_epoch logs how many samples that skips."""
     manifest = Path(opt.datasets_dir) / f"{opt.dataset}.dat"
     split = Path(opt.datasets_dir) / f"{opt.dataset}_split.dat"
     specs = load_manifest_cached(manifest, opt.ground_truth, root=opt.data_root or None,
@@ -68,13 +101,18 @@ def build_loaders(opt: Options) -> Tuple[PrefetchLoader, Optional[PrefetchLoader
     train_ds = FlowDataset(specs, cfg, train_idx, train=True)
     train_loader = PrefetchLoader(
         train_ds, opt.batchSize, n_batches=opt.epochSize, n_workers=opt.nDonkeys,
-        manual_seed=opt.manualSeed, scene_batches=opt.scene_batches)
+        manual_seed=opt.manualSeed, shard=shard, scene_batches=opt.scene_batches)
     if not len(val_idx):
         return train_loader, None
     val_ds = FlowDataset(specs, cfg, val_idx, train=False)
-    n_val_batches = -(-len(val_ds) // opt.batchSize)  # ceil
+    if shard[1] == 1:
+        n_val_batches = -(-len(val_ds) // opt.batchSize)  # ceil
+    else:
+        n_val_batches = len(val_ds) // opt.batchSize
+    if not n_val_batches:
+        return train_loader, None
     val_loader = PrefetchLoader(val_ds, opt.batchSize, n_val_batches, n_workers=opt.nDonkeys,
-                                manual_seed=opt.manualSeed, sequential=True)
+                                manual_seed=opt.manualSeed, sequential=True, shard=shard)
     return train_loader, val_loader
 
 
@@ -159,8 +197,9 @@ def _read(pending) -> Dict[str, float]:
 
 
 def train_epoch(epoch: int, state: TrainState, step, loader, opt, logger: SymbolLogger,
-                device) -> Tuple[TrainState, Dict[str, float]]:
-    """One training epoch (train.lua:108-186)."""
+                device, verbose: bool = True) -> Tuple[TrainState, Dict[str, float]]:
+    """One training epoch (train.lua:108-186). `verbose`: print the
+    console lines (rank 0 does)."""
     state = state.with_epoch(epoch, opt)
     # pin the sample stream to the global epoch (1-based loop -> 0-based
     # stream) so resumed runs draw epoch N's data, not epoch 1's again
@@ -184,7 +223,8 @@ def train_epoch(epoch: int, state: TrainState, step, loader, opt, logger: Symbol
         # the NEXT batch's data_loaded() measures only its own host wait
         timer.step_done()
         rows.append(logs)
-        print(_fmt_console(epoch, i + 1, len(loader), batch_time, data_time, logs, lr))
+        if verbose:
+            print(_fmt_console(epoch, i + 1, len(loader), batch_time, data_time, logs, lr))
 
     drain_depth = max(opt.prefetch_depth, DRAIN_DEPTH)
     pending_q = collections.deque()
@@ -213,16 +253,19 @@ def train_epoch(epoch: int, state: TrainState, step, loader, opt, logger: Symbol
             "avg vis acc (train set)": means["occ_acc_vis"],
             "avg fwd acc (train set)": means["occ_acc_fwd"]})
     logger.add(summary)
-    print(f"Epoch: [{epoch}][TRAINING SUMMARY] Total Time(s): "
-          f"{time.time() - t0:.2f}\taverage loss (per batch): "
-          f"{means['loss']:.4f}")
+    if verbose:
+        print(f"Epoch: [{epoch}][TRAINING SUMMARY] Total Time(s): "
+              f"{time.time() - t0:.2f}\taverage loss (per batch): "
+              f"{means['loss']:.4f}")
     return state, means
 
 
 def eval_epoch(epoch: int, eval_step, loader, opt, logger: SymbolLogger,
-               device) -> Dict[str, float]:
+               device, verbose: bool = True) -> Dict[str, float]:
     """Validation epoch (test.lua:33-95): sample-weighted means over the
-    whole split, with at most max(2, prefetch_depth) steps in flight."""
+    batches evaluated (the whole split on one rank), with at most
+    max(2, prefetch_depth) steps in flight. A batch's weight is its
+    global size: the rank's slice times the world."""
     handles = collections.deque()
     loader.set_epoch(epoch - 1)
     rows, weights = [], []
@@ -234,10 +277,11 @@ def eval_epoch(epoch: int, eval_step, loader, opt, logger: SymbolLogger,
         weights.append(n)
 
     max_in_flight = max(2, opt.prefetch_depth)
+    world = distributed.process_count()
     for batch in device_prefetch(iter(loader), device, depth=opt.prefetch_depth):
         # the final batch may be partial; per-batch sample counts weight
         # the aggregation so the epoch metrics are exact over the split
-        handles.append((_to_host(eval_step(batch)), int(batch["images"].shape[0])))
+        handles.append((_to_host(eval_step(batch)), int(batch["images"].shape[0]) * world))
         if len(handles) > max_in_flight:
             fetch(handles.popleft())
     while handles:
@@ -252,37 +296,110 @@ def eval_epoch(epoch: int, eval_step, loader, opt, logger: SymbolLogger,
     if "occ_acc" in means:
         summary["avg occ acc (test set)"] = means["occ_acc"]
     logger.add(summary)
-    skipped = f" ({n_total - n_eval} skipped)" if n_eval < n_total else ""
-    print(f"Epoch: [{epoch}][TESTING SUMMARY] Total Time(s): "
-          f"{time.time() - t0:.2f}\taverage loss (per batch): "
-          f"{means['loss']:.4f}\tsamples {n_eval}/{n_total}{skipped}")
+    if verbose:
+        skipped = f" ({n_total - n_eval} skipped)" if n_eval < n_total else ""
+        print(f"Epoch: [{epoch}][TESTING SUMMARY] Total Time(s): "
+              f"{time.time() - t0:.2f}\taverage loss (per batch): "
+              f"{means['loss']:.4f}\tsamples {n_eval}/{n_total}{skipped}")
     return means
 
 
-def run_device(opt: Options) -> torch.device:
-    """The device `run` trains on (module docstring)."""
-    if opt.nGPU > 1:
-        raise NotImplementedError(f"-nGPU {opt.nGPU}: multi-card training is not ported yet "
-                                  f"(ROADMAP.md queue 1 item 11)")
+def _state_fingerprint(model: torch.nn.Module, epoch0: int) -> str:
+    """Order-stable digest of (start epoch, parameters by name, shape and
+    float32 value) for the cross-rank resume check."""
+    import hashlib
+
+    h = hashlib.md5(str(epoch0).encode())
+    for name, p in sorted(model.named_parameters()):
+        arr = p.detach().float().cpu().numpy()
+        h.update(name.encode())
+        h.update(str(arr.shape).encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def _platform(opt: Options) -> str:
     platform = opt.platform.lower()
-    if platform == "cpu":
-        return torch.device("cpu")
-    if platform not in ("", "gpu", "cuda"):
+    if platform not in ("", "gpu", "cuda", "cpu"):
         raise ValueError(f"--platform {opt.platform!r}: use '', 'gpu' or 'cuda' for the card, "
                          f"'cpu' for the CPU")
+    return "cpu" if platform == "cpu" else "cuda"
+
+
+def run_device(opt: Options, local_rank: int = 0) -> torch.device:
+    """The device a rank of `run` trains on (module docstring)."""
+    if _platform(opt) == "cpu":
+        return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(f"--platform {opt.platform!r} asks for the card and no CUDA device "
                            f"is available (pass --platform cpu for the CPU)")
-    index = max(opt.GPU - 1, 0)
+    index = max(opt.GPU - 1, 0) + local_rank
     if index >= torch.cuda.device_count():
         raise ValueError(f"-GPU {opt.GPU} asks for device {index + 1} but this host has only "
                          f"{torch.cuda.device_count()}")
     return torch.device("cuda", index)
 
 
+def _check_devices(opt: Options) -> None:
+    """`-GPU g -nGPU n` must name cards this host has (the JAX package's
+    ValueError); the CPU platform has no such bound."""
+    base = max(opt.GPU - 1, 0)
+    if _platform(opt) == "cuda" and opt.nGPU > 0 and base + opt.nGPU > torch.cuda.device_count():
+        raise ValueError(
+            f"-GPU {opt.GPU} -nGPU {opt.nGPU} asks for devices "
+            f"{base + 1}..{base + opt.nGPU} but this host has only "
+            f"{torch.cuda.device_count()} (cutorch.setDevice would error too)")
+
+
+def _check_mesh(opt: Options, world: int) -> None:
+    """`mesh_shape`/`mesh_axes` as the JAX package's mesh over the ranks:
+    only a `data` axis, of every rank."""
+    if "spatial" in opt.mesh_axes:
+        raise spatial_not_ported()
+    if opt.mesh_shape and int(np.prod(opt.mesh_shape)) != world:
+        raise ValueError(f"--mesh_shape {tuple(opt.mesh_shape)} does not hold the {world} "
+                         f"data-parallel ranks")
+
+
+def join_cluster(opt: Options) -> None:
+    """Join the cluster that the env asks for, if any (B2F_* spec or
+    torchrun): NCCL on the card, gloo with `--platform cpu`."""
+    distributed.initialize_multihost(backend="gloo" if _platform(opt) == "cpu" else None)
+
+
 def run(opt: Options, max_epochs: Optional[int] = None) -> TrainState:
-    """Full training run (main.lua:17-39). Returns the final state."""
-    device = run_device(opt)
+    """Full training run (main.lua:17-39). Returns the final state: in a
+    cluster each process's own, and rank 0's when `run` starts the ranks
+    itself (`-nGPU > 1`). Module docstring: ranks."""
+    join_cluster(opt)
+    if distributed.in_group() or opt.nGPU <= 1:
+        local = int(os.environ.get("LOCAL_RANK", 0)) if distributed.in_group() else 0
+        return _run_rank(opt, max_epochs, local)
+    _check_devices(opt)
+    backend = "gloo" if _platform(opt) == "cpu" else "nccl"
+    if backend == "nccl":
+        from ..runtime import cuda_build
+
+        cuda_build.build()  # once, before the ranks start: they load it
+    from ..parallel.launch import run_ranks
+
+    return run_ranks(_spawned_rank, opt.nGPU, (opt, max_epochs), backend=backend)[0]
+
+
+def _spawned_rank(rank: int, world: int, opt: Options, max_epochs: Optional[int]):
+    """A rank that `run` started: rank r on the r-th device from -GPU."""
+    state = _run_rank(opt, max_epochs, rank)
+    return state if rank == 0 else None
+
+
+def _run_rank(opt: Options, max_epochs: Optional[int], local_rank: int) -> TrainState:
+    """One rank of a run (all of it without a group)."""
+    rank, world = distributed.process_index(), distributed.process_count()
+    _check_mesh(opt, world)
+    distributed.host_local_batch_size(opt.batchSize)  # validates divisibility
+    device = run_device(opt, local_rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     np.random.seed(opt.manualSeed)
     crits = build_criterions(opt)
     state = None
@@ -297,19 +414,27 @@ def run(opt: Options, max_epochs: Optional[int] = None) -> TrainState:
     if state is None:
         net, _cfg, epoch0 = load_or_convert(opt)
         state = create_train_state(net.to(device), opt, epoch=epoch0)
+    # DDP would broadcast rank 0's parameters over any divergence (e.g. a
+    # -cont resume where only rank 0 sees the checkpoint): refuse it first
+    distributed.assert_same_across_hosts("resume_state",
+                                         _state_fingerprint(state.model, epoch0))
 
-    train_loader, val_loader = build_loaders(opt)
+    train_loader, val_loader = build_loaders(opt, shard=(rank, world))
     step = make_train_step(state.model, opt, crits)
     eval_step = make_eval_step(state.model, opt, crits)
-    train_log = SymbolLogger(Path(opt.save) / "train.log")
-    test_log = SymbolLogger(Path(opt.save) / "test.log")
+    is_main = rank == 0
+    suffix = "" if is_main else f".host{rank}"
+    train_log = SymbolLogger(Path(opt.save) / f"train.log{suffix}")
+    test_log = SymbolLogger(Path(opt.save) / f"test.log{suffix}")
 
     last = opt.nEpochs if max_epochs is None else min(opt.nEpochs, epoch0 + max_epochs - 1)
+    distributed.sync_hosts()
     for epoch in range(epoch0, last + 1):
-        state, _ = train_epoch(epoch, state, step, train_loader, opt, train_log, device)
+        state, _ = train_epoch(epoch, state, step, train_loader, opt, train_log, device,
+                               verbose=is_main)
         if val_loader is not None:
-            eval_epoch(epoch, eval_step, val_loader, opt, test_log, device)
-        if epoch % opt.epochStore == 0:
+            eval_epoch(epoch, eval_step, val_loader, opt, test_log, device, verbose=is_main)
+        if epoch % opt.epochStore == 0 and is_main:
             save_checkpoint(opt.save, state, opt, epoch)
         for log in (train_log, test_log):  # myLogger.lua:137-192
             try:

@@ -8,6 +8,11 @@ decodings by predicted-occ channel count. Every result is a 0-d tensor on
 the inputs' device; nothing is read on the host. Ties decode as in JAX:
 `torch.round` rounds half to even like `jnp.round`, and `argmax` takes
 the first maximum in both.
+
+Under data parallelism each metric is the global batch's: every ratio's
+numerator and denominator are summed over ranks first (one all-reduce
+of the stacked sums), so ranks that hold different mask counts weigh as
+the global batch does.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Dict, Optional
 import torch
 
 from ..losses.supervised import epe_map
+from ..parallel.distributed import all_reduce_sum, data_parallel
 
 
 def decode_occ(occ_pred: torch.Tensor) -> torch.Tensor:
@@ -30,27 +36,49 @@ def decode_occ(occ_pred: torch.Tensor) -> torch.Tensor:
     return torch.round((1.0 - occ_pred[..., 0]) + occ_pred[..., 1]) * 0.5
 
 
-def _safe_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    n = torch.sum(mask)
-    return torch.where(n > 0, torch.sum(values * mask) / torch.clamp(n, min=1.0),
-                       torch.zeros_like(n))
+def _masked_sums(values: torch.Tensor, mask: torch.Tensor):
+    """(sum of values over the mask, the mask's sum): a masked mean's
+    numerator and denominator."""
+    return torch.sum(values * mask), torch.sum(mask)
+
+
+def _safe_ratio(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    return torch.where(n > 0, s / torch.clamp(n, min=1.0), torch.zeros_like(n))
+
+
+def _global_sums(sums: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """`sums` summed over ranks in one all-reduce; as they are without
+    data parallelism."""
+    if not data_parallel():
+        return sums
+    total = all_reduce_sum(torch.stack([v.float() for v in sums.values()]))
+    return dict(zip(sums, total.unbind()))
+
+
+def _fl_all_outliers(epe_px: torch.Tensor, flow_gt_px: torch.Tensor) -> torch.Tensor:
+    mag = torch.sqrt(torch.sum(flow_gt_px ** 2, dim=-1))
+    return ((epe_px > 3.0) & (epe_px > 0.05 * mag)).to(epe_px.dtype)
 
 
 def fl_all(epe_px: torch.Tensor, flow_gt_px: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """KITTI Fl-all outlier rate: EPE > 3 px AND > 5% of gt magnitude."""
-    mag = torch.sqrt(torch.sum(flow_gt_px ** 2, dim=-1))
-    outlier = ((epe_px > 3.0) & (epe_px > 0.05 * mag)).to(epe_px.dtype)
-    return _safe_mean(outlier, mask)
+    return _safe_ratio(*_masked_sums(_fl_all_outliers(epe_px, flow_gt_px), mask))
+
+
+def _f1_counts(occ_pred_sharp: torch.Tensor, occ_label: torch.Tensor):
+    pred = occ_pred_sharp != 0.5
+    gt = occ_label != 0.5
+    return (torch.sum((pred & gt).float()), torch.sum((pred & ~gt).float()),
+            torch.sum((~pred & gt).float()))
+
+
+def _f1(tp: torch.Tensor, fp: torch.Tensor, fn: torch.Tensor) -> torch.Tensor:
+    return 2 * tp / torch.clamp(2 * tp + fp + fn, min=1.0)
 
 
 def occ_f1(occ_pred_sharp: torch.Tensor, occ_label: torch.Tensor) -> torch.Tensor:
     """F1 of occlusion detection: positive = not visible (label != 0.5)."""
-    pred = occ_pred_sharp != 0.5
-    gt = occ_label != 0.5
-    tp = torch.sum((pred & gt).float())
-    fp = torch.sum((pred & ~gt).float())
-    fn = torch.sum((~pred & gt).float())
-    return 2 * tp / torch.clamp(2 * tp + fp + fn, min=1.0)
+    return _f1(*_f1_counts(occ_pred_sharp, occ_label))
 
 
 def full_res_metrics(flow_pred: torch.Tensor, occ_pred: Optional[torch.Tensor], batch: Dict,
@@ -63,26 +91,35 @@ def full_res_metrics(flow_pred: torch.Tensor, occ_pred: Optional[torch.Tensor], 
     the JAX package."""
     mask = batch["mask"]
     m = epe_map(flow_pred, batch["flow_gt"], mask)
-    npix = torch.sum(mask)
-    epe = torch.sum(m) / torch.clamp(npix, min=1.0) * flownet_factor
-
+    m_px = m * flownet_factor
     # occ/non-occ split uses the 3-frame occlusion labels (train.lua:346-375)
-    lbl3 = batch["occ_gt"][..., 1]
-    vis = (lbl3 == 0.5).to(m.dtype)
+    vis = (batch["occ_gt"][..., 1] == 0.5).to(m.dtype)
     occluded = 1.0 - vis
-    epe_nocc = _safe_mean(m * flownet_factor, vis * mask)
-    epe_occ = _safe_mean(m * flownet_factor, occluded * mask)
-
-    out = {"epe": epe, "epe_nocc": epe_nocc, "epe_occ": epe_occ,
-           "fl_all": fl_all(m * flownet_factor, batch["flow_gt"] * flownet_factor, mask)}
-
+    sums = {"epe": torch.sum(m), "npix": torch.sum(mask)}
+    sums["nocc"], sums["n_nocc"] = _masked_sums(m_px, vis * mask)
+    sums["occ"], sums["n_occ"] = _masked_sums(m_px, occluded * mask)
+    sums["fl"], sums["n_fl"] = _masked_sums(
+        _fl_all_outliers(m_px, batch["flow_gt"] * flownet_factor), mask)
     if occ_pred is not None:
         sharp = decode_occ(occ_pred)
         lbl = batch["occ_gt"][..., 0]
         correct = (sharp == lbl).to(m.dtype)
-        out["occ_acc"] = torch.mean(correct)
-        out["occ_acc_bwd"] = _safe_mean(correct, (lbl == 0.0).to(m.dtype))
-        out["occ_acc_vis"] = _safe_mean(correct, (lbl == 0.5).to(m.dtype))
-        out["occ_acc_fwd"] = _safe_mean(correct, (lbl == 1.0).to(m.dtype))
-        out["occ_f1"] = occ_f1(sharp, lbl)
+        for key, state in (("bwd", 0.0), ("vis", 0.5), ("fwd", 1.0)):
+            sums[key], sums[f"n_{key}"] = _masked_sums(correct, (lbl == state).to(m.dtype))
+        sums["tp"], sums["fp"], sums["fn"] = _f1_counts(sharp, lbl)
+        if data_parallel():
+            sums["correct"] = torch.sum(correct)
+            sums["n_correct"] = torch.tensor(float(correct.numel()), device=correct.device)
+    sums = _global_sums(sums)
+
+    out = {"epe": sums["epe"] / torch.clamp(sums["npix"], min=1.0) * flownet_factor,
+           "epe_nocc": _safe_ratio(sums["nocc"], sums["n_nocc"]),
+           "epe_occ": _safe_ratio(sums["occ"], sums["n_occ"]),
+           "fl_all": _safe_ratio(sums["fl"], sums["n_fl"])}
+    if occ_pred is not None:
+        out["occ_acc"] = (sums["correct"] / sums["n_correct"] if data_parallel()
+                          else torch.mean(correct))
+        for key in ("bwd", "vis", "fwd"):
+            out[f"occ_acc_{key}"] = _safe_ratio(sums[key], sums[f"n_{key}"])
+        out["occ_f1"] = _f1(sums["tp"], sums["fp"], sums["fn"])
     return out

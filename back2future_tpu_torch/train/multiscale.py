@@ -13,6 +13,12 @@ the flow and on the occlusion per level against subsampled ground
 truth). The image warps feed only the photometric term, so the train and
 eval steps skip them for "epe" (XLA drops them there as dead code).
 
+Under data parallelism a rank's loss is its share of the global batch's
+(parallel/distributed.py): the terms normalised by the rank's own sizes
+(`sizeAverage`) are scaled by 1/world, the supervised L2 divides by the
+global mask count, and batch sums need nothing. The shares sum over
+ranks to the loss of the global batch, and so do their gradients.
+
 Known reference defects NOT replicated (documented intent implemented
 instead, as in the JAX package): the supervised occlusion loss as written
 would index a 1-channel tensor out of bounds and pass a tensor where
@@ -28,6 +34,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ..ops import avg_pool2, subsample2
+from ..parallel.distributed import loss_share
 
 LEVEL_WEIGHTS = (0.005, 0.01, 0.02, 0.08, 0.32, 0.64, 1.28)
 COMPONENTS = ("pme", "sflow", "socc", "gocc", "sup_flow", "sup_occ")
@@ -59,7 +66,8 @@ def _f32(x):
 
 def multiscale_loss(outputs: List[Dict[str, Any]], batch: Dict[str, Any],
                     opt, crits) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (total_loss, component dict).
+    """Returns (total_loss, component dict): this rank's shares under
+    data parallelism (module docstring).
 
     batch keys: "images" (B,H,W,3F) normalised stacked frames; for
     "epe" also "flow_gt" (B,H,W,2) [already / flownet_factor], "occ_gt"
@@ -101,10 +109,11 @@ def multiscale_loss(outputs: List[Dict[str, Any]], batch: Dict[str, Any],
     if opt.optimize == "pme":
         rc = _ref_channels(frames)
         down = batch["images"]
+        share = loss_share(opt.sizeAverage)
         for l, g in enumerate(outputs):
             if l > 0:
                 down = avg_pool2(down)
-            w = level_weight(l, opt.sizeAverage)
+            w = level_weight(l, opt.sizeAverage) * share
             target = down[..., rc:rc + 3]
 
             # flow smoothness on each predicted flow field (train.lua:427-433)

@@ -19,6 +19,16 @@ when `opt.ground_truth` is set and the batch holds `flow_gt` (the
 occlusion ones only when the model has an occlusion head: `frames > 2
 and not no_occ`). Nothing in either step reads a device value on the
 host: the logs are 0-d device tensors.
+
+Inside a process group (parallel/distributed.py; of one rank too) the
+train step runs the net through DistributedDataParallel, whose
+gradient hook sums the ranks' gradients of their loss shares
+(train/multiscale.py), so one step on each rank's slice equals one step
+on the global batch; the loss and its components are summed over ranks
+and the metrics reduced as ratios of global sums, so every rank logs
+the global batch's values. DDP wraps a module that holds the net (and
+the remat region, so that the recompute runs inside DDP's forward);
+`state.model` stays the bare net, whose state_dict checkpoints save.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..data.wire import decode_batch
+from ..parallel.distributed import all_reduce_sum, data_parallel, in_group, sum_gradients_hook
 from .metrics import full_res_metrics
 from .multiscale import multiscale_loss
 from .optim import lr_for_epoch
@@ -41,6 +52,9 @@ def _logs(loss: torch.Tensor, comps: Dict[str, torch.Tensor], outputs: List[Dict
     """The step's logs: the loss, its components and, with ground truth,
     the metrics of the finest level (back2future_tpu/train/step.py:65-70)."""
     logs = {"loss": loss.detach(), **{k: v.detach() for k, v in comps.items()}}
+    if data_parallel():
+        total = all_reduce_sum(torch.stack(list(logs.values())))
+        logs = dict(zip(logs, total.unbind()))
     if opt.ground_truth and "flow_gt" in batch:
         g0 = outputs[0]
         occ = g0["occ"] if (opt.frames > 2 and not opt.no_occ) else None
@@ -56,17 +70,52 @@ def _with_warped(opt) -> bool:
     return opt.optimize == "pme"
 
 
-def make_train_step(model: torch.nn.Module, opt, crits) -> Callable:
-    """Build step(state, batch) -> (state, logs) for a state made by
-    `create_train_state(model, opt)`."""
-    with_warped = _with_warped(opt)
+class _Forward(torch.nn.Module):
+    """The train step's forward: the net, under one activation-checkpoint
+    region with `remat`."""
 
-    def forward(images):
-        if getattr(opt, "remat", 0):
-            return torch.utils.checkpoint.checkpoint(model, images, with_warped,
+    def __init__(self, net: torch.nn.Module, remat: bool):
+        super().__init__()
+        self.net = net
+        self.remat = remat
+
+    def forward(self, images, with_warped: bool):
+        if self.remat:
+            return torch.utils.checkpoint.checkpoint(self.net, images, with_warped,
                                                      use_reentrant=False,
                                                      preserve_rng_state=False)
-        return model(images, with_warped)
+        return self.net(images, with_warped)
+
+
+def data_parallel_module(module: torch.nn.Module) -> torch.nn.Module:
+    """`module` under DistributedDataParallel with the summing gradient
+    hook (module docstring); rank 0's parameters are broadcast to every
+    rank when it is built, which all ranks do together.
+
+    Some recipes leave parameters that no loss reaches (under
+    `optimize="epe"` with `past_flow`, the past decoders feed only the
+    flow_past output, which the supervised loss does not read), so DDP
+    walks each step's graph for them (`find_unused_parameters`): their
+    gradients stay None, as without a group. `static_graph` is no
+    substitute: where a returned output that no loss reads holds such
+    parameters, it leaves the second step's gradients unreduced and
+    fails the third step."""
+    device = next(module.parameters()).device
+    ddp = torch.nn.parallel.DistributedDataParallel(
+        module, device_ids=[device.index] if device.type == "cuda" else None,
+        find_unused_parameters=True)
+    ddp.register_comm_hook(None, sum_gradients_hook)
+    return ddp
+
+
+def make_train_step(model: torch.nn.Module, opt, crits) -> Callable:
+    """Build step(state, batch) -> (state, logs) for a state made by
+    `create_train_state(model, opt)`. Inside a process group every rank
+    builds its step together (DDP's set-up is a collective)."""
+    with_warped = _with_warped(opt)
+    forward = _Forward(model, bool(getattr(opt, "remat", 0)))
+    if in_group():
+        forward = data_parallel_module(forward)
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -74,13 +123,14 @@ def make_train_step(model: torch.nn.Module, opt, crits) -> Callable:
         optimizer = state.optimizer
         optimizer.set_lr(lr_for_epoch(state.epoch, opt.LR))
         optimizer.zero_grad()
-        outputs = forward(batch["images"])
+        outputs = forward(batch["images"], with_warped)
         loss, comps = multiscale_loss(outputs, batch, opt, crits)
         logs = _logs(loss, comps, outputs, batch, opt)
         loss.backward()
         optimizer.step()
         return dataclasses.replace(state, step=state.step + 1), logs
 
+    step.forward = forward   # the module the step runs: DDP inside a group
     return step
 
 

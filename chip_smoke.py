@@ -171,12 +171,34 @@ Phases, one line each (any failure raises and exits non-zero):
      forward exported vs eager in turns, CUDA events; then
      `back2future_tpu_torch.serve_bench --export`, in this process (B=1 at the
      kitti and sintel resolutions, eager and exported)
-  13. one JSON line of the kernels (forward kernels: launches of the
+  13. data parallelism (stem off): (a) an NCCL group of one rank joined
+     from the B2F_COORDINATOR / B2F_NUM_PROCESSES / B2F_PROCESS_ID spec,
+     6 hard bf16 steps at B=8 320x640 through DDP (exact launches per
+     step), the first held against the same step without a group (loss,
+     every gradient within 2e-2 of max|g|); (b) dryrun_multichip(8,
+     backend="gloo"): 4 ranks sharing the card, one f32 step of each
+     recipe, the JAX package's recorded losses at rtol 1e-4, each rank's
+     launches; (c) run() (f32, B=4, 3 steps and validation) on a
+     generated 16-scene RoamingImages set by 2 gloo ranks sharing the
+     card, which this script starts and joins to a group, against a
+     1-rank run() with the same global batch: launches, train.log
+     losses (rtol 2e-3), the .host1 side log, the checkpoint; then the
+     2-rank f32 DDP step against the step on the whole B=8 batch (loss,
+     every gradient within 1e-3 of max|g|); (d) the flagship served at
+     B=16 on a mesh of two replicas of cuda:0 (K1 20, gather 16 a call)
+     against the single-device estimator, and both timed in turns
+     (one device, mesh, mesh, one device);
+     (e) the hard step's host ms to return, device ms (CUDA events) and
+     device busy ms (the profiler's kernel time) with DDP at world size 1
+     and without, in turns
+  14. one JSON line of the kernels (forward kernels: launches of the
      serving path and ms per serving forward; backward kernels: launches
      of the hard train path and ms per train step; K5/K6: launches of the
      soft train path and ms per train step; then the gather, K4 and
      W-dflow of the SPyNet path: launches over its 6 pme steps, ms per
-     pme step on the step's own inputs), then the result line
+     pme step on the step's own inputs; then the DDP step's kernels:
+     launches over phase 13 (a)'s 6 steps, ms per train step, K1's per
+     serving forward), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 It imports nothing of JAX and never runs on the CPU.
 
@@ -184,6 +206,11 @@ It imports nothing of JAX and never runs on the CPU.
 
 runs, after phase 1 and the build, only phases 10 and 11 and prints the
 SPyNet path's kernel entries and the result line.
+
+    python3 chip_smoke.py --ddp
+
+runs, after phase 1 and the build, only phase 13 and prints the result
+line.
 
     python3 chip_smoke.py --serving-export [--parent DIR]
 
@@ -461,20 +488,26 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, attempts: int = 3) -> dict:
+def device_ms(fn, reps: int, attempts: int = 8) -> dict:
     """Device time per call of `fn` by kernel name: the CUDA kernels it
     launches, summed by torch.profiler over `reps` calls after a warm-up,
     without the host time between them (which single-launch event windows
     include). A window in which the profiler recorded no device time (it
-    happens now and then over many windows) is taken again, up to
-    `attempts` times in all."""
+    happens now and then over many windows, and three in a row stopped a
+    default run in phase 3) is logged and taken again after a second, up
+    to `attempts` times in all, every other one tracing the host's
+    activity too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(attempts):
+        if attempt:
+            log("profiler", f"window {attempt} recorded no device time; taking it again")
+            time.sleep(1.0)
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if attempt % 2 else [])
+        with profile(activities=activities) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -3799,6 +3832,323 @@ def phase_serving_export(card: str, dev, argv: list) -> None:
     log("export", f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------ phase 13: data parallelism
+
+DDP_STEPS = 6                          # (a): NCCL at world size 1, hard bf16 steps
+DDP_TURNS = 2                          # (e): (plain, DDP, DDP, plain) this many times
+DDP_TIMED = 5                          # steps per turn
+DRYRUN_ANCHORS = {False: 49.97828, True: 100.98643}   # MULTICHIP_r05.json
+DRYRUN_RTOL = 1e-4
+# (c): run() on 2 gloo ranks that share the card against 1 rank, f32, same
+# global batch; a 16-scene set at val fraction 0.375 (11 train / 5 val at
+# seed 0: the 2-rank validation drops the partial batch)
+RUN_SCENES, RUN_VAL_FRACTION, RUN_B, RUN_EPOCH_SIZE = 16, 0.375, 4, 3
+RUN_LOG_RTOL = 2e-3                    # the JAX package's multi-host loss tolerance
+DDP_SERVING_TURNS = 1                  # (d): (one device, mesh, mesh, one device) turns
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def _ddp_run_rank(rank: int, world: int, opt, grad_seed: int) -> dict:
+    """A rank of phase 13 (c), in a gloo group made by run_ranks: run()
+    through its existing-group path, then one f32 DDP step of the seeded
+    flagship on this rank's half of the seeded B=8 batch. Returns the
+    run's launches and (rank 0) the step's loss and gradients."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import create_train_state, loop, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    loop.run(opt)
+    torch.cuda.synchronize()
+    launches = _nonzero(counts())
+    opt32 = train_options("float32", soft=False)
+    dev = torch.device("cuda", 0)
+    net = train_network(opt32, dev)
+    step = make_train_step(net, opt32, build_criterions(opt32))
+    if not isinstance(step.forward, torch.nn.parallel.DistributedDataParallel):
+        raise AssertionError("the train step in a group did not run through DDP")
+    batch = train_batch(dev)
+    half = TRAIN_B // world
+    local = {k: v[rank * half:(rank + 1) * half] for k, v in batch.items()}
+    _, logs = step(create_train_state(net, opt32), local)
+    out = {"launches": launches, "loss": logs["loss"].item()}
+    if rank == 0:
+        out["grads"] = {n: p.grad.cpu().numpy() for n, p in net.named_parameters()}
+    return out
+
+
+def _time_turn(step, state, batch, n: int):
+    """`n` steps: the state, the host ms each call took to return and the
+    device ms (CUDA events around each step)."""
+    host, events = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, _ = step(state, batch)
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return state, host, [a.elapsed_time(b) for a, b in events]
+
+
+def phase_ddp_world1(card: str, dev) -> None:
+    """(a) NCCL at world size 1 from the B2F_* spec, 6 hard bf16 steps
+    through DDP against the same first step without a group, their
+    launches checked and logged; (e) the step with DDP and without, in
+    turns."""
+    import torch.distributed as dist
+
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.parallel import distributed
+    from back2future_tpu_torch.parallel.launch import free_port
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    opt = train_options("bfloat16", soft=False)
+    batch = train_batch(dev)
+    crits = build_criterions(opt)
+    plain_net = train_network(opt, dev)
+    plain_step = make_train_step(plain_net, opt, crits)
+    if isinstance(plain_step.forward, torch.nn.parallel.DistributedDataParallel):
+        raise AssertionError("a step built without a group runs through DDP")
+    plain_state, logs = plain_step(create_train_state(plain_net, opt), batch)
+    want_loss = logs["loss"].item()
+    want_grads = {n: p.grad.clone() for n, p in plain_net.named_parameters()}
+
+    spec = {"B2F_COORDINATOR": f"127.0.0.1:{free_port()}", "B2F_NUM_PROCESSES": "1",
+            "B2F_PROCESS_ID": "0"}
+    os.environ.update(spec)
+    try:
+        t0 = time.perf_counter()
+        distributed.initialize_multihost()
+        distributed.sync_hosts()
+        log("ddp", f"(a) group from the B2F_* spec: backend {dist.get_backend()}, world "
+                   f"{dist.get_world_size()}, in {time.perf_counter() - t0:.2f} s")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError("phase 13 (a) asks for NCCL at world size 1")
+        net = train_network(opt, dev)
+        step = make_train_step(net, opt, crits)
+        if not isinstance(step.forward, torch.nn.parallel.DistributedDataParallel):
+            raise AssertionError("the train step in a group did not run through DDP")
+        state = create_train_state(net, opt)
+        reset_launches()
+        state, logs = step(state, batch)
+        loss = logs["loss"].item()
+        ratios = gradient_ratios({n: p.grad for n, p in net.named_parameters()}, want_grads)
+        worst = max(ratios, key=ratios.get)
+        state, values, times = train_steps("ddp", step, state, batch, DDP_STEPS - 1,
+                                           TRAIN_PER_STEP)
+        torch.cuda.synchronize()
+        launches = counts()
+        want = {k: DDP_STEPS * v for k, v in TRAIN_PER_STEP.items()}
+        if launches != want:
+            raise AssertionError(f"ddp: {DDP_STEPS} steps launched {launches}, expected {want}")
+        log("ddp", f"(a) {DDP_STEPS} bf16 DDP steps B={TRAIN_B} {TRAIN_H}x{TRAIN_W}: loss "
+                   f"{['%.4f' % loss] + ['%.4f' % v for v in values['loss']]}; first step vs "
+                   f"no group: loss {loss:.6f} vs {want_loss:.6f}, worst gradient "
+                   f"max_abs_err / max|g| {ratios[worst]:.3e} ({worst}; tol "
+                   f"{BF16_GRAD_TOL_FRAC}); launches {_nonzero(launches)} "
+                   f"({_nonzero(TRAIN_PER_STEP)} a step)")
+        if abs(loss - want_loss) > LOSS_RTOL * abs(want_loss) or ratios[worst] > BF16_GRAD_TOL_FRAC:
+            raise AssertionError("ddp: the DDP step at world size 1 and the step without a "
+                                 "group disagree")
+
+        # (e) in turns: plain, DDP, DDP, plain
+        rows = {"plain": ([], []), "ddp": ([], [])}
+        states = {"plain": plain_state, "ddp": state}
+        steps = {"plain": plain_step, "ddp": step}
+        for _ in range(DDP_TURNS):
+            for kind in ("plain", "ddp", "ddp", "plain"):
+                states[kind], host, device = _time_turn(steps[kind], states[kind], batch,
+                                                        DDP_TIMED)
+                rows[kind][0].extend(host)
+                rows[kind][1].extend(device)
+        summary = {k: (statistics.median(h), statistics.median(d)) for k, (h, d) in rows.items()}
+        # the device's own time a step, by the profiler (the CUDA-event
+        # window above spans the host's gaps in a host-bound step)
+        busy = {}
+        for kind in ("plain", "ddp", "ddp", "plain"):
+            busy.setdefault(kind, []).append(device_total_ms(
+                lambda: steps[kind](states[kind], batch), 3))
+        log("ddp", f"(e) hard bf16 step B={TRAIN_B} {TRAIN_H}x{TRAIN_W} in turns (plain, DDP, "
+                   f"DDP, plain) x{DDP_TURNS}, {DDP_TIMED} steps a turn, medians: host ms to "
+                   f"return {summary['plain'][0]:.2f} without DDP / {summary['ddp'][0]:.2f} "
+                   f"with DDP at world size 1; device ms (CUDA events) "
+                   f"{summary['plain'][1]:.2f} / {summary['ddp'][1]:.2f}; device busy ms "
+                   f"(profiler, kernels summed, 2 turns of 3 steps) plain "
+                   f"{['%.3f' % v for v in busy['plain']]} / DDP "
+                   f"{['%.3f' % v for v in busy['ddp']]}; all plain host "
+                   f"{['%.1f' % v for v in rows['plain'][0]]}, DDP host "
+                   f"{['%.1f' % v for v in rows['ddp'][0]]}; on {card}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in spec:
+            os.environ.pop(k, None)
+
+
+def phase_ddp_dryrun(card: str) -> None:
+    """(b) dryrun_multichip(8) over 4 gloo ranks that share the card, f32."""
+    from back2future_tpu_torch.graft_entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    results = dryrun_multichip(8, backend="gloo", timeout=600)
+    secs = time.perf_counter() - t0
+    per_step = _nonzero(TRAIN_PER_STEP)
+    for rank, records in enumerate(results):
+        for rec in records:
+            kind = "soft" if rec["soft"] else "hard"
+            log("ddp", f"(b) rank {rank} on {rec['device']} [{kind}]: loss {rec['loss']:.5f}, "
+                       f"launches {rec['launches']}")
+            if kind == "hard" and rec["launches"] != per_step:
+                raise AssertionError(f"ddp: dry-run rank {rank} hard step launched "
+                                     f"{rec['launches']}, expected {per_step}")
+    for i, soft in enumerate((False, True)):
+        loss = results[0][i]["loss"]
+        if abs(loss - DRYRUN_ANCHORS[soft]) > DRYRUN_RTOL * DRYRUN_ANCHORS[soft]:
+            raise AssertionError(f"ddp: dry run loss {loss} vs anchor {DRYRUN_ANCHORS[soft]}")
+    log("ddp", f"(b) dryrun_multichip(8): 4 gloo ranks on one card, losses "
+               f"{results[0][0]['loss']:.5f} (anchor {DRYRUN_ANCHORS[False]}) and "
+               f"{results[0][1]['loss']:.5f} (anchor {DRYRUN_ANCHORS[True]}), rtol "
+               f"{DRYRUN_RTOL}; {secs:.1f} s with the ranks' start-up, on {card}")
+
+
+def phase_ddp_run(card: str, dev) -> None:
+    """(c) run() on 2 gloo ranks sharing the card against a 1-rank run()
+    with the same global batch, then a gradient check of the 2-rank DDP
+    step against the step on the whole batch."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from back2future_tpu_torch.config import Options
+    from back2future_tpu_torch.data import roaming
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.parallel.launch import run_ranks
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import create_train_state, loop, make_train_step
+    from back2future_tpu_torch.utils import SymbolLogger
+
+    with tempfile.TemporaryDirectory(prefix="b2f_ddp_") as tmp:
+        root = Path(tmp)
+        roaming.main(["--out", str(root / "set"), "--n", str(RUN_SCENES), "--height",
+                      str(TRAIN_H), "--width", str(TRAIN_W), "--frames", "3", "--seed", "0",
+                      "--val_fraction", str(RUN_VAL_FRACTION)])
+        datasets = root / "set" / "datasets"
+        opt = Options(batchSize=RUN_B, dataset="RoamingImages", datasets_dir=str(datasets),
+                      data_root=str(root / "set" / "data"), cache=str(root / "cache"),
+                      expName="one", epochSize=RUN_EPOCH_SIZE, nEpochs=1, epochStore=1,
+                      nDonkeys=0, optimize="pme", compute_dtype="float32", augment=0,
+                      rand_crop=0, ground_truth=True).derive(make_dirs=True)
+        n_val = len(loop.build_loaders(opt)[1].dataset)   # the samples run() validates
+        two = dataclasses.replace(opt, expName="two", save=str(root / "cache" / "two"))
+        Path(two.save).mkdir(parents=True)
+        t0 = time.perf_counter()
+        reset_launches()
+        loop.run(opt)
+        torch.cuda.synchronize()
+        one_s, one_launches = time.perf_counter() - t0, _nonzero(counts())
+        t0 = time.perf_counter()
+        ranks = run_ranks(_ddp_run_rank, 2, (two, 0), backend="gloo", rank0_here=False,
+                          timeout=900)
+        two_s = time.perf_counter() - t0
+        logs = {name: SymbolLogger(Path(o.save) / "train.log").read()["avg loss (train set)"]
+                for name, o in (("one", opt), ("two", two))}
+        tests = {name: SymbolLogger(Path(o.save) / "test.log").read()["avg loss (test set)"]
+                 for name, o in (("one", opt), ("two", two))}
+        side = (Path(two.save) / "train.log.host1").exists()
+        saved = (Path(two.save) / "model_1.pt").exists()
+    n_full = n_val // RUN_B   # the 2-rank run's validation batches; 1 rank's add a partial one
+    per_rank = {k: RUN_EPOCH_SIZE * TRAIN_PER_STEP[k] + n_full * EVAL_PER_STEP[k]
+                for k in TRAIN_PER_STEP}
+    one_want = {k: RUN_EPOCH_SIZE * TRAIN_PER_STEP[k] + -(-n_val // RUN_B) * EVAL_PER_STEP[k]
+                for k in TRAIN_PER_STEP}
+    log("ddp", f"(c) run() f32 B={RUN_B} {TRAIN_H}x{TRAIN_W}, {RUN_EPOCH_SIZE} steps + "
+               f"validation: 1 rank {one_s:.1f} s, train loss {logs['one']}, test loss "
+               f"{tests['one']} ({n_val} of {n_val} samples); 2 gloo ranks on the card "
+               f"{two_s:.1f} s with their start-up, train loss {logs['two']}, test loss "
+               f"{tests['two']} ({n_full * RUN_B} of {n_val}: full global batches); launches "
+               f"1 rank {one_launches}, per rank "
+               f"{[r['launches'] for r in ranks]}; .host1 side log {side}, checkpoint {saved}")
+    if one_launches != _nonzero(one_want) or any(r["launches"] != _nonzero(per_rank)
+                                                 for r in ranks):
+        raise AssertionError(f"ddp: run() launches {one_launches} / "
+                             f"{[r['launches'] for r in ranks]}, expected {_nonzero(one_want)} "
+                             f"/ {_nonzero(per_rank)}")
+    if not (side and saved and len(tests["two"]) == 1 and np.allclose(
+            logs["two"], logs["one"], rtol=RUN_LOG_RTOL, atol=0)):
+        raise AssertionError("ddp: the 2-rank run() and the 1-rank run() disagree")
+
+    opt32 = train_options("float32", soft=False)
+    net = train_network(opt32, dev)
+    step = make_train_step(net, opt32, build_criterions(opt32))
+    _, plain_logs = step(create_train_state(net, opt32), train_batch(dev))
+    want = {n: p.grad for n, p in net.named_parameters()}
+    got = {n: torch.from_numpy(g).to(dev) for n, g in ranks[0]["grads"].items()}
+    ratios = gradient_ratios(got, want)
+    worst = max(ratios, key=ratios.get)
+    loss, want_loss = ranks[0]["loss"], plain_logs["loss"].item()
+    log("ddp", f"(c) f32 DDP step on 2 gloo ranks (B={TRAIN_B // 2} each) vs one step on "
+               f"B={TRAIN_B}: loss {loss:.6f} vs {want_loss:.6f} (rtol {LOSS_RTOL}), worst "
+               f"gradient max_abs_err / max|g| {ratios[worst]:.3e} ({worst}; tol "
+               f"{GRAD_TOL_FRAC}) over {len(want)} parameters")
+    if abs(loss - want_loss) > LOSS_RTOL * abs(want_loss) or ratios[worst] > GRAD_TOL_FRAC \
+            or ranks[1]["loss"] != loss:
+        raise AssertionError("ddp: the 2-rank DDP step and the whole-batch step disagree")
+
+
+def phase_ddp_serving(card: str) -> None:
+    """(d) the flagship served on a mesh of two replicas of cuda:0 against
+    the single-device estimator, B=16 KITTI frames."""
+    from back2future_tpu_torch.api import init
+    from back2future_tpu_torch.parallel import make_mesh
+    from back2future_tpu_torch.runtime import reset_launches
+
+    est = init(None, device="cuda", seed=0)
+    mesh_est = init(None, seed=0, mesh=make_mesh(["cuda:0", "cuda:0"]))
+    rng = np.random.default_rng(0)
+    batch = [rng.random((B, H_IN, W_IN, 3), dtype=np.float32) for _ in range(3)]
+    want = est.compute_flow_batch(*batch)
+    reset_launches()
+    got = mesh_est.compute_flow_batch(*batch)
+    launches = _nonzero(counts())
+    check_results(got, B)
+    expect = _nonzero({k: 2 * v for k, v in SERVING_PER_FORWARD.items()})
+    if launches != expect:
+        raise AssertionError(f"ddp: a mesh call launched {launches}, expected {expect}")
+    compare_results("ddp", "(d) mesh of 2 x cuda:0 vs one device", got, want)
+    walls = {"one": [], "mesh": []}
+    for _ in range(DDP_SERVING_TURNS):
+        for kind, e in (("one", est), ("mesh", mesh_est), ("mesh", mesh_est), ("one", est)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.compute_flow_batch(*batch)
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+    log("ddp", f"(d) compute_flow_batch B={B} {H_IN}x{W_IN}: launches of a mesh call "
+               f"{launches} (K1 10 and the gather 8 per slice forward); wall ms in turns, "
+               f"medians: one device {statistics.median(walls['one']):.1f}, mesh of two "
+               f"replicas on one card {statistics.median(walls['mesh']):.1f}; on {card}")
+
+
+def phase_ddp(card: str, dev) -> None:
+    """Phase 13: (a) + (e), (b), (c), (d). Each part checks its own
+    launch counts and logs them; the kernels line keeps the paths of
+    phase 3's entries."""
+    t0 = time.perf_counter()
+    phase_ddp_world1(card, dev)
+    phase_ddp_dryrun(card)
+    phase_ddp_run(card, dev)
+    phase_ddp_serving(card)
+    log("ddp", f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+
 def elapsed_marks():
     """A function that logs the seconds since it was made and since its
     last call, after a phase of the default run."""
@@ -3844,6 +4194,11 @@ def main() -> None:
     if "--serving-export" in sys.argv[1:]:
         with stem(False):
             phase_serving_export(card, dev, sys.argv[1:])
+        print_result()
+        return
+    if "--ddp" in sys.argv[1:]:
+        with stem(False):
+            phase_ddp(card, dev)
         print_result()
         return
     if "--spynet" in sys.argv[1:]:
@@ -3906,6 +4261,8 @@ def main() -> None:
         mark("spynet, t7 (10, 11)")
         phase_serving_export(card, dev, sys.argv[1:])
         mark("serving export (12)")
+        phase_ddp(card, dev)
+        mark("data parallelism (13)")
     kernels = []
     for name, key, source, replaces, path in KERNEL_ENTRIES:
         s = summary[key]

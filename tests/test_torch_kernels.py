@@ -1189,3 +1189,84 @@ def test_exported_forward_launches_the_kernels(cuda, tmp_path):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="exported for device 'cuda'"):
         api.load_exported(tmp_path / "art", device="cpu")
+
+
+# ------------------------------------------------------- data parallelism
+
+TRAIN_LAUNCHES = {"b2f_cost_volume_fwd": 10, "b2f_warp_bilinear_fwd": 18,
+                  "b2f_cost_volume_dref": 10, "b2f_cost_volume_dframe": 10,
+                  "b2f_warp_bilinear_dflow": 18, "b2f_warp_bilinear_dimages": 8}
+
+
+def test_ddp_nccl_world1_step_matches_plain_step(cuda, monkeypatch):
+    """One f32 step of the flagship at 64x128 through DDP in an NCCL
+    group of one rank (joined from the B2F_* spec) against the same step
+    without a group: the kernels' launches, the loss and every gradient
+    (1e-3 of max|g|: K4's f32 atomics add in a varying order)."""
+    import torch.distributed as dist
+
+    from back2future_tpu_torch.parallel import distributed
+    from back2future_tpu_torch.parallel.launch import free_port
+
+    opt = Options(optimize="pme", batchSize=2, compute_dtype="float32").derive()
+    crits = build_criterions(opt)
+    x = rand((2, 64, 128, 9), 23, cuda)
+    results = []
+    for group in (False, True):
+        if group:
+            monkeypatch.setenv("B2F_COORDINATOR", f"127.0.0.1:{free_port()}")
+            monkeypatch.setenv("B2F_NUM_PROCESSES", "1")
+            monkeypatch.setenv("B2F_PROCESS_ID", "0")
+            distributed.initialize_multihost()
+        try:
+            net = PWCNet(pwc_config_from_options(opt),
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+            step = make_train_step(net, opt, crits)
+            assert isinstance(step.forward, torch.nn.parallel.DistributedDataParallel) == group
+            reset_launches()
+            _, logs = step(create_train_state(net, opt), {"images": x})
+            assert {k: v.launches for k, v in KERNELS.items() if v.launches} == TRAIN_LAUNCHES
+            assert not group or dist.get_backend() == "nccl"
+            results.append((logs["loss"].item(), [p.grad.clone() for p in net.parameters()]))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    (loss_a, grads_a), (loss_b, grads_b) = results
+    np.testing.assert_allclose(loss_b, loss_a, rtol=1e-6)
+    for a, b in zip(grads_a, grads_b):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-3 * a.abs().max().item())
+
+
+def test_mesh_serving_two_replicas_of_cuda0(cuda):
+    """The flagship served on a mesh of two replicas of cuda:0: a batch
+    of 3 padded to 4 and trimmed, each slice's forward 10 K1 and 8
+    gathers, the results as the single-device estimator's (f32)."""
+    from back2future_tpu_torch import api
+    from back2future_tpu_torch.parallel import make_mesh
+
+    one = api.init(None, device="cuda", dtype="float32", seed=2)
+    mesh_est = api.init(None, dtype="float32", seed=2, mesh=make_mesh(["cuda:0", "cuda:0"]))
+    frames = [np.random.default_rng(i).random((3, 96, 200, 3), dtype=np.float32)
+              for i in range(3)]
+    want = one.compute_flow_batch(*frames)
+    reset_launches()
+    got = mesh_est.compute_flow_batch(*frames)
+    assert {k: v.launches for k, v in KERNELS.items() if v.launches} == {
+        "b2f_cost_volume_fwd": 20, "b2f_warp_bilinear_fwd": 16}
+    assert got[0].shape == want[0].shape == (3, 96, 200, 2)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4 * np.abs(want[0]).max())
+    for g, w in zip(got[1:], want[1:]):
+        assert (g != w).mean() <= 1e-3
+
+
+def test_dryrun_multichip_gloo_ranks_share_the_card(cuda):
+    """dryrun_multichip(2, backend="gloo"): 2 ranks on cuda:0, one f32
+    hard step each with the train step's launches, one global loss."""
+    from back2future_tpu_torch.graft_entry import dryrun_multichip
+
+    results = dryrun_multichip(2, soft=False, backend="gloo", timeout=600)
+    assert len(results) == 2
+    losses = [r[0]["loss"] for r in results]
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    for r in results:
+        assert r[0]["device"] == "cuda:0" and r[0]["launches"] == TRAIN_LAUNCHES

@@ -128,9 +128,11 @@ def test_run_two_epochs_checkpoints_and_logs(toy_tree):
     assert len(SymbolLogger(save / "train.log").read()["avg loss (train set)"]) == 4
 
 
-def test_run_device_choice(toy_tree):
+def test_run_device_choice(toy_tree, monkeypatch):
     """`--platform cpu` is the only way to the CPU: the card asked for and
-    absent raises, as do several cards and an unknown platform."""
+    absent raises, as do more cards than the host has (the JAX package's
+    ValueError), a spatial mesh axis (not ported) and an unknown
+    platform."""
     from back2future_tpu_torch.train.loop import run_device
 
     assert run_device(toy_options(toy_tree, expName="dev")).type == "cpu"
@@ -139,9 +141,14 @@ def test_run_device_choice(toy_tree):
             with pytest.raises(RuntimeError, match="--platform cpu"):
                 run(toy_options(toy_tree, expName="dev", platform=platform))
     with pytest.raises(NotImplementedError, match="item 11"):
-        run(toy_options(toy_tree, expName="dev", nGPU=2))
+        run(toy_options(toy_tree, expName="dev", mesh_shape=(1, 1),
+                        mesh_axes=("data", "spatial")))
     with pytest.raises(ValueError, match="platform"):
         run(toy_options(toy_tree, expName="dev", platform="tpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="this host has only 1"):
+        run(toy_options(toy_tree, expName="dev", platform="", nGPU=2))
 
 
 def test_resume_trajectory_matches_straight_run(toy_tree):
