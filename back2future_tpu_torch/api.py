@@ -17,8 +17,14 @@ estimator holds one replica of the net per slot of the mesh's `data`
 axis; `compute_flow_batch` pads the batch to a multiple of the axis by
 repeating the last sample (as the JAX package does), enqueues each
 slice's forward on its replica's device before reading any result, and
-trims the padding. Slots may share a device. The video path and the
-export are single-device, as in the JAX package.
+trims the padding. Slots may share a device. With `spatial=True` and a
+mesh with a `spatial` axis of S, image rows are sharded too: one replica
+per (data, spatial) slot, each in a thread of its own (which enters
+inference mode itself), the S slots of a data slot taking its whole
+slice and computing their row bands of it, with in-process halo
+exchanges (parallel/spatial.py `ThreadGroup`); slot s = 0 of each data
+slot returns the whole outputs. The video path and the export are
+single-device, as in the JAX package.
 
 `FlowEstimator.export(path, sizes)` writes one `torch.export` program per
 (batch, H64, W64) bucket and `load_exported(path)` serves them
@@ -31,6 +37,7 @@ that an exported program calls.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from pathlib import Path
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple, Union
@@ -138,29 +145,50 @@ class FlowEstimator:
     def __init__(self, net: PWCNet, device: torch.device, mesh=None, spatial: bool = False):
         """`net` on `device`, which is the mesh's first data slot's device
         when there is a mesh. Without a mesh the estimator is one slot
-        that holds `net` itself."""
-        from .parallel.mesh import make_mesh, replicate, spatial_not_ported
+        that holds `net` itself. `spatial` shards rows over the mesh's
+        `spatial` axis (module docstring); a mesh without one ignores it,
+        as the JAX package does."""
+        from .parallel.mesh import make_mesh, replicate
+        from .parallel.spatial import ThreadGroup
 
-        if spatial:
-            raise spatial_not_ported()
         self.config: PWCConfig = net.cfg
         self.mesh = mesh
         self.device = device
         self._slots = make_mesh([device]) if mesh is None else mesh
-        self.replicas = [r.eval() for r in ([net] if mesh is None else replicate(net, mesh))]
+        self.spatial = 1 if mesh is None or not spatial else mesh.shape.get("spatial", 1)
+        self.replicas = [r.eval() for r in ([net] if mesh is None
+                                            else replicate(net, mesh, self.spatial > 1))]
         self.net = self.replicas[0]
+        self._groups = []
+        if self.spatial > 1:
+            self._groups = [ThreadGroup(self.spatial) for _ in self._slots.data_devices()]
+            for i, r in enumerate(self.replicas):
+                r.spatial_comm = self._groups[i // self.spatial].comm(i % self.spatial)
 
     def _padded_batch(self, n: int) -> int:
         """Batch size after mesh padding: a multiple of the `data` axis."""
-        return n + (-n) % len(self.replicas)
+        return n + (-n) % len(self._slots.data_devices())
 
     def _forward(self, x: torch.Tensor) -> List[Dict]:
-        """The finest level of each replica's forward on its slice of `x`
-        (all enqueued before any is read)."""
+        """The finest level of each data slot's forward on its slice of
+        `x` (all enqueued before any is read; with a spatial axis, the
+        slots run in threads of their own)."""
         from .parallel.mesh import shard_batch
+        from .parallel.spatial import run_slots
 
-        return [net(part, with_warped=False)[0]
-                for net, part in zip(self.replicas, shard_batch(x, self._slots))]
+        parts = shard_batch(x, self._slots)
+        if not self._groups:
+            return [net(part, with_warped=False)[0] for net, part in zip(self.replicas, parts)]
+        devices = self._slots.slot_devices()
+
+        def slot(i):
+            with torch.inference_mode():
+                part = parts[i // self.spatial].to(devices[i])
+                return self.replicas[i](part, with_warped=False)[0]
+
+        outputs = run_slots([functools.partial(slot, i) for i in range(len(self.replicas))],
+                            self._groups)
+        return outputs[::self.spatial]
 
     def _finest(self, outputs) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         g = outputs[0]
@@ -408,7 +436,8 @@ def init(model: Union[None, str, Path, Tuple[dict, PWCConfig]] = "Ours-Soft-ft-K
     default is the config's own (a checkpoint's options.json), and
     bfloat16 for random weights. `device` "cuda" with no card raises.
     `mesh` (parallel.make_mesh) serves on one replica per `data` slot
-    instead of on `device`; `spatial=True` raises (not ported).
+    instead of on `device`; `spatial=True` shards image rows over the
+    mesh's `spatial` axis too (FlowEstimator).
     """
     from .models import PWCConfig, PWCNet
     from .models.pwc import DTYPES

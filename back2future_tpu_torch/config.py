@@ -7,10 +7,10 @@ The port's own copy of the JAX package's `Options`
 that an option set written by one package reads in the other and
 `pwc_config_from_options` / `build_criterions` take either. `platform`
 picks the device of `train.loop.run`: "", "gpu" or "cuda" mean the card
-(`cuda:{GPU-1}`), "cpu" asks for the CPU; `nGPU` the data-parallel
-ranks `run` starts, and `mesh_shape`/`mesh_axes` the JAX mesh's layout
-of them: a `data` axis of every rank (a `spatial` axis is not ported;
-train/loop.py). `trace_dir` is read only by `utils.maybe_profile`, and
+(`cuda:{GPU-1}`), "cpu" asks for the CPU; `nGPU` the ranks `run`
+starts, and `mesh_shape`/`mesh_axes` the JAX mesh's layout of them: a
+`data` axis, and optionally a `spatial` one that shards image rows
+(train/loop.py). `trace_dir` is read only by `utils.maybe_profile`, and
 `use_pallas` means nothing to the port and is kept only so option sets
 round-trip.
 `parse_args` is the training CLI's front end (back2future_tpu/config.py:234).
@@ -116,7 +116,7 @@ class Options:
     compute_dtype: str = "bfloat16"  # conv/matmul compute dtype
     param_dtype: str = "float32"
     mesh_shape: Tuple[int, ...] = ()   # () -> every rank on one 'data' axis
-    mesh_axes: Tuple[str, ...] = ("data",)   # 'spatial' is not ported
+    mesh_axes: Tuple[str, ...] = ("data",)   # or ("data", "spatial"): rows sharded
     use_pallas: bool = True            # inert in the port
     reference_grads: bool = True       # replicate hand-written reference VJPs
     prefetch_depth: int = 2            # device prefetch depth for the data loader

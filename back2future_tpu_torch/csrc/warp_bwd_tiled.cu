@@ -124,15 +124,17 @@ __device__ __forceinline__ float4 scale4(float w, float4 g) {
 template <typename T, int VEC, bool WINDOW, bool COUNT>
 __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 4 : 2)   // f32: 8 packs of 4 registers
 warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restrict__ g,
-                                   float* __restrict__ d_img, int H, int W, int C, int slices,
-                                   int vec_out, int* __restrict__ routes) {
+                                   float* __restrict__ d_img, int H, int W, int C, int Hs,
+                                   int y0, int slices, int vec_out, int* __restrict__ routes) {
   __shared__ int4 corner_s[TP];   // x0, y0 (-1: outside the image), wx, wy as bits
   __shared__ int4 box_s[NT / 32];
 
   const int t = threadIdx.x;
   const int q = t % QS;
   const int slice = blockIdx.z % slices;
+  // the image's first pixel in flow and g (H rows), and in d_img (Hs rows)
   const size_t img0 = static_cast<size_t>(blockIdx.z / slices) * H * W;
+  const size_t src0 = static_cast<size_t>(blockIdx.z / slices) * Hs * W;
   const int ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   const int c0 = slice * CS;
   const int cs = min(CS, C - c0);
@@ -163,7 +165,8 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
     int4 e = make_int4(0, -1, 0, 0);
     int4 box = make_int4(INT_MAX, -1, INT_MAX, -1);
     if (y < H && x < W) {
-      const Corners k = warp_corners(flow, img0 + static_cast<size_t>(y) * W + x, x, y, H, W);
+      const Corners k = warp_corners(flow, img0 + static_cast<size_t>(y) * W + x, x, y0 + y, Hs,
+                                     W);
       e = make_int4(k.x0, k.y0, __float_as_int(k.wx), __float_as_int(k.wy));
       box = make_int4(k.y0, k.y1, k.x0, k.x1);
     }
@@ -197,8 +200,8 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
       if (e.y < 0) continue;
       const float4 gv = to_f32x4(gk[k]);
       const float wx = __int_as_float(e.z), wy = __int_as_float(e.w);
-      const bool x1_in = e.x + 1 < W, y1_in = e.y + 1 < H;
-      float* tl = d_img + (img0 + static_cast<size_t>(e.y) * W + e.x) * C + c0 + 4 * q;
+      const bool x1_in = e.x + 1 < W, y1_in = e.y + 1 < Hs;
+      float* tl = d_img + (src0 + static_cast<size_t>(e.y) * W + e.x) * C + c0 + 4 * q;
       add_quad(tl, scale4(wx * wy, gv), nv, vec_out);
       if (x1_in) add_quad(tl + C, scale4((1.f - wx) * wy, gv), nv, vec_out);
       if (y1_in) add_quad(tl + static_cast<size_t>(W) * C, scale4(wx * (1.f - wy), gv), nv,
@@ -226,7 +229,7 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
   for (int k = 0; k < TP / PIX; ++k) g_s[(t / QS + PIX * k) * QS + q] = gk[k];
   __syncthreads();
   const int4 e = corner_s[t];
-  const bool x1_in = e.x + 1 < W, y1_in = e.y + 1 < H;
+  const bool x1_in = e.x + 1 < W, y1_in = e.y + 1 < Hs;
   const int tl = (e.y - ylo) * ww + e.x - xlo;
   int slot[4];   // this pixel's adds: their places among their window pixel's
   if (e.y >= 0) {
@@ -285,7 +288,7 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
                             fmaf(w, gv.w, acc.w));
         }
         if (acc.x != 0.f || acc.y != 0.f || acc.z != 0.f || acc.w != 0.f)
-          add_quad(d_img + (img0 + static_cast<size_t>(ylo + r) * W + xlo + col) * C + c0 +
+          add_quad(d_img + (src0 + static_cast<size_t>(ylo + r) * W + xlo + col) * C + c0 +
                        4 * q,
                    acc, nv, vec_out);
       }
@@ -320,7 +323,8 @@ template <typename T>
 __global__ void __launch_bounds__(NT_FLOW)
 warp_bilinear_dflow_rows_kernel(const T* __restrict__ img, const T* __restrict__ flow,
                                 const T* __restrict__ g, T* __restrict__ d_flow, int H, int W,
-                                size_t npix, int flow_pairs, int reference_grads) {
+                                int Hs, int y0, size_t npix, int flow_pairs,
+                                int reference_grads) {
   constexpr int CHUNKS = NT_FLOW * 3 * sizeof(T) / 16;   // a full block's g
   __shared__ uint4 g_raw[CHUNKS];
   T* g_s = reinterpret_cast<T*>(g_raw);
@@ -336,9 +340,9 @@ warp_bilinear_dflow_rows_kernel(const T* __restrict__ img, const T* __restrict__
   const int x = static_cast<int>(p % W);
   const int y = static_cast<int>((p / W) % H);
   const size_t b = p / (static_cast<size_t>(H) * W);
-  const Corners k = pair_corners(flow, p, x, y, H, W, flow_pairs);
+  const Corners k = pair_corners(flow, p, x, y0 + y, Hs, W, flow_pairs);
   float top[6], bot[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const T* row0 = img + ((b * H + k.y0) * W + k.x0) * 3;
+  const T* row0 = img + ((b * Hs + k.y0) * W + k.x0) * 3;
   if (k.x1_in) load_span6(row0, top); else load_span3(row0, top);
   if (k.y1_in) {
     const T* row1 = row0 + static_cast<size_t>(W) * 3;
@@ -376,7 +380,7 @@ template <typename T, int VEC, int G>
 __global__ void __launch_bounds__(NT_FLOW)
 warp_bilinear_dflow_lanes_kernel(const T* __restrict__ img, const T* __restrict__ flow,
                                  const T* __restrict__ g, T* __restrict__ d_flow, int H, int W,
-                                 int C, size_t npix, int reference_grads) {
+                                 int C, int Hs, int y0, size_t npix, int reference_grads) {
   const size_t i = static_cast<size_t>(blockIdx.x) * NT_FLOW + threadIdx.x;
   const int l = threadIdx.x % G;
   const bool live = i / G < npix;   // the whole group, so its shuffles stay converged
@@ -384,9 +388,9 @@ warp_bilinear_dflow_lanes_kernel(const T* __restrict__ img, const T* __restrict_
   const int x = static_cast<int>(p % W);
   const int y = static_cast<int>((p / W) % H);
   const size_t b = p / (static_cast<size_t>(H) * W);
-  const Corners k = warp_corners(flow, p, x, y, H, W);
+  const Corners k = warp_corners(flow, p, x, y0 + y, Hs, W);
 
-  const T* base = img + b * H * W * C;
+  const T* base = img + b * Hs * W * C;
   const T* tl_p = base + (static_cast<size_t>(k.y0) * W + k.x0) * C;
   const T* tr_p = base + (static_cast<size_t>(k.y0) * W + k.x1) * C;
   const T* bl_p = base + (static_cast<size_t>(k.y1) * W + k.x0) * C;
@@ -438,7 +442,7 @@ bool window_pays(long long blocks) {
 
 template <typename T, bool COUNT>
 cudaError_t launch_dimages(const void* flow, const void* g, float* d_img, int B, int H, int W,
-                           int C, int route, int* routes, cudaStream_t stream) {
+                           int C, int Hs, int y0, int route, int* routes, cudaStream_t stream) {
   const int slices = (C + CS - 1) / CS;
   const long long z = static_cast<long long>(B) * slices;
   const int tiles_y = (H + TH - 1) / TH;
@@ -454,22 +458,24 @@ cudaError_t launch_dimages(const void* flow, const void* g, float* d_img, int B,
                                        : warp_bilinear_dimages_tiled_kernel<T, 1, false, COUNT>);
   const int vec_out = C % 4 == 0 && reinterpret_cast<uintptr_t>(d_img) % 16 == 0;
   kernel<<<grid, NT, 0, stream>>>(static_cast<const T*>(flow), static_cast<const T*>(g), d_img,
-                                  H, W, C, slices, vec_out, routes);
+                                  H, W, C, Hs, y0, slices, vec_out, routes);
   return cudaGetLastError();
 }
 
 template <bool COUNT>
 int dimages(const void* flow, const void* g, void* d_img, int dtype, int B, int H, int W, int C,
-            int route, int* routes, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || route < 0 || route > kRouteWindow)
+            int Hs, int y0, int route, int* routes, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Hs <= 0 || y0 < 0 || y0 + H > Hs ||
+      route < 0 || route > kRouteWindow)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(d_img);
   switch (dtype) {
     case b2f::kFloat32:
-      return launch_dimages<float, COUNT>(flow, g, out, B, H, W, C, route, routes, s);
+      return launch_dimages<float, COUNT>(flow, g, out, B, H, W, C, Hs, y0, route, routes, s);
     case b2f::kBFloat16:
-      return launch_dimages<__nv_bfloat16, COUNT>(flow, g, out, B, H, W, C, route, routes, s);
+      return launch_dimages<__nv_bfloat16, COUNT>(flow, g, out, B, H, W, C, Hs, y0, route,
+                                                  routes, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -479,17 +485,19 @@ int dimages(const void* flow, const void* g, void* d_img, int dtype, int B, int 
 // where the channels hold 8 packs, of 4 below
 template <typename T, int VEC, int G>
 cudaError_t launch_lanes(const T* img, const T* flow, const T* g, T* d_flow, int H, int W,
-                         int C, size_t npix, int reference_grads, cudaStream_t stream) {
+                         int C, int Hs, int y0, size_t npix, int reference_grads,
+                         cudaStream_t stream) {
   const size_t blocks = (npix * G + NT_FLOW - 1) / NT_FLOW;
   warp_bilinear_dflow_lanes_kernel<T, VEC, G><<<static_cast<unsigned>(blocks), NT_FLOW, 0,
-                                                stream>>>(img, flow, g, d_flow, H, W, C, npix,
-                                                          reference_grads);
+                                                stream>>>(img, flow, g, d_flow, H, W, C, Hs, y0,
+                                                          npix, reference_grads);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dflow(const void* img_, const void* flow_, const void* g_, void* d_flow_,
-                         int B, int H, int W, int C, int reference_grads, cudaStream_t stream) {
+                         int B, int H, int W, int C, int Hs, int y0, int reference_grads,
+                         cudaStream_t stream) {
   const T* img = static_cast<const T*>(img_);
   const T* flow = static_cast<const T*>(flow_);
   const T* g = static_cast<const T*>(g_);
@@ -501,7 +509,7 @@ cudaError_t launch_dflow(const void* img_, const void* flow_, const void* g_, vo
     };
     const size_t blocks = (npix + NT_FLOW - 1) / NT_FLOW;
     warp_bilinear_dflow_rows_kernel<T><<<static_cast<unsigned>(blocks), NT_FLOW, 0, stream>>>(
-        img, flow, g, d_flow, H, W, npix, pair_aligned(flow) && pair_aligned(d_flow),
+        img, flow, g, d_flow, H, W, Hs, y0, npix, pair_aligned(flow) && pair_aligned(d_flow),
         reference_grads);
     return cudaGetLastError();
   }
@@ -509,12 +517,13 @@ cudaError_t launch_dflow(const void* img_, const void* flow_, const void* g_, vo
   if (C % VEC == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(g) % 16 == 0) {
     return C / VEC >= 8
-               ? launch_lanes<T, VEC, 8>(img, flow, g, d_flow, H, W, C, npix, reference_grads,
-                                         stream)
-               : launch_lanes<T, VEC, 4>(img, flow, g, d_flow, H, W, C, npix, reference_grads,
-                                         stream);
+               ? launch_lanes<T, VEC, 8>(img, flow, g, d_flow, H, W, C, Hs, y0, npix,
+                                         reference_grads, stream)
+               : launch_lanes<T, VEC, 4>(img, flow, g, d_flow, H, W, C, Hs, y0, npix,
+                                         reference_grads, stream);
   }
-  return launch_lanes<T, 1, 4>(img, flow, g, d_flow, H, W, C, npix, reference_grads, stream);
+  return launch_lanes<T, 1, 4>(img, flow, g, d_flow, H, W, C, Hs, y0, npix, reference_grads,
+                               stream);
 }
 
 // the kernel that b2f_warp_bwd_tiled_info reports
@@ -537,12 +546,15 @@ const void* kernel_of(int kernel) {
 }  // namespace
 
 // K4. flow: (B, H, W, 2) and g: (B, H, W, C), contiguous and of `dtype`
-// (b2f::DType); d_img: (B, H, W, C) f32, zeroed by the caller, to which the
-// image gradient is ADDED. Launches on `stream`, returns cudaGetLastError().
+// (b2f::DType); d_img: (B, H_src, W, C) f32, zeroed by the caller, to which
+// the image gradient is ADDED. The row window as in b2f_warp_bilinear_fwd:
+// output row y is source row y0 + y (y0 = 0, H = H_src: the whole image).
+// Launches on `stream`, returns cudaGetLastError().
 extern "C" int b2f_warp_bilinear_dimages(const void* flow, const void* g, void* d_img,
-                                         int dtype, int B, int H, int W, int C,
-                                         void* stream) {
-  return dimages<false>(flow, g, d_img, dtype, B, H, W, C, kRouteByGrid, nullptr, stream);
+                                         int dtype, int B, int H, int W, int C, int H_src,
+                                         int y0, void* stream) {
+  return dimages<false>(flow, g, d_img, dtype, B, H, W, C, H_src, y0, kRouteByGrid, nullptr,
+                        stream);
 }
 
 // The same kernel for comparing its routes. route: 0 as the path allows
@@ -552,24 +564,28 @@ extern "C" int b2f_warp_bilinear_dimages(const void* flow, const void* g, void* 
 extern "C" int b2f_warp_bilinear_dimages_routes(const void* flow, const void* g, void* d_img,
                                                 int dtype, int B, int H, int W, int C, int route,
                                                 void* routes, void* stream) {
-  return dimages<true>(flow, g, d_img, dtype, B, H, W, C, route, static_cast<int*>(routes),
-                       stream);
+  return dimages<true>(flow, g, d_img, dtype, B, H, W, C, H, 0, route,
+                       static_cast<int*>(routes), stream);
 }
 
-// W-dflow. img: (B, H, W, C), flow: (B, H, W, 2), g: (B, H, W, C),
-// d_flow: (B, H, W, 2), all contiguous and of `dtype`. reference_grads: 1
-// for the reference formula, 0 for the autodiff gradient (zeroed where the
-// coordinate clamps). Launches on `stream`, returns cudaGetLastError().
+// W-dflow. img: (B, H_src, W, C), flow: (B, H, W, 2), g: (B, H, W, C),
+// d_flow: (B, H, W, 2), all contiguous and of `dtype`; the row window as in
+// b2f_warp_bilinear_fwd. reference_grads: 1 for the reference formula, 0
+// for the autodiff gradient (zeroed where the coordinate clamps). Launches
+// on `stream`, returns cudaGetLastError().
 extern "C" int b2f_warp_bilinear_dflow(const void* img, const void* flow, const void* g,
                                        void* d_flow, int dtype, int B, int H, int W, int C,
-                                       int reference_grads, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
+                                       int H_src, int y0, int reference_grads, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || H_src <= 0 || y0 < 0 || y0 + H > H_src)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case b2f::kFloat32:
-      return launch_dflow<float>(img, flow, g, d_flow, B, H, W, C, reference_grads, s);
+      return launch_dflow<float>(img, flow, g, d_flow, B, H, W, C, H_src, y0, reference_grads,
+                                 s);
     case b2f::kBFloat16:
-      return launch_dflow<__nv_bfloat16>(img, flow, g, d_flow, B, H, W, C, reference_grads, s);
+      return launch_dflow<__nv_bfloat16>(img, flow, g, d_flow, B, H, W, C, H_src, y0,
+                                         reference_grads, s);
     default:
       return cudaErrorInvalidValue;
   }

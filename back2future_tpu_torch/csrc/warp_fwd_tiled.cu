@@ -158,17 +158,17 @@ __device__ __forceinline__ Pack<T, VEC> blend_packs(const Weights& w, const Pack
 template <typename T, int VEC, int G, int PPL>
 __global__ void __launch_bounds__(NT)
 warp_bilinear_fwd_lanes_kernel(const T* __restrict__ img, const T* __restrict__ flow,
-                               T* __restrict__ out, int H, int W, int C, size_t npix,
-                               Stride stride, int flow_pairs) {
+                               T* __restrict__ out, int H, int W, int C, int Hs, int y0,
+                               size_t npix, Stride stride, int flow_pairs) {
   using P = Pack<T, VEC>;
   constexpr int GROUPS = NT / G;   // pixels a block takes at once
   const int l = threadIdx.x % G;
   const size_t p0 = static_cast<size_t>(blockIdx.x) * GROUPS + threadIdx.x / G;
   if (p0 >= npix) return;
-  const size_t plane = static_cast<size_t>(H) * W * C;
+  const size_t plane = static_cast<size_t>(Hs) * W * C;
   for (Walk at(p0, H, W, npix <= UINT_MAX); at.p < npix; at.step(stride, H, W)) {
     const float2 f = flow_at(flow, at.p, flow_pairs);
-    const Corners k = b2f::corners_at(f.x, f.y, at.x, at.y, H, W);
+    const Corners k = b2f::corners_at(f.x, f.y, at.x, y0 + at.y, Hs, W);
     const Weights w = weights_of(k);
     const T* tl = img + at.b * plane + (static_cast<size_t>(k.y0) * W + k.x0) * C;
     const size_t dx = static_cast<size_t>(k.x1 - k.x0) * C;
@@ -203,15 +203,15 @@ warp_bilinear_fwd_lanes_kernel(const T* __restrict__ img, const T* __restrict__ 
 template <typename T>
 __global__ void __launch_bounds__(NT_ROWS)
 warp_bilinear_fwd_rows_kernel(const T* __restrict__ img, const T* __restrict__ flow,
-                              T* __restrict__ out, int H, int W, size_t npix, Stride stride,
-                              int flow_pairs) {
+                              T* __restrict__ out, int H, int W, int Hs, int y0, size_t npix,
+                              Stride stride, int flow_pairs) {
   const size_t p0 = static_cast<size_t>(blockIdx.x) * NT_ROWS + threadIdx.x;
   for (Walk at(p0, H, W, npix <= UINT_MAX); at.p < npix; at.step(stride, H, W)) {
     const float2 f = flow_at(flow, at.p, flow_pairs);
-    const Corners k = b2f::corners_at(f.x, f.y, at.x, at.y, H, W);
+    const Corners k = b2f::corners_at(f.x, f.y, at.x, y0 + at.y, Hs, W);
     const Weights w = weights_of(k);
     float top[6], bot[6];   // tl then tr; bl then br
-    const T* row0 = img + ((at.b * H + k.y0) * W + k.x0) * 3;
+    const T* row0 = img + ((at.b * Hs + k.y0) * W + k.x0) * 3;
     if (k.x1_in) {
       b2f::load_span6(row0, top);
     } else {
@@ -251,13 +251,13 @@ cudaError_t persistent_grid(K kernel, int threads, size_t needed, unsigned* grid
 }
 
 template <typename T, int VEC, int G, int PPL>
-cudaError_t launch_lanes(const T* img, const T* flow, T* out, int H, int W, int C, size_t npix,
-                         int flow_pairs, cudaStream_t stream) {
+cudaError_t launch_lanes(const T* img, const T* flow, T* out, int H, int W, int C, int Hs, int y0,
+                         size_t npix, int flow_pairs, cudaStream_t stream) {
   const auto kernel = warp_bilinear_fwd_lanes_kernel<T, VEC, G, PPL>;
   unsigned grid = 0;
   const cudaError_t e = persistent_grid(kernel, NT, (npix + NT / G - 1) / (NT / G), &grid);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, NT, 0, stream>>>(img, flow, out, H, W, C, npix,
+  kernel<<<grid, NT, 0, stream>>>(img, flow, out, H, W, C, Hs, y0, npix,
                                   stride_of(static_cast<size_t>(grid) * (NT / G), H, W),
                                   flow_pairs);
   return cudaGetLastError();
@@ -267,22 +267,22 @@ cudaError_t launch_lanes(const T* img, const T* flow, T* out, int H, int W, int 
 // aligned for the packs): G lanes a pixel, PPL packs a lane, at the packs
 // per pixel of the table; any other count loops in groups of 4
 template <typename T, int VEC>
-cudaError_t launch_packed(const T* img, const T* flow, T* out, int H, int W, int C, size_t npix,
-                          int flow_pairs, cudaStream_t s) {
+cudaError_t launch_packed(const T* img, const T* flow, T* out, int H, int W, int C, int Hs,
+                          int y0, size_t npix, int flow_pairs, cudaStream_t s) {
   switch (C / VEC) {
-    case 4: return launch_lanes<T, VEC, 4, 1>(img, flow, out, H, W, C, npix, flow_pairs, s);
-    case 8: return launch_lanes<T, VEC, 8, 1>(img, flow, out, H, W, C, npix, flow_pairs, s);
-    case 12: return launch_lanes<T, VEC, 4, 3>(img, flow, out, H, W, C, npix, flow_pairs, s);
-    case 16: return launch_lanes<T, VEC, 8, 2>(img, flow, out, H, W, C, npix, flow_pairs, s);
-    case 24: return launch_lanes<T, VEC, 8, 3>(img, flow, out, H, W, C, npix, flow_pairs, s);
-    case 32: return launch_lanes<T, VEC, 8, 4>(img, flow, out, H, W, C, npix, flow_pairs, s);
-    default: return launch_lanes<T, VEC, 4, 0>(img, flow, out, H, W, C, npix, flow_pairs, s);
+    case 4: return launch_lanes<T, VEC, 4, 1>(img, flow, out, H, W, C, Hs, y0, npix, flow_pairs, s);
+    case 8: return launch_lanes<T, VEC, 8, 1>(img, flow, out, H, W, C, Hs, y0, npix, flow_pairs, s);
+    case 12: return launch_lanes<T, VEC, 4, 3>(img, flow, out, H, W, C, Hs, y0, npix, flow_pairs, s);
+    case 16: return launch_lanes<T, VEC, 8, 2>(img, flow, out, H, W, C, Hs, y0, npix, flow_pairs, s);
+    case 24: return launch_lanes<T, VEC, 8, 3>(img, flow, out, H, W, C, Hs, y0, npix, flow_pairs, s);
+    case 32: return launch_lanes<T, VEC, 8, 4>(img, flow, out, H, W, C, Hs, y0, npix, flow_pairs, s);
+    default: return launch_lanes<T, VEC, 4, 0>(img, flow, out, H, W, C, Hs, y0, npix, flow_pairs, s);
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* img_, const void* flow_, void* out_, int B, int H, int W, int C,
-                   cudaStream_t stream) {
+                   int Hs, int y0, cudaStream_t stream) {
   const T* img = static_cast<const T*>(img_);
   const T* flow = static_cast<const T*>(flow_);
   T* out = static_cast<T*>(out_);
@@ -293,7 +293,7 @@ cudaError_t launch(const void* img_, const void* flow_, void* out_, int B, int H
     unsigned grid = 0;
     const cudaError_t e = persistent_grid(kernel, NT_ROWS, (npix + NT_ROWS - 1) / NT_ROWS, &grid);
     if (e != cudaSuccess) return e;
-    kernel<<<grid, NT_ROWS, 0, stream>>>(img, flow, out, H, W, npix,
+    kernel<<<grid, NT_ROWS, 0, stream>>>(img, flow, out, H, W, Hs, y0, npix,
                                          stride_of(static_cast<size_t>(grid) * NT_ROWS, H, W),
                                          flow_pairs);
     return cudaGetLastError();
@@ -301,8 +301,8 @@ cudaError_t launch(const void* img_, const void* flow_, void* out_, int B, int H
   constexpr int VEC = 16 / sizeof(T);
   if (C % VEC == 0 &&
       (reinterpret_cast<uintptr_t>(img) | reinterpret_cast<uintptr_t>(out)) % 16 == 0)
-    return launch_packed<T, VEC>(img, flow, out, H, W, C, npix, flow_pairs, stream);
-  return launch_lanes<T, 1, 4, 0>(img, flow, out, H, W, C, npix, flow_pairs, stream);
+    return launch_packed<T, VEC>(img, flow, out, H, W, C, Hs, y0, npix, flow_pairs, stream);
+  return launch_lanes<T, 1, 4, 0>(img, flow, out, H, W, C, Hs, y0, npix, flow_pairs, stream);
 }
 
 // the kernel that b2f_warp_fwd_tiled_info reports: 0 the rows kernel
@@ -332,15 +332,21 @@ const void* kernel_of(int kernel) {
 
 }  // namespace
 
-// img: (B, H, W, C), flow: (B, H, W, 2), out: (B, H, W, C), all contiguous
-// and of `dtype` (b2f::DType). Launches on `stream`, returns cudaGetLastError().
+// img: (B, H_src, W, C), flow: (B, H, W, 2), out: (B, H, W, C), all
+// contiguous and of `dtype` (b2f::DType). The row window: output row y is
+// source row y0 + y, so its coordinate is (y0 + y) + v in f32 (an exact
+// integer plus the flow, as in a launch over the whole image), and the
+// clamp and the +1 corners' mask use H_src; y0 = 0 and H = H_src is the
+// whole image. Launches on `stream`, returns cudaGetLastError().
 extern "C" int b2f_warp_bilinear_fwd(const void* img, const void* flow, void* out, int dtype,
-                                     int B, int H, int W, int C, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaErrorInvalidValue;
+                                     int B, int H, int W, int C, int H_src, int y0,
+                                     void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || H_src <= 0 || y0 < 0 || y0 + H > H_src)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case b2f::kFloat32: return launch<float>(img, flow, out, B, H, W, C, s);
-    case b2f::kBFloat16: return launch<__nv_bfloat16>(img, flow, out, B, H, W, C, s);
+    case b2f::kFloat32: return launch<float>(img, flow, out, B, H, W, C, H_src, y0, s);
+    case b2f::kBFloat16: return launch<__nv_bfloat16>(img, flow, out, B, H, W, C, H_src, y0, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,8 +6,8 @@ non-occluded metric breakdown (train.lua:337-375). Under
 `reference_grads=True` the backward replicates the reference's
 eps-stabilised denominator. With `size_average` the normaliser is the
 mask's sum over the global batch: under data parallelism the ranks'
-counts are all-reduced (it has no gradient), in the value and in the
-reference backward alike.
+counts are all-reduced over the data group (parallel/distributed.py; it
+has no gradient), in the value and in the reference backward alike.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from ..parallel.distributed import all_reduce_sum
+from ..parallel.distributed import all_reduce_data
 
 _EPS = 1e-12
 
@@ -32,7 +32,7 @@ def _l2_value(flow, target_flow, mask, size_average):
     m = epe_map(flow, target_flow, mask)
     out = m.sum()
     if size_average:
-        out = out / all_reduce_sum(mask.sum())
+        out = out / all_reduce_data(mask.sum())
     return out, m
 
 
@@ -56,7 +56,7 @@ class _L2Fn(torch.autograd.Function):
         denom = torch.sqrt((diff * diff).sum(-1) * mask3) + _EPS
         d = diff / denom[..., None] * mask3[..., None]
         if ctx.size_average:
-            d = d / all_reduce_sum(mask3.sum())
+            d = d / all_reduce_data(mask3.sum())
         return d * g, None, None, None
 
 

@@ -9,6 +9,13 @@ Parameters are kept in f32 and cast to the compute dtype per call, as
 flax's `dtype=` does. Tensors stay NHWC between modules; a conv runs on
 the NCHW view `x.permute(0, 3, 1, 2)`, which is channels_last in memory,
 so no copy is made.
+
+On a row band of a sharded level (parallel/spatial.py) each block takes
+its spatial group's communicator, `comm`: a conv exchanges a halo of
+k//2 rows with the neighbouring bands (zeros at the image's edge) and
+convolves with no row padding. At stride 2 the bands of the input are
+twice the output's and start on an even row, so output row r still
+reads input rows 2r-1 .. 2r+1 (the halo below goes unread).
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.spatial import Comm, halo_rows
 
 
 class Conv(nn.Module):
@@ -36,10 +45,13 @@ class Conv(nn.Module):
             self.weight.uniform_(-stdv, stdv, generator=generator)
             self.bias.uniform_(-stdv, stdv, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
         w = self.weight.to(x.dtype, memory_format=torch.channels_last)
+        padding = self.padding
+        if comm is not None:   # a row band: the halo stands in for the row padding
+            x, padding = halo_rows(x, self.padding, comm), (0, self.padding)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, self.bias.to(x.dtype),
-                     stride=self.stride, padding=self.padding)
+                     stride=self.stride, padding=padding)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -58,8 +70,8 @@ class ConvUnit(nn.Module):
         self.c0 = Conv(in_features, features, stride=stride, generator=generator)
         self.c1 = Conv(features, features, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return leaky_relu(self.c1(leaky_relu(self.c0(x))))
+    def forward(self, x: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
+        return leaky_relu(self.c1(leaky_relu(self.c0(x, comm)), comm))
 
 
 class Decoder(nn.Module):
@@ -75,7 +87,7 @@ class Decoder(nn.Module):
         self.out = Conv(dims[-1], out_features, generator=generator)
         self.n_hidden = len(widths)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
         for i in range(self.n_hidden):
-            x = leaky_relu(getattr(self, f"c{i}")(x))
-        return self.out(x)
+            x = leaky_relu(getattr(self, f"c{i}")(x, comm))
+        return self.out(x, comm)

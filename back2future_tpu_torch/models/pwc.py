@@ -15,6 +15,18 @@ Output: list of per-level dicts, FINEST first (models/pwc.lua:458-489):
 `forward(x, with_warped=False)` skips the image warps and returns
 "warped": [] — what the compiled JAX serving program computes, since XLA
 drops those warps as dead code when only flow and occlusion are read.
+
+Image rows sharded over a spatial group (parallel/spatial.py): with
+`net.spatial_comm` set (its spatial group's communicator), every slot of
+the group takes the whole input and returns the whole outputs, and
+computes the sharded levels of the `level_plan` on its row band
+(`RowLayout`): the convs and cost volumes
+exchange halos, the 2x upsamples read the whole level's taps, and each
+feature warp gathers its source image and warps its band by the row
+window (`warp_bilinear(..., y0=)`). The levels past the plan's cut, the
+fused stem (a replicated region whose outputs are split into bands) and
+the image warps of the photometric loss (on the gathered outputs and the
+whole image pyramids) run whole on every slot.
 """
 
 from __future__ import annotations
@@ -29,7 +41,9 @@ from ..ops import (
     avg_pool2, cost_volume_multi, spatial_softmax, upsample_bilinear2x,
     upsample_nearest2x, warp_bilinear,
 )
+from ..ops.pyramid import upsample_bilinear2x_rows
 from ..ops.stem import fused_stem, stem_eligible, stem_enabled
+from ..parallel.spatial import Comm, gather_rows, halo_rows, level_plan, shard_rows
 from .layers import ConvUnit, Decoder
 
 # d = 16 (models/pwc.lua:29); feature dims per level (models/pwc.lua:89)
@@ -93,6 +107,68 @@ class PWCConfig:
         return self.levels - self.l_st + 1
 
 
+class RowLayout:
+    """Where a forward's tensors live, by pyramid level (level l has
+    H / 2**(l-1) rows): the band of this slot at a sharded level of the
+    plan, the whole level otherwise. Without a row shard every level is
+    whole and each method is the plain op."""
+
+    def __init__(self, comm: Optional[Comm], height: int, levels: int, halo: int):
+        self.comm_ = None if comm is None or comm.size == 1 else comm
+        self.height = height
+        self.plan = (level_plan(height, self.comm_.size, levels, halo) if self.comm_
+                     else (False,) * levels)
+
+    def sharded(self, l: int) -> bool:
+        return self.plan[l - 1]
+
+    def comm(self, l: int) -> Optional[Comm]:
+        """The communicator of a band at level l, None for a whole level."""
+        return self.comm_ if self.sharded(l) else None
+
+    def band(self, t: torch.Tensor, l: int) -> torch.Tensor:
+        """Level l's tensor from the whole one."""
+        return shard_rows(t, self.comm_) if self.sharded(l) else t
+
+    def whole(self, t: torch.Tensor, l: int) -> torch.Tensor:
+        """The whole level l from level l's tensor."""
+        return gather_rows(t, self.comm_) if self.sharded(l) else t
+
+    def input(self, t: torch.Tensor, l: int) -> torch.Tensor:
+        """Level l-1's tensor as the input of level l's stage (a band
+        stays a band; a whole stage takes the whole level)."""
+        return t if self.sharded(l) else self.whole(t, l - 1)
+
+    def _y0(self, l: int) -> int:
+        return self.comm_.index * (self.height >> (l - 1)) // self.comm_.size
+
+    def up_bilinear(self, t: torch.Tensor, l: int) -> torch.Tensor:
+        """Level l's tensor upsampled 2x to level l-1."""
+        if not self.sharded(l - 1):
+            return upsample_bilinear2x(t)
+        in_h = self.height >> (l - 1)
+        out_h = 2 * in_h // self.comm_.size
+        if self.sharded(l):   # the band's rows and one of each neighbour's
+            return upsample_bilinear2x_rows(halo_rows(t, 1, self.comm_), in_h,
+                                            self._y0(l) - 1, self._y0(l - 1), out_h)
+        return upsample_bilinear2x_rows(t, in_h, 0, self._y0(l - 1), out_h)
+
+    def up_nearest(self, t: torch.Tensor, l: int) -> torch.Tensor:
+        """Level l's tensor upsampled 2x (nearest) to level l-1."""
+        up = upsample_nearest2x(t)
+        return up if self.sharded(l) else self.band(up, l - 1)
+
+    def warp(self, images: torch.Tensor, flow: torch.Tensor, l: int,
+             reference_grads: bool) -> torch.Tensor:
+        """Level l's images warped by level l's flow: on a band, the
+        whole images gathered and the band's rows warped by the row
+        window."""
+        if not self.sharded(l):
+            return warp_bilinear(images, flow, reference_grads=reference_grads)
+        return warp_bilinear(gather_rows(images, self.comm_), flow,
+                             reference_grads=reference_grads, y0=self._y0(l))
+
+
 def pwc_config_from_options(opt) -> PWCConfig:
     """Build from an `Options` (config.py; models/pwc.lua:103-117)."""
     return PWCConfig(
@@ -110,6 +186,8 @@ class PWCNet(nn.Module):
     """The multi-frame PWC network. Submodule names are the flax module
     names (`feat_{l}`, `{flow,occ,past}_decoder_{l}`), so the params
     bridge maps one tree onto the other by name."""
+
+    spatial_comm: Optional[Comm] = None   # the spatial group's, on a row-sharded slot
 
     def __init__(self, cfg: PWCConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -146,24 +224,34 @@ class PWCNet(nn.Module):
                     occ_in += 2 + (2 if cfg.occ_input == 1 else 0)
                 self.add_module(f"occ_decoder_{l}", Decoder(occ_in, generator=generator))
 
-    def _features(self, img: torch.Tensor) -> Dict[int, torch.Tensor]:
+    def _features(self, img: torch.Tensor, rows: RowLayout) -> Dict[int, torch.Tensor]:
         """Apply pyramid stages 2..levels (and stage 1 when skip==0);
-        stages 2 and 3 through the fused stem when `_stem_fusable`."""
+        stages 2 and 3 through the fused stem when `_stem_fusable`. `img`
+        is whole; each level comes out as `rows` places it."""
         cfg = self.cfg
-        cs = {1: img}
+        cs = {1: rows.band(img, 1)}
+        start = 2
         if cfg.siamese == 1:
             if cfg.skip == 0:
-                cs[1] = self.feat_1(img)
-            start = 2
-            if self._stem_fusable(cs[1]):
-                cs[2], cs[3] = fused_stem(cs[1], self.feat_2, self.feat_3)
+                cs[1] = self.feat_1(cs[1], rows.comm(1))
+            elif self._stem_fusable(img):
+                c2, c3 = fused_stem(img, self.feat_2, self.feat_3)
+                cs[2], cs[3] = rows.band(c2, 2), rows.band(c3, 3)
                 start = 4
             for l in range(start, cfg.levels + 1):
-                cs[l] = getattr(self, f"feat_{l}")(cs[l - 1])
+                cs[l] = getattr(self, f"feat_{l}")(rows.input(cs[l - 1], l), rows.comm(l))
         else:
             for l in range(2, cfg.levels + 1):
-                cs[l] = avg_pool2(cs[l - 1])
+                cs[l] = avg_pool2(rows.input(cs[l - 1], l))
         return cs
+
+    def _rows(self, height: int) -> RowLayout:
+        """The row layout of a forward at `height` rows: the plan's halo
+        is the cost volume's reach at the widest frame distance."""
+        cfg = self.cfg
+        f_i, l_i = self._frame_range()
+        reach = (cfg.win // 2) * max(l_i - cfg.ref, cfg.ref - f_i, 1)
+        return RowLayout(self.spatial_comm, height, cfg.levels, max(reach, 1))
 
     def _stem_fusable(self, x: torch.Tensor) -> bool:
         """Whether levels 2 and 3 run through the fused stem (ops/stem.py),
@@ -196,11 +284,12 @@ class PWCNet(nn.Module):
         # over the frame-stacked batch and is split afterwards
         f_range = list(range(f_i, l_i + 1))
         stacked = torch.cat([x[..., 3 * (f - 1):3 * f] for f in f_range], dim=0)
-        css = self._features(stacked)
+        rows = self._rows(x.shape[1])
+        css = self._features(stacked, rows)
         n = x.shape[0]
         cs = {f: {l: feat[k * n:(k + 1) * n] for l, feat in css.items()}
               for k, f in enumerate(f_range)}
-        return self._decode(x, cs, with_warped)
+        return self._decode(x, cs, with_warped, rows)
 
     def pyramid(self, frame: torch.Tensor) -> Dict[int, torch.Tensor]:
         """Siamese feature pyramid of ONE frame: (B, H, W, 3) -> {level:
@@ -210,7 +299,7 @@ class PWCNet(nn.Module):
         if frame.shape[-1] != 3:
             raise ValueError(f"pyramid() takes one (B, H, W, 3) frame, got "
                              f"channels={frame.shape[-1]}")
-        return self._features(frame.to(self.cfg.dtype))
+        return self._features(frame.to(self.cfg.dtype), self._rows(frame.shape[1]))
 
     def from_pyramids(self, x: torch.Tensor,
                       cs: Dict[int, Dict[int, torch.Tensor]],
@@ -228,13 +317,13 @@ class PWCNet(nn.Module):
                              f"{missing} (need {f_i}..{l_i})")
         cs = {f: {l: feat.to(cfg.dtype) for l, feat in d.items()}
               for f, d in cs.items()}
-        return self._decode(x.to(cfg.dtype), cs, with_warped)
+        return self._decode(x.to(cfg.dtype), cs, with_warped, self._rows(x.shape[1]))
 
     def _decode(self, x: torch.Tensor, cs: Dict[int, Dict[int, torch.Tensor]],
-                with_warped: bool) -> List[Dict[str, Any]]:
-        """Coarse-to-fine decode from per-frame feature pyramids: cost
-        volumes, occ/flow decoders, feature warps and (with_warped) the
-        image warps, then the output groups."""
+                with_warped: bool, rows: RowLayout) -> List[Dict[str, Any]]:
+        """Coarse-to-fine decode from per-frame feature pyramids (placed
+        by `rows`): cost volumes, occ/flow decoders, feature warps and
+        (with_warped) the image warps, then the output groups, whole."""
         cfg = self.cfg
         F, ref, l_st, levels = cfg.frames, cfg.ref, cfg.l_st, cfg.levels
         factor = cfg.flownet_factor
@@ -259,16 +348,18 @@ class PWCNet(nn.Module):
         ufs, ubfs, uoccs, fs, bfs, occs = {}, {}, {}, {}, {}, {}
         skip_ufs, skip_ubfs, skip_occs = {}, {}, {}
         iws: Dict[int, Dict[int, torch.Tensor]] = {f: {} for f in range(1, F + 1)}
+        outs: Dict[int, Dict[str, Any]] = {}   # each level's outputs, whole
 
         for l in range(levels, l_st - 1, -1):
+            comm = rows.comm(l)
             # cost-volume inputs: raw features at the coarsest level, warped
             # features below (models/pwc.lua:238-244)
             inp = cs if l == levels else ws
             future = [inp[f][l] for f in range(ref + 1, l_i + 1)]
-            cv_fwd = cost_volume_multi(cs[ref][l], future, cfg.win, fwd=True)
+            cv_fwd = cost_volume_multi(cs[ref][l], future, cfg.win, fwd=True, comm=comm)
             if multi:
                 past = [inp[f][l] for f in range(ref - 1, 0, -1)]
-                cv_bwd = cost_volume_multi(cs[ref][l], past, cfg.win, fwd=False)
+                cv_bwd = cost_volume_multi(cs[ref][l], past, cfg.win, fwd=False, comm=comm)
                 cvs_occ = torch.cat([cv_fwd, cv_bwd], dim=-1)
                 cvs_flow = cv_fwd + cv_bwd if cfg.sum_cvs else cvs_occ
             else:
@@ -284,34 +375,34 @@ class PWCNet(nn.Module):
                     if cfg.occ_input == 1:
                         occ_in.append(uoccs[l + 1])
                 occs[l] = spatial_softmax(
-                    getattr(self, f"occ_decoder_{l}")(torch.cat(occ_in, dim=-1)))
+                    getattr(self, f"occ_decoder_{l}")(torch.cat(occ_in, dim=-1), comm))
                 if cfg.skip > 0 or cfg.occ_input == 1:
-                    uoccs[l] = upsample_nearest2x(occs[l])
+                    uoccs[l] = rows.up_nearest(occs[l], l)
                 if cfg.skip > 0:
                     so = uoccs[l]
-                    for _ in range(2, l_st):
-                        so = upsample_nearest2x(so)
+                    for k in range(2, l_st):
+                        so = rows.up_nearest(so, l + 1 - k)
                     skip_occs[l] = so
 
             # flow decoder(s) (models/pwc.lua:324-352)
             flow_dec = getattr(self, f"flow_decoder_{l}")
             past_dec = getattr(self, f"past_decoder_{l}") if cfg.past_flow else None
             if l == levels:
-                fs[l] = flow_dec(cvs_flow)
+                fs[l] = flow_dec(cvs_flow, comm)
                 if cfg.past_flow:
-                    bfs[l] = past_dec(cvs_flow)
+                    bfs[l] = past_dec(cvs_flow, comm)
             else:
-                d = flow_dec(torch.cat([cvs_flow, cs[ref][l], ufs[l + 1]], dim=-1))
+                d = flow_dec(torch.cat([cvs_flow, cs[ref][l], ufs[l + 1]], dim=-1), comm)
                 fs[l] = d + ufs[l + 1] if cfg.residual == 1 else d
                 if cfg.past_flow:
-                    db = past_dec(torch.cat([cvs_flow, cs[ref][l], ubfs[l + 1]], dim=-1))
+                    db = past_dec(torch.cat([cvs_flow, cs[ref][l], ubfs[l + 1]], dim=-1), comm)
                     bfs[l] = db + ubfs[l + 1] if cfg.residual == 1 else db
 
             # upsample flow chains (models/pwc.lua:354-390)
             if cfg.skip > 0 or l > l_st:
-                ufs[l] = upsample_bilinear2x(fs[l])
+                ufs[l] = rows.up_bilinear(fs[l], l)
                 if cfg.past_flow:
-                    ubfs[l] = upsample_bilinear2x(bfs[l])
+                    ubfs[l] = rows.up_bilinear(bfs[l], l)
                 if cfg.rescale_flow == 1:
                     ufs[l] = ufs[l] * 2.0
                     if cfg.past_flow:
@@ -319,17 +410,29 @@ class PWCNet(nn.Module):
                 if cfg.skip > 0:
                     su = ufs[l]
                     sub = ubfs[l] if cfg.past_flow else None
-                    for _ in range(2, l_st):
-                        su = upsample_bilinear2x(su)
+                    for k in range(2, l_st):
+                        su = rows.up_bilinear(su, l + 1 - k)
                         if cfg.rescale_flow == 1:
                             su = su * 2.0
                         if sub is not None:
-                            sub = upsample_bilinear2x(sub)
+                            sub = rows.up_bilinear(sub, l + 1 - k)
                             if cfg.rescale_flow == 1:
                                 sub = sub * 2.0
                     skip_ufs[l] = su
                     if cfg.past_flow:
                         skip_ubfs[l] = sub
+
+            # this level's outputs, whole, at resolution level l - l_st + 1
+            # (models/pwc.lua:458-489)
+            res = l - l_st + 1
+            if cfg.skip == 0:
+                flow, flow_past = fs[l], (bfs[l] if cfg.past_flow else None)
+            else:
+                flow, flow_past = skip_ufs[l], (skip_ubfs[l] if cfg.past_flow else None)
+            occ = (skip_occs[l] if cfg.skip > 0 else occs[l]) if F > 2 else None
+            outs[l] = {"flow": rows.whole(flow, res),
+                       "flow_past": None if flow_past is None else rows.whole(flow_past, res),
+                       "occ": None if occ is None else rows.whole(occ, res)}
 
             # warps (models/pwc.lua:392-448)
             for f in range(1, F + 1):
@@ -341,15 +444,13 @@ class PWCNet(nn.Module):
                         m = factor * (f - ref)
                     else:
                         m = factor * (f - ref) / (2.0 ** (l - 2))
-                    ws[f][l - 1] = wb(cs[f][l - 1], ufs[l] * m)
+                    ws[f][l - 1] = rows.warp(cs[f][l - 1], ufs[l] * m, l - 1,
+                                             cfg.reference_grads)
 
                 if not with_warped:
                     continue
-                # image warp at this level's output resolution
-                if cfg.skip == 0:
-                    base = bfs[l] if (cfg.past_flow and f < ref) else fs[l]
-                else:
-                    base = skip_ubfs[l] if (cfg.past_flow and f < ref) else skip_ufs[l]
+                # image warp at this level's output resolution, whole
+                base = outs[l]["flow_past" if (cfg.past_flow and f < ref) else "flow"]
                 # the past multiplier stays negative even with a separate
                 # past decoder, so hard-model weights transfer
                 # (models/pwc.lua:438-444)
@@ -360,22 +461,8 @@ class PWCNet(nn.Module):
                 iws[f][l] = wb(ds[f][l - l_st], base * m)
 
         # output groups, FINEST first (models/pwc.lua:458-489)
-        out: List[Dict[str, Any]] = []
-        for idx, l in enumerate(range(l_st, levels + 1)):
-            if cfg.skip == 0:
-                flow, flow_past = fs[l], (bfs[l] if cfg.past_flow else None)
-            else:
-                flow, flow_past = skip_ufs[l], (skip_ubfs[l] if cfg.past_flow else None)
-            if F > 2:
-                occ = skip_occs[l] if cfg.skip > 0 else occs[l]
-            else:
-                occ = None
-            out.append({
-                "flow": flow,
-                "flow_past": flow_past,
-                "occ": occ,
-                "warped": ([iws[f][l] for f in range(1, F + 1) if f != ref]
-                           if with_warped else []),
-                "flow_scale": cfg.flow_scales[idx],
-            })
-        return out
+        return [{**outs[l],
+                 "warped": ([iws[f][l] for f in range(1, F + 1) if f != ref]
+                            if with_warped else []),
+                 "flow_scale": cfg.flow_scales[idx]}
+                for idx, l in enumerate(range(l_st, levels + 1))]

@@ -26,6 +26,15 @@ see `cost_volume_gshift_reference`), f32 on the CUDA cores
 `dref_form` and `dframe_reference`. The op is bilinear, so the twins'
 sums are its exact gradient; the output gradient is cast to the input
 dtype first, as in the JAX rule, and every sum is f32, rounded once.
+
+On a row band of a sharded level (`cost_volume_multi(..., comm=)`,
+parallel/spatial.py) each term runs the same op on the band extended by
+the (win//2) * dilation rows its displacements reach: the frame by a
+halo of the neighbouring bands' rows (zeros at the image's edge), the
+reference by zero rows (an output row reads only its own reference
+row), and the output is cropped back to the band. The halo rows' d_frame
+goes back to their owners and is summed there; their d_ref is zero, as
+the cropped rows' gradient is. No kernel changes.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import Comm, halo_rows
 from ..runtime.cuda_build import Kernel, query
 from .route import (DTYPE_CODES, below_autograd, check_kernel_input, define, plain_active, ptr,
                     register_function, stream_ptr, use_kernel)
@@ -300,16 +310,22 @@ def cost_volume(ref: torch.Tensor, frame: torch.Tensor, win: int,
 
 
 def cost_volume_multi(ref: torch.Tensor, frames: Sequence[torch.Tensor],
-                      win: int, fwd: bool = True) -> torch.Tensor:
+                      win: int, fwd: bool = True, comm: Optional[Comm] = None) -> torch.Tensor:
     """Multi-frame cost volume w.r.t. `ref`, normalised by C * len(frames).
 
     `frames[k]` is the frame at temporal distance k+1 from the reference
     (future if fwd, past otherwise); its displacements are dilated by k+1
     and mirrored for past frames (CostVolMulti.lua:62-74). The
-    normalisation is applied inside each term (one pass per frame)."""
+    normalisation is applied inside each term (one pass per frame).
+    With `comm`, the inputs are row bands (module docstring)."""
     scale = 1.0 / (ref.shape[-1] * len(frames))
     acc = None
     for k, frame in enumerate(frames):
-        cv = cost_volume(ref, frame, win, dilation=k + 1, fwd=fwd, scale=scale)
+        if comm is None:
+            cv = cost_volume(ref, frame, win, dilation=k + 1, fwd=fwd, scale=scale)
+        else:
+            p = (win - 1) // 2 * (k + 1)
+            cv = cost_volume(F.pad(ref, (0, 0, 0, 0, p, p)), halo_rows(frame, p, comm), win,
+                             dilation=k + 1, fwd=fwd, scale=scale)[:, p:p + ref.shape[1]]
         acc = cv if acc is None else acc + cv
     return acc

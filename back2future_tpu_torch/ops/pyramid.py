@@ -13,6 +13,13 @@ Counterpart of back2future_tpu/ops/pyramid.py, same conventions:
 The bilinear resize takes the same two taps per output as the JAX
 package's interpolation matrices (positions in float64, weights and sums
 in f32), so the two agree to float rounding.
+
+`upsample_bilinear2x_rows` computes a band of rows of the 2x upsample of
+a row-sharded level (parallel/spatial.py): the taps are those of the
+whole level's sizes, so each output row is the whole upsample's row bit
+for bit. `avg_pool2`, `upsample_nearest2x` and `spatial_softmax` are
+row-local: on a band whose first row is even they give the band of the
+whole result.
 """
 
 from __future__ import annotations
@@ -116,6 +123,21 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 def upsample_bilinear2x(x: torch.Tensor) -> torch.Tensor:
     return resize_bilinear(x, x.shape[1] * 2, x.shape[2] * 2)
+
+
+def upsample_bilinear2x_rows(x: torch.Tensor, in_h: int, x_y0: int, out_y0: int,
+                             out_h: int) -> torch.Tensor:
+    """Rows out_y0 .. out_y0 + out_h - 1 of the 2x align-corners upsample
+    of a level of `in_h` rows, of which `x` holds rows x_y0 .. (every row
+    that those output rows read: a band with one row of halo on each
+    side, or the whole level)."""
+    i0, i1, w0, w1 = _interp_taps(in_h, 2 * in_h, x.device)
+    rows = slice(out_y0, out_y0 + out_h)
+    shape = (1, out_h, 1, 1)
+    xf = x.float()
+    y = (xf.index_select(1, i0[rows] - x_y0) * w0[rows].view(shape)
+         + xf.index_select(1, i1[rows] - x_y0) * w1[rows].view(shape))
+    return _axis_linear(y.to(x.dtype), x.shape[2] * 2, dim=2)
 
 
 def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

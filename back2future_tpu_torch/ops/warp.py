@@ -23,6 +23,14 @@ coordinate clamps (the two differ from JAX only at exact clamp ties).
 Layout: NHWC images (B, H, W, C); flow (B, H, W, 2) with channels (u, v)
 = (x-offset, y-offset).
 
+The row window (`y0`): the flow and the output may cover only the rows
+y0 .. y0 + h - 1 of the images, a band of a row-sharded image
+(parallel/spatial.py). Output row y then computes exactly what row y0 + y
+of the whole-image warp computes: its source coordinate is (y0 + y) + v
+in f32, and the clamp and the +1 corners' mask use the images' height.
+The image gradient covers every row of the images. `y0 = 0` with flow and
+images of one height is the whole-image warp.
+
 `warp_bilinear` calls the op `b2f::warp_bilinear` (ops/route.py). Its
 CUDA implementation is the hand-written gather of csrc/warp_fwd_tiled.cu
 (lane groups that read and write whole pixel rows in 16-byte packs, or
@@ -60,31 +68,37 @@ from .route import (DTYPE_CODES, below_autograd, check_kernel_input, define, pla
                     register_function, stream_ptr, use_kernel)
 
 _FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_FWD = Kernel("b2f_warp_bilinear_fwd", _FWD_ARGS)   # (img, flow, out, dtype, B, H, W, C, stream)
+# (img, flow, out, dtype, B, H, W, C, H_src, y0, stream)
+_FWD = Kernel("b2f_warp_bilinear_fwd", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+              + [ctypes.c_void_p])
 # the first design's gather: for comparison only, nothing on any path
 _FWD_THREAD = Kernel("b2f_warp_bilinear_fwd_thread", _FWD_ARGS)
 _DIMAGES_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_DIMAGES = Kernel("b2f_warp_bilinear_dimages",   # (flow, g, d_img f32, dtype, B, H, W, C, stream)
-                  _DIMAGES_ARGS)
+# (flow, g, d_img f32, dtype, B, H, W, C, H_src, y0, stream)
+_DIMAGES = Kernel("b2f_warp_bilinear_dimages", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                  + [ctypes.c_void_p])
 # K4 with (route, route counts) before the stream; and the first design's
 # K4: for comparison only, nothing on any path
 _DIMAGES_ROUTES = Kernel("b2f_warp_bilinear_dimages_routes",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
 _DIMAGES_THREAD = Kernel("b2f_warp_bilinear_dimages_thread", _DIMAGES_ARGS)
-# (img, flow, g, d_flow, dtype, B, H, W, C, reference_grads, stream)
 _DFLOW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_DFLOW = Kernel("b2f_warp_bilinear_dflow", _DFLOW_ARGS)
+# (img, flow, g, d_flow, dtype, B, H, W, C, H_src, y0, reference_grads, stream)
+_DFLOW = Kernel("b2f_warp_bilinear_dflow", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                + [ctypes.c_void_p])
 # the first design's W-dflow: for comparison only, nothing on any path
 _DFLOW_THREAD = Kernel("b2f_warp_bilinear_dflow_thread", _DFLOW_ARGS)
 
 
-def _corners(flow: torch.Tensor, h: int, w: int):
+def _corners(flow: torch.Tensor, h: int, w: int, y0: int = 0):
     """f32 source coordinates of every output pixel: the corner indices
     (+1 corners clamped into the image), the left-column / top-row
-    weights (B, H, W), and the masks of +1 corners inside the image and
-    of clamped coordinates."""
+    weights (B, H_out, W), and the masks of +1 corners inside the image
+    and of clamped coordinates. `h` is the images' height; output row y
+    is image row y0 + y (the row window, module docstring)."""
     fl = flow.float()
-    gy = torch.arange(h, dtype=torch.float32, device=flow.device).view(1, h, 1)
+    h_out = flow.shape[1]
+    gy = torch.arange(y0, y0 + h_out, dtype=torch.float32, device=flow.device).view(1, h_out, 1)
     gx = torch.arange(w, dtype=torch.float32, device=flow.device).view(1, 1, w)
     xs, ys = fl[..., 0] + gx, fl[..., 1] + gy
     xc, yc = torch.clamp(xs, 0.0, w - 1.0), torch.clamp(ys, 0.0, h - 1.0)
@@ -97,11 +111,13 @@ def _corners(flow: torch.Tensor, h: int, w: int):
     return (x0, y0, x1, y1), (wx, wy), (x1_in, y1_in), clamped
 
 
-def warp_bilinear_reference(images: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp_bilinear_reference(images: torch.Tensor, flow: torch.Tensor,
+                            y0: int = 0) -> torch.Tensor:
     """Plain torch twin of the kernel: clamped f32 source coordinates,
-    four corner gathers, f32 weighted sum, in the image dtype."""
+    four corner gathers, f32 weighted sum, in the image dtype; the output
+    has the flow's rows, row y at image row `y0` + y."""
     b, h, w, c = images.shape
-    (x0, y0, x1, y1), (wx, wy), _, _ = _corners(flow, h, w)
+    (x0, y0, x1, y1), (wx, wy), _, _ = _corners(flow, h, w, y0)
     wx, wy = wx.unsqueeze(-1), wy.unsqueeze(-1)
     bi = torch.arange(b, device=images.device).view(b, 1, 1)
     im = images.float()
@@ -110,20 +126,26 @@ def warp_bilinear_reference(images: torch.Tensor, flow: torch.Tensor) -> torch.T
     return out.to(images.dtype)
 
 
-def _forward(kernel: Kernel, images: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    b, h, w, c = images.shape
+def _forward(kernel: Kernel, images: torch.Tensor, flow: torch.Tensor,
+             *window: int) -> torch.Tensor:
+    """`kernel` on CUDA tensors into a new (B, H_out, W, C) output; the
+    gather's `window` is (H_src, y0), the first design's is empty."""
+    b, h_src, w, c = images.shape
+    h = flow.shape[1]
     check_kernel_input("warp_bilinear images", images, images.shape, images.dtype)
     check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), images.dtype)
-    out = torch.empty_like(images)
+    out = torch.empty((b, h, w, c), dtype=images.dtype, device=images.device)
     with torch.cuda.device(images.device):
-        kernel(ptr(images), ptr(flow), ptr(out), DTYPE_CODES[images.dtype], b, h, w, c,
+        kernel(ptr(images), ptr(flow), ptr(out), DTYPE_CODES[images.dtype], b, h, w, c, *window,
                stream_ptr(images.device))
     return out
 
 
 def warp_bilinear_fwd_thread(images: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """The first design's gather (csrc/warp_fwd.cu) on CUDA tensors, `flow`
-    in the image dtype: kept to compare the two on the card."""
+    in the image dtype and of the images' size: kept to compare the two
+    on the card."""
+    check_kernel_input("warp_bilinear flow", flow, (*images.shape[:3], 2), images.dtype)
     return _forward(_FWD_THREAD, images, flow)
 
 
@@ -152,12 +174,13 @@ def warp_fwd_tiled_info(kernel: str = "c32", dtype: torch.dtype = torch.bfloat16
     return _info("b2f_warp_fwd_tiled_info", FWD_TILED_KERNELS.index(kernel), dtype)
 
 
-def _dimages_sum(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The image gradient for the output gradient `g` (B, H, W, C): w*g
-    added at the four corners (+1 corners outside the image have weight
-    exactly 0), in f32."""
-    b, h, w, c = g.shape
-    (x0, y0, x1, y1), (wx, wy), _, _ = _corners(flow, h, w)
+def _dimages_sum(flow: torch.Tensor, g: torch.Tensor, h: int, y0: int = 0) -> torch.Tensor:
+    """The image gradient (B, h, W, C) of images of `h` rows for the
+    output gradient `g` (B, H_out, W, C) of the window at `y0`: w*g added
+    at the four corners (+1 corners outside the image have weight exactly
+    0), in f32."""
+    b, _, w, c = g.shape
+    (x0, y0, x1, y1), (wx, wy), _, _ = _corners(flow, h, w, y0)
     gf = g.float()
     base = torch.arange(b, device=g.device).view(b, 1, 1) * h
     corners = (((y0, x0), wx * wy), ((y0, x1), (1 - wx) * wy),
@@ -169,27 +192,30 @@ def _dimages_sum(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return d_img.reshape(b, h, w, c)
 
 
-def warp_dimages_reference(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def warp_dimages_reference(flow: torch.Tensor, g: torch.Tensor, h_src: int = -1,
+                           y0: int = 0) -> torch.Tensor:
     """Plain torch twin of K4, for the output gradient `g` in the image
-    dtype: the image gradient, f32 sums, in g's dtype, no autograd."""
-    return _dimages_sum(flow, g).to(g.dtype)
+    dtype: the gradient of images of `h_src` rows (-1: g's rows) for the
+    window at `y0`, f32 sums, in g's dtype, no autograd."""
+    return _dimages_sum(flow, g, g.shape[1] if h_src < 0 else h_src, y0).to(g.dtype)
 
 
 def warp_dflow_reference(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
-                         reference_grads: bool = True) -> torch.Tensor:
-    """Plain torch twin of W-dflow, for the output gradient `g`: the
-    reference formula (module docstring), zeroed where the coordinate
-    clamps when `reference_grads` is False; f32 sums, in the flow dtype,
-    no autograd."""
+                         reference_grads: bool = True, y0: int = 0) -> torch.Tensor:
+    """Plain torch twin of W-dflow, for the output gradient `g` of the
+    window at `y0`: the reference formula (module docstring), zeroed where
+    the coordinate clamps when `reference_grads` is False; f32 sums, in
+    the flow dtype, no autograd."""
     b, h, w, c = images.shape
-    (x0, y0, x1, y1), (wx, wy), (x1_in, y1_in), (x_cl, y_cl) = _corners(flow, h, w)
+    h_out = flow.shape[1]
+    (x0, y0, x1, y1), (wx, wy), (x1_in, y1_in), (x_cl, y_cl) = _corners(flow, h, w, y0)
     gf, im = g.float(), images.float()
     base = torch.arange(b, device=images.device).view(b, 1, 1) * h
     corners = (((y0, x0), None), ((y0, x1), x1_in), ((y1, x0), y1_in), ((y1, x1), x1_in & y1_in))
     dots = []
     for (yy, xx), inside in corners:
         idx = ((base + yy) * w + xx).reshape(-1)
-        dot = (im.reshape(-1, c)[idx].reshape(b, h, w, c) * gf).sum(-1)
+        dot = (im.reshape(-1, c)[idx].reshape(b, h_out, w, c) * gf).sum(-1)
         dots.append(dot if inside is None else torch.where(inside, dot, 0.0))
     tl, tr, bl, br = dots
     dfx = -wy * tl + wy * tr - (1 - wy) * bl + (1 - wy) * br
@@ -200,39 +226,47 @@ def warp_dflow_reference(images: torch.Tensor, flow: torch.Tensor, g: torch.Tens
 
 
 def warp_bilinear_backward_reference(images: torch.Tensor, flow: torch.Tensor,
-                                     g: torch.Tensor, reference_grads: bool = True
-                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                                     g: torch.Tensor, reference_grads: bool = True,
+                                     y0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch twin of the backward kernels, for the output gradient
-    `g` (B, H, W, C): (d_images in the image dtype, d_flow in the flow
-    dtype), f32 sums, no autograd (`warp_dimages_reference`,
-    `warp_dflow_reference`)."""
-    return (_dimages_sum(flow, g).to(images.dtype),
-            warp_dflow_reference(images, flow, g, reference_grads))
+    `g` (B, H_out, W, C) of the window at `y0`: (d_images in the image
+    dtype, d_flow in the flow dtype), f32 sums, no autograd
+    (`warp_dimages_reference`, `warp_dflow_reference`)."""
+    return (_dimages_sum(flow, g, images.shape[1], y0).to(images.dtype),
+            warp_dflow_reference(images, flow, g, reference_grads, y0))
 
 
 def _check_backward(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor) -> None:
-    b, h, w, c = images.shape
+    b, _, w, c = images.shape
+    h = flow.shape[1]
     check_kernel_input("warp_bilinear images", images, images.shape, images.dtype)
     check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), images.dtype)
-    check_kernel_input("warp_bilinear grad", g, images.shape, images.dtype)
+    check_kernel_input("warp_bilinear grad", g, (b, h, w, c), images.dtype)
 
 
-def _launch_dimages(kernel: Kernel, flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _launch_dimages(kernel: Kernel, flow: torch.Tensor, g: torch.Tensor,
+                    *window: int) -> torch.Tensor:
+    """`kernel` into a zeroed f32 image gradient, cast once to g's dtype;
+    K4's `window` is (H_src, y0), the first design's is empty (H_src is
+    g's rows)."""
     b, h, w, c = g.shape
-    acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    acc = torch.zeros((b, window[0] if window else h, w, c), dtype=torch.float32,
+                      device=g.device)
     with torch.cuda.device(g.device):
-        kernel(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, h, w, c,
+        kernel(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, h, w, c, *window,
                stream_ptr(g.device))
     return acc.to(g.dtype)
 
 
 def _launch_dflow(kernel: Kernel, images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
-                  reference_grads: bool) -> torch.Tensor:
-    b, h, w, c = images.shape
+                  reference_grads: bool, *window: int) -> torch.Tensor:
+    """`kernel` into a new flow gradient; W-dflow's `window` is (H_src,
+    y0), the first design's is empty."""
+    b, _, w, c = images.shape
     d_flow = torch.empty_like(flow)
     with torch.cuda.device(images.device):
-        kernel(ptr(images), ptr(flow), ptr(g), ptr(d_flow), DTYPE_CODES[images.dtype], b, h, w,
-               c, int(reference_grads), stream_ptr(images.device))
+        kernel(ptr(images), ptr(flow), ptr(g), ptr(d_flow), DTYPE_CODES[images.dtype], b,
+               flow.shape[1], w, c, *window, int(reference_grads), stream_ptr(images.device))
     return d_flow
 
 
@@ -242,10 +276,11 @@ def warp_bilinear_backward_thread(images: torch.Tensor, flow: torch.Tensor, g: t
                                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The backward on the first design's kernels (csrc/warp_bwd.cu), CUDA
     tensors only: (d_images into a zeroed f32 buffer, cast once; d_flow),
-    each None where `need` says so; `flow` and `g` in the image dtype.
-    Kept to compare them with `b2f::warp_dimages` and `b2f::warp_dflow`
-    on the card."""
+    each None where `need` says so; `flow` and `g` in the image dtype and
+    of the images' size. Kept to compare them with `b2f::warp_dimages` and
+    `b2f::warp_dflow` on the card."""
     _check_backward(images, flow, g)
+    check_kernel_input("warp_bilinear grad", g, images.shape, images.dtype)
     d_images = _launch_dimages(_DIMAGES_THREAD, flow, g) if need[0] else None
     d_flow = (_launch_dflow(_DFLOW_THREAD, images, flow, g, reference_grads) if need[1]
               else None)
@@ -290,37 +325,46 @@ def warp_bwd_tiled_info(kernel: str = "dimages", dtype: torch.dtype = torch.bflo
     return _info("b2f_warp_bwd_tiled_info", TILED_KERNELS.index(kernel), dtype)
 
 
-def _fwd_kernel(images: torch.Tensor, flow: torch.Tensor, reference_grads: bool) -> torch.Tensor:
+def _fwd_kernel(images: torch.Tensor, flow: torch.Tensor, reference_grads: bool,
+                y0: int = 0) -> torch.Tensor:
     """The gather on CUDA tensors: `b2f::warp_bilinear`'s CUDA implementation."""
-    return _forward(_FWD, images, flow)
+    return _forward(_FWD, images, flow, images.shape[1], y0)
 
 
-def _dimages_kernel(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _dimages_kernel(flow: torch.Tensor, g: torch.Tensor, h_src: int = -1,
+                    y0: int = 0) -> torch.Tensor:
     """K4 on CUDA tensors: `b2f::warp_dimages`'s CUDA implementation."""
     b, h, w, _ = g.shape
     check_kernel_input("warp_bilinear grad", g, g.shape, g.dtype)
     check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), g.dtype)
-    return _launch_dimages(_DIMAGES, flow, g)
+    return _launch_dimages(_DIMAGES, flow, g, h if h_src < 0 else h_src, y0)
 
 
 def _dflow_kernel(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,
-                  reference_grads: bool) -> torch.Tensor:
+                  reference_grads: bool, y0: int = 0) -> torch.Tensor:
     """W-dflow on CUDA tensors: `b2f::warp_dflow`'s CUDA implementation."""
     _check_backward(images, flow, g)
-    return _launch_dflow(_DFLOW, images, flow, g, reference_grads)
+    return _launch_dflow(_DFLOW, images, flow, g, reference_grads, images.shape[1], y0)
 
 
 # the twins are looked up when called (a test counts their calls)
-_WARP = define("warp_bilinear", "(Tensor images, Tensor flow, bool reference_grads) -> Tensor",
-               lambda images, flow, reference_grads: warp_bilinear_reference(images, flow),
-               _fwd_kernel, lambda images, flow, reference_grads: torch.empty_like(images))
-_DIMAGES_OP = define("warp_dimages", "(Tensor flow, Tensor g) -> Tensor",
+_WARP = define("warp_bilinear",
+               "(Tensor images, Tensor flow, bool reference_grads, int y0=0) -> Tensor",
+               lambda images, flow, reference_grads, y0=0:
+                   warp_bilinear_reference(images, flow, y0),
+               _fwd_kernel,
+               lambda images, flow, reference_grads, y0=0:
+                   images.new_empty((*flow.shape[:3], images.shape[3])))
+_DIMAGES_OP = define("warp_dimages", "(Tensor flow, Tensor g, int h_src=-1, int y0=0) -> Tensor",
                      lambda *a: warp_dimages_reference(*a), _dimages_kernel,
-                     lambda flow, g: torch.empty_like(g))
+                     lambda flow, g, h_src=-1, y0=0:
+                         g.new_empty((g.shape[0], g.shape[1] if h_src < 0 else h_src,
+                                      *g.shape[2:])))
 _DFLOW_OP = define("warp_dflow",
-                   "(Tensor images, Tensor flow, Tensor g, bool reference_grads) -> Tensor",
+                   "(Tensor images, Tensor flow, Tensor g, bool reference_grads, int y0=0) "
+                   "-> Tensor",
                    lambda *a: warp_dflow_reference(*a), _dflow_kernel,
-                   lambda images, flow, g, reference_grads: torch.empty_like(flow))
+                   lambda images, flow, g, reference_grads, y0=0: torch.empty_like(flow))
 
 
 class _WarpGrad(torch.autograd.Function):
@@ -330,46 +374,51 @@ class _WarpGrad(torch.autograd.Function):
     route, which the forward records."""
 
     @staticmethod
-    def forward(ctx, images, flow, reference_grads):
-        ctx.reference_grads = reference_grads
+    def forward(ctx, images, flow, reference_grads, y0=0):
+        ctx.args = (reference_grads, y0)
         ctx.plain = plain_active()
         ctx.save_for_backward(images, flow)
-        return below_autograd(torch.ops.b2f.warp_bilinear.default, images, flow, reference_grads)
+        return below_autograd(torch.ops.b2f.warp_bilinear.default, images, flow, reference_grads,
+                              y0)
 
     @staticmethod
     def backward(ctx, g):
         images, flow = ctx.saved_tensors
+        reference_grads, y0 = ctx.args
         need = ctx.needs_input_grad[:2]
         g = g.to(images.dtype).contiguous()
         if ctx.plain:
             d_images, d_flow = warp_bilinear_backward_reference(images, flow, g,
-                                                                ctx.reference_grads)
+                                                                reference_grads, y0)
         else:
-            d_images = _DIMAGES_OP(flow, g) if need[0] else None
-            d_flow = _DFLOW_OP(images, flow, g, ctx.reference_grads) if need[1] else None
-        return d_images if need[0] else None, d_flow if need[1] else None, None
+            d_images = _DIMAGES_OP(flow, g, images.shape[1], y0) if need[0] else None
+            d_flow = _DFLOW_OP(images, flow, g, reference_grads, y0) if need[1] else None
+        return d_images if need[0] else None, d_flow if need[1] else None, None, None
 
 
 register_function("warp_bilinear", _WarpGrad)
 
 
 def warp_bilinear(images: torch.Tensor, flow: torch.Tensor, *,
-                  reference_grads: bool = True) -> torch.Tensor:
+                  reference_grads: bool = True, y0: int = 0) -> torch.Tensor:
     """Warp `images` by pixel-offset `flow` (NHWC; see module docstring):
     the op `b2f::warp_bilinear`.
 
     `reference_grads` selects the flow gradient (the reference's formula,
     or autodiff through the clamp); the forward and the image gradient are
-    the same either way."""
+    the same either way. `y0` is the row window's first row: the flow
+    covers image rows y0 .. y0 + flow rows - 1 (0 with a flow of the
+    images' size)."""
     if images.dim() != 4 or flow.dim() != 4 or flow.shape[-1] != 2 \
-            or flow.shape[:3] != images.shape[:3]:
-        raise ValueError(f"expected NHWC images and (B,H,W,2) flow of the "
-                         f"same size, got {tuple(images.shape)} / "
-                         f"{tuple(flow.shape)}")
+            or flow.shape[0] != images.shape[0] or flow.shape[2] != images.shape[2] \
+            or not 0 <= y0 <= images.shape[1] - flow.shape[1]:
+        raise ValueError(f"expected NHWC images and a (B,H,W,2) flow of the "
+                         f"same size, or of a row window at y0={y0} inside the images, "
+                         f"got {tuple(images.shape)} / {tuple(flow.shape)}")
     flow = flow.to(images.dtype)
     if use_kernel(images):
         if flow.device != images.device:
             raise ValueError(f"images on {images.device}, flow on {flow.device}")
-        if images.numel() == 0:
-            return torch.empty_like(images)
-    return _WARP(images, flow, reference_grads)
+        if flow.numel() == 0 or images.numel() == 0:
+            return images.new_empty((*flow.shape[:3], images.shape[3]))
+    return _WARP(images, flow, reference_grads, y0)

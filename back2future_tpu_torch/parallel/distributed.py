@@ -27,10 +27,21 @@ here sums (`sum_gradients_hook`) instead of averaging. Ratio metrics
 all-reduce numerator and denominator. Without a group of more than one
 rank every helper returns its input and the code paths are the
 single-process ones.
+
+With a `spatial` mesh axis (`init_mesh_groups(S)`), the ranks form a
+data x spatial mesh of shape (D, S), rank = d*S + s: a subgroup for each
+spatial group (the S ranks of data slot d, which share its batch slice
+and hold row bands of it, parallel/spatial.py) and for each data group
+(the D ranks of band s). The loss is computed on every rank of a
+spatial group, from whole outputs, so a rank's share carries 1/S more
+(`loss_share`); the loss shares still sum over the world, while the
+metrics and the L2's mask count, computed S times over, are summed over
+the data group (`all_reduce_data`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import List, Optional
@@ -156,11 +167,78 @@ def assert_same_across_hosts(tag: str, value: str) -> None:
 
 
 def host_local_batch_size(global_batch: int) -> int:
-    n = process_count()
+    """The batch slice of this rank's data slot."""
+    n = data_count()
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"{n} hosts")
     return global_batch // n
+
+
+# ---------------------------------------------------- the data x spatial mesh
+
+@dataclasses.dataclass(frozen=True)
+class _MeshGroups:
+    spatial: int
+    spatial_group: object
+    data_group: object
+
+
+_MESH: Optional[_MeshGroups] = None
+
+
+def init_mesh_groups(spatial: int) -> None:
+    """Arrange the world as a data x spatial mesh with `spatial` ranks a
+    spatial group (module docstring); every rank calls it, with the same
+    value. 1 (or no group) clears it."""
+    global _MESH
+    _MESH = None
+    if spatial == 1 or not dist.is_initialized():
+        return
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % spatial:
+        raise ValueError(f"a spatial axis of {spatial} does not divide the {world} ranks")
+    mine = {}
+    for kind, groups in (("spatial", [[d * spatial + s for s in range(spatial)]
+                                      for d in range(world // spatial)]),
+                         ("data", [list(range(s, world, spatial)) for s in range(spatial)])):
+        for ranks in groups:
+            group = dist.new_group(ranks, timeout=timeout())
+            if rank in ranks:
+                mine[kind] = group
+    _MESH = _MeshGroups(spatial, mine["spatial"], mine["data"])
+
+
+def spatial_count() -> int:
+    """Ranks of a spatial group: 1 without a spatial axis."""
+    return _MESH.spatial if _MESH else 1
+
+
+def data_count() -> int:
+    """Data slots of the world: its ranks over `spatial_count()`."""
+    return process_count() // spatial_count()
+
+
+def data_index() -> int:
+    """This rank's data slot."""
+    return process_index() // spatial_count()
+
+
+def spatial_comm():
+    """This rank's spatial group as a parallel.spatial communicator."""
+    from .spatial import GroupComm
+
+    return GroupComm(_MESH.spatial_group, process_index() % _MESH.spatial, _MESH.spatial)
+
+
+def all_reduce_data(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over the data group (the world without a spatial
+    axis; outside autograd); `t` itself with one data slot."""
+    if data_count() == 1:
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, group=_MESH.data_group if _MESH else None)
+    return out
 
 
 # ------------------------------------------------------------- reductions
@@ -189,9 +267,11 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
 
 def loss_share(size_average: bool) -> float:
     """The factor that turns a loss term normalised by this rank's own
-    sizes into its share of the global term: 1/world for a mean over a
-    fixed per-sample size (`sizeAverage`), 1 for a batch sum."""
-    return 1.0 / process_count() if size_average else 1.0
+    sizes into its share of the global term: 1/D for a mean over a fixed
+    per-sample size (`sizeAverage`), 1 for a batch sum, over the S ranks
+    of a spatial group that compute it alike (1/world and 1 without a
+    spatial axis)."""
+    return (1.0 / data_count() if size_average else 1.0) / spatial_count()
 
 
 def sum_gradients_hook(state, bucket):

@@ -13,8 +13,12 @@ JAX's `batch_sharding` and `replicated_sharding` (the NamedShardings
 that place a batch and the params) have no counterpart: the list of
 data-slot devices (`Mesh.data_devices`) is all that placement needs.
 
-The `spatial` axis (image rows sharded, halo exchanges in every conv,
-cost volume and warp) is not ported: ROADMAP.md item 11 (e).
+A `spatial` axis shards image rows: slot (d, s) of a data x spatial mesh
+holds batch slice d and row band s (`shard_batch(..., spatial=True)`,
+rows split only where H divides the axis, as in JAX), and
+`replicate(..., spatial=True)` copies the module once a (data, spatial)
+slot. The row-sharded forward itself, its halo exchanges and its
+spatial groups are parallel/spatial.py's and models/pwc.py's.
 """
 
 from __future__ import annotations
@@ -26,12 +30,6 @@ import numpy as np
 import torch
 
 
-def spatial_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "the 'spatial' mesh axis (image rows sharded across devices) is not "
-        "ported to back2future_tpu_torch: ROADMAP.md queue 1 item 11 (e)")
-
-
 class Mesh:
     """`devices`, an array of torch.devices of shape `shape`, with one
     name per axis."""
@@ -40,8 +38,6 @@ class Mesh:
         if devices.ndim != len(axis_names):
             raise ValueError(f"mesh of shape {devices.shape} needs {devices.ndim} axis names, "
                              f"got {tuple(axis_names)}")
-        if "spatial" in axis_names:
-            raise spatial_not_ported()
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, devices.shape))
@@ -53,6 +49,15 @@ class Mesh:
             return [self.devices.flat[0]]
         axis = self.axis_names.index("data")
         return list(np.moveaxis(self.devices, axis, 0).reshape(self.shape["data"], -1)[:, 0])
+
+    def slot_devices(self) -> List[torch.device]:
+        """One device per (data, spatial) slot, data-major: slot (d, s) is
+        entry d * S + s (S the `spatial` axis, 1 without one)."""
+        order = [self.axis_names.index(a) for a in ("data", "spatial") if a in self.shape]
+        rest = [i for i in range(self.devices.ndim) if i not in order]
+        devices = np.transpose(self.devices, order + rest)
+        return list(devices.reshape(self.shape.get("data", 1) * self.shape.get("spatial", 1),
+                                    -1)[:, 0])
 
 
 def make_mesh(devices: Optional[Sequence] = None, shape: Sequence[int] = (),
@@ -75,17 +80,19 @@ def shard_batch(batch, mesh: Mesh, spatial: bool = False,
                 allow_partial: bool = False) -> List:
     """Split a dict of tensors (or one tensor) along the batch dim into
     one slice per `data` slot, each on its slot's device; returns the
-    list of slices.
+    list of slices. With `spatial` and a `spatial` axis of S, one slice
+    per (data, spatial) slot (`Mesh.slot_devices` order): batch slice d
+    with row band s of each tensor whose second dim divides by S, the
+    whole tensor otherwise (as JAX's batch sharding places it).
 
     A batch whose leading dim does not divide the `data` axis is only
     legitimate for a final partial validation batch: with
     ``allow_partial=True`` every slot gets the whole batch (correct, not
     parallel); otherwise it raises, as a training batch of that size
     would compute the whole batch on every device."""
-    if spatial:
-        raise spatial_not_ported()
     slots = mesh.data_devices()
     data_n = len(slots)
+    spatial_n = mesh.shape.get("spatial", 1) if spatial else 1
     single = isinstance(batch, torch.Tensor)
     items = {"x": batch} if single else batch
 
@@ -105,12 +112,27 @@ def shard_batch(batch, mesh: Mesh, spatial: bool = False,
         n = x.shape[0] // data_n
         return x[k * n:(k + 1) * n].to(dev)
 
-    shards = [{key: split(x, k, dev) for key, x in items.items()}
-              for k, dev in enumerate(slots)]
+    def band(x, d, s, dev):
+        part = split(x, d, dev)
+        if part is None or x.dim() < 2 or x.shape[0] % data_n or x.shape[1] % spatial_n:
+            return part
+        h = x.shape[1] // spatial_n
+        return part[:, s * h:(s + 1) * h]
+
+    if spatial_n == 1:
+        shards = [{key: split(x, k, dev) for key, x in items.items()}
+                  for k, dev in enumerate(slots)]
+    else:
+        shards = [{key: band(x, i // spatial_n, i % spatial_n, dev)
+                   for key, x in items.items()}
+                  for i, dev in enumerate(mesh.slot_devices())]
     return [s["x"] for s in shards] if single else shards
 
 
-def replicate(module: torch.nn.Module, mesh: Mesh) -> List[torch.nn.Module]:
-    """One copy of `module` per `data` slot, on the slot's device (slots
-    that share a device get copies of their own)."""
-    return [copy.deepcopy(module).to(dev) for dev in mesh.data_devices()]
+def replicate(module: torch.nn.Module, mesh: Mesh,
+              spatial: bool = False) -> List[torch.nn.Module]:
+    """One copy of `module` per `data` slot (with `spatial`, per (data,
+    spatial) slot), on the slot's device (slots that share a device get
+    copies of their own)."""
+    return [copy.deepcopy(module).to(dev)
+            for dev in (mesh.slot_devices() if spatial else mesh.data_devices())]

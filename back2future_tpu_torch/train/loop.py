@@ -34,8 +34,13 @@ DDP broadcasts rank 0's parameters. Rank 0 owns the console,
 ranks keep `train.log.host{r}`/`test.log.host{r}` side logs.
 Multi-rank validation keeps full global batches only and logs how many
 samples that skips. `opt.mesh_shape`/`opt.mesh_axes` describe the
-ranks as the JAX package's mesh: the `data` axis must hold every rank,
-and a `spatial` axis raises NotImplementedError (ROADMAP.md item 11 (e)).
+ranks as the JAX package's mesh, whose shape must hold every rank: a
+`data` axis, and optionally a `spatial` one of S (`--mesh_axes
+data,spatial --mesh_shape D,S`), which shards image rows over the S
+ranks of each data slot (rank = d*S + s; parallel/spatial.py): those
+ranks load the same slice of every batch, and the net's row bands and
+halo exchanges run over their spatial group. SPyNet on a spatial axis
+raises NotImplementedError (ROADMAP.md item 11 (f)).
 
 The steps' logs are 0-d device tensors. After each step they are
 stacked and copied into pinned host memory with `non_blocking=True`, and
@@ -61,7 +66,6 @@ from ..data import (FlowDataset, PrefetchLoader, SampleConfig, device_prefetch,
 from ..losses import build_criterions
 from ..models.factory import model_and_config
 from ..parallel import distributed
-from ..parallel.mesh import spatial_not_ported
 from ..utils import StepTimer, SymbolLogger
 from .checkpoint import load_or_convert, load_train_checkpoint, save_checkpoint
 from .optim import lr_for_epoch
@@ -277,7 +281,7 @@ def eval_epoch(epoch: int, eval_step, loader, opt, logger: SymbolLogger,
         weights.append(n)
 
     max_in_flight = max(2, opt.prefetch_depth)
-    world = distributed.process_count()
+    world = distributed.data_count()
     for batch in device_prefetch(iter(loader), device, depth=opt.prefetch_depth):
         # the final batch may be partial; per-batch sample counts weight
         # the aggregation so the epoch metrics are exact over the split
@@ -351,14 +355,27 @@ def _check_devices(opt: Options) -> None:
             f"{torch.cuda.device_count()} (cutorch.setDevice would error too)")
 
 
-def _check_mesh(opt: Options, world: int) -> None:
+def _check_mesh(opt: Options, world: int) -> int:
     """`mesh_shape`/`mesh_axes` as the JAX package's mesh over the ranks:
-    only a `data` axis, of every rank."""
-    if "spatial" in opt.mesh_axes:
-        raise spatial_not_ported()
+    a `data` axis and optionally a `spatial` one, of every rank. Returns
+    the `spatial` axis's size (1 without one)."""
+    unknown = set(opt.mesh_axes) - {"data", "spatial"}
+    if unknown or len(set(opt.mesh_axes)) != len(opt.mesh_axes):
+        raise ValueError(f"--mesh_axes {tuple(opt.mesh_axes)}: the axes are 'data' and "
+                         f"optionally 'spatial'")
     if opt.mesh_shape and int(np.prod(opt.mesh_shape)) != world:
         raise ValueError(f"--mesh_shape {tuple(opt.mesh_shape)} does not hold the {world} "
                          f"data-parallel ranks")
+    if "spatial" not in opt.mesh_axes:
+        return 1
+    if len(opt.mesh_shape) != len(opt.mesh_axes):
+        raise ValueError(f"--mesh_axes {tuple(opt.mesh_axes)} needs a --mesh_shape of "
+                         f"{len(opt.mesh_axes)} sizes, got {tuple(opt.mesh_shape)}")
+    if opt.netType == "spynet":
+        raise NotImplementedError(
+            "netType spynet on a 'spatial' mesh axis (image rows sharded across ranks) is "
+            "not ported to back2future_tpu_torch: ROADMAP.md queue 1 item 11 (f)")
+    return int(opt.mesh_shape[opt.mesh_axes.index("spatial")])
 
 
 def join_cluster(opt: Options) -> None:
@@ -395,7 +412,15 @@ def _spawned_rank(rank: int, world: int, opt: Options, max_epochs: Optional[int]
 def _run_rank(opt: Options, max_epochs: Optional[int], local_rank: int) -> TrainState:
     """One rank of a run (all of it without a group)."""
     rank, world = distributed.process_index(), distributed.process_count()
-    _check_mesh(opt, world)
+    distributed.init_mesh_groups(_check_mesh(opt, world))
+    try:
+        return _train(opt, max_epochs, local_rank, rank)
+    finally:
+        distributed.init_mesh_groups(1)
+
+
+def _train(opt: Options, max_epochs: Optional[int], local_rank: int, rank: int) -> TrainState:
+    """`_run_rank` once the mesh's groups are made."""
     distributed.host_local_batch_size(opt.batchSize)  # validates divisibility
     device = run_device(opt, local_rank)
     if device.type == "cuda":
@@ -419,7 +444,10 @@ def _run_rank(opt: Options, max_epochs: Optional[int], local_rank: int) -> Train
     distributed.assert_same_across_hosts("resume_state",
                                          _state_fingerprint(state.model, epoch0))
 
-    train_loader, val_loader = build_loaders(opt, shard=(rank, world))
+    if distributed.spatial_count() > 1:
+        state.model.spatial_comm = distributed.spatial_comm()
+    train_loader, val_loader = build_loaders(
+        opt, shard=(distributed.data_index(), distributed.data_count()))
     step = make_train_step(state.model, opt, crits)
     eval_step = make_eval_step(state.model, opt, crits)
     is_main = rank == 0

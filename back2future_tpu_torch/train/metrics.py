@@ -10,9 +10,10 @@ the inputs' device; nothing is read on the host. Ties decode as in JAX:
 the first maximum in both.
 
 Under data parallelism each metric is the global batch's: every ratio's
-numerator and denominator are summed over ranks first (one all-reduce
-of the stacked sums), so ranks that hold different mask counts weigh as
-the global batch does.
+numerator and denominator are summed over the data group first (one
+all-reduce of the stacked sums; the world without a spatial axis, whose
+ranks compute their slot's metrics alike), so ranks that hold different
+mask counts weigh as the global batch does.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from ..losses.supervised import epe_map
-from ..parallel.distributed import all_reduce_sum, data_parallel
+from ..parallel.distributed import all_reduce_data, data_count
 
 
 def decode_occ(occ_pred: torch.Tensor) -> torch.Tensor:
@@ -47,11 +48,11 @@ def _safe_ratio(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 
 def _global_sums(sums: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """`sums` summed over ranks in one all-reduce; as they are without
-    data parallelism."""
-    if not data_parallel():
+    """`sums` summed over the data group in one all-reduce; as they are
+    with one data slot."""
+    if data_count() == 1:
         return sums
-    total = all_reduce_sum(torch.stack([v.float() for v in sums.values()]))
+    total = all_reduce_data(torch.stack([v.float() for v in sums.values()]))
     return dict(zip(sums, total.unbind()))
 
 
@@ -107,7 +108,7 @@ def full_res_metrics(flow_pred: torch.Tensor, occ_pred: Optional[torch.Tensor], 
         for key, state in (("bwd", 0.0), ("vis", 0.5), ("fwd", 1.0)):
             sums[key], sums[f"n_{key}"] = _masked_sums(correct, (lbl == state).to(m.dtype))
         sums["tp"], sums["fp"], sums["fn"] = _f1_counts(sharp, lbl)
-        if data_parallel():
+        if data_count() > 1:
             sums["correct"] = torch.sum(correct)
             sums["n_correct"] = torch.tensor(float(correct.numel()), device=correct.device)
     sums = _global_sums(sums)
@@ -117,7 +118,7 @@ def full_res_metrics(flow_pred: torch.Tensor, occ_pred: Optional[torch.Tensor], 
            "epe_occ": _safe_ratio(sums["occ"], sums["n_occ"]),
            "fl_all": _safe_ratio(sums["fl"], sums["n_fl"])}
     if occ_pred is not None:
-        out["occ_acc"] = (sums["correct"] / sums["n_correct"] if data_parallel()
+        out["occ_acc"] = (sums["correct"] / sums["n_correct"] if data_count() > 1
                           else torch.mean(correct))
         for key in ("bwd", "vis", "fwd"):
             out[f"occ_acc_{key}"] = _safe_ratio(sums[key], sums[f"n_{key}"])

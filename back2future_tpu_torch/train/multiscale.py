@@ -14,10 +14,12 @@ truth). The image warps feed only the photometric term, so the train and
 eval steps skip them for "epe" (XLA drops them there as dead code).
 
 Under data parallelism a rank's loss is its share of the global batch's
-(parallel/distributed.py): the terms normalised by the rank's own sizes
-(`sizeAverage`) are scaled by 1/world, the supervised L2 divides by the
-global mask count, and batch sums need nothing. The shares sum over
-ranks to the loss of the global batch, and so do their gradients.
+(parallel/distributed.py `loss_share`): the terms normalised by the
+rank's own sizes (`sizeAverage`) are scaled by 1/world, the supervised
+L2 divides by the global mask count, and batch sums need nothing; with a
+spatial axis of S ranks, which compute the loss of their data slot's
+outputs alike, every term carries 1/S more. The shares sum over ranks to
+the loss of the global batch, and so do their gradients.
 
 Known reference defects NOT replicated (documented intent implemented
 instead, as in the JAX package): the supervised occlusion loss as written
@@ -92,7 +94,7 @@ def multiscale_loss(outputs: List[Dict[str, Any]], batch: Dict[str, Any],
                     flow_ds = flow_ds / 2.0
                 if multi_occ:
                     occ_ds = subsample2(occ_ds)
-            w = level_weight(l, opt.sizeAverage)
+            w = level_weight(l, opt.sizeAverage) * loss_share(False)
 
             sup, _ = crits.l2(g["flow"], flow_ds, mask_ds[..., 0])
             comps["sup_flow"] = comps["sup_flow"] + opt.epe * w * sup

@@ -29,6 +29,11 @@ and the metrics reduced as ratios of global sums, so every rank logs
 the global batch's values. DDP wraps a module that holds the net (and
 the remat region, so that the recompute runs inside DDP's forward);
 `state.model` stays the bare net, whose state_dict checkpoints save.
+With a spatial mesh axis the net carries its spatial group
+(`net.spatial_comm`, parallel/spatial.py): both steps take the data slot's
+whole batch, the net computes its row bands and returns whole outputs,
+and the loss's share and the metrics' reductions account for the S ranks
+that compute them alike (parallel/distributed.py).
 """
 
 from __future__ import annotations

@@ -90,16 +90,17 @@ Phases, one line each (any failure raises and exits non-zero):
      0, rand_crop 0, the compact wire, scene_batches full) and (b)
      augment 1 on the f32 wire. For each: the loader alone (samples/s
      over 16 batches after the first and over the workers' second round,
-     time to the first batch), the pipe alone (as many producer
-     processes as workers, of the same start method, streaming the
-     configuration's batch through one queue: their start-up and ms a
-     batch, its share of the loader's time a batch), a sample's time in
+     time to the first batch), with --data the pipe alone (as many
+     producer processes as workers, of the same start method, streaming
+     the configuration's batch through one queue: their start-up and ms
+     a batch, its share of the loader's time a batch), a sample's time in
      sync mode, the first 3 batches bit-identical to sync mode
-     (n_workers=0), then 21 hard bf16 steps fed through
+     (n_workers=0), then DATA_STEPS (13) hard bf16 steps fed through
      device_prefetch(depth=2): exact launch counts per step, finite loss,
-     median step ms over steps 2-21 (CUDA events), triplets/s trained
-     (wall clock) and the mean host wait in next(), over steps 2-21 and
-     the last 8, beside the random-tensor step of phase 6
+     median step ms over the steps after the first (CUDA events),
+     triplets/s trained (wall clock) and the mean host wait in next(),
+     over those steps and the last 8, beside the random-tensor step of
+     phase 6
   7b. loop path (stem off): train.loop.run() on a RoamingImages set of
      LOOP_SCENES scenes at 320x640 (20 train / 4 val), data configuration
      (a) without scene batches and with ground truth, the hard recipe in
@@ -175,10 +176,9 @@ Phases, one line each (any failure raises and exits non-zero):
      from the B2F_COORDINATOR / B2F_NUM_PROCESSES / B2F_PROCESS_ID spec,
      6 hard bf16 steps at B=8 320x640 through DDP (exact launches per
      step), the first held against the same step without a group (loss,
-     every gradient within 2e-2 of max|g|); (b) dryrun_multichip(8,
-     backend="gloo"): 4 ranks sharing the card, one f32 step of each
-     recipe, the JAX package's recorded losses at rtol 1e-4, each rank's
-     launches; (c) run() (f32, B=4, 3 steps and validation) on a
+     every gradient within 2e-2 of max|g|); (b) (with --ddp alone; in
+     the default run it is phase 14 (d)) dryrun_multichip(8,
+     backend="gloo"); (c) run() (f32, B=4, 3 steps and validation) on a
      generated 16-scene RoamingImages set by 2 gloo ranks sharing the
      card, which this script starts and joins to a group, against a
      1-rank run() with the same global batch: launches, train.log
@@ -191,14 +191,42 @@ Phases, one line each (any failure raises and exits non-zero):
      (e) the hard step's host ms to return, device ms (CUDA events) and
      device busy ms (the profiler's kernel time) with DDP at world size 1
      and without, in turns
-  14. one JSON line of the kernels (forward kernels: launches of the
+  14. the spatial mesh axis, run before phase 13 in the default run
+     (after phase 13's NCCL group was torn down, the profiler once
+     recorded no device time in any window), its part (a) right after
+     phase 3 (later in the run the profiler once recorded only some of a
+     window's kernels; a window is taken again until it holds them all)
+     (stem off; image rows in bands, S = 2): (a)
+     the row-window gather, K4 and W-dflow at the sharded feature warps'
+     bf16 shapes (bands of levels 3-6 of the serving forward and of the
+     hard step) against their twins, the gather and W-dflow bit for bit
+     against the rows of the whole image's launch, K4's bands summed
+     against it within its atomics' spread; per slot forward and rank
+     step the kernels', twins' and library calls' device ms and the
+     bound, and the bytes each feature-warp gather moves per rank; (b)
+     the flagship served at B=16 on data x spatial meshes of (1, 2) and
+     (2, 2) slots of cuda:0 (threads) against the single-device
+     estimator (phase 13 (d)'s tolerance; K1 10 and the gather 8 a slot;
+     wall ms in turns); (c) the hard bf16 step at B=8 320x640 on 2
+     spatial gloo ranks sharing the card against the unsharded step (in
+     this process): loss, every gradient within 2e-2 of max|g|, each
+     rank's launches, the peak device memory a step takes, step ms; (d)
+     dryrun_multichip(8, backend="gloo"): 8 ranks on a data x spatial
+     mesh of (4, 2) sharing the card, one f32 step of each recipe, the
+     JAX package's recorded losses at rtol 1e-4, each rank's launches;
+     (e) run() (f32, B=4, 3 steps and validation) on a (1, 2) mesh of
+     gloo ranks against 1 rank: train.log and test.log losses (rtol
+     2e-3), launches
+  15. one JSON line of the kernels (forward kernels: launches of the
      serving path and ms per serving forward; backward kernels: launches
      of the hard train path and ms per train step; K5/K6: launches of the
      soft train path and ms per train step; then the gather, K4 and
      W-dflow of the SPyNet path: launches over its 6 pme steps, ms per
      pme step on the step's own inputs; then the DDP step's kernels:
      launches over phase 13 (a)'s 6 steps, ms per train step, K1's per
-     serving forward), then the result line
+     serving forward; then the row-window gather, K4 and W-dflow of
+     phase 14: launches of a (1, 2) serving call and of a spatial rank's
+     step, ms per slot forward or rank step), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 It imports nothing of JAX and never runs on the CPU.
 
@@ -211,6 +239,11 @@ SPyNet path's kernel entries and the result line.
 
 runs, after phase 1 and the build, only phase 13 and prints the result
 line.
+
+    python3 chip_smoke.py --spatial
+
+runs, after phase 1 and the build, only phase 14 and prints its kernel
+entries and the result line.
 
     python3 chip_smoke.py --serving-export [--parent DIR]
 
@@ -407,11 +440,14 @@ REMAT_STEPS = 5                        # the first compared, steps 2-5 timed
 
 # the data path (phase 7): a generated RoamingImages set, the loader's two
 # configurations (SampleConfig fields, PrefetchLoader keywords)
-DATA_SCENES = 48
+# the set, the pipe probe and the loader-fed steps are cut to 24 scenes, 1
+# batch a producer and 13 steps (from 48, 3 and 21), and the default run
+# leaves the pipe probe out, to keep it well inside its time limit
+DATA_SCENES = 24
 DATA_BATCHES = 17                      # the first batch, then 16 timed
 DATA_CHECKED = 3                       # batches held against sync mode
-DATA_PIPE_PER_WORKER = 3               # batches each pipe-probe producer sends
-DATA_STEPS = 21                        # the first step, then 20 timed
+DATA_PIPE_PER_WORKER = 1               # batches each pipe-probe producer sends
+DATA_STEPS = 13                        # the first step, then 12 timed
 DATA_STEADY = 8                        # the last steps, past the workers' prefetch
 PIPE_MESSAGES = 6                      # batches each pipe variant sends
 DATA_LAUNCHES = ("b2f_cost_volume_fwd", "b2f_warp_bilinear_fwd", "b2f_cost_volume_dref",
@@ -532,6 +568,41 @@ def device_total_ms(fn, reps: int) -> float:
         ms = cuda_ms(fn, reps)
         log("kernels", f"{e}; CUDA events instead: {ms:.4f} ms a call")
         return ms
+
+
+def complete_device_ms(fn, reps: int, part: str, launches: int, attempts: int = 8) -> float:
+    """The device time per call of `fn` of the kernel whose name contains
+    `part` (`launches` a call), its own launches summed, from a profiler
+    window that holds all `reps` x `launches` of them. A fill kernel
+    before and after the calls pads the window, since the profiler has
+    left out a window's first or last kernel; a window that still misses
+    launches is logged and taken again, up to `attempts` windows; after
+    that, a median of CUDA-event windows of `fn` (`cuda_ms`: all its
+    device work and the host gaps), said so in the log."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.empty(1 << 20, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad.zero_()
+            for _ in range(reps):
+                fn()
+            pad.zero_()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation and part in e.name]
+        if len(mine) == reps * launches:
+            return sum(e.time_range.elapsed_us() for e in mine) / reps / 1e3
+        log("profiler", f"window {attempt + 1} held {len(mine)} of the {reps * launches} "
+                        f"launches of {part}; taking it again")
+        time.sleep(1.0)
+    ms = cuda_ms(fn, reps)
+    log("profiler", f"no complete window of {part} in {attempts}; CUDA events instead: "
+                    f"{ms:.4f} ms a call")
+    return ms
 
 
 def host_ms(fn, reps: int) -> float:
@@ -1080,9 +1151,9 @@ def recording_gather_inputs(into: list):
     module = importlib.import_module("back2future_tpu_torch.ops.warp")
     op = module._WARP
 
-    def recording(images, flow, reference_grads):
+    def recording(images, flow, reference_grads, y0=0):
         into.append((images.detach().clone(), flow.detach().clone(), images.requires_grad))
-        return op(images, flow, reference_grads)
+        return op(images, flow, reference_grads, y0)
 
     module._WARP = recording
     try:
@@ -1246,6 +1317,17 @@ def k1_cuda_cores():
         module._FWD = kernel
 
 
+def unwindowed(kernel, at: int):
+    """A first design's warp `kernel` called as the path's is, with the
+    row window's (H_src, y0) at argument `at`, which it does not take:
+    the whole image's window only (y0 = 0)."""
+    def call(*args):
+        if args[at + 1] != 0:
+            raise ValueError("the first design's warp kernels take the whole image only")
+        kernel(*args[:at], *args[at + 2:])
+    return call
+
+
 @contextlib.contextmanager
 def gather_thread():
     """Inside the block, the warp's forward runs the first design's gather
@@ -1254,7 +1336,7 @@ def gather_thread():
 
     module = importlib.import_module("back2future_tpu_torch.ops.warp")
     kernel = module._FWD
-    module._FWD = module._FWD_THREAD
+    module._FWD = unwindowed(module._FWD_THREAD, 8)
     try:
         yield
     finally:
@@ -1322,7 +1404,8 @@ def warp_bwd_thread():
 
     module = importlib.import_module("back2future_tpu_torch.ops.warp")
     kernels = module._DIMAGES, module._DFLOW
-    module._DIMAGES, module._DFLOW = module._DIMAGES_THREAD, module._DFLOW_THREAD
+    module._DIMAGES = unwindowed(module._DIMAGES_THREAD, 8)
+    module._DFLOW = unwindowed(module._DFLOW_THREAD, 9)
     try:
         yield
     finally:
@@ -1417,9 +1500,9 @@ def recording_k4_inputs(into: list):
     module = importlib.import_module("back2future_tpu_torch.ops.warp")
     op = module._DIMAGES_OP
 
-    def recording(flow, g):
+    def recording(flow, g, h_src=-1, y0=0):
         into.append((flow.clone(), g.clone()))
-        return op(flow, g)
+        return op(flow, g, h_src, y0)
 
     module._DIMAGES_OP = recording
     try:
@@ -2037,7 +2120,7 @@ def phase_gather_variants(card: str, dev) -> None:
                           {name: edits + [("warp_bilinear_fwd_", tags[name])]
                            for name, edits in GATHER_VARIANTS.items()},
                           "", "b2f_warp_bilinear_fwd",
-                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     names = list(libs)
     rng = np.random.default_rng(5)
 
@@ -2052,7 +2135,7 @@ def phase_gather_variants(card: str, dev) -> None:
         def run(order):
             for name in order:
                 if libs[name](ptr(img), ptr(flow), ptr(outs[name]), DTYPE_CODES[torch.bfloat16],
-                              b, h, w, c, stream_ptr(dev)):
+                              b, h, w, c, h, 0, stream_ptr(dev)):
                     raise RuntimeError(f"gather variant {name!r} failed to launch")
 
         run(names)
@@ -2456,10 +2539,12 @@ def pipe_probe(shape: tuple, wire: str, method: str, producers: int,
     return max(ready) - t0, (arrivals[-1] - arrivals[0]) / (len(arrivals) - 1) * 1e3
 
 
-def phase_data(card: str, dev, random_step_ms: float) -> dict:
+def phase_data(card: str, dev, random_step_ms: float, probe: bool = True) -> dict:
     """The hard bf16 step fed from files on disk through the port's own
     generator, loader and device prefetch (module docstring, phase 7).
-    Returns the loader-fed triplets/s (wall clock, steps 2-21) by
+    `probe`: also time the loader's pipe alone (`pipe_probe`; `--data`
+    does, the default run does not, for its time limit). Returns the
+    loader-fed triplets/s (wall clock, steps 2-DATA_STEPS) by
     configuration."""
     import tempfile
     from pathlib import Path
@@ -2513,9 +2598,15 @@ def phase_data(card: str, dev, random_step_ms: float) -> dict:
             batch_ms = (arrived[-1] - arrived[0]) / (DATA_BATCHES - 1) * 1e3
             second = (arrived[-1] - arrived[-1 - workers]) / workers * 1e3
             nbytes_batch = sum(v.nbytes for v in got[0].values())
-            startup_s, pipe = pipe_probe(got[0]["images"].shape, cfg.wire, method, workers,
-                                         DATA_PIPE_PER_WORKER)
             dumps_ms, loads_ms = pickle_ms(got[0])
+            pipe_words = "the pipe alone not timed (`--data` times it)"
+            if probe:
+                startup_s, pipe = pipe_probe(got[0]["images"].shape, cfg.wire, method, workers,
+                                             DATA_PIPE_PER_WORKER)
+                pipe_words = (f"{workers} workers' {method} start-up {startup_s:.2f} s; pipe "
+                              f"alone {pipe:.1f} ms a batch ({workers} {method} producers, one "
+                              f"queue; pickle dumps {dumps_ms:.1f} + loads {loads_ms:.1f} ms in "
+                              f"one process), {pipe / batch_ms:.3f} of the loader's time a batch")
 
             # the same seed and epoch in sync mode: bit-identical batches
             t0 = time.perf_counter()
@@ -2529,11 +2620,7 @@ def phase_data(card: str, dev, random_step_ms: float) -> dict:
                         f"2-{DATA_BATCHES} ({batch_ms:.1f} ms a batch of {nbytes_batch} bytes; "
                         f"{TRAIN_B * 1e3 / second:.2f} samples/s over the last {workers}, the "
                         f"workers' second round), first batch after {arrived[0]:.2f} s; "
-                        f"{workers} workers' {method} start-up {startup_s:.2f} s; pipe alone "
-                        f"{pipe:.1f} ms a batch ({workers} {method} producers, one queue; "
-                        f"pickle dumps {dumps_ms:.1f} + loads {loads_ms:.1f} ms in one "
-                        f"process), {pipe / batch_ms:.3f} of the loader's time a batch; a "
-                        f"sample in sync mode {sample_ms:.1f} ms (one process); the first "
+                        f"{pipe_words}; a sample in sync mode {sample_ms:.1f} ms (one process); the first "
                         f"{DATA_CHECKED} batches of process mode bit-identical to sync mode; "
                         f"on {card}")
             del got
@@ -3835,7 +3922,7 @@ def phase_serving_export(card: str, dev, argv: list) -> None:
 # ------------------------------------------------ phase 13: data parallelism
 
 DDP_STEPS = 6                          # (a): NCCL at world size 1, hard bf16 steps
-DDP_TURNS = 2                          # (e): (plain, DDP, DDP, plain) this many times
+DDP_TURNS = 1                          # (e): (plain, DDP, DDP, plain) this many times
 DDP_TIMED = 5                          # steps per turn
 DRYRUN_ANCHORS = {False: 49.97828, True: 100.98643}   # MULTICHIP_r05.json
 DRYRUN_RTOL = 1e-4
@@ -3994,32 +4081,6 @@ def phase_ddp_world1(card: str, dev) -> None:
             os.environ.pop(k, None)
 
 
-def phase_ddp_dryrun(card: str) -> None:
-    """(b) dryrun_multichip(8) over 4 gloo ranks that share the card, f32."""
-    from back2future_tpu_torch.graft_entry import dryrun_multichip
-
-    t0 = time.perf_counter()
-    results = dryrun_multichip(8, backend="gloo", timeout=600)
-    secs = time.perf_counter() - t0
-    per_step = _nonzero(TRAIN_PER_STEP)
-    for rank, records in enumerate(results):
-        for rec in records:
-            kind = "soft" if rec["soft"] else "hard"
-            log("ddp", f"(b) rank {rank} on {rec['device']} [{kind}]: loss {rec['loss']:.5f}, "
-                       f"launches {rec['launches']}")
-            if kind == "hard" and rec["launches"] != per_step:
-                raise AssertionError(f"ddp: dry-run rank {rank} hard step launched "
-                                     f"{rec['launches']}, expected {per_step}")
-    for i, soft in enumerate((False, True)):
-        loss = results[0][i]["loss"]
-        if abs(loss - DRYRUN_ANCHORS[soft]) > DRYRUN_RTOL * DRYRUN_ANCHORS[soft]:
-            raise AssertionError(f"ddp: dry run loss {loss} vs anchor {DRYRUN_ANCHORS[soft]}")
-    log("ddp", f"(b) dryrun_multichip(8): 4 gloo ranks on one card, losses "
-               f"{results[0][0]['loss']:.5f} (anchor {DRYRUN_ANCHORS[False]}) and "
-               f"{results[0][1]['loss']:.5f} (anchor {DRYRUN_ANCHORS[True]}), rtol "
-               f"{DRYRUN_RTOL}; {secs:.1f} s with the ranks' start-up, on {card}")
-
-
 def phase_ddp_run(card: str, dev) -> None:
     """(c) run() on 2 gloo ranks sharing the card against a 1-rank run()
     with the same global batch, then a gradient check of the 2-rank DDP
@@ -4137,16 +4198,482 @@ def phase_ddp_serving(card: str) -> None:
                f"replicas on one card {statistics.median(walls['mesh']):.1f}; on {card}")
 
 
-def phase_ddp(card: str, dev) -> None:
+def phase_ddp(card: str, dev, dryrun: bool = True) -> None:
     """Phase 13: (a) + (e), (b), (c), (d). Each part checks its own
     launch counts and logs them; the kernels line keeps the paths of
-    phase 3's entries."""
+    phase 3's entries. The dry run (b), on the data x spatial mesh that
+    `dryrun_multichip(8)` makes, is phase 14 (d)'s in the default run
+    (`dryrun=False` here)."""
     t0 = time.perf_counter()
     phase_ddp_world1(card, dev)
-    phase_ddp_dryrun(card)
+    if dryrun:
+        phase_spatial_dryrun(card)
     phase_ddp_run(card, dev)
     phase_ddp_serving(card)
     log("ddp", f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+
+# ------------------------------------------------ phase 14: the spatial axis
+
+SPATIAL_S = 2                          # ranks (slots) of a spatial group
+# (a): the sharded feature warps' shapes: the bands of levels 3..6 (the
+# targets of the warps of levels 4..7), whole sources, two frames a level
+SPATIAL_WARP_LEVELS = (3, 4, 5, 6)
+SPATIAL_WARP_CHANNELS = {3: 32, 4: 64, 5: 96, 6: 128}
+SPATIAL_STEPS = 4                      # (c): the first step compared, then 3 timed
+# (a): a part of each row-window kernel's device name
+KERNEL_PARTS = {"warp_bilinear_fwd": "warp_bilinear_fwd", "warp_bilinear_dimages": "dimages",
+                "warp_bilinear_dflow": "dflow"}
+# (c): bf16, the bands' convs may take other cuDNN algorithms than the
+# whole image's (other sum orders), and the halo and gather gradients add
+# in bf16: the loss within 1e-3, the gradients within BF16_GRAD_TOL_FRAC
+SPATIAL_LOSS_RTOL = 1e-3
+
+
+def window_grid(flow, y0: int, h_src: int):
+    """`grid_of` for a row window: the band's flow of rows y0 .. of an
+    image of `h_src` rows, normalised by the image's size."""
+    b, h, w, _ = flow.shape
+    fl = flow.float()
+    gx = (fl[..., 0] + torch.arange(w, device=flow.device).view(1, 1, w)) * (2.0 / (w - 1)) - 1
+    gy = (fl[..., 1] + torch.arange(y0, y0 + h, device=flow.device).view(1, h, 1)) * (
+        2.0 / (h_src - 1)) - 1
+    return torch.stack([gx, gy], -1).to(flow.dtype)
+
+
+def rows_reached(flow, y0: int, h_src: int) -> int:
+    """The image rows that a window's bilinear taps read on this flow."""
+    ys = flow[..., 1].float() + torch.arange(y0, y0 + flow.shape[1],
+                                             device=flow.device).view(1, -1, 1)
+    ys = ys.clamp(0, h_src - 1)
+    lo, hi = int(ys.min().floor().item()), min(int(ys.max().floor().item()) + 1, h_src - 1)
+    return hi - lo + 1
+
+
+def phase_spatial_kernels(card: str, dev) -> dict:
+    """(a) The row-window gather, K4 and W-dflow at the sharded feature
+    warps' bf16 shapes of the serving forward (B=16 320x1216) and the hard
+    train step (B=8 320x640) at S = 2: every band of levels 3..6 on smooth
+    flows, against the twin with the same window, and the gather and
+    W-dflow bit for bit against the rows of the whole image's launch, K4's
+    bands summed against the whole launch within its atomics' spread
+    (KERNEL_TOL of the largest value). Per slot forward (gather) and per
+    rank step (K4, W-dflow), on band 1: the profiler's device ms of the
+    kernels' own launches (`complete_device_ms`), of the twins and the
+    library calls (F.grid_sample and
+    aten.grid_sampler_2d_backward on the window's grid), and the bound
+    (the gather's alone at the serving shapes, where the other two do not
+    run); the summary of the kernels line's row-window entries."""
+    from back2future_tpu_torch import ops
+
+    rng = np.random.default_rng(14)
+    dtype = torch.bfloat16
+    tol = KERNEL_TOL[dtype]
+    names = ("warp_bilinear_fwd", "warp_bilinear_dimages", "warp_bilinear_dflow")
+    summary = {}
+    for path, (b, h_img, w_img) in (("serving", (B, H, W)), ("train", (TRAIN_B, TRAIN_H, TRAIN_W))):
+        calls = []
+        for level in SPATIAL_WARP_LEVELS:
+            h_src, w = h_img >> (level - 1), w_img >> (level - 1)
+            c = SPATIAL_WARP_CHANNELS[level]
+            img = torch.from_numpy(rng.standard_normal((b, h_src, w, c)).astype(
+                np.float32)).to(dev, dtype)
+            flow = smooth_flow(rng, (b, h_src, w), dtype, dev)
+            g = torch.from_numpy(rng.standard_normal((b, h_src, w, c)).astype(
+                np.float32)).to(dev, dtype)
+            whole = ops.warp_bilinear(img, flow)
+            whole_dflow = torch.ops.b2f.warp_dflow(img, flow, g, True)
+            whole_dimg = torch.ops.b2f.warp_dimages(flow, g).float()
+            total = torch.zeros_like(whole_dimg)
+            band = h_src // SPATIAL_S
+            for s in range(SPATIAL_S):
+                y0, rows = s * band, slice(s * band, (s + 1) * band)
+                fl, gb = flow[:, rows].contiguous(), g[:, rows].contiguous()
+                out = ops.warp_bilinear(img, fl, y0=y0)
+                d_flow = torch.ops.b2f.warp_dflow(img, fl, gb, True, y0)
+                d_img = torch.ops.b2f.warp_dimages(fl, gb, h_src, y0)
+                want = (ops.warp_bilinear_reference(img, fl, y0),
+                        ops.warp_dimages_reference(fl, gb, h_src, y0),
+                        ops.warp_dflow_reference(img, fl, gb, True, y0))
+                for name, got, ref in zip(names, (out, d_img, d_flow), want):
+                    err = (got.float() - ref.float()).abs().max().item()
+                    atol = tol if name == "warp_bilinear_fwd" else \
+                        tol * max(1.0, ref.float().abs().max().item())
+                    entry = summary.setdefault((path, name), dict(err=0.0))
+                    entry["err"] = max(entry["err"], err)
+                    if not torch.allclose(got.float(), ref.float(), rtol=tol, atol=atol):
+                        raise AssertionError(f"spatial: {name} band {s} of {tuple(img.shape)} "
+                                             f"outside tolerance ({err:.3e})")
+                if not (torch.equal(out, whole[:, rows]) and torch.equal(d_flow, whole_dflow[:, rows])):
+                    raise AssertionError(f"spatial: the row window of {tuple(img.shape)} band {s} "
+                                         f"differs from the whole launch's rows")
+                total += d_img.float()
+                calls.append(dict(img=img, flow=fl, g=gb, y0=y0, h_src=h_src, band=s))
+            spread = (total - whole_dimg).abs().max().item()
+            if spread > tol * max(1.0, whole_dimg.abs().max().item()):
+                raise AssertionError(f"spatial: K4's bands of {tuple(img.shape)} sum to "
+                                     f"{spread:.3e} off the whole launch")
+            log("spatial", f"(a) {path} level {level} {'x'.join(map(str, img.shape))}: "
+                           f"{SPATIAL_S} bands of {band} rows, gather and W-dflow bit for bit "
+                           f"the whole launch's rows, K4's bands summed within {spread:.3e} of "
+                           f"the whole launch's")
+        timed = [c for c in calls if c["band"] == 1]   # an inner window, y0 > 0
+        # the serving path runs only the gather; the train step all three
+        timed_names = names if path == "train" else names[:1]
+
+        def kernel(name, c, plain=False):
+            img, fl, g, y0, hs = c["img"], c["flow"], c["g"], c["y0"], c["h_src"]
+            if name == "warp_bilinear_fwd":
+                return (ops.warp_bilinear_reference(img, fl, y0) if plain
+                        else ops.warp_bilinear(img, fl, y0=y0))
+            if name == "warp_bilinear_dimages":
+                return (ops.warp_dimages_reference(fl, g, hs, y0) if plain
+                        else torch.ops.b2f.warp_dimages(fl, g, hs, y0))
+            return (ops.warp_dflow_reference(img, fl, g, True, y0) if plain
+                    else torch.ops.b2f.warp_dflow(img, fl, g, True, y0))
+
+        def library(name, c):
+            grid = window_grid(c["flow"], c["y0"], c["h_src"])
+            if name == "warp_bilinear_fwd":
+                return F.grid_sample(nchw(c["img"]), grid, mode="bilinear",
+                                     padding_mode="border", align_corners=True)
+            mask = [name == "warp_bilinear_dimages", name == "warp_bilinear_dflow"]
+            return torch.ops.aten.grid_sampler_2d_backward(nchw(c["g"]), nchw(c["img"]), grid,
+                                                           0, 1, True, mask)
+
+        def work(name, c):
+            """(operations, bytes): 8 a channel of an output pixel; the
+            image rows the taps reach, the window's flow and g, and the
+            output (K4's: the whole image gradient, f32 zero-fill apart)."""
+            img, fl, g = c["img"], c["flow"], c["g"]
+            b_, _, w, ch = img.shape
+            reached = b_ * rows_reached(fl, c["y0"], c["h_src"]) * w * ch * img.element_size()
+            if name == "warp_bilinear_fwd":
+                return 8 * g.numel(), reached + nbytes(fl) + nbytes(g)
+            if name == "warp_bilinear_dimages":
+                return 8 * g.numel(), nbytes(fl, g) + nbytes(img)
+            return 8 * g.numel(), reached + 2 * nbytes(fl) + nbytes(g)
+
+        for name in timed_names:
+            per = 2   # two frames warped a level
+            ops_s = per * sum(work(name, c)[0] for c in timed) / PEAK_OPS_PER_S[dtype]
+            bytes_s = per * sum(work(name, c)[1] for c in timed) / HBM_BYTES_PER_S
+            ms = per * complete_device_ms(lambda: [kernel(name, c) for c in timed], 10,
+                                          KERNEL_PARTS[name], len(timed))
+            plain_ms = per * device_total_ms(lambda: [kernel(name, c, True) for c in timed], 3)
+            lib_ms = per * device_total_ms(lambda: [library(name, c) for c in timed], 10)
+            entry = summary[path, name]
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=max(ops_s, bytes_s) * 1e3, bytes_ms=bytes_s * 1e3,
+                         ops_ms=ops_s * 1e3)
+            log("spatial", f"(a) {name}, row window, per {path} {'slot forward' if path == 'serving' else 'rank step'} "
+                           f"(band 1 of levels 3-6, 2 frames each; profiler device time, the "
+                           f"kernel's own launches, K4's zero-fill and cast apart): kernel "
+                           f"{ms:.4f} ms, twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                           f"{entry['bound_ms']:.4f} ms (bytes {bytes_s * 1e3:.4f}, operations "
+                           f"{ops_s * 1e3:.4f}); max_abs_err {entry['err']:.3e}; on {card}")
+        # the bytes each feature-warp gather moves per rank: the other
+        # slots' bands of the whole level, received (gloo: through host memory)
+        moved = [2 * (SPATIAL_S - 1) * (b * (h_img >> (l - 1)) // SPATIAL_S * (w_img >> (l - 1))
+                                        * SPATIAL_WARP_CHANNELS[l] * 2)
+                 for l in SPATIAL_WARP_LEVELS]
+        log("spatial", f"(a) {path}: the feature-warp gathers receive per rank and "
+                       f"{'forward' if path == 'serving' else 'step'} "
+                       + ", ".join(f"level {l} {m / 2**20:.2f} MiB" for l, m in
+                                   zip(SPATIAL_WARP_LEVELS, moved))
+                       + f" (2 frames each, bf16): {sum(moved) / 2**20:.2f} MiB in all")
+    return summary
+
+
+def phase_spatial_serving(card: str) -> dict:
+    """(b) The flagship bf16 estimator on data x spatial meshes of (1, 2)
+    and (2, 2) slots that share cuda:0 (threads, in-process halo
+    exchanges) against the single-device estimator, B=16 KITTI frames:
+    results within phase 13 (d)'s tolerance, K1 10 and the gather 8 a
+    slot (each mesh's first call); the (1, 2) mesh's wall ms in turns
+    with the single device's. Returns the (1, 2) call's launches."""
+    from back2future_tpu_torch.api import init
+    from back2future_tpu_torch.parallel import make_mesh
+    from back2future_tpu_torch.runtime import reset_launches
+
+    est = init(None, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    batch = [rng.random((B, H_IN, W_IN, 3), dtype=np.float32) for _ in range(3)]
+    want = est.compute_flow_batch(*batch)
+    walls = {"one": []}
+    launches = {}
+    for shape in ((1, SPATIAL_S), (2, SPATIAL_S)):
+        slots = shape[0] * shape[1]
+        mesh_est = init(None, seed=0, spatial=True,
+                        mesh=make_mesh(["cuda:0"] * slots, shape=shape, axes=("data", "spatial")))
+        plan = mesh_est.replicas[0]._rows(H).plan
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        got = mesh_est.compute_flow_batch(*batch)
+        launches[shape] = _nonzero(counts())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_results(got, B)
+        expect = _nonzero({k: slots * v for k, v in SERVING_PER_FORWARD.items()})
+        if launches[shape] != expect:
+            raise AssertionError(f"spatial: a {shape} mesh call launched {launches[shape]}, "
+                                 f"expected {expect}")
+        compare_results("spatial", f"(b) data x spatial mesh {shape} of cuda:0 vs one device",
+                        got, want)
+        key = f"{shape[0]}x{shape[1]}"
+        walls[key] = []
+        if shape[0] == 1:
+            for kind, e in (("one", est), (key, mesh_est), (key, mesh_est), ("one", est)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.compute_flow_batch(*batch)
+                walls[kind].append((time.perf_counter() - t0) * 1e3)
+        turns = (f"; wall ms in turns: one device {['%.1f' % v for v in walls['one']]}, mesh "
+                 f"{['%.1f' % v for v in walls[key]]}" if walls[key] else "")
+        log("spatial", f"(b) mesh {shape}: plan {plan} (levels 1-7), launches of its first "
+                       f"call {launches[shape]} (K1 10 and the gather 8 a slot), peak device "
+                       f"memory {peak:.2f} GiB (all slots, one process){turns}; on {card}")
+        del mesh_est
+    return launches[(1, SPATIAL_S)]
+
+
+def _step_record(step, state, batch, rank: int, net) -> dict:
+    """One hard step from `state` on `batch`: its loss, launches, the
+    memory allocated before it and its peak, the gradients (rank 0) and
+    the CUDA-event ms of SPATIAL_STEPS - 1 steps after it."""
+    from back2future_tpu_torch.runtime import reset_launches
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, logs = step(state, batch)
+    out = {"loss": logs["loss"].item(), "launches": _nonzero(counts()),
+           "peak": torch.cuda.max_memory_allocated(), "base": base,
+           "plan": net._rows(TRAIN_H).plan}
+    if rank == 0:
+        out["grads"] = {n: p.grad.float().cpu().numpy() for n, p in net.named_parameters()}
+    _, _, out["ms"] = _time_turn(step, state, batch, SPATIAL_STEPS - 1)
+    return out
+
+
+def _spatial_step_rank(rank: int, world: int) -> dict:
+    """A rank of phase 14 (c), in a gloo group made by run_ranks, on
+    cuda:0: the hard bf16 step of the seeded flagship on the whole B=8
+    320x640 batch, its rows in bands over the `world` ranks of one
+    spatial group (`_step_record`)."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.parallel import distributed
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    distributed.init_mesh_groups(world)
+    try:
+        opt = train_options("bfloat16", soft=False)
+        net = train_network(opt, dev)
+        net.spatial_comm = distributed.spatial_comm()
+        step = make_train_step(net, opt, build_criterions(opt))
+        return _step_record(step, create_train_state(net, opt), train_batch(dev), rank, net)
+    finally:
+        distributed.init_mesh_groups(1)
+
+
+def phase_spatial_step(card: str) -> dict:
+    """(c) The hard bf16 step on 2 spatial gloo ranks sharing the card
+    against the unsharded step (this process, no group): the loss, every
+    gradient within BF16_GRAD_TOL_FRAC of max|g|, each rank's launches
+    (TRAIN_PER_STEP), the peak memory a step takes over what was
+    allocated before it, a rank's beside the unsharded step's; step ms.
+    Returns rank 0's launches."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.parallel.launch import run_ranks
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    opt = train_options("bfloat16", soft=False)
+    net = train_network(opt, dev)
+    step = make_train_step(net, opt, build_criterions(opt))
+    one = _step_record(step, create_train_state(net, opt), train_batch(dev), 0, net)
+    del net, step
+    t0 = time.perf_counter()
+    two = run_ranks(_spatial_step_rank, SPATIAL_S, (), backend="gloo", rank0_here=False,
+                    timeout=600)
+    secs = time.perf_counter() - t0
+    want = {n: torch.from_numpy(g).to(dev) for n, g in one["grads"].items()}
+    got = {n: torch.from_numpy(g).to(dev) for n, g in two[0]["grads"].items()}
+    ratios = gradient_ratios(got, want)
+    worst = max(ratios, key=ratios.get)
+    per_step = _nonzero(TRAIN_PER_STEP)
+    gib = 2**30
+    log("spatial", f"(c) hard bf16 step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}, rows in bands over "
+                   f"{SPATIAL_S} gloo ranks sharing the card (plan {two[0]['plan']}) vs the "
+                   f"unsharded step: loss {two[0]['loss']:.6f} / {two[1]['loss']:.6f} vs "
+                   f"{one['loss']:.6f} (rtol {SPATIAL_LOSS_RTOL}), worst gradient max_abs_err / max|g| "
+                   f"{ratios[worst]:.3e} ({worst}; tol {BF16_GRAD_TOL_FRAC}) over {len(want)} "
+                   f"parameters; launches per rank {[r['launches'] for r in two]}; the step's "
+                   f"peak over what was allocated before it a rank "
+                   f"{['%.3f' % ((r['peak'] - r['base']) / gib) for r in two]} GiB (peak "
+                   f"{['%.3f' % (r['peak'] / gib) for r in two]}, through DDP) vs the unsharded "
+                   f"step's {(one['peak'] - one['base']) / gib:.3f} GiB (no group); step ms (CUDA "
+                   f"events, steps 2-{SPATIAL_STEPS}) unsharded {['%.1f' % v for v in one['ms']]}, "
+                   f"rank 0 {['%.1f' % v for v in two[0]['ms']]}; the ranks {secs:.1f} s with "
+                   f"their start-up; on {card}")
+    if any(r["launches"] != per_step for r in two) or one["launches"] != per_step:
+        raise AssertionError(f"spatial: step launches {[r['launches'] for r in two]} / "
+                             f"{one['launches']}, expected {per_step} each")
+    if abs(two[0]["loss"] - one["loss"]) > SPATIAL_LOSS_RTOL * abs(one["loss"]) \
+            or two[1]["loss"] != two[0]["loss"] or ratios[worst] > BF16_GRAD_TOL_FRAC:
+        raise AssertionError("spatial: the row-sharded step and the unsharded step disagree")
+    return two[0]["launches"]
+
+
+def phase_spatial_dryrun(card: str) -> None:
+    """(d) dryrun_multichip(8) over 8 gloo ranks that share the card, a
+    data x spatial mesh of (4, 2) as the JAX package's, f32: both anchors
+    at DRYRUN_RTOL, each rank's hard step TRAIN_PER_STEP."""
+    from back2future_tpu_torch.graft_entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    results = dryrun_multichip(8, backend="gloo", timeout=600)
+    secs = time.perf_counter() - t0
+    per_step = _nonzero(TRAIN_PER_STEP)
+    if len(results) != 8:
+        raise AssertionError(f"spatial: the dry run ran {len(results)} ranks, expected 8")
+    for rank, records in enumerate(results):
+        for rec in records:
+            kind = "soft" if rec["soft"] else "hard"
+            log("spatial", f"(d) rank {rank} on {rec['device']} [{kind}]: loss "
+                           f"{rec['loss']:.5f}, launches {rec['launches']}, peak "
+                           f"{rec['peak_bytes'] / 2**30:.3f} GiB")
+            if kind == "hard" and rec["launches"] != per_step:
+                raise AssertionError(f"spatial: dry-run rank {rank} hard step launched "
+                                     f"{rec['launches']}, expected {per_step}")
+    for i, soft in enumerate((False, True)):
+        loss = results[0][i]["loss"]
+        if abs(loss - DRYRUN_ANCHORS[soft]) > DRYRUN_RTOL * DRYRUN_ANCHORS[soft]:
+            raise AssertionError(f"spatial: dry run loss {loss} vs anchor "
+                                 f"{DRYRUN_ANCHORS[soft]}")
+    log("spatial", f"(d) dryrun_multichip(8): mesh {{'data': 4, 'spatial': 2}}, 8 gloo ranks "
+                   f"on one card, losses {results[0][0]['loss']:.5f} (anchor "
+                   f"{DRYRUN_ANCHORS[False]}) and {results[0][1]['loss']:.5f} (anchor "
+                   f"{DRYRUN_ANCHORS[True]}), rtol {DRYRUN_RTOL}; {secs:.1f} s with the ranks' "
+                   f"start-up, on {card}")
+
+
+def _spatial_run_rank(rank: int, world: int, opt) -> dict:
+    """A rank of phase 14 (e): run() through its existing-group path."""
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import loop
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    loop.run(opt)
+    torch.cuda.synchronize()
+    return {"launches": _nonzero(counts())}
+
+
+def phase_spatial_run(card: str) -> None:
+    """(e) run() (f32, B=4, 3 steps and validation) on a data x spatial
+    mesh of (1, 2) gloo ranks sharing the card against one rank: the
+    train.log and test.log losses at RUN_LOG_RTOL, each rank's launches."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from back2future_tpu_torch.config import Options
+    from back2future_tpu_torch.data import roaming
+    from back2future_tpu_torch.parallel.launch import run_ranks
+    from back2future_tpu_torch.runtime import reset_launches
+    from back2future_tpu_torch.train import loop
+    from back2future_tpu_torch.utils import SymbolLogger
+
+    with tempfile.TemporaryDirectory(prefix="b2f_spatial_") as tmp:
+        root = Path(tmp)
+        roaming.main(["--out", str(root / "set"), "--n", str(RUN_SCENES), "--height",
+                      str(TRAIN_H), "--width", str(TRAIN_W), "--frames", "3", "--seed", "0",
+                      "--val_fraction", str(RUN_VAL_FRACTION)])
+        opt = Options(batchSize=RUN_B, dataset="RoamingImages",
+                      datasets_dir=str(root / "set" / "datasets"),
+                      data_root=str(root / "set" / "data"), cache=str(root / "cache"),
+                      expName="one", epochSize=RUN_EPOCH_SIZE, nEpochs=1, epochStore=1,
+                      nDonkeys=0, optimize="pme", compute_dtype="float32", augment=0,
+                      rand_crop=0, ground_truth=True).derive(make_dirs=True)
+        n_val = len(loop.build_loaders(opt)[1].dataset)
+        two = dataclasses.replace(opt, expName="spatial", save=str(root / "cache" / "spatial"),
+                                  mesh_shape=(1, SPATIAL_S), mesh_axes=("data", "spatial"))
+        Path(two.save).mkdir(parents=True)
+        t0 = time.perf_counter()
+        reset_launches()
+        loop.run(opt)
+        torch.cuda.synchronize()
+        one_s, one_launches = time.perf_counter() - t0, _nonzero(counts())
+        t0 = time.perf_counter()
+        ranks = run_ranks(_spatial_run_rank, SPATIAL_S, (two,), backend="gloo",
+                          rank0_here=False, timeout=900)
+        two_s = time.perf_counter() - t0
+        logs = {n: {k: SymbolLogger(Path(o.save) / f).read()[k] for f, k in
+                    (("train.log", "avg loss (train set)"), ("test.log", "avg loss (test set)"))}
+                for n, o in (("one", opt), ("two", two))}
+        side = (Path(two.save) / "train.log.host1").exists()
+    want = _nonzero({k: RUN_EPOCH_SIZE * TRAIN_PER_STEP[k] + -(-n_val // RUN_B) * EVAL_PER_STEP[k]
+                     for k in TRAIN_PER_STEP})
+    log("spatial", f"(e) run() f32 B={RUN_B} {TRAIN_H}x{TRAIN_W}, {RUN_EPOCH_SIZE} steps + "
+                   f"validation ({n_val} samples): 1 rank {one_s:.1f} s, losses {logs['one']}; "
+                   f"mesh (1, {SPATIAL_S}) of gloo ranks on the card {two_s:.1f} s with their "
+                   f"start-up, losses {logs['two']}; launches 1 rank {one_launches}, per rank "
+                   f"{[r['launches'] for r in ranks]}; .host1 side log {side}; on {card}")
+    if one_launches != want or any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"spatial: run() launches {one_launches} / "
+                             f"{[r['launches'] for r in ranks]}, expected {want}")
+    if not side or any(not np.allclose(logs["two"][k], logs["one"][k], rtol=RUN_LOG_RTOL, atol=0)
+                       for k in logs["one"]):
+        raise AssertionError("spatial: the row-sharded run() and the 1-rank run() disagree")
+
+
+def phase_spatial(card: str, dev, summary=None) -> dict:
+    """Phase 14: (a)-(e); (a) only where `summary`, its result, is not
+    given (the default run takes it right after phase 3, among the other
+    kernel timings). Returns the launches of the spatial main paths and
+    the row-window kernels' summary for the kernels line."""
+    t0 = time.perf_counter()
+    if summary is None:
+        summary = phase_spatial_kernels(card, dev)
+    serving = phase_spatial_serving(card)
+    train = phase_spatial_step(card)
+    phase_spatial_dryrun(card)
+    phase_spatial_run(card)
+    log("spatial", f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return {"summary": summary, "serving": serving, "train": train}
+
+
+# the kernels line's row-window entries: (name, summary key, source, path)
+SPATIAL_KERNEL_ENTRIES = (
+    ("warp_bilinear_fwd", ("serving", "warp_bilinear_fwd"), "warp_fwd_tiled.cu",
+     "back2future_tpu/ops/warp.py:96", "serving"),
+    ("warp_bilinear_dimages", ("train", "warp_bilinear_dimages"), "warp_bwd_tiled.cu",
+     "back2future_tpu/ops/warp_pallas.py:81", "train"),
+    ("warp_bilinear_dflow", ("train", "warp_bilinear_dflow"), "warp_bwd_tiled.cu",
+     "back2future_tpu/ops/warp.py:209", "train"),
+)
+
+
+def spatial_kernel_entries(spatial: dict) -> list:
+    """The kernels line's entries of the row-window kernels: launches of a
+    spatial serving call (two slots) or of a spatial rank's step, ms per
+    slot forward or rank step on the sharded feature warps' shapes."""
+    entries = []
+    for name, key, source, replaces, path in SPATIAL_KERNEL_ENTRIES:
+        s = spatial["summary"][key]
+        where = "spatial serving, 2 slots" if path == "serving" else "spatial train rank"
+        entries.append({"name": f"{name} (row window, {where})", "route": "cuda",
+                        "source": f"back2future_tpu_torch/csrc/{source}", "replaces": replaces,
+                        "launches": spatial[path][f"b2f_{name}"], "max_abs_err": s["err"],
+                        "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
+                        "library_ms": s["library_ms"]})
+    return entries
 
 
 def elapsed_marks():
@@ -4201,6 +4728,12 @@ def main() -> None:
             phase_ddp(card, dev)
         print_result()
         return
+    if "--spatial" in sys.argv[1:]:
+        with stem(False):
+            spatial = phase_spatial(card, dev)
+        print(json.dumps({"kernels": spatial_kernel_entries(spatial)}), flush=True)
+        print_result()
+        return
     if "--spynet" in sys.argv[1:]:
         with stem(False):
             spynet = phase_spynet(card, dev)
@@ -4230,7 +4763,9 @@ def main() -> None:
             phase_k4_routes(card, dev)
         return
     summary = phase_kernels(dev)
-    mark("kernels (3)")
+    with stem(False):
+        spatial_summary = phase_spatial_kernels(card, dev)
+    mark("kernels (3, 14a)")
     with stem(False):
         main_path = phase_main_path(card)
     paths = {"serving": main_path["launches"]}
@@ -4247,7 +4782,7 @@ def main() -> None:
         phase_train_bwd_ab(card, dev)
         phase_k4_routes(card, dev)
         mark("train (6, 6b, 6c)")
-        data_rates = phase_data(card, dev, hard["step_ms"])
+        data_rates = phase_data(card, dev, hard["step_ms"], probe=False)
         mark("data (7)")
         phase_loop(card, dev, data_rates)
         mark("loop (7b)")
@@ -4261,7 +4796,12 @@ def main() -> None:
         mark("spynet, t7 (10, 11)")
         phase_serving_export(card, dev, sys.argv[1:])
         mark("serving export (12)")
-        phase_ddp(card, dev)
+        # phase 14 (b)-(e) runs before phase 13, whose NCCL group this
+        # process forms and tears down (the profiler recorded no device
+        # time in any window after it in one run)
+        spatial = phase_spatial(card, dev, spatial_summary)
+        mark("spatial axis (14b-e)")
+        phase_ddp(card, dev, dryrun=False)
         mark("data parallelism (13)")
     kernels = []
     for name, key, source, replaces, path in KERNEL_ENTRIES:
@@ -4272,7 +4812,8 @@ def main() -> None:
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"] else "operations",
                         "library_ms": s["library_ms"]})
-    print(json.dumps({"kernels": kernels + spynet_kernel_entries(spynet)}), flush=True)
+    print(json.dumps({"kernels": kernels + spynet_kernel_entries(spynet)
+                      + spatial_kernel_entries(spatial)}), flush=True)
     print_result()
 
 

@@ -12,9 +12,11 @@ against the repo's `__graft_entry__.py`.
   chip_smoke.py holds the card's bf16 forward to the same share) and
   the occlusion softmax within 5e-2.
 * `python -m back2future_tpu_torch.graft_entry 8 --cpu`
-  (`dryrun_multichip(8, device="cpu")`: 4 gloo ranks of one sample
-  each) prints the JAX package's recorded losses, 49.97828 (hard) and
-  100.98643 (soft) (MULTICHIP_r05.json), at rtol 1e-4.
+  (`dryrun_multichip(8, device="cpu")`: 8 gloo ranks on a data x
+  spatial mesh of (4, 2), as the JAX package's dry run, each data slot's
+  sample in row bands over its two ranks) prints the JAX package's
+  recorded losses, 49.97828 (hard) and 100.98643 (soft)
+  (MULTICHIP_r05.json), at rtol 1e-4.
 """
 
 import re
@@ -102,7 +104,8 @@ def test_dryrun_multichip_reaches_jax_anchors(capfd, monkeypatch):
     graft_entry.main(["8", "--cpu"])
     out = capfd.readouterr().out
     losses = {kind: float(v) for kind, v in re.findall(
-        r"dryrun_multichip\(8\): mesh=\{'data': 4\} \(gloo, cpu\) \[(hard|soft)\] "
+        r"dryrun_multichip\(8\): mesh=\{'data': 4, 'spatial': 2\} \(gloo, cpu\) "
+        r"\[(hard|soft)\] "
         r"loss=([0-9.]+) ok", out)}
     assert set(losses) == {"hard", "soft"}, out
     np.testing.assert_allclose(losses["hard"], HARD_LOSS, rtol=1e-4)

@@ -228,8 +228,8 @@ def test_warp_gather_unaligned(cuda, dtype, c, offset):
     flow = storage_at(gather_flow("smooth", shape[:3], 55, cuda, dtype), offset)
     out = storage_at(torch.zeros(shape, dtype=dtype, device=cuda), offset)
     b, h, w, _ = shape
-    WARP_MODULE._FWD(ptr(img), ptr(flow), ptr(out), DTYPE_CODES[dtype], b, h, w, c,
-                     stream_ptr(img.device))
+    WARP_MODULE._FWD(ptr(img), ptr(flow), ptr(out), DTYPE_CODES[dtype], b, h, w, c, h, 0,
+                     stream_ptr(img.device))   # the whole image's row window
     torch.cuda.synchronize()
     close_to_scale(out, ops.warp_bilinear_reference(img, flow), dtype)
 
@@ -1270,3 +1270,44 @@ def test_dryrun_multichip_gloo_ranks_share_the_card(cuda):
     assert np.isfinite(losses[0]) and losses[0] == losses[1]
     for r in results:
         assert r[0]["device"] == "cuda:0" and r[0]["launches"] == TRAIN_LAUNCHES
+
+
+# the row window (y0, H_src) of the gather, K4 and W-dflow: a flow of
+# rows y0 .. y0 + h - 1 of an image of H_src rows, as a row-sharded
+# feature warp launches them (parallel/spatial.py); 3 bands of 8 rows of
+# a 24-row image, partial K4 tiles across W
+@pytest.mark.parametrize("reference_grads", [True, False], ids=["ref_grads", "autodiff"])
+@pytest.mark.parametrize("kind", ["smooth", "random8", "outliers"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [3, 32, 64])
+def test_warp_row_window_kernels(cuda, dtype, c, kind, reference_grads):
+    """Each band's gather and W-dflow against their twins, and bit for bit
+    against the rows of the whole image's launch; the bands' K4 image
+    gradients against the twin's and, summed, against the whole launch's
+    within the dtype's tolerance (f32 atomics in another order)."""
+    h, w, bands = 24, 70, 3
+    img = rand((2, h, w, c), 70, cuda, dtype)
+    flow = warp_flow(kind, (2, h, w), 71, cuda, dtype)
+    g = rand((2, h, w, c), 72, cuda, dtype)
+    whole = ops.warp_bilinear(img, flow)
+    whole_dflow = torch.ops.b2f.warp_dflow(img, flow, g, reference_grads)
+    whole_dimg = torch.ops.b2f.warp_dimages(flow, g).float()
+    total = torch.zeros_like(whole_dimg)
+    for s in range(bands):
+        y0, rows = s * h // bands, slice(s * h // bands, (s + 1) * h // bands)
+        fl, gb = flow[:, rows].contiguous(), g[:, rows].contiguous()
+        reset_launches()
+        out = ops.warp_bilinear(img, fl, y0=y0)
+        d_flow = torch.ops.b2f.warp_dflow(img, fl, gb, reference_grads, y0)
+        d_img = torch.ops.b2f.warp_dimages(fl, gb, h, y0)
+        for k in ("b2f_warp_bilinear_fwd", "b2f_warp_bilinear_dflow",
+                  "b2f_warp_bilinear_dimages"):
+            assert KERNELS[k].launches == 1, k
+        assert torch.equal(out, whole[:, rows])
+        assert torch.equal(d_flow, whole_dflow[:, rows])
+        close_to_scale(out, ops.warp_bilinear_reference(img, fl, y0), dtype)
+        close_to_scale(d_flow, ops.warp_dflow_reference(img, fl, gb, reference_grads, y0), dtype)
+        assert d_img.shape == img.shape
+        close_to_scale(d_img, ops.warp_dimages_reference(fl, gb, h, y0), dtype)
+        total += d_img.float()
+    close_to_scale(total, whole_dimg, dtype)

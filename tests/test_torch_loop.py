@@ -131,8 +131,8 @@ def test_run_two_epochs_checkpoints_and_logs(toy_tree):
 def test_run_device_choice(toy_tree, monkeypatch):
     """`--platform cpu` is the only way to the CPU: the card asked for and
     absent raises, as do more cards than the host has (the JAX package's
-    ValueError), a spatial mesh axis (not ported) and an unknown
-    platform."""
+    ValueError), a data x spatial mesh shape that does not hold the ranks
+    and an unknown platform."""
     from back2future_tpu_torch.train.loop import run_device
 
     assert run_device(toy_options(toy_tree, expName="dev")).type == "cpu"
@@ -140,8 +140,8 @@ def test_run_device_choice(toy_tree, monkeypatch):
         for platform in ("", "gpu", "cuda"):
             with pytest.raises(RuntimeError, match="--platform cpu"):
                 run(toy_options(toy_tree, expName="dev", platform=platform))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run(toy_options(toy_tree, expName="dev", mesh_shape=(1, 1),
+    with pytest.raises(ValueError, match=r"does not hold the 1 "):
+        run(toy_options(toy_tree, expName="dev", mesh_shape=(1, 2),
                         mesh_axes=("data", "spatial")))
     with pytest.raises(ValueError, match="platform"):
         run(toy_options(toy_tree, expName="dev", platform="tpu"))

@@ -2,8 +2,9 @@
 and the DDP train step) against the JAX package.
 
 * `shard_batch`, `host_local_batch_size`, `initialize_multihost`'s
-  cluster-spec errors, `assert_same_across_hosts` and a spatial mesh
-  axis against the JAX package's behaviour and messages, on one process.
+  cluster-spec errors and `assert_same_across_hosts` against the JAX
+  package's behaviour and messages, on one process; what still refuses
+  on a spatial mesh axis (SPyNet, a shape that does not hold the ranks).
 * The resume fingerprint: stable, sensitive to the epoch and to a value.
 * A 2-rank gloo group (ranks spawned by `parallel.launch.run_ranks`):
   the all-reduce, sync, agreeing values passing and diverging ones
@@ -27,12 +28,12 @@ and the DDP train step) against the JAX package.
   gradients bit for bit.
 * Mesh serving: `init(..., mesh=make_mesh(["cpu", "cpu"]))` at n = 3
   (padded to 4, trimmed) against the JAX package's FlowEstimator on a
-  2-device CPU mesh, and the mesh estimator's refusals.
+  2-device CPU mesh, the mesh estimator's refusals, and a (1, 2) data x
+  spatial mesh with `spatial=True` against JAX's.
 """
 
 import dataclasses
 import functools
-import re
 
 import numpy as np
 import pytest
@@ -97,10 +98,19 @@ def test_shard_batch_matches_jax():
 
 
 def test_spatial_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match=r"item 11 \(e\)"):
-        mesh.make_mesh(["cpu", "cpu"], shape=(1, 2), axes=("data", "spatial"))
-    with pytest.raises(NotImplementedError, match=r"item 11 \(e\)"):
-        mesh.shard_batch(torch.zeros(2, 1), mesh.make_mesh(["cpu"]), spatial=True)
+    """What still refuses on a spatial axis: SPyNet (ROADMAP item 11 (f)),
+    and a mesh shape that does not hold the ranks."""
+    from back2future_tpu_torch.train.loop import _check_mesh
+
+    spatial = dict(mesh_shape=(1, 2), mesh_axes=("data", "spatial"), dataset="synthetic")
+    with pytest.raises(NotImplementedError, match=r"item 11 \(f\)"):
+        _check_mesh(Options(netType="spynet", **spatial).derive(), 2)
+    pwc = Options(**spatial).derive()
+    with pytest.raises(ValueError, match="does not hold the 4 "):
+        _check_mesh(pwc, 4)
+    assert _check_mesh(pwc, 2) == 2
+    assert mesh.make_mesh(["cpu", "cpu"], shape=(1, 2),
+                          axes=("data", "spatial")).shape == {"data": 1, "spatial": 2}
 
 
 def test_single_process_helpers_match_jax():
@@ -369,6 +379,16 @@ def test_mesh_estimator_refusals_match_jax(tmp_path):
         with pytest.raises(ValueError) as perr:
             call(est)
         assert str(perr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match=re.escape("item 11 (e)")):
-        api.init((tree, net.cfg), device="cpu", mesh=mesh.make_mesh(["cpu", "cpu"]),
-                 spatial=True)
+    # a spatial axis is served, as JAX's estimator serves it: rows in
+    # bands over the axis's two slots
+    jest = jax_api.init((jax.tree_util.tree_map(jnp.asarray, tree), jcfg),
+                        mesh=jax_mesh.make_mesh(jax.devices()[:2], shape=(1, 2),
+                                                axes=("data", "spatial")), spatial=True)
+    est = api.init((tree, net.cfg), device="cpu", spatial=True,
+                   mesh=mesh.make_mesh(["cpu", "cpu"], shape=(1, 2), axes=("data", "spatial")))
+    assert len(est.replicas) == 2 and est._padded_batch(3) == jest._padded_batch(3) == 3
+    for g, w in zip(est.compute_flow_batch(*frames), jest.compute_flow_batch(*frames)):
+        if g.dtype == bool:
+            assert (g != w).mean() <= 1e-3
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * np.abs(w).max())

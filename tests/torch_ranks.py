@@ -75,3 +75,94 @@ def one_step(rank: int, world: int, cases: dict, batches: dict, seed: int,
         if len(records) > 1:
             out[name]["second"] = records[1]
     return out
+
+
+def spatial_group_checks(rank: int, world: int) -> dict:
+    """A 2 x 2 data x spatial mesh of ranks (parallel/distributed.py
+    `init_mesh_groups`): its slots, loss shares and reductions, and the
+    row ops of parallel/spatial.py over the spatial group's gloo
+    communicator in f32 and bf16, forward and backward, against the whole
+    tensor (the bands' gradients against the whole gradient of the two
+    ranks' summed losses)."""
+    import numpy as np
+
+    from back2future_tpu_torch.parallel import distributed
+    from back2future_tpu_torch.parallel.spatial import gather_rows, halo_rows, shard_rows
+
+    distributed.init_mesh_groups(2)
+    try:
+        comm = distributed.spatial_comm()
+        s = comm.index
+        out = {"data_index": distributed.data_index(), "data_count": distributed.data_count(),
+               "spatial": distributed.spatial_count(),
+               "loss_share": (distributed.loss_share(True), distributed.loss_share(False)),
+               "data_sum": float(distributed.all_reduce_data(torch.tensor(float(rank + 1)))),
+               "world_sum": float(distributed.all_reduce_sum(torch.tensor(float(rank + 1))))}
+        ok = True
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.default_rng(distributed.data_index())
+            x = torch.from_numpy(rng.standard_normal((2, 8, 3, 2)).astype(np.float32)).to(dtype)
+            g = [torch.from_numpy(rng.standard_normal((2, 8, 3, 2)).astype(np.float32))
+                 .to(dtype) for _ in range(2)]
+            band = x[:, 4 * s:4 * s + 4].clone().requires_grad_()
+            whole = gather_rows(band, comm)
+            ok &= torch.equal(whole, x)
+            whole.backward(g[s])
+            summed = (g[0].float() + g[1].float()).to(dtype)
+            ok &= torch.equal(band.grad, summed[:, 4 * s:4 * s + 4])
+            band.grad = None
+            halo = halo_rows(band, 2, comm)
+            padded = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 2, 2)).to(dtype)
+            ok &= torch.equal(halo, padded[:, 4 * s:4 * s + 8])
+            halo.backward(g[s])
+            acc = torch.zeros(2, 12, 3, 2)
+            for t in range(2):
+                acc[:, 4 * t:4 * t + 8] += g[t].float()
+            ok &= torch.equal(band.grad, acc[:, 2:10].to(dtype)[:, 4 * s:4 * s + 4])
+            ok &= torch.equal(shard_rows(x, comm), x[:, 4 * s:4 * s + 4])
+        out["ok"] = bool(ok)
+        return out
+    finally:
+        distributed.init_mesh_groups(1)
+
+
+def spatial_step(rank: int, world: int, cases: dict, batches: dict, seed: int,
+                 spatial: int) -> dict:
+    """For each case: the port's net of `seed` on a data x spatial mesh
+    with `spatial` ranks a spatial group (rank = d * spatial + s), one
+    train step of DDP on data slot d's slice of the global batch, whole
+    rows (the net computes its row band); the step's logs and every
+    parameter gradient the optimiser received."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.models.factory import model_and_config
+    from back2future_tpu_torch.parallel import distributed
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    distributed.init_mesh_groups(spatial)
+    try:
+        d, n = distributed.data_index(), distributed.data_count()
+        out = {}
+        for name, kw in cases.items():
+            opt = _options(kw)
+            net = model_and_config(opt, generator=torch.Generator().manual_seed(seed))[0]
+            net.spatial_comm = distributed.spatial_comm()
+            state = create_train_state(net, opt)
+            step = make_train_step(net, opt, build_criterions(opt))
+            batch = batches[name]
+            b = batch["images"].shape[0] // n
+            local = {k: torch.from_numpy(v[d * b:(d + 1) * b]) for k, v in batch.items()}
+            grads = {}
+            update = state.optimizer.step
+
+            def capture():
+                grads.update({k: p.grad.numpy().copy() for k, p in net.named_parameters()
+                              if p.grad is not None})
+                update()
+
+            state.optimizer.step = capture
+            state, logs = step(state, local)
+            out[name] = {"logs": {k: float(v) for k, v in logs.items()}, "grads": grads,
+                         "plan": net._rows(batch["images"].shape[1]).plan}
+        return out
+    finally:
+        distributed.init_mesh_groups(1)
