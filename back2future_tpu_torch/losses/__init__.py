@@ -3,7 +3,9 @@ the penalties, the photometric criteria (OBCC, OBGCC, MBCC, the SSIM
 family, the 2-frame BCC and SSIM), first- and second-order and KL
 smoothness, the occlusion prior, const_vel and the supervised L2, and
 the factory that mirrors the reference's selection logic
-(model.lua:144-258).
+(model.lua:144-258). Every criterion takes a keyword `band`: the
+parallel.spatial `Band` of a row band's tensors, None for whole ones
+(losses/common.py).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ _PME_FACTORIES = {
 
 @dataclasses.dataclass
 class Criterions:
-    """Configured criterion callables for a training run."""
+    """Configured criterion callables for a training run; each also takes
+    `band=` (module docstring)."""
     pme: Callable          # pme(scale) -> fn(flow, flow_past, occ, warped, target)
     flow_smooth: Callable  # fn(flow, target) -> scalar
     occ_smooth: Callable   # fn(occ, target) -> scalar
@@ -87,8 +90,8 @@ def build_criterions(opt) -> Criterions:
         os_cfg = SmoothConfig(penalty=opt.smooth_occ_penalty, size_average=opt.sizeAverage,
                               second_order=False, reference_grads=opt.reference_grads)
 
-        def occ_smooth(occ, target, _cfg=os_cfg):
-            return smoothness(occ, target, _cfg)
+        def occ_smooth(occ, target, band=None, _cfg=os_cfg):
+            return smoothness(occ, target, _cfg, band)
 
     return Criterions(
         pme=pme,

@@ -29,6 +29,16 @@ hand-written backward, which deviates from the true gradient
 
 With `reference_grads=False` each is plain autograd of the same value.
 
+On a row band (losses/common.py) each criterion takes the band's rows and
+its `Band`: the value covers the band's rows, OBGCC's image gradients and
+the SSIM family's Gaussians read one row of each neighbouring band. The
+hand-written backwards give each of the band's rows its whole gradient,
+the terms of the row above included, so no gradient crosses to another
+slot; plain autograd sends the neighbours' rows theirs through
+`rows_halo`. The SSIM family's min and max are the global batch's, taken
+over every rank (parallel/distributed.py `all_reduce_max`), as the JAX
+package takes them over its global batch array.
+
 Group layout (NHWC): flow (B,H,W,2); flow_past (B,H,W,2) or None; occ
 (B,H,W,2) with channel 0 = "visible or past occluded" (torch channel 1) and
 channel 1 = "visible or future occluded" (torch channel 2); warped = tuple
@@ -42,8 +52,10 @@ import functools
 
 import torch
 
-from .common import (coord_grid, depthwise_gauss3, fwd_diff_x, fwd_diff_y,
-                     gaussian3_center_weight, in_image_mask)
+from ..parallel.distributed import all_reduce_max
+from .common import (coord_grid, diff_down, first_row, fwd_diff_x,
+                     gauss3_rows, gaussian3_center_weight, in_image_mask, own_rows, rows_halo,
+                     rows_of, unhalo_grad)
 from .penalty import make_penalty
 
 # occ channel used to weight a frame: past frames -> torch ch2 (ours 1),
@@ -76,18 +88,21 @@ def _frame_flow_k(cfg, f: int, flow, flow_past, scale):
     return (f - ref) * flow * scale
 
 
-def _masks(cfg, flow, flow_past, scale, h, w):
-    """Per-frame out-of-image masks (B,H,W), frame index 1..F-1; no gradient."""
+def _masks(cfg, flow, flow_past, scale, band):
+    """Per-frame out-of-image masks (B,h,W) of the flow's rows, frame
+    index 1..F-1; no gradient."""
+    b, h, w = flow.shape[:3]
     with torch.no_grad():
-        coord = coord_grid(flow.shape[0], h, w, flow.dtype, flow.device)
-        return {f: in_image_mask(coord + _frame_flow_k(cfg, f, flow, flow_past, scale), h, w)
+        coord = coord_grid(b, h, w, flow.dtype, flow.device, 0 if band is None else band.y0)
+        return {f: in_image_mask(coord + _frame_flow_k(cfg, f, flow, flow_past, scale),
+                                 rows_of(flow, band), w)
                 for f in range(1, cfg.frames)}
 
 
-def _norms(cfg, target):
-    b, h, w, c = target.shape
+def _norms(cfg, target, band):
+    b, _, w, c = target.shape
     inner = 1.0 / (c * (cfg.frames - 1))
-    size_norm = (1.0 / (b * h * w)) if cfg.size_average else 1.0
+    size_norm = (1.0 / (b * rows_of(target, band) * w)) if cfg.size_average else 1.0
     return inner, size_norm
 
 
@@ -100,12 +115,11 @@ def _occ_w(occ, f, ref):
     return occ[..., _OCC_PAST if f <= ref else _OCC_FUTURE]
 
 
-def _obcc_value(cfg, scale, flow, flow_past, occ, warped, target):
+def _obcc_value(cfg, scale, band, flow, flow_past, occ, warped, target):
     p = make_penalty(cfg.penalty)
     ref = 0.5 * (cfg.frames - 1)
-    b, h, w, c = target.shape
-    inner, size_norm = _norms(cfg, target)
-    masks = _masks(cfg, flow, flow_past, scale, h, w)
+    inner, size_norm = _norms(cfg, target, band)
+    masks = _masks(cfg, flow, flow_past, scale, band)
     acc = 0.0
     for f in range(1, cfg.frames):
         photo = p.apply(warped[f - 1] - target).sum(-1)
@@ -121,20 +135,19 @@ class _OBCCFn(torch.autograd.Function):
     to occ (with the out-of-image constant) and to the warped frames only."""
 
     @staticmethod
-    def forward(ctx, cfg, scale, flow, flow_past, occ, target, *warped):
-        ctx.cfg, ctx.scale = cfg, scale
+    def forward(ctx, cfg, scale, band, flow, flow_past, occ, target, *warped):
+        ctx.cfg, ctx.scale, ctx.band = cfg, scale, band
         ctx.save_for_backward(flow, flow_past, occ, target, *warped)
-        return _obcc_value(cfg, scale, flow, flow_past, occ, warped, target)
+        return _obcc_value(cfg, scale, band, flow, flow_past, occ, warped, target)
 
     @staticmethod
     def backward(ctx, g):
-        cfg, scale = ctx.cfg, ctx.scale
+        cfg, scale, band = ctx.cfg, ctx.scale, ctx.band
         flow, flow_past, occ, target, *warped = ctx.saved_tensors
         p = make_penalty(cfg.penalty)
         ref = 0.5 * (cfg.frames - 1)
-        b, h, w, c = target.shape
-        inner, size_norm = _norms(cfg, target)
-        masks = _masks(cfg, flow, flow_past, scale, h, w)
+        inner, size_norm = _norms(cfg, target, band)
+        masks = _masks(cfg, flow, flow_past, scale, band)
         scale_all = g * inner * size_norm
         d_occ = None if occ is None else torch.zeros_like(occ)
         d_warped = []
@@ -151,46 +164,50 @@ class _OBCCFn(torch.autograd.Function):
             if occ is not None:
                 gi = gi * occ[..., ch][..., None]
             d_warped.append(gi * scale_all)
-        return (None, None, None, None, d_occ, None, *d_warped)
+        return (None, None, None, None, None, d_occ, None, *d_warped)
 
 
 def make_obcc(cfg: PhotoConfig, scale: float):
-    """OBCC at one level: fn(flow, flow_past, occ, warped, target) -> scalar."""
+    """OBCC at one level: fn(flow, flow_past, occ, warped, target, band=None)
+    -> scalar."""
 
-    def obcc(flow, flow_past, occ, warped, target):
+    def obcc(flow, flow_past, occ, warped, target, band=None):
         if cfg.reference_grads:
-            return _OBCCFn.apply(cfg, scale, flow, flow_past, occ, target, *warped)
-        return _obcc_value(cfg, scale, flow, flow_past, occ, warped, target)
+            return _OBCCFn.apply(cfg, scale, band, flow, flow_past, occ, target, *warped)
+        return _obcc_value(cfg, scale, band, flow, flow_past, occ, warped, target)
 
     return obcc
 
 
-def _obgcc_terms(cfg, warped, target):
+def _obgcc_terms(cfg, warped_h, target_h):
     """Per-frame (diff, buffer_gx, buffer_gy) with the reference's
-    cross-frame gradient-buffer accumulation (OBGCCriterion.lua:91-92)."""
-    tgt_gx, tgt_gy = fwd_diff_x(target), fwd_diff_y(target)
-    acc_gx = acc_gy = torch.zeros_like(target)
+    cross-frame gradient-buffer accumulation (OBGCCriterion.lua:91-92),
+    from `rows_halo` frames, on the rows from the one above the band to
+    its last (row i + 1 is own row i)."""
+    tgt = target_h[:, :-1]
+    tgt_gx, tgt_gy = fwd_diff_x(tgt), diff_down(target_h)
+    acc_gx = acc_gy = torch.zeros_like(tgt)
     out = []
     for f in range(1, cfg.frames):
-        img = warped[f - 1]
+        img_h = warped_h[f - 1]
+        img = img_h[:, :-1]
         acc_gx = acc_gx + fwd_diff_x(img)
-        acc_gy = acc_gy + fwd_diff_y(img)
-        out.append((img - target, acc_gx - tgt_gx, acc_gy - tgt_gy))
+        acc_gy = acc_gy + diff_down(img_h)
+        out.append((img - tgt, acc_gx - tgt_gx, acc_gy - tgt_gy))
     return out
 
 
-def _obgcc_value(cfg, scale, flow, flow_past, occ, warped, target):
+def _obgcc_value(cfg, scale, band, flow, flow_past, occ, warped_h, target_h):
     p = make_penalty(cfg.penalty)
     ref = 0.5 * (cfg.frames - 1)
-    b, h, w, c = target.shape
-    inner, size_norm = _norms(cfg, target)
-    masks = _masks(cfg, flow, flow_past, scale, h, w)
+    inner, size_norm = _norms(cfg, own_rows(target_h), band)
+    masks = _masks(cfg, flow, flow_past, scale, band)
     acc = 0.0
-    for f, (diff, bgx, bgy) in enumerate(_obgcc_terms(cfg, warped, target), start=1):
+    for f, (diff, bgx, bgy) in enumerate(_obgcc_terms(cfg, warped_h, target_h), start=1):
         # no alpha on the brightness term in the reference forward
         # (OBGCCriterion.lua:96-105)
         tmp = (p.apply(diff).sum(-1) + cfg.beta * p.apply(bgx).sum(-1)
-               + cfg.gamma * p.apply(bgy).sum(-1))
+               + cfg.gamma * p.apply(bgy).sum(-1))[:, 1:]
         ow = _occ_w(occ, f, ref)
         m = masks[f]
         masked = tmp * m if ow is None else tmp * ow * m
@@ -198,63 +215,73 @@ def _obgcc_value(cfg, scale, flow, flow_past, occ, warped, target):
     return acc.sum() * inner * size_norm
 
 
-def _transpose_diff(v, dx, dy):
-    """v - dy - dx + dy shifted one row down + dx shifted one column right:
-    the transpose of the forward differences (OBGCCriterion.lua:200-219)."""
-    out = v - dy - dx
-    out[:, 1:] += dy[:, :-1]
-    out[:, :, 1:] += dx[:, :, :-1]
+def _transpose_diff(v, dx, dy, first):
+    """v - dy - dx + dy of the row above + dx of the column to the left,
+    on the own rows: the transpose of the forward differences
+    (OBGCCriterion.lua:200-219). v, dx, dy cover the rows from the one
+    above the band (`_obgcc_terms`), whose dy reaches the first own row
+    unless it is the image's first."""
+    above = dy[:, :-1]
+    if first:
+        above = torch.cat([torch.zeros_like(above[:, :1]), above[:, 1:]], dim=1)
+    out = v[:, 1:] - dy[:, 1:] - dx[:, 1:] + above
+    out[:, :, 1:] += dx[:, 1:, :-1]
     return out
 
 
 class _OBGCCFn(torch.autograd.Function):
     """OBGCC with the reference backward (photometric.py:220-256):
-    gradients to occ and to the warped frames only."""
+    gradients to occ and to the warped frames only. The frames come as
+    `rows_halo` tensors whose halo rows take no gradient."""
 
     @staticmethod
-    def forward(ctx, cfg, scale, flow, flow_past, occ, target, *warped):
-        ctx.cfg, ctx.scale = cfg, scale
-        ctx.save_for_backward(flow, flow_past, occ, target, *warped)
-        return _obgcc_value(cfg, scale, flow, flow_past, occ, warped, target)
+    def forward(ctx, cfg, scale, band, flow, flow_past, occ, target_h, *warped_h):
+        ctx.cfg, ctx.scale, ctx.band = cfg, scale, band
+        ctx.save_for_backward(flow, flow_past, occ, target_h, *warped_h)
+        return _obgcc_value(cfg, scale, band, flow, flow_past, occ, warped_h, target_h)
 
     @staticmethod
     def backward(ctx, g):
-        cfg, scale = ctx.cfg, ctx.scale
-        flow, flow_past, occ, target, *warped = ctx.saved_tensors
+        cfg, scale, band = ctx.cfg, ctx.scale, ctx.band
+        flow, flow_past, occ, target_h, *warped_h = ctx.saved_tensors
         p = make_penalty(cfg.penalty)
         ref = 0.5 * (cfg.frames - 1)
-        b, h, w, c = target.shape
-        inner, size_norm = _norms(cfg, target)
-        masks = _masks(cfg, flow, flow_past, scale, h, w)
+        first = first_row(band)
+        inner, size_norm = _norms(cfg, own_rows(target_h), band)
+        masks = _masks(cfg, flow, flow_past, scale, band)
         scale_all = g * inner * size_norm
         d_occ = None if occ is None else torch.zeros_like(occ)
         d_warped = []
-        for f, (diff, bgx, bgy) in enumerate(_obgcc_terms(cfg, warped, target), start=1):
+        for f, (diff, bgx, bgy) in enumerate(_obgcc_terms(cfg, warped_h, target_h), start=1):
             ch = _OCC_PAST if f <= ref else _OCC_FUTURE
             m = masks[f]
             # image gradient, alpha included (OBGCCriterion.lua:200-212)
             gi = _transpose_diff(cfg.alpha * p.der(diff), p.der(bgx) * cfg.beta,
-                                 p.der(bgy) * cfg.gamma) * m[..., None]
+                                 p.der(bgy) * cfg.gamma, first) * m[..., None]
             if occ is not None:
                 gi = gi * occ[..., ch][..., None]
-            d_warped.append(gi * scale_all)
+            d_warped.append(unhalo_grad(gi * scale_all))
             if occ is not None:
                 # occlusion gradient with the transpose structure and the
                 # out-of-image penalty (OBGCCriterion.lua:215-219,239-250)
                 ob = _transpose_diff(cfg.alpha * p.apply(diff).sum(-1),
                                      p.apply(bgx).sum(-1) * cfg.beta,
-                                     p.apply(bgy).sum(-1) * cfg.gamma)
+                                     p.apply(bgy).sum(-1) * cfg.gamma, first)
                 d_occ[..., ch] += (ob * m + (1.0 - m) * cfg.penalty_out) * scale_all
-        return (None, None, None, None, d_occ, None, *d_warped)
+        return (None, None, None, None, None, d_occ, None, *d_warped)
 
 
 def make_obgcc(cfg: PhotoConfig, scale: float):
-    """OBGCC at one level: fn(flow, flow_past, occ, warped, target) -> scalar."""
+    """OBGCC at one level: fn(flow, flow_past, occ, warped, target,
+    band=None) -> scalar."""
 
-    def obgcc(flow, flow_past, occ, warped, target):
+    def obgcc(flow, flow_past, occ, warped, target, band=None):
+        grad = not cfg.reference_grads
+        target_h = rows_halo(target, band, grad)
+        warped_h = [rows_halo(w, band, grad) for w in warped]
         if cfg.reference_grads:
-            return _OBGCCFn.apply(cfg, scale, flow, flow_past, occ, target, *warped)
-        return _obgcc_value(cfg, scale, flow, flow_past, occ, warped, target)
+            return _OBGCCFn.apply(cfg, scale, band, flow, flow_past, occ, target_h, *warped_h)
+        return _obgcc_value(cfg, scale, band, flow, flow_past, occ, warped_h, target_h)
 
     return obgcc
 
@@ -264,11 +291,10 @@ def make_obgcc(cfg: PhotoConfig, scale: float):
 # (criterions/MBCCriterion.lua)
 # --------------------------------------------------------------------------
 
-def _mbcc_value(cfg, scale, flow, flow_past, warped, target):
+def _mbcc_value(cfg, scale, band, flow, flow_past, warped, target):
     p = make_penalty(cfg.penalty)
-    h, w = target.shape[1], target.shape[2]
-    inner, size_norm = _norms(cfg, target)
-    masks = _masks(cfg, flow, flow_past, scale, h, w)
+    inner, size_norm = _norms(cfg, target, band)
+    masks = _masks(cfg, flow, flow_past, scale, band)
     acc = 0.0
     for f in range(1, cfg.frames):
         acc = acc + p.apply(warped[f - 1] - target).sum(-1) * masks[f]
@@ -280,33 +306,32 @@ class _MBCCFn(torch.autograd.Function):
     to the warped frames only."""
 
     @staticmethod
-    def forward(ctx, cfg, scale, flow, flow_past, target, *warped):
-        ctx.cfg, ctx.scale = cfg, scale
+    def forward(ctx, cfg, scale, band, flow, flow_past, target, *warped):
+        ctx.cfg, ctx.scale, ctx.band = cfg, scale, band
         ctx.save_for_backward(flow, flow_past, target, *warped)
-        return _mbcc_value(cfg, scale, flow, flow_past, warped, target)
+        return _mbcc_value(cfg, scale, band, flow, flow_past, warped, target)
 
     @staticmethod
     def backward(ctx, g):
-        cfg, scale = ctx.cfg, ctx.scale
+        cfg, scale, band = ctx.cfg, ctx.scale, ctx.band
         flow, flow_past, target, *warped = ctx.saved_tensors
         p = make_penalty(cfg.penalty)
-        h, w = target.shape[1], target.shape[2]
-        inner, size_norm = _norms(cfg, target)
-        masks = _masks(cfg, flow, flow_past, scale, h, w)
+        inner, size_norm = _norms(cfg, target, band)
+        masks = _masks(cfg, flow, flow_past, scale, band)
         d_warped = [p.der(warped[f - 1] - target) * masks[f][..., None] * g * inner * size_norm
                     for f in range(1, cfg.frames)]
-        return (None, None, None, None, None, *d_warped)
+        return (None, None, None, None, None, None, *d_warped)
 
 
 @functools.lru_cache(maxsize=None)
 def make_mbcc(cfg: PhotoConfig, scale: float):
-    """MBCC at one level: fn(flow, flow_past, occ, warped, target) -> scalar;
-    occ is not read."""
+    """MBCC at one level: fn(flow, flow_past, occ, warped, target,
+    band=None) -> scalar; occ is not read."""
 
-    def mbcc(flow, flow_past, occ, warped, target):
+    def mbcc(flow, flow_past, occ, warped, target, band=None):
         if cfg.reference_grads:
-            return _MBCCFn.apply(cfg, scale, flow, flow_past, target, *warped)
-        return _mbcc_value(cfg, scale, flow, flow_past, warped, target)
+            return _MBCCFn.apply(cfg, scale, band, flow, flow_past, target, *warped)
+        return _mbcc_value(cfg, scale, band, flow, flow_past, warped, target)
 
     return mbcc
 
@@ -320,17 +345,21 @@ _C2 = 0.03 ** 2
 
 
 def _minmax(*arrays):
-    """The min and max over every element of `arrays`; no gradient."""
+    """The min and max over every element of `arrays` on every rank, which
+    together hold the global batch (module docstring): one collective for
+    both; no gradient."""
     with torch.no_grad():
         mn = torch.stack([a.min() for a in arrays]).min()
         mx = torch.stack([a.max() for a in arrays]).max()
-    return mn, mx
+        neg_mn, mx = all_reduce_max(torch.stack([-mn, mx])).unbind()
+    return -neg_mn, mx
 
 
-def _ssim_terms(img_n, target_n, mu_y, sigma_y):
-    mu_x = depthwise_gauss3(img_n)
-    sigma_x = depthwise_gauss3(img_n * img_n) - mu_x * mu_x
-    sigma_xy = depthwise_gauss3(img_n * target_n) - mu_x * mu_y
+def _ssim_terms(img_n_h, target_n_h, mu_y, sigma_y):
+    """The SSIM maps of the own rows from normalised `rows_halo` frames."""
+    mu_x = gauss3_rows(img_n_h)
+    sigma_x = gauss3_rows(img_n_h * img_n_h) - mu_x * mu_x
+    sigma_xy = gauss3_rows(img_n_h * target_n_h) - mu_x * mu_y
     ssim_l = (2 * mu_x * mu_y + _C1) / (mu_x * mu_x + mu_y * mu_y + _C1)
     ssim_cs = (2 * sigma_xy + _C2) / (sigma_x + sigma_y + _C2)
     return mu_x, sigma_x, ssim_l, ssim_cs
@@ -344,44 +373,45 @@ def _ssim_penalty(cfg):
 
 
 def _ssim_normalization(cfg, occlusion_aware, flow_past, occ, warped, target):
-    """MSSIM: min/max over target + every input after the future flow —
-    the past flow (when past_flow), occ, and the warped frames
-    (MSSIML1Criterion.lua:62-68); OSSIM: target + warped images only
-    (OSSIML1Criterion.lua:61-67)."""
+    """(min, max - min). MSSIM: min/max over target + every input after
+    the future flow — the past flow (when past_flow), occ, and the warped
+    frames (MSSIML1Criterion.lua:62-68); OSSIM: target + warped images
+    only (OSSIML1Criterion.lua:61-67). The tensors are the own rows."""
     if occlusion_aware:
-        return _minmax(target, *warped)
-    extra = ()
-    if cfg.past_flow and flow_past is not None:
-        extra += (flow_past,)
-    if occ is not None and cfg.frames > 2:
-        extra += (occ,)
-    return _minmax(target, *extra, *warped)
+        mn, mx = _minmax(target, *warped)
+    else:
+        extra = ()
+        if cfg.past_flow and flow_past is not None:
+            extra += (flow_past,)
+        if occ is not None and cfg.frames > 2:
+            extra += (occ,)
+        mn, mx = _minmax(target, *extra, *warped)
+    return mn, mx - mn
 
 
-def _ssim_setup(cfg, occlusion_aware, flow_past, occ, warped, target):
-    """(mn, rng, target_n, mu_y, sigma_y) of the normalised target."""
-    mn, mx = _ssim_normalization(cfg, occlusion_aware, flow_past, occ, warped, target)
-    rng = mx - mn
-    target_n = (target - mn) / rng
-    mu_y = depthwise_gauss3(target_n)
-    sigma_y = depthwise_gauss3(target_n * target_n) - mu_y * mu_y
-    return mn, rng, target_n, mu_y, sigma_y
+def _ssim_target(target_h, mn, rng):
+    """(target_n_h, mu_y, sigma_y) of the normalised target."""
+    target_n_h = (target_h - mn) / rng
+    mu_y = gauss3_rows(target_n_h)
+    sigma_y = gauss3_rows(target_n_h * target_n_h) - mu_y * mu_y
+    return target_n_h, mu_y, sigma_y
 
 
-def _ssim_value(cfg, scale, occlusion_aware, flow, flow_past, occ, warped, target):
+def _ssim_value(cfg, scale, occlusion_aware, band, norm, flow, flow_past, occ, warped_h,
+                target_h):
     p = _ssim_penalty(cfg)
     ref = 0.5 * (cfg.frames - 1)
-    h, w = target.shape[1], target.shape[2]
-    inner, size_norm = _norms(cfg, target)
-    masks = _masks(cfg, flow, flow_past, scale, h, w)
-    mn, rng, target_n, mu_y, sigma_y = _ssim_setup(cfg, occlusion_aware, flow_past, occ,
-                                                   warped, target)
+    target = own_rows(target_h)
+    inner, size_norm = _norms(cfg, target, band)
+    masks = _masks(cfg, flow, flow_past, scale, band)
+    mn, rng = norm
+    target_n_h, mu_y, sigma_y = _ssim_target(target_h, mn, rng)
     acc = 0.0
     for f in range(1, cfg.frames):
-        img_n = (warped[f - 1] - mn) / rng
-        _, _, ssim_l, ssim_cs = _ssim_terms(img_n, target_n, mu_y, sigma_y)
+        img_n_h = (warped_h[f - 1] - mn) / rng
+        _, _, ssim_l, ssim_cs = _ssim_terms(img_n_h, target_n_h, mu_y, sigma_y)
         tmp = (cfg.alpha * (1.0 - ssim_l * ssim_cs).sum(-1)
-               + (1 - cfg.alpha) * p.apply(img_n - target_n).sum(-1))
+               + (1 - cfg.alpha) * p.apply(own_rows(img_n_h) - own_rows(target_n_h)).sum(-1))
         m = masks[f]
         if occlusion_aware:
             ow = _occ_w(occ, f, ref)
@@ -395,33 +425,39 @@ def _ssim_value(cfg, scale, occlusion_aware, flow, flow_past, occ, warped, targe
 class _SSIMFn(torch.autograd.Function):
     """MSSIM / OSSIM with the reference backward (photometric.py:394-431):
     the centre-weight approximation of the SSIM derivative, gradients to
-    the warped frames and (OSSIM) to occ."""
+    the warped frames and (OSSIM) to occ. The frames come as `rows_halo`
+    tensors whose halo rows take no gradient; the min and max of the
+    forward are kept."""
 
     @staticmethod
-    def forward(ctx, cfg, scale, occlusion_aware, flow, flow_past, occ, target, *warped):
+    def forward(ctx, cfg, scale, occlusion_aware, band, norm, flow, flow_past, occ, target_h,
+                *warped_h):
         ctx.cfg, ctx.scale, ctx.occlusion_aware = cfg, scale, occlusion_aware
-        ctx.save_for_backward(flow, flow_past, occ, target, *warped)
-        return _ssim_value(cfg, scale, occlusion_aware, flow, flow_past, occ, warped, target)
+        ctx.band, ctx.norm = band, norm
+        ctx.save_for_backward(flow, flow_past, occ, target_h, *warped_h)
+        return _ssim_value(cfg, scale, occlusion_aware, band, norm, flow, flow_past, occ,
+                           warped_h, target_h)
 
     @staticmethod
     def backward(ctx, g):
         cfg, scale, occlusion_aware = ctx.cfg, ctx.scale, ctx.occlusion_aware
-        flow, flow_past, occ, target, *warped = ctx.saved_tensors
+        band, (mn, rng) = ctx.band, ctx.norm
+        flow, flow_past, occ, target_h, *warped_h = ctx.saved_tensors
         p = _ssim_penalty(cfg)
         ref = 0.5 * (cfg.frames - 1)
         gw = gaussian3_center_weight()
-        h, w = target.shape[1], target.shape[2]
-        inner, size_norm = _norms(cfg, target)
-        masks = _masks(cfg, flow, flow_past, scale, h, w)
-        mn, rng, target_n, mu_y, sigma_y = _ssim_setup(cfg, occlusion_aware, flow_past, occ,
-                                                       warped, target)
+        inner, size_norm = _norms(cfg, own_rows(target_h), band)
+        masks = _masks(cfg, flow, flow_past, scale, band)
+        target_n_h, mu_y, sigma_y = _ssim_target(target_h, mn, rng)
+        target_n = own_rows(target_n_h)
         scale_all = g * inner * size_norm
         occ_grad = occlusion_aware and occ is not None
         d_occ = torch.zeros_like(occ) if occ_grad else None
         d_warped = []
         for f in range(1, cfg.frames):
-            img_n = (warped[f - 1] - mn) / rng
-            mu_x, sigma_x, ssim_l, ssim_cs = _ssim_terms(img_n, target_n, mu_y, sigma_y)
+            img_n_h = (warped_h[f - 1] - mn) / rng
+            img_n = own_rows(img_n_h)
+            mu_x, sigma_x, ssim_l, ssim_cs = _ssim_terms(img_n_h, target_n_h, mu_y, sigma_y)
             # centre-weight derivative approximation (MSSIML1Criterion.lua:216-224)
             d_l = 2 * gw * (mu_y - mu_x * ssim_l) / (mu_x * mu_x + mu_y * mu_y + _C1)
             d_cs = 2 * gw * ((target_n - mu_y) - ssim_cs * (img_n - mu_x)) \
@@ -436,24 +472,30 @@ class _SSIMFn(torch.autograd.Function):
                            + (1 - cfg.alpha) * p.apply(img_n - target_n).sum(-1))
                 d_occ[..., ch] += (per_pix * m + (1.0 - m) * cfg.penalty_out) * scale_all
                 gi = gi * occ[..., ch][..., None]
-            d_warped.append(gi * scale_all)
-        return (None, None, None, None, None, d_occ, None, *d_warped)
+            d_warped.append(unhalo_grad(gi * scale_all))
+        return (None, None, None, None, None, None, None, d_occ, None, *d_warped)
 
 
 def _make_ssim(cfg: PhotoConfig, scale: float, occlusion_aware: bool):
 
-    def crit(flow, flow_past, occ, warped, target):
+    def crit(flow, flow_past, occ, warped, target, band=None):
+        norm = _ssim_normalization(cfg, occlusion_aware, flow_past, occ, warped, target)
+        grad = not cfg.reference_grads
+        target_h = rows_halo(target, band, grad)
+        warped_h = [rows_halo(w, band, grad) for w in warped]
         if cfg.reference_grads:
-            return _SSIMFn.apply(cfg, scale, occlusion_aware, flow, flow_past, occ, target,
-                                 *warped)
-        return _ssim_value(cfg, scale, occlusion_aware, flow, flow_past, occ, warped, target)
+            return _SSIMFn.apply(cfg, scale, occlusion_aware, band, norm, flow, flow_past, occ,
+                                 target_h, *warped_h)
+        return _ssim_value(cfg, scale, occlusion_aware, band, norm, flow, flow_past, occ,
+                           warped_h, target_h)
 
     return crit
 
 
 @functools.lru_cache(maxsize=None)
 def make_mssim_l1(cfg: PhotoConfig, scale: float):
-    """MSSIM(L1) at one level: fn(flow, flow_past, occ, warped, target) -> scalar."""
+    """MSSIM(L1) at one level: fn(flow, flow_past, occ, warped, target,
+    band=None) -> scalar."""
     return _make_ssim(cfg, scale, occlusion_aware=False)
 
 
@@ -480,9 +522,9 @@ def ssim(input_img, target, size_average=True):
     mn, mx = _minmax(input_img, target)
     rng = mx - mn
     x = (input_img - mn) / rng
-    y = (target - mn) / rng
-    mu_y = depthwise_gauss3(y)
-    sigma_y = depthwise_gauss3(y * y) - mu_y * mu_y
-    _, _, ssim_l, ssim_cs = _ssim_terms(x, y, mu_y, sigma_y)
+    y_h = rows_halo((target - mn) / rng, None)
+    mu_y = gauss3_rows(y_h)
+    sigma_y = gauss3_rows(y_h * y_h) - mu_y * mu_y
+    _, _, ssim_l, ssim_cs = _ssim_terms(rows_halo(x, None), y_h, mu_y, sigma_y)
     val = (0.5 * (1.0 - ssim_l * ssim_cs)).sum()
     return val / x.numel() if size_average else val

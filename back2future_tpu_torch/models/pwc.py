@@ -18,15 +18,18 @@ drops those warps as dead code when only flow and occlusion are read.
 
 Image rows sharded over a spatial group (parallel/spatial.py): with
 `net.spatial_comm` set (its spatial group's communicator), every slot of
-the group takes the whole input and returns the whole outputs, and
-computes the sharded levels of the `level_plan` on its row band
-(`RowLayout`): the convs and cost volumes
+the group takes the whole input and computes the sharded levels of the
+`level_plan` on its row band (`RowLayout`): the convs and cost volumes
 exchange halos, the 2x upsamples read the whole level's taps, and each
 feature warp gathers its source image and warps its band by the row
-window (`warp_bilinear(..., y0=)`). The levels past the plan's cut, the
-fused stem (a replicated region whose outputs are split into bands) and
-the image warps of the photometric loss (on the gathered outputs and the
-whole image pyramids) run whole on every slot.
+window (`warp_bilinear(..., y0=)`). The levels past the plan's cut and
+the fused stem (a replicated region whose outputs are split into bands)
+run whole on every slot. The outputs come whole, each sharded level's
+gathered; with `bands=True` (the train and eval steps, whose loss works
+on bands) a sharded level's outputs stay its band, its group holding
+the band's `Band` under "band" (None for a whole level), and its image
+warps warp the whole image pyramid by the band's flow through the row
+window, with no gather (the input frames take no gradient).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from ..ops import (
 )
 from ..ops.pyramid import upsample_bilinear2x_rows
 from ..ops.stem import fused_stem, stem_eligible, stem_enabled
-from ..parallel.spatial import Comm, gather_rows, halo_rows, level_plan, shard_rows
+from ..parallel.spatial import Band, Comm, gather_rows, halo_rows, level_plan, shard_rows
 from .layers import ConvUnit, Decoder
 
 # d = 16 (models/pwc.lua:29); feature dims per level (models/pwc.lua:89)
@@ -142,6 +145,10 @@ class RowLayout:
     def _y0(self, l: int) -> int:
         return self.comm_.index * (self.height >> (l - 1)) // self.comm_.size
 
+    def band_of(self, l: int) -> Optional[Band]:
+        """Level l's `Band` on this slot, None for a whole level."""
+        return Band(self.comm_, self._y0(l), self.height >> (l - 1)) if self.sharded(l) else None
+
     def up_bilinear(self, t: torch.Tensor, l: int) -> torch.Tensor:
         """Level l's tensor upsampled 2x to level l-1."""
         if not self.sharded(l - 1):
@@ -167,6 +174,13 @@ class RowLayout:
             return warp_bilinear(images, flow, reference_grads=reference_grads)
         return warp_bilinear(gather_rows(images, self.comm_), flow,
                              reference_grads=reference_grads, y0=self._y0(l))
+
+    def warp_whole(self, images: torch.Tensor, flow: torch.Tensor, l: int,
+                   reference_grads: bool) -> torch.Tensor:
+        """Whole images of level l warped by level l's flow: on a band,
+        the band's rows by the row window."""
+        return warp_bilinear(images, flow, reference_grads=reference_grads,
+                             y0=self._y0(l) if self.sharded(l) else 0)
 
 
 def pwc_config_from_options(opt) -> PWCConfig:
@@ -270,10 +284,10 @@ class PWCNet(nn.Module):
         cfg = self.cfg
         return (cfg.ref, cfg.ref + 1) if cfg.two_frame == 1 else (1, cfg.frames)
 
-    def forward(self, x: torch.Tensor, with_warped: bool = True
+    def forward(self, x: torch.Tensor, with_warped: bool = True, bands: bool = False
                 ) -> List[Dict[str, Any]]:
         """x: (B, H, W, 3*frames) frame stack, H and W divisible by
-        2**(levels-1)."""
+        2**(levels-1). `bands`: module docstring."""
         cfg = self.cfg
         if x.shape[-1] != 3 * cfg.frames:
             raise ValueError(f"expected {3 * cfg.frames} input channels, "
@@ -289,7 +303,7 @@ class PWCNet(nn.Module):
         n = x.shape[0]
         cs = {f: {l: feat[k * n:(k + 1) * n] for l, feat in css.items()}
               for k, f in enumerate(f_range)}
-        return self._decode(x, cs, with_warped, rows)
+        return self._decode(x, cs, with_warped, rows, bands)
 
     def pyramid(self, frame: torch.Tensor) -> Dict[int, torch.Tensor]:
         """Siamese feature pyramid of ONE frame: (B, H, W, 3) -> {level:
@@ -317,21 +331,19 @@ class PWCNet(nn.Module):
                              f"{missing} (need {f_i}..{l_i})")
         cs = {f: {l: feat.to(cfg.dtype) for l, feat in d.items()}
               for f, d in cs.items()}
-        return self._decode(x.to(cfg.dtype), cs, with_warped, self._rows(x.shape[1]))
+        return self._decode(x.to(cfg.dtype), cs, with_warped, self._rows(x.shape[1]), False)
 
     def _decode(self, x: torch.Tensor, cs: Dict[int, Dict[int, torch.Tensor]],
-                with_warped: bool, rows: RowLayout) -> List[Dict[str, Any]]:
+                with_warped: bool, rows: RowLayout, bands: bool) -> List[Dict[str, Any]]:
         """Coarse-to-fine decode from per-frame feature pyramids (placed
         by `rows`): cost volumes, occ/flow decoders, feature warps and
-        (with_warped) the image warps, then the output groups, whole."""
+        (with_warped) the image warps, then the output groups, whole or
+        (`bands`) as `rows` places them."""
         cfg = self.cfg
         F, ref, l_st, levels = cfg.frames, cfg.ref, cfg.l_st, cfg.levels
         factor = cfg.flownet_factor
         f_i, l_i = self._frame_range()
         multi = F > 2 and cfg.two_frame == 0
-
-        def wb(im, fl):
-            return warp_bilinear(im, fl, reference_grads=cfg.reference_grads)
 
         # image pyramids of non-ref frames for the photometric warps
         # (ds[f][j] = image downsampled j times; models/pwc.lua:147-158)
@@ -348,7 +360,8 @@ class PWCNet(nn.Module):
         ufs, ubfs, uoccs, fs, bfs, occs = {}, {}, {}, {}, {}, {}
         skip_ufs, skip_ubfs, skip_occs = {}, {}, {}
         iws: Dict[int, Dict[int, torch.Tensor]] = {f: {} for f in range(1, F + 1)}
-        outs: Dict[int, Dict[str, Any]] = {}   # each level's outputs, whole
+        outs: Dict[int, Dict[str, Any]] = {}   # each level's outputs
+        place = (lambda t, res: t) if bands else rows.whole
 
         for l in range(levels, l_st - 1, -1):
             comm = rows.comm(l)
@@ -422,7 +435,7 @@ class PWCNet(nn.Module):
                     if cfg.past_flow:
                         skip_ubfs[l] = sub
 
-            # this level's outputs, whole, at resolution level l - l_st + 1
+            # this level's outputs at resolution level l - l_st + 1
             # (models/pwc.lua:458-489)
             res = l - l_st + 1
             if cfg.skip == 0:
@@ -430,9 +443,11 @@ class PWCNet(nn.Module):
             else:
                 flow, flow_past = skip_ufs[l], (skip_ubfs[l] if cfg.past_flow else None)
             occ = (skip_occs[l] if cfg.skip > 0 else occs[l]) if F > 2 else None
-            outs[l] = {"flow": rows.whole(flow, res),
-                       "flow_past": None if flow_past is None else rows.whole(flow_past, res),
-                       "occ": None if occ is None else rows.whole(occ, res)}
+            outs[l] = {"flow": place(flow, res),
+                       "flow_past": None if flow_past is None else place(flow_past, res),
+                       "occ": None if occ is None else place(occ, res)}
+            if bands:
+                outs[l]["band"] = rows.band_of(res)
 
             # warps (models/pwc.lua:392-448)
             for f in range(1, F + 1):
@@ -449,7 +464,8 @@ class PWCNet(nn.Module):
 
                 if not with_warped:
                     continue
-                # image warp at this level's output resolution, whole
+                # image warp at this level's output resolution: the whole
+                # image pyramid by the outputs' rows
                 base = outs[l]["flow_past" if (cfg.past_flow and f < ref) else "flow"]
                 # the past multiplier stays negative even with a separate
                 # past decoder, so hard-model weights transfer
@@ -458,7 +474,10 @@ class PWCNet(nn.Module):
                     m = factor * (f - ref)
                 else:
                     m = factor * (f - ref) / (2.0 ** (l - l_st))
-                iws[f][l] = wb(ds[f][l - l_st], base * m)
+                src = ds[f][l - l_st]
+                iws[f][l] = (rows.warp_whole(src, base * m, res, cfg.reference_grads) if bands
+                             else warp_bilinear(src, base * m,
+                                                reference_grads=cfg.reference_grads))
 
         # output groups, FINEST first (models/pwc.lua:458-489)
         return [{**outs[l],

@@ -20,6 +20,21 @@ warps feed the next level and always run.
 
 A frame's channels of an NHWC stack are a strided view; each warp gets
 them as a contiguous tensor of its own, as the warp kernel takes them.
+
+Image rows sharded over a spatial group (parallel/spatial.py), as
+models/pwc.py does it: with `net.spatial_comm` set, every slot of the
+group takes the whole input and computes the sharded levels of the
+`level_plan` on its row band (`RowLayout`, by resolution level: SPyNet's
+level l, coarsest first, is resolution level levels + 1 - l; every conv
+is 7x7, so a band holds at least 3 rows). The input pyramid (the frames
+alone, no gradient) stays whole on every slot and each level takes its
+band of it; the trunks and heads exchange 3-row halos; the upsamples of
+the coarser flow and occlusion read the whole level's taps; the input
+warps warp the whole level's frames by the band's flow through the row
+window (`warp_bilinear(..., y0=)`), and the output warps, whose sources
+are warped frames with a gradient, gather them first. The outputs come
+whole, or with `bands=True` as their bands with the group's "band"
+(models/pwc.py).
 """
 
 from __future__ import annotations
@@ -31,11 +46,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import (
-    avg_pool2, spatial_softmax, upsample_bilinear2x, upsample_nearest2x, warp_bilinear,
-)
+from ..ops import avg_pool2, spatial_softmax
+from ..parallel.spatial import Comm
 from .layers import Conv
-from .pwc import DTYPES
+from .pwc import DTYPES, RowLayout
 
 _TRUNK = (32, 64, 32, 16)       # models/spynet.lua:18-21
 _KERNEL = 7
@@ -89,9 +103,9 @@ class _VolconTrunk(nn.Module):
             self.add_module(f"c{i}", Conv(dims[i], dims[i + 1], kernel=_KERNEL,
                                           generator=generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
         for i in range(len(_TRUNK)):
-            x = F.relu(getattr(self, f"c{i}")(x))
+            x = F.relu(getattr(self, f"c{i}")(x, comm))
         return x
 
 
@@ -99,6 +113,8 @@ class SPyNet(nn.Module):
     """The SPyNet variant. Submodule names are the flax module names
     (`trunk_{l}.c{i}`, `flow_head_{l}`, `occ_head_{l}`), so the params
     bridge maps one tree onto the other by name."""
+
+    spatial_comm: Optional[Comm] = None   # the spatial group's, on a row-sharded slot
 
     def __init__(self, cfg: SPyNetConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -123,17 +139,21 @@ class SPyNet(nn.Module):
             c += 2
         return c
 
-    def forward(self, x: torch.Tensor, with_warped: bool = True) -> List[Dict[str, Any]]:
+    def _rows(self, height: int) -> RowLayout:
+        """The row layout of a forward at `height` rows, by resolution
+        level (module docstring): a 7x7 conv's halo of 3 rows."""
+        return RowLayout(self.spatial_comm, height, self.cfg.levels, _KERNEL // 2)
+
+    def forward(self, x: torch.Tensor, with_warped: bool = True, bands: bool = False
+                ) -> List[Dict[str, Any]]:
         """x: (B, H, W, 3*frames) frame stack, H and W divisible by
-        2**(levels-1)."""
+        2**(levels-1). `bands`: module docstring."""
         cfg = self.cfg
         F_, ref, levels = cfg.frames, cfg.ref, cfg.levels
         factor = cfg.flownet_factor
+        rg = cfg.reference_grads
         if x.shape[-1] != 3 * F_:
             raise ValueError(f"expected {3 * F_} input channels, got {x.shape[-1]}")
-
-        def wb(im, fl):
-            return warp_bilinear(im, fl, reference_grads=cfg.reference_grads)
 
         def frame_slice(t, f):
             return t[..., 3 * (f - 1): 3 * f]
@@ -144,8 +164,9 @@ class SPyNet(nn.Module):
             return factor * (f - ref) / (2.0 ** exponent)
 
         x = x.to(cfg.dtype)
+        rows = self._rows(x.shape[1])
         # input pyramid, level l in 1..levels (1 = coarsest;
-        # models/spynet.lua:85-90)
+        # models/spynet.lua:85-90), whole
         downs = {levels: x}
         for l in range(levels - 1, 0, -1):
             downs[l] = avg_pool2(downs[l + 1])
@@ -154,43 +175,49 @@ class SPyNet(nn.Module):
         prev_flow = prev_occ = None
         for l in range(1, levels + 1):
             lvl = levels - l  # the reference's `lvl` exponent
+            r = levels + 1 - l   # the resolution level of the row layout
+            comm = rows.comm(r)
             # the level's frames: the reference frame as it is, the others
             # warped by the upsampled coarser flow (models/spynet.lua:92-111)
             if l == 1:
                 ups_flow = None
-                level_in = downs[l]
-                frames_in = {f: frame_slice(level_in, f).contiguous()
-                             for f in range(1, F_ + 1) if f != ref and with_warped}
+                level_in = rows.band(downs[l], r)
             else:
-                ups_flow = upsample_bilinear2x(prev_flow)
+                ups_flow = rows.up_bilinear(prev_flow, r + 1)
                 if cfg.rescale_flow == 1:
                     ups_flow = ups_flow * 2.0
                 frames_in = {}
                 for f in range(1, F_ + 1):
                     frame = frame_slice(downs[l], f)
-                    frames_in[f] = frame if f == ref else wb(frame.contiguous(),
-                                                             ups_flow * multiplier(f, lvl))
+                    frames_in[f] = (rows.band(frame, r) if f == ref else
+                                    rows.warp_whole(frame.contiguous(),
+                                                    ups_flow * multiplier(f, lvl), r, rg))
                 parts = [frames_in[f] for f in range(1, F_ + 1)]
                 if cfg.flow_input == 1:
                     parts.append(ups_flow)
                 if F_ > 2 and cfg.occ_input == 1:
-                    parts.append(upsample_nearest2x(prev_occ))
+                    parts.append(rows.up_nearest(prev_occ, r + 1))
                 level_in = torch.cat(parts, dim=-1)
 
-            trunk = getattr(self, f"trunk_{l}")(level_in)
-            flow = getattr(self, f"flow_head_{l}")(trunk)
+            trunk = getattr(self, f"trunk_{l}")(level_in, comm)
+            flow = getattr(self, f"flow_head_{l}")(trunk, comm)
             # residual add inside the level (models/spynet.lua:33-35)
             if ups_flow is not None and cfg.residual == 1:
                 flow = flow + ups_flow
 
             occ = None
             if F_ > 2:
-                occ = spatial_softmax(getattr(self, f"occ_head_{l}")(trunk))
+                occ = spatial_softmax(getattr(self, f"occ_head_{l}")(trunk, comm))
 
             # per-level output warps re-warp the level INPUT frames, which
             # for f != ref are already-warped frames (models/spynet.lua:37-57)
-            warped = ([wb(frames_in[f], flow * multiplier(f, lvl))
-                       for f in range(1, F_ + 1) if f != ref] if with_warped else [])
+            warped = []
+            for f in range(1, F_ + 1):
+                if f == ref or not with_warped:
+                    continue
+                m = flow * multiplier(f, lvl)
+                warped.append(rows.warp_whole(frame_slice(downs[l], f).contiguous(), m, r, rg)
+                              if l == 1 else rows.warp(frames_in[f], m, r, rg))
 
             out_flow = flow
             # second residual add on the OUTPUT flow only
@@ -198,13 +225,16 @@ class SPyNet(nn.Module):
             if ups_flow is not None and cfg.residual == 1:
                 out_flow = out_flow + ups_flow
 
+            place = (lambda t: t) if bands else (lambda t: rows.whole(t, r))
             out_levels[l] = {
-                "flow": out_flow,
+                "flow": place(out_flow),
                 "flow_past": None,
-                "occ": occ,
-                "warped": warped,
+                "occ": None if occ is None else place(occ),
+                "warped": [place(w) for w in warped],
                 "flow_scale": cfg.flow_scales[levels - l],
             }
+            if bands:
+                out_levels[l]["band"] = rows.band_of(r)
             # the next level upsamples out_level[l-1][1] — the OUTPUT flow,
             # i.e. the doubled flow when residual=1 (models/spynet.lua:99,146)
             prev_flow = out_flow

@@ -32,11 +32,17 @@ With a `spatial` mesh axis (`init_mesh_groups(S)`), the ranks form a
 data x spatial mesh of shape (D, S), rank = d*S + s: a subgroup for each
 spatial group (the S ranks of data slot d, which share its batch slice
 and hold row bands of it, parallel/spatial.py) and for each data group
-(the D ranks of band s). The loss is computed on every rank of a
-spatial group, from whole outputs, so a rank's share carries 1/S more
-(`loss_share`); the loss shares still sum over the world, while the
-metrics and the L2's mask count, computed S times over, are summed over
-the data group (`all_reduce_data`).
+(the D ranks of band s). At a level the net computes in row bands, each
+rank computes its band's part of every loss term, so its share is the
+data share alone, and the L2's mask count and the metrics' sums are
+summed over the world; a level every rank of a spatial group holds
+whole has its terms computed S times over, so a rank's share carries
+1/S more (`loss_share`) and those counts and sums go over the data group
+(`all_reduce_data`). Either way the loss shares sum over the world.
+
+The SSIM criteria normalise by the min and max over the global batch:
+`all_reduce_max` takes them over the world, which holds every rank's
+part of it (a band, or the whole level S times over).
 """
 
 from __future__ import annotations
@@ -241,6 +247,16 @@ def all_reduce_data(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
+    """The element-wise max of `t` over the world (outside autograd, in
+    one collective); `t` itself without a group of more than one rank."""
+    if not data_parallel():
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    return out
+
+
 # ------------------------------------------------------------- reductions
 
 def in_group() -> bool:
@@ -265,13 +281,13 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def loss_share(size_average: bool) -> float:
+def loss_share(size_average: bool, banded: bool = False) -> float:
     """The factor that turns a loss term normalised by this rank's own
-    sizes into its share of the global term: 1/D for a mean over a fixed
-    per-sample size (`sizeAverage`), 1 for a batch sum, over the S ranks
-    of a spatial group that compute it alike (1/world and 1 without a
-    spatial axis)."""
-    return (1.0 / data_count() if size_average else 1.0) / spatial_count()
+    batch into its share of the global term: 1/D for a mean over a fixed
+    per-sample size (`sizeAverage`), 1 for a batch sum; at a level whole
+    on every rank of a spatial group (not `banded`), which compute it
+    alike, over its S ranks (module docstring)."""
+    return (1.0 / data_count() if size_average else 1.0) / (1 if banded else spatial_count())
 
 
 def sum_gradients_hook(state, bucket):

@@ -31,8 +31,11 @@ slots are parts that sum to its whole gradient. The backward of every
 op is linear in its output gradient, so a replicated region (a level
 below the plan's cut, the fused stem, the loss) keeps the invariant, its
 parameters' gradients summed over the slots (DDP's summing hook) are
-the whole gradients, and `shard_rows` needs no collective. The loss,
-computed on every slot of the group from gathered outputs, carries a
+the whole gradients, and `shard_rows` needs no collective. The loss
+keeps it too: at a sharded level each slot computes its band's part of
+every term (a `Band` travels with the level's outputs; losses/common.py
+reads the rows around it), the parts summing over the group to the whole
+term; a replicated level's terms, computed alike on every slot, carry a
 share of 1/S (parallel/distributed.py `loss_share`).
 
 `level_plan` says which pyramid levels are sharded: those whose height
@@ -43,6 +46,7 @@ there; the others are replicated, each slot holding the whole level.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -212,6 +216,30 @@ def shard_rows(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     """This slot's band of a whole level (module docstring)."""
     y0, h = _band(x, comm)
     return x.narrow(1, y0, h)
+
+
+@dataclasses.dataclass(frozen=True)
+class Band:
+    """Where a slot's tensors of a sharded level lie: its spatial group's
+    communicator, the band's first image row and the level's rows in all."""
+
+    comm: Comm
+    y0: int
+    height: int
+
+    @property
+    def first(self) -> bool:
+        """Whether the band holds the image's first row."""
+        return self.comm.index == 0
+
+    @property
+    def last(self) -> bool:
+        """Whether the band holds the image's last row."""
+        return self.comm.index == self.comm.size - 1
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The band's rows of a whole level `t`."""
+        return t.narrow(1, self.y0, self.height // self.comm.size)
 
 
 # ------------------------------------------------------------ the plan

@@ -39,8 +39,8 @@ ranks as the JAX package's mesh, whose shape must hold every rank: a
 data,spatial --mesh_shape D,S`), which shards image rows over the S
 ranks of each data slot (rank = d*S + s; parallel/spatial.py): those
 ranks load the same slice of every batch, and the net's row bands and
-halo exchanges run over their spatial group. SPyNet on a spatial axis
-raises NotImplementedError (ROADMAP.md item 11 (f)).
+halo exchanges run over their spatial group, for either net (PWC or
+SPyNet), as do the losses of the levels the net computes in bands.
 
 The steps' logs are 0-d device tensors. After each step they are
 stacked and copied into pinned host memory with `non_blocking=True`, and
@@ -371,10 +371,6 @@ def _check_mesh(opt: Options, world: int) -> int:
     if len(opt.mesh_shape) != len(opt.mesh_axes):
         raise ValueError(f"--mesh_axes {tuple(opt.mesh_axes)} needs a --mesh_shape of "
                          f"{len(opt.mesh_axes)} sizes, got {tuple(opt.mesh_shape)}")
-    if opt.netType == "spynet":
-        raise NotImplementedError(
-            "netType spynet on a 'spatial' mesh axis (image rows sharded across ranks) is "
-            "not ported to back2future_tpu_torch: ROADMAP.md queue 1 item 11 (f)")
     return int(opt.mesh_shape[opt.mesh_axes.index("spatial")])
 
 

@@ -10,10 +10,13 @@ the inputs' device; nothing is read on the host. Ties decode as in JAX:
 the first maximum in both.
 
 Under data parallelism each metric is the global batch's: every ratio's
-numerator and denominator are summed over the data group first (one
-all-reduce of the stacked sums; the world without a spatial axis, whose
-ranks compute their slot's metrics alike), so ranks that hold different
-mask counts weigh as the global batch does.
+numerator and denominator are summed over the ranks first (one
+all-reduce of the stacked sums), so ranks that hold different mask
+counts weigh as the global batch does: over the world when the flow is
+a row band (given its `Band`: the spatial group's ranks share its rows
+out, each on its rows of the ground truth), else over the data group
+(the world without a spatial axis; a spatial group's ranks then compute
+their slot's metrics alike).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from ..losses.supervised import epe_map
-from ..parallel.distributed import all_reduce_data, data_count
+from ..parallel.distributed import all_reduce_data, all_reduce_sum, data_count, process_count
 
 
 def decode_occ(occ_pred: torch.Tensor) -> torch.Tensor:
@@ -47,12 +50,18 @@ def _safe_ratio(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, s / torch.clamp(n, min=1.0), torch.zeros_like(n))
 
 
-def _global_sums(sums: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """`sums` summed over the data group in one all-reduce; as they are
-    with one data slot."""
-    if data_count() == 1:
+def _reduced(band) -> bool:
+    """Whether the metrics' sums are reduced over ranks (module docstring)."""
+    return (data_count() if band is None else process_count()) > 1
+
+
+def _global_sums(sums: Dict[str, torch.Tensor], band) -> Dict[str, torch.Tensor]:
+    """`sums` summed over the ranks that share the global batch out, in
+    one all-reduce; as they are on one rank."""
+    if not _reduced(band):
         return sums
-    total = all_reduce_data(torch.stack([v.float() for v in sums.values()]))
+    reduce = all_reduce_data if band is None else all_reduce_sum
+    total = reduce(torch.stack([v.float() for v in sums.values()]))
     return dict(zip(sums, total.unbind()))
 
 
@@ -83,13 +92,17 @@ def occ_f1(occ_pred_sharp: torch.Tensor, occ_label: torch.Tensor) -> torch.Tenso
 
 
 def full_res_metrics(flow_pred: torch.Tensor, occ_pred: Optional[torch.Tensor], batch: Dict,
-                     flownet_factor: float, size_average: bool) -> Dict[str, torch.Tensor]:
+                     flownet_factor: float, size_average: bool,
+                     band=None) -> Dict[str, torch.Tensor]:
     """Metrics on the finest-level outputs vs full-res ground truth.
 
     batch: 'flow_gt' (B,H,W,2) (already / flownet_factor), 'occ_gt'
     (B,H,W,2) with channel 0 = frames-occ label, channel 1 = 3-frame occ
-    (train.lua:346,392), 'mask' (B,H,W). `size_average` is unused, as in
-    the JAX package."""
+    (train.lua:346,392), 'mask' (B,H,W), whole; with a `band`, the
+    outputs are its rows. `size_average` is unused, as in the JAX
+    package."""
+    batch = {k: batch[k] if band is None else band.rows(batch[k])
+             for k in ("flow_gt", "occ_gt", "mask")}
     mask = batch["mask"]
     m = epe_map(flow_pred, batch["flow_gt"], mask)
     m_px = m * flownet_factor
@@ -108,17 +121,17 @@ def full_res_metrics(flow_pred: torch.Tensor, occ_pred: Optional[torch.Tensor], 
         for key, state in (("bwd", 0.0), ("vis", 0.5), ("fwd", 1.0)):
             sums[key], sums[f"n_{key}"] = _masked_sums(correct, (lbl == state).to(m.dtype))
         sums["tp"], sums["fp"], sums["fn"] = _f1_counts(sharp, lbl)
-        if data_count() > 1:
+        if _reduced(band):
             sums["correct"] = torch.sum(correct)
             sums["n_correct"] = torch.tensor(float(correct.numel()), device=correct.device)
-    sums = _global_sums(sums)
+    sums = _global_sums(sums, band)
 
     out = {"epe": sums["epe"] / torch.clamp(sums["npix"], min=1.0) * flownet_factor,
            "epe_nocc": _safe_ratio(sums["nocc"], sums["n_nocc"]),
            "epe_occ": _safe_ratio(sums["occ"], sums["n_occ"]),
            "fl_all": _safe_ratio(sums["fl"], sums["n_fl"])}
     if occ_pred is not None:
-        out["occ_acc"] = (sums["correct"] / sums["n_correct"] if data_count() > 1
+        out["occ_acc"] = (sums["correct"] / sums["n_correct"] if _reduced(band)
                           else torch.mean(correct))
         for key in ("bwd", "vis", "fwd"):
             out[f"occ_acc_{key}"] = _safe_ratio(sums[key], sums[f"n_{key}"])

@@ -15,11 +15,15 @@ eval steps skip them for "epe" (XLA drops them there as dead code).
 
 Under data parallelism a rank's loss is its share of the global batch's
 (parallel/distributed.py `loss_share`): the terms normalised by the
-rank's own sizes (`sizeAverage`) are scaled by 1/world, the supervised
-L2 divides by the global mask count, and batch sums need nothing; with a
-spatial axis of S ranks, which compute the loss of their data slot's
-outputs alike, every term carries 1/S more. The shares sum over ranks to
-the loss of the global batch, and so do their gradients.
+rank's own batch (`sizeAverage`) are scaled by 1/D over D data slots,
+the supervised L2 divides by the global mask count, and batch sums need
+nothing. With a spatial axis of S ranks the share is per level: at a
+level the net computes in row bands (its group's "band", models/pwc.py),
+each rank computes its band's part of every term, on its rows of the
+targets, with that share; at a level whole on every rank of the spatial
+group, which compute it alike, every term carries 1/S more. The shares
+sum over ranks to the loss of the global batch, and so do their
+gradients.
 
 Known reference defects NOT replicated (documented intent implemented
 instead, as in the JAX package): the supervised occlusion loss as written
@@ -75,6 +79,10 @@ def multiscale_loss(outputs: List[Dict[str, Any]], batch: Dict[str, Any],
     "epe" also "flow_gt" (B,H,W,2) [already / flownet_factor], "occ_gt"
     (B,H,W,2) [channels: frames-occ, 3-frame-occ] and "mask" (B,H,W).
     The criteria run in f32, whatever the model's compute dtype."""
+    def rows(t, band):
+        """A level's targets, from the whole level, on the outputs' rows."""
+        return t if band is None else band.rows(t)
+
     frames = opt.frames
     outputs = [{k: ([_f32(t) for t in v] if k == "warped" else _f32(v))
                 for k, v in g.items()} for g in outputs]
@@ -94,54 +102,56 @@ def multiscale_loss(outputs: List[Dict[str, Any]], batch: Dict[str, Any],
                     flow_ds = flow_ds / 2.0
                 if multi_occ:
                     occ_ds = subsample2(occ_ds)
-            w = level_weight(l, opt.sizeAverage) * loss_share(False)
+            band = g.get("band")
+            w = level_weight(l, opt.sizeAverage) * loss_share(False, band is not None)
 
-            sup, _ = crits.l2(g["flow"], flow_ds, mask_ds[..., 0])
+            sup, _ = crits.l2(g["flow"], rows(flow_ds, band), rows(mask_ds, band)[..., 0],
+                              band=band)
             comps["sup_flow"] = comps["sup_flow"] + opt.epe * w * sup
 
             if multi_occ:
-                occ_target = convert_gt_occ(occ_ds)
+                occ_target = convert_gt_occ(rows(occ_ds, band))
                 ones = torch.ones(occ_target.shape[:3], dtype=occ_target.dtype,
                                   device=occ_target.device)
                 # L2 over the 2-channel occ as a "flow" pair (intended
                 # semantics of train.lua:328-331)
-                sup_occ, _ = crits.l2(g["occ"], occ_target, ones)
+                sup_occ, _ = crits.l2(g["occ"], occ_target, ones, band=band)
                 comps["sup_occ"] = comps["sup_occ"] + w * sup_occ
 
     if opt.optimize == "pme":
         rc = _ref_channels(frames)
         down = batch["images"]
-        share = loss_share(opt.sizeAverage)
         for l, g in enumerate(outputs):
             if l > 0:
                 down = avg_pool2(down)
-            w = level_weight(l, opt.sizeAverage) * share
-            target = down[..., rc:rc + 3]
+            band = g.get("band")
+            w = level_weight(l, opt.sizeAverage) * loss_share(opt.sizeAverage, band is not None)
+            target = rows(down, band)[..., rc:rc + 3]
 
             # flow smoothness on each predicted flow field (train.lua:427-433)
             flows = [g["flow"]] + ([g["flow_past"]]
                                    if (opt.past_flow and g["flow_past"] is not None) else [])
             for fl in flows:
                 comps["sflow"] = comps["sflow"] + \
-                    w * opt.smooth_flow * crits.flow_smooth(fl, target)
+                    w * opt.smooth_flow * crits.flow_smooth(fl, target, band=band)
 
             # constant velocity (train.lua:435-441)
             if opt.past_flow and g["flow_past"] is not None:
                 comps["sflow"] = comps["sflow"] + \
-                    w * opt.const_vel * crits.const_vel(g["flow"], g["flow_past"])
+                    w * opt.const_vel * crits.const_vel(g["flow"], g["flow_past"], band=band)
 
             # photometric (train.lua:443-454)
             pme_fn = crits.pme(g["flow_scale"])
             comps["pme"] = comps["pme"] + w * opt.pme * pme_fn(
-                g["flow"], g["flow_past"], g["occ"], tuple(g["warped"]), target)
+                g["flow"], g["flow_past"], g["occ"], tuple(g["warped"]), target, band=band)
 
             if multi_occ:
                 if opt.smooth_occ > 0:
                     comps["socc"] = comps["socc"] + \
-                        w * opt.smooth_occ * crits.occ_smooth(g["occ"], target)
+                        w * opt.smooth_occ * crits.occ_smooth(g["occ"], target, band=band)
                 if opt.prior_occ > 0:
                     comps["gocc"] = comps["gocc"] + \
-                        w * opt.prior_occ * crits.occ_prior(g["occ"], target)
+                        w * opt.prior_occ * crits.occ_prior(g["occ"], target, band=band)
 
     total = sum(comps.values())
     return total, comps

@@ -31,9 +31,11 @@ the remat region, so that the recompute runs inside DDP's forward);
 `state.model` stays the bare net, whose state_dict checkpoints save.
 With a spatial mesh axis the net carries its spatial group
 (`net.spatial_comm`, parallel/spatial.py): both steps take the data slot's
-whole batch, the net computes its row bands and returns whole outputs,
-and the loss's share and the metrics' reductions account for the S ranks
-that compute them alike (parallel/distributed.py).
+whole batch, and the net computes its row bands and returns them as
+they are (`bands=True`): the loss and the metrics work on each sharded
+level's band, and on the levels the plan leaves whole with a share
+that accounts for the S ranks that compute them alike
+(train/multiscale.py, parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ def _logs(loss: torch.Tensor, comps: Dict[str, torch.Tensor], outputs: List[Dict
         occ = g0["occ"] if (opt.frames > 2 and not opt.no_occ) else None
         with torch.no_grad():
             logs.update(full_res_metrics(g0["flow"], occ, batch, opt.flownet_factor,
-                                         opt.sizeAverage))
+                                         opt.sizeAverage, g0.get("band")))
     return logs
 
 
@@ -86,10 +88,10 @@ class _Forward(torch.nn.Module):
 
     def forward(self, images, with_warped: bool):
         if self.remat:
-            return torch.utils.checkpoint.checkpoint(self.net, images, with_warped,
+            return torch.utils.checkpoint.checkpoint(self.net, images, with_warped, True,
                                                      use_reentrant=False,
                                                      preserve_rng_state=False)
-        return self.net(images, with_warped)
+        return self.net(images, with_warped, True)
 
 
 def data_parallel_module(module: torch.nn.Module) -> torch.nn.Module:
@@ -146,7 +148,7 @@ def make_eval_step(model: torch.nn.Module, opt, crits) -> Callable:
     @torch.no_grad()
     def eval_step(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         batch = decode_batch(batch)
-        outputs = model(batch["images"], _with_warped(opt))
+        outputs = model(batch["images"], _with_warped(opt), True)
         loss, comps = multiscale_loss(outputs, batch, opt, crits)
         return _logs(loss, comps, outputs, batch, opt)
 

@@ -203,14 +203,22 @@ Phases, one line each (any failure raises and exits non-zero):
      against the rows of the whole image's launch, K4's bands summed
      against it within its atomics' spread; per slot forward and rank
      step the kernels', twins' and library calls' device ms and the
-     bound, and the bytes each feature-warp gather moves per rank; (b)
+     bound, and the bytes each feature-warp gather moves per rank; (a')
+     the same at SPyNet's C = 3 bands (B=8 320x640, resolution levels
+     1-6, SPyNet's levels 7-2: bands of 160 down to 5 rows), per rank
+     step 4 gathers, 2 K4 and 4 W-dflow a level; (b)
      the flagship served at B=16 on data x spatial meshes of (1, 2) and
      (2, 2) slots of cuda:0 (threads) against the single-device
      estimator (phase 13 (d)'s tolerance; K1 10 and the gather 8 a slot;
      wall ms in turns); (c) the hard bf16 step at B=8 320x640 on 2
      spatial gloo ranks sharing the card against the unsharded step (in
-     this process): loss, every gradient within 2e-2 of max|g|, each
-     rank's launches, the peak device memory a step takes, step ms; (d)
+     this process), the loss on the row bands: loss, every gradient
+     within 2e-2 of max|g|, each rank's launches, the peak device memory
+     a step takes, step ms; (c') in the same ranks, the SPyNet pme step
+     (frames 3, levels 7, B=8 320x640) against the unsharded one: bf16
+     at (c)'s tolerances with its launches (gather 26, K4 12, W-dflow 26
+     a rank), peaks and step ms, and f32 (TF32 off) with every gradient
+     within 1e-3 of max|g|; (d)
      dryrun_multichip(8, backend="gloo"): 8 ranks on a data x spatial
      mesh of (4, 2) sharing the card, one f32 step of each recipe, the
      JAX package's recorded losses at rtol 1e-4, each rank's launches;
@@ -226,7 +234,8 @@ Phases, one line each (any failure raises and exits non-zero):
      launches over phase 13 (a)'s 6 steps, ms per train step, K1's per
      serving forward; then the row-window gather, K4 and W-dflow of
      phase 14: launches of a (1, 2) serving call and of a spatial rank's
-     step, ms per slot forward or rank step), then the result line
+     hard or SPyNet step, ms per slot forward or rank step), then the
+     result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 It imports nothing of JAX and never runs on the CPU.
 
@@ -4220,6 +4229,21 @@ SPATIAL_S = 2                          # ranks (slots) of a spatial group
 # targets of the warps of levels 4..7), whole sources, two frames a level
 SPATIAL_WARP_LEVELS = (3, 4, 5, 6)
 SPATIAL_WARP_CHANNELS = {3: 32, 4: 64, 5: 96, 6: 128}
+# (a'): SPyNet's C = 3 bands at the train shapes: resolution levels 1-6
+# (SPyNet's levels 7-2; level 1, 5 rows, stays whole)
+SPY_SPATIAL_LEVELS = (1, 2, 3, 4, 5, 6)
+# (a), (a'): per path its batch and image size, levels, channels a level
+# and each timed kernel's launches a level per slot forward or rank step
+# (the feature warps: two frames; SPyNet: two input warps, gather and
+# W-dflow, and two output warps, gather, K4 and W-dflow)
+SPATIAL_KERNEL_PATHS = {
+    "serving": (B, H, W, SPATIAL_WARP_LEVELS, SPATIAL_WARP_CHANNELS,
+                {"warp_bilinear_fwd": 2}),
+    "train": (TRAIN_B, TRAIN_H, TRAIN_W, SPATIAL_WARP_LEVELS, SPATIAL_WARP_CHANNELS,
+              {"warp_bilinear_fwd": 2, "warp_bilinear_dimages": 2, "warp_bilinear_dflow": 2}),
+    "spynet": (TRAIN_B, TRAIN_H, TRAIN_W, SPY_SPATIAL_LEVELS, dict.fromkeys(SPY_SPATIAL_LEVELS, 3),
+               {"warp_bilinear_fwd": 4, "warp_bilinear_dimages": 2, "warp_bilinear_dflow": 4}),
+}
 SPATIAL_STEPS = 4                      # (c): the first step compared, then 3 timed
 # (a): a part of each row-window kernel's device name
 KERNEL_PARTS = {"warp_bilinear_fwd": "warp_bilinear_fwd", "warp_bilinear_dimages": "dimages",
@@ -4253,10 +4277,12 @@ def rows_reached(flow, y0: int, h_src: int) -> int:
 def phase_spatial_kernels(card: str, dev) -> dict:
     """(a) The row-window gather, K4 and W-dflow at the sharded feature
     warps' bf16 shapes of the serving forward (B=16 320x1216) and the hard
-    train step (B=8 320x640) at S = 2: every band of levels 3..6 on smooth
-    flows, against the twin with the same window, and the gather and
-    W-dflow bit for bit against the rows of the whole image's launch, K4's
-    bands summed against the whole launch within its atomics' spread
+    train step (B=8 320x640), and (a') at SPyNet's C = 3 bands of its pme
+    step (B=8 320x640, resolution levels 1-6), at S = 2
+    (SPATIAL_KERNEL_PATHS): every band of each level on smooth flows,
+    against the twin with the same window, and the gather and W-dflow bit
+    for bit against the rows of the whole image's launch, K4's bands
+    summed against the whole launch within its atomics' spread
     (KERNEL_TOL of the largest value). Per slot forward (gather) and per
     rank step (K4, W-dflow), on band 1: the profiler's device ms of the
     kernels' own launches (`complete_device_ms`), of the twins and the
@@ -4271,11 +4297,11 @@ def phase_spatial_kernels(card: str, dev) -> dict:
     tol = KERNEL_TOL[dtype]
     names = ("warp_bilinear_fwd", "warp_bilinear_dimages", "warp_bilinear_dflow")
     summary = {}
-    for path, (b, h_img, w_img) in (("serving", (B, H, W)), ("train", (TRAIN_B, TRAIN_H, TRAIN_W))):
+    for path, (b, h_img, w_img, levels, channels, per_level) in SPATIAL_KERNEL_PATHS.items():
         calls = []
-        for level in SPATIAL_WARP_LEVELS:
+        for level in levels:
             h_src, w = h_img >> (level - 1), w_img >> (level - 1)
-            c = SPATIAL_WARP_CHANNELS[level]
+            c = channels[level]
             img = torch.from_numpy(rng.standard_normal((b, h_src, w, c)).astype(
                 np.float32)).to(dev, dtype)
             flow = smooth_flow(rng, (b, h_src, w), dtype, dev)
@@ -4318,8 +4344,6 @@ def phase_spatial_kernels(card: str, dev) -> dict:
                            f"the whole launch's rows, K4's bands summed within {spread:.3e} of "
                            f"the whole launch's")
         timed = [c for c in calls if c["band"] == 1]   # an inner window, y0 > 0
-        # the serving path runs only the gather; the train step all three
-        timed_names = names if path == "train" else names[:1]
 
         def kernel(name, c, plain=False):
             img, fl, g, y0, hs = c["img"], c["flow"], c["g"], c["y0"], c["h_src"]
@@ -4354,8 +4378,7 @@ def phase_spatial_kernels(card: str, dev) -> dict:
                 return 8 * g.numel(), nbytes(fl, g) + nbytes(img)
             return 8 * g.numel(), reached + 2 * nbytes(fl) + nbytes(g)
 
-        for name in timed_names:
-            per = 2   # two frames warped a level
+        for name, per in per_level.items():
             ops_s = per * sum(work(name, c)[0] for c in timed) / PEAK_OPS_PER_S[dtype]
             bytes_s = per * sum(work(name, c)[1] for c in timed) / HBM_BYTES_PER_S
             ms = per * complete_device_ms(lambda: [kernel(name, c) for c in timed], 10,
@@ -4367,20 +4390,22 @@ def phase_spatial_kernels(card: str, dev) -> dict:
                          bound_ms=max(ops_s, bytes_s) * 1e3, bytes_ms=bytes_s * 1e3,
                          ops_ms=ops_s * 1e3)
             log("spatial", f"(a) {name}, row window, per {path} {'slot forward' if path == 'serving' else 'rank step'} "
-                           f"(band 1 of levels 3-6, 2 frames each; profiler device time, the "
+                           f"(band 1 of levels {levels[0]}-{levels[-1]}, {per} launches each; "
+                           f"C {sorted(set(channels.values()))}; profiler device time, the "
                            f"kernel's own launches, K4's zero-fill and cast apart): kernel "
                            f"{ms:.4f} ms, twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
                            f"{entry['bound_ms']:.4f} ms (bytes {bytes_s * 1e3:.4f}, operations "
                            f"{ops_s * 1e3:.4f}); max_abs_err {entry['err']:.3e}; on {card}")
-        # the bytes each feature-warp gather moves per rank: the other
-        # slots' bands of the whole level, received (gloo: through host memory)
+        # the bytes each gather of a warp's source moves per rank (the
+        # feature warps'; SPyNet's output warps'): the other slots' bands
+        # of the whole level, received (gloo: through host memory)
         moved = [2 * (SPATIAL_S - 1) * (b * (h_img >> (l - 1)) // SPATIAL_S * (w_img >> (l - 1))
-                                        * SPATIAL_WARP_CHANNELS[l] * 2)
-                 for l in SPATIAL_WARP_LEVELS]
-        log("spatial", f"(a) {path}: the feature-warp gathers receive per rank and "
+                                        * channels[l] * 2)
+                 for l in levels]
+        log("spatial", f"(a) {path}: the gathers of warp sources receive per rank and "
                        f"{'forward' if path == 'serving' else 'step'} "
-                       + ", ".join(f"level {l} {m / 2**20:.2f} MiB" for l, m in
-                                   zip(SPATIAL_WARP_LEVELS, moved))
+                       + ", ".join(f"level {l} {m / 2**20:.3f} MiB" for l, m in
+                                   zip(levels, moved))
                        + f" (2 frames each, bf16): {sum(moved) / 2**20:.2f} MiB in all")
     return summary
 
@@ -4437,10 +4462,32 @@ def phase_spatial_serving(card: str) -> dict:
     return launches[(1, SPATIAL_S)]
 
 
-def _step_record(step, state, batch, rank: int, net) -> dict:
-    """One hard step from `state` on `batch`: its loss, launches, the
-    memory allocated before it and its peak, the gradients (rank 0) and
-    the CUDA-event ms of SPATIAL_STEPS - 1 steps after it."""
+# (c), (c'): the steps of one spawn of spatial ranks: (key, dtype, netType,
+# launches a step, CUDA-event timed steps after the compared one, the
+# case whose unsharded f32 gradients tell a bf16 leaf's own noise)
+SPATIAL_STEP_CASES = (("hard", "bfloat16", "pwc", TRAIN_PER_STEP, SPATIAL_STEPS - 1, None),
+                      ("spynet", "bfloat16", "spynet", SPY_PME_PER_STEP, SPATIAL_STEPS - 1,
+                       "spynet_f32"),
+                      ("spynet_f32", "float32", "spynet", SPY_PME_PER_STEP, 0, None))
+
+
+@contextlib.contextmanager
+def f32_without_tf32(on: bool):
+    """f32 convs and matmuls in f32, not TF32, while `on` (the f32 steps
+    of (c'), whose bands and whole image may take other cuDNN algorithms)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if on:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _step_record(step, state, batch, rank: int, net, timed: int) -> dict:
+    """One step from `state` on `batch`: its loss, launches, the memory
+    allocated before it and its peak, the gradients (rank 0) and the
+    CUDA-event ms of `timed` steps after it."""
     from back2future_tpu_torch.runtime import reset_launches
 
     torch.cuda.synchronize()
@@ -4453,79 +4500,118 @@ def _step_record(step, state, batch, rank: int, net) -> dict:
            "plan": net._rows(TRAIN_H).plan}
     if rank == 0:
         out["grads"] = {n: p.grad.float().cpu().numpy() for n, p in net.named_parameters()}
-    _, _, out["ms"] = _time_turn(step, state, batch, SPATIAL_STEPS - 1)
+    _, _, out["ms"] = _time_turn(step, state, batch, timed)
+    return out
+
+
+def _spatial_steps(rank: int, comm) -> dict:
+    """Every case of SPATIAL_STEP_CASES from the seeded net on the whole
+    B=8 320x640 batch, in this process: unsharded without `comm`, else its
+    rows in bands over the spatial group (`_step_record` each)."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    dev = torch.device("cuda", 0)
+    batch = train_batch(dev)
+    out = {}
+    for key, dtype, net_type, _, timed, _ in SPATIAL_STEP_CASES:
+        opt = train_options(dtype, soft=False, netType=net_type)
+        net = train_network(opt, dev)
+        net.spatial_comm = comm
+        with f32_without_tf32(dtype == "float32"):
+            step = make_train_step(net, opt, build_criterions(opt))
+            out[key] = _step_record(step, create_train_state(net, opt), batch, rank, net, timed)
+        del net, step
+        torch.cuda.empty_cache()
     return out
 
 
 def _spatial_step_rank(rank: int, world: int) -> dict:
-    """A rank of phase 14 (c), in a gloo group made by run_ranks, on
-    cuda:0: the hard bf16 step of the seeded flagship on the whole B=8
-    320x640 batch, its rows in bands over the `world` ranks of one
-    spatial group (`_step_record`)."""
-    from back2future_tpu_torch.losses import build_criterions
+    """A rank of phase 14 (c) and (c'), in a gloo group made by run_ranks,
+    on cuda:0, the `world` ranks one spatial group (`_spatial_steps`)."""
     from back2future_tpu_torch.parallel import distributed
-    from back2future_tpu_torch.train import create_train_state, make_train_step
 
     torch.cuda.set_device(0)
-    dev = torch.device("cuda", 0)
     distributed.init_mesh_groups(world)
     try:
-        opt = train_options("bfloat16", soft=False)
-        net = train_network(opt, dev)
-        net.spatial_comm = distributed.spatial_comm()
-        step = make_train_step(net, opt, build_criterions(opt))
-        return _step_record(step, create_train_state(net, opt), train_batch(dev), rank, net)
+        return _spatial_steps(rank, distributed.spatial_comm())
     finally:
         distributed.init_mesh_groups(1)
 
 
 def phase_spatial_step(card: str) -> dict:
-    """(c) The hard bf16 step on 2 spatial gloo ranks sharing the card
-    against the unsharded step (this process, no group): the loss, every
-    gradient within BF16_GRAD_TOL_FRAC of max|g|, each rank's launches
-    (TRAIN_PER_STEP), the peak memory a step takes over what was
-    allocated before it, a rank's beside the unsharded step's; step ms.
-    Returns rank 0's launches."""
-    from back2future_tpu_torch.losses import build_criterions
+    """(c) The hard bf16 step and (c') the SPyNet pme step, bf16 and f32,
+    on 2 spatial gloo ranks sharing the card against the unsharded steps
+    (this process, no group): the loss, every gradient within
+    BF16_GRAD_TOL_FRAC of max|g| (f32: GRAD_TOL_FRAC), each rank's
+    launches, the peak memory a step takes over what was allocated before
+    it, a rank's beside the unsharded step's; step ms. A bf16 SPyNet leaf
+    past the tolerance is recorded, not failed, where the unsharded bf16
+    step's own gradient is farther than the tolerance from the unsharded
+    f32 step's (bf16 does not fix that leaf to the tolerance: SPyNet's
+    sensitivity, ROADMAP.md queue 3), with the bands' distance from the f32
+    gradient beside it. Returns rank 0's launches of the hard and the
+    SPyNet step."""
     from back2future_tpu_torch.parallel.launch import run_ranks
-    from back2future_tpu_torch.train import create_train_state, make_train_step
 
-    dev = torch.device("cuda")
-    opt = train_options("bfloat16", soft=False)
-    net = train_network(opt, dev)
-    step = make_train_step(net, opt, build_criterions(opt))
-    one = _step_record(step, create_train_state(net, opt), train_batch(dev), 0, net)
-    del net, step
+    ones = _spatial_steps(0, None)
     t0 = time.perf_counter()
-    two = run_ranks(_spatial_step_rank, SPATIAL_S, (), backend="gloo", rank0_here=False,
-                    timeout=600)
+    twos = run_ranks(_spatial_step_rank, SPATIAL_S, (), backend="gloo", rank0_here=False,
+                     timeout=600)
     secs = time.perf_counter() - t0
-    want = {n: torch.from_numpy(g).to(dev) for n, g in one["grads"].items()}
-    got = {n: torch.from_numpy(g).to(dev) for n, g in two[0]["grads"].items()}
-    ratios = gradient_ratios(got, want)
-    worst = max(ratios, key=ratios.get)
-    per_step = _nonzero(TRAIN_PER_STEP)
     gib = 2**30
-    log("spatial", f"(c) hard bf16 step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}, rows in bands over "
-                   f"{SPATIAL_S} gloo ranks sharing the card (plan {two[0]['plan']}) vs the "
-                   f"unsharded step: loss {two[0]['loss']:.6f} / {two[1]['loss']:.6f} vs "
-                   f"{one['loss']:.6f} (rtol {SPATIAL_LOSS_RTOL}), worst gradient max_abs_err / max|g| "
-                   f"{ratios[worst]:.3e} ({worst}; tol {BF16_GRAD_TOL_FRAC}) over {len(want)} "
-                   f"parameters; launches per rank {[r['launches'] for r in two]}; the step's "
-                   f"peak over what was allocated before it a rank "
-                   f"{['%.3f' % ((r['peak'] - r['base']) / gib) for r in two]} GiB (peak "
-                   f"{['%.3f' % (r['peak'] / gib) for r in two]}, through DDP) vs the unsharded "
-                   f"step's {(one['peak'] - one['base']) / gib:.3f} GiB (no group); step ms (CUDA "
-                   f"events, steps 2-{SPATIAL_STEPS}) unsharded {['%.1f' % v for v in one['ms']]}, "
-                   f"rank 0 {['%.1f' % v for v in two[0]['ms']]}; the ranks {secs:.1f} s with "
-                   f"their start-up; on {card}")
-    if any(r["launches"] != per_step for r in two) or one["launches"] != per_step:
-        raise AssertionError(f"spatial: step launches {[r['launches'] for r in two]} / "
-                             f"{one['launches']}, expected {per_step} each")
-    if abs(two[0]["loss"] - one["loss"]) > SPATIAL_LOSS_RTOL * abs(one["loss"]) \
-            or two[1]["loss"] != two[0]["loss"] or ratios[worst] > BF16_GRAD_TOL_FRAC:
-        raise AssertionError("spatial: the row-sharded step and the unsharded step disagree")
-    return two[0]["launches"]
+    failed = []
+    def grads(record):
+        return {n: torch.from_numpy(g) for n, g in record["grads"].items()}
+
+    for key, dtype, net_type, per_step, _, f32_key in SPATIAL_STEP_CASES:
+        one, two = ones[key], [r[key] for r in twos]
+        want, got = grads(one), grads(two[0])
+        ratios = gradient_ratios(got, want)
+        worst = max(ratios, key=ratios.get)
+        tol = GRAD_TOL_FRAC if dtype == "float32" else BF16_GRAD_TOL_FRAC
+        misses = {n: r for n, r in ratios.items() if r > tol}
+        explained = {}
+        if f32_key is not None:
+            f32 = grads(ones[f32_key])
+            own, bands = gradient_ratios(want, f32), gradient_ratios(got, f32)
+            explained = {n: (r, own[n], bands[n]) for n, r in misses.items() if own[n] > tol}
+            log("spatial", f"(c') {key}: leaves past {tol} of max|g| against the unsharded "
+                           f"step {sorted(misses)}; of them recorded (the unsharded {dtype} "
+                           f"step's own distance from the unsharded f32 step's past the "
+                           f"tolerance): " + (", ".join(
+                               f"{n} {r:.3e} (unsharded vs f32 {o:.3e}, bands vs f32 {b:.3e})"
+                               for n, (r, o, b) in sorted(explained.items())) or "none")
+                           + f"; over all leaves the unsharded {dtype} step vs f32 worst "
+                           f"{max(own.values()):.3e}, the bands vs f32 worst "
+                           f"{max(bands.values()):.3e}")
+        per_step = _nonzero(per_step)
+        tag = "(c)" if net_type == "pwc" else "(c')"
+        log("spatial", f"{tag} {key} {dtype} {net_type} step B={TRAIN_B} {TRAIN_H}x{TRAIN_W}, "
+                       f"rows in bands over {SPATIAL_S} gloo ranks sharing the card (plan "
+                       f"{two[0]['plan']}), the loss on the bands, vs the unsharded step: loss "
+                       f"{two[0]['loss']:.6f} / {two[1]['loss']:.6f} vs {one['loss']:.6f} (rtol "
+                       f"{SPATIAL_LOSS_RTOL}), worst gradient max_abs_err / max|g| "
+                       f"{ratios[worst]:.3e} ({worst}; tol {tol}) over {len(want)} parameters; "
+                       f"launches per rank {[r['launches'] for r in two]}; the step's peak over "
+                       f"what was allocated before it a rank "
+                       f"{['%.3f' % ((r['peak'] - r['base']) / gib) for r in two]} GiB (peak "
+                       f"{['%.3f' % (r['peak'] / gib) for r in two]}, through DDP) vs the "
+                       f"unsharded step's {(one['peak'] - one['base']) / gib:.3f} GiB (no group), "
+                       f"ratio {(two[0]['peak'] - two[0]['base']) / (one['peak'] - one['base']):.3f}; "
+                       f"step ms (CUDA events, steps 2-{1 + len(one['ms'])}) unsharded "
+                       f"{['%.1f' % v for v in one['ms']]}, rank 0 {['%.1f' % v for v in two[0]['ms']]}"
+                       f"; on {card}")
+        if any(r["launches"] != per_step for r in two) or one["launches"] != per_step:
+            failed.append(f"{key} launches {[r['launches'] for r in two]} / {one['launches']}, "
+                          f"expected {per_step} each")
+        if abs(two[0]["loss"] - one["loss"]) > SPATIAL_LOSS_RTOL * abs(one["loss"]) \
+                or two[1]["loss"] != two[0]["loss"] or set(misses) - set(explained):
+            failed.append(f"{key}: the row-sharded step and the unsharded step disagree")
+    log("spatial", f"(c), (c') the ranks {secs:.1f} s with their start-up")
+    if failed:
+        raise AssertionError("spatial: " + "; ".join(failed))
+    return {"train": twos[0]["hard"]["launches"], "spynet": twos[0]["spynet"]["launches"]}
 
 
 def phase_spatial_dryrun(card: str) -> None:
@@ -4641,11 +4727,11 @@ def phase_spatial(card: str, dev, summary=None) -> dict:
     if summary is None:
         summary = phase_spatial_kernels(card, dev)
     serving = phase_spatial_serving(card)
-    train = phase_spatial_step(card)
+    steps = phase_spatial_step(card)
     phase_spatial_dryrun(card)
     phase_spatial_run(card)
     log("spatial", f"phase 14: {time.perf_counter() - t0:.1f} s")
-    return {"summary": summary, "serving": serving, "train": train}
+    return {"summary": summary, "serving": serving, **steps}
 
 
 # the kernels line's row-window entries: (name, summary key, source, path)
@@ -4656,17 +4742,24 @@ SPATIAL_KERNEL_ENTRIES = (
      "back2future_tpu/ops/warp_pallas.py:81", "train"),
     ("warp_bilinear_dflow", ("train", "warp_bilinear_dflow"), "warp_bwd_tiled.cu",
      "back2future_tpu/ops/warp.py:209", "train"),
+    ("warp_bilinear_fwd", ("spynet", "warp_bilinear_fwd"), "warp_fwd_tiled.cu",
+     "back2future_tpu/ops/warp.py:96", "spynet"),
+    ("warp_bilinear_dimages", ("spynet", "warp_bilinear_dimages"), "warp_bwd_tiled.cu",
+     "back2future_tpu/ops/warp_pallas.py:81", "spynet"),
+    ("warp_bilinear_dflow", ("spynet", "warp_bilinear_dflow"), "warp_bwd_tiled.cu",
+     "back2future_tpu/ops/warp.py:209", "spynet"),
 )
 
 
 def spatial_kernel_entries(spatial: dict) -> list:
     """The kernels line's entries of the row-window kernels: launches of a
-    spatial serving call (two slots) or of a spatial rank's step, ms per
-    slot forward or rank step on the sharded feature warps' shapes."""
+    spatial serving call (two slots) or of a spatial rank's hard or SPyNet
+    step, ms per slot forward or rank step on the sharded warps' shapes."""
     entries = []
     for name, key, source, replaces, path in SPATIAL_KERNEL_ENTRIES:
         s = spatial["summary"][key]
-        where = "spatial serving, 2 slots" if path == "serving" else "spatial train rank"
+        where = {"serving": "spatial serving, 2 slots", "train": "spatial train rank",
+                 "spynet": "spatial spynet pme rank, C = 3"}[path]
         entries.append({"name": f"{name} (row window, {where})", "route": "cuda",
                         "source": f"back2future_tpu_torch/csrc/{source}", "replaces": replaces,
                         "launches": spatial[path][f"b2f_{name}"], "max_abs_err": s["err"],

@@ -3,8 +3,9 @@ and the DDP train step) against the JAX package.
 
 * `shard_batch`, `host_local_batch_size`, `initialize_multihost`'s
   cluster-spec errors and `assert_same_across_hosts` against the JAX
-  package's behaviour and messages, on one process; what still refuses
-  on a spatial mesh axis (SPyNet, a shape that does not hold the ranks).
+  package's behaviour and messages, on one process; what a spatial mesh
+  axis takes (either net) and refuses (a shape that does not hold the
+  ranks).
 * The resume fingerprint: stable, sensitive to the epoch and to a value.
 * A 2-rank gloo group (ranks spawned by `parallel.launch.run_ranks`):
   the all-reduce, sync, agreeing values passing and diverging ones
@@ -98,13 +99,12 @@ def test_shard_batch_matches_jax():
 
 
 def test_spatial_axis_is_not_ported():
-    """What still refuses on a spatial axis: SPyNet (ROADMAP item 11 (f)),
-    and a mesh shape that does not hold the ranks."""
+    """What a spatial axis takes and refuses: either net, SPyNet too; a
+    mesh shape that does not hold the ranks raises."""
     from back2future_tpu_torch.train.loop import _check_mesh
 
     spatial = dict(mesh_shape=(1, 2), mesh_axes=("data", "spatial"), dataset="synthetic")
-    with pytest.raises(NotImplementedError, match=r"item 11 \(f\)"):
-        _check_mesh(Options(netType="spynet", **spatial).derive(), 2)
+    assert _check_mesh(Options(netType="spynet", **spatial).derive(), 2) == 2
     pwc = Options(**spatial).derive()
     with pytest.raises(ValueError, match="does not hold the 4 "):
         _check_mesh(pwc, 4)

@@ -5,8 +5,9 @@ against the JAX package.
 One hard (OBCC, sizeAverage 0) and one soft (OBGCC, past flow, const_vel,
 second-order smoothness, sizeAverage 1) step, and one each of the
 supervised L2 (`optimize="epe"`, sizeAverage 1: the mask count summed
-over the data group) and of the hard step under `-remat 1` (whose
-backward makes the forward's collectives again), on 2 x 2 gloo ranks
+over the world), of OSSIML1 (sizeAverage 1: the min and max over the
+world) and of the hard step under `-remat 1` (whose backward makes the
+forward's collectives again), on 2 x 2 gloo ranks
 (rank = d*2 + s; the two ranks of data slot d share its half of the
 global batch and compute their row bands of it), at 32x64, levels 4 and
 win 9 (cost
@@ -16,7 +17,11 @@ against one jitted JAX `value_and_grad` on the global batch, the loss,
 every component and metric at rtol 1e-4 (atol 1e-7), and every parameter
 gradient within 1e-3 of its leaf's max|g|, as
 tests/test_torch_parallel.py holds the data-parallel step; the four
-ranks hold the same logs and gradients bit for bit (DDP's sum).
+ranks hold the same logs and gradients bit for bit (DDP's sum). The loss
+runs on the row bands: the net gathers whole only features (no tensor
+of 3 channels or fewer: no flow, occlusion or image), and its image
+warps warp the whole image pyramid by a band's flow through the row
+window.
 """
 
 import functools
@@ -53,6 +58,7 @@ CASES = {
                  smooth_second_order=True, sizeAverage=True),
     "epe_mean": dict(optimize="epe", epe=1.0, sizeAverage=True),
     "remat": dict(remat=1),
+    "ossiml1": dict(pme_criterion="OSSIML1", sizeAverage=True),
 }
 
 
@@ -115,6 +121,13 @@ def test_spatial_step_matches_jax_global_batch(rank_results, name):
     want_logs, want_grads = jax_global_step(name)
     got = rank_results[0][name]
     assert got["plan"] == (True, True, True, False)
+    for rank, r in enumerate(rank_results):
+        assert r[name]["gathered"] and min(r[name]["gathered"]) > 3
+        image_warps = [w for w in r[name]["warps"] if w[2] == 3]
+        runs = 2 if CASES[name].get("remat") else 1   # the recompute warps again
+        assert len(image_warps) == (0 if CASES[name].get("optimize") == "epe" else 4 * runs)
+        for rows, flow_rows, _, y0 in image_warps:   # levels 1 and 2: bands of 2
+            assert (flow_rows * 2, y0) == (rows, rank % 2 * flow_rows)
     assert set(got["logs"]) == set(want_logs)
     for k, v in want_logs.items():
         np.testing.assert_allclose(got["logs"][k], v, rtol=1e-4, atol=1e-7, err_msg=k)

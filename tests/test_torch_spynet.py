@@ -65,7 +65,7 @@ from back2future_tpu_torch import eval as port_eval
 from back2future_tpu_torch.config import Options
 from back2future_tpu_torch.losses import build_criterions
 from back2future_tpu_torch.models import SPyNet, SPyNetConfig, spynet_config_from_options
-from back2future_tpu_torch.models import spynet as spynet_module
+from back2future_tpu_torch.models import pwc as rows_module   # the row layout's ops
 from back2future_tpu_torch.models import to_flax_params
 from back2future_tpu_torch.models.bridge import flax_to_torch_names
 from back2future_tpu_torch.train import checkpoint, create_train_state, make_train_step
@@ -148,13 +148,13 @@ def test_every_warp_gets_a_contiguous_image(monkeypatch):
     twin would take one, so the model's own inputs are checked here: 4
     input warps and 6 output warps at levels 3, frames 3."""
     seen = []
-    real = spynet_module.warp_bilinear
+    real = rows_module.warp_bilinear
 
     def checking(images, flow, **kw):
         seen.append((images.is_contiguous(), flow.is_contiguous()))
         return real(images, flow, **kw)
 
-    monkeypatch.setattr(spynet_module, "warp_bilinear", checking)
+    monkeypatch.setattr(rows_module, "warp_bilinear", checking)
     net = seeded(SPyNetConfig(levels=3))
     net(torch.from_numpy(rand((1, 16, 16, 9), 2)))
     assert seen == [(True, True)] * 10
@@ -166,7 +166,7 @@ def test_every_warp_gets_a_contiguous_image(monkeypatch):
 def test_residual_next_level_gets_doubled_flow(monkeypatch):
     """With residual=1 the next level upsamples the OUTPUT flow after the
     second residual add, not the singly-added flow the level warps with."""
-    real_up = spynet_module.upsample_bilinear2x
+    real_up = rows_module.upsample_bilinear2x
     seen = []
 
     def recording_up(t):
@@ -174,7 +174,7 @@ def test_residual_next_level_gets_doubled_flow(monkeypatch):
         return real_up(t)
 
     net = seeded(SPyNetConfig(levels=3, residual=1))
-    monkeypatch.setattr(spynet_module, "upsample_bilinear2x", recording_up)
+    monkeypatch.setattr(rows_module, "upsample_bilinear2x", recording_up)
     with torch.no_grad():
         levels = net(torch.from_numpy(rand((1, 16, 16, 9), 3)))
     assert len(seen) == 2

@@ -1,0 +1,116 @@
+"""CPU test of the SSIM family's min/max normalisation under data
+parallelism (back2future_tpu_torch/losses/photometric.py `_minmax`).
+
+The JAX criteria take the min and max of their inputs over the whole
+batch array, which under data sharding is the global batch. The port's
+take them over every rank (parallel/distributed.py `all_reduce_max`).
+One train step on 2 gloo ranks, each on its half of the global batch,
+whose halves span very different value ranges (rank 0's frames at 0.3
+times a standard normal, rank 1's at 2 times one plus 1), against one
+jitted JAX `value_and_grad` on the global batch: MSSIML1, OSSIML1 and
+OSSIM with the Lorentzian penalty, sizeAverage 1, at
+tests/test_torch_parallel.py's tolerances (logs rtol 1e-4, atol 1e-7;
+gradients rtol 1e-3 with atol 1e-5 * max|g| per leaf); both ranks hold
+the same logs and gradients bit for bit. A normalisation by each rank's
+own range fails it.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from dynamo_import import import_dynamo_from_stdlib_path
+
+import_dynamo_from_stdlib_path()
+
+import jax
+import jax.numpy as jnp
+
+import torch_ranks
+from back2future_tpu.config import Options as JaxOptions
+from back2future_tpu.losses import build_criterions as jax_build_criterions
+from back2future_tpu.models.factory import model_and_config as jax_model_and_config
+from back2future_tpu.train.multiscale import multiscale_loss as jax_multiscale_loss
+from back2future_tpu_torch.config import Options
+from back2future_tpu_torch.models import to_flax_params
+from back2future_tpu_torch.models.factory import model_and_config
+from back2future_tpu_torch.parallel import launch
+
+torch.set_num_threads(1)
+
+B, H, W = 4, 32, 64
+SEED = 8
+TIMEOUT = 300
+CASES = {
+    "ssiml1": dict(pme_criterion="SSIML1"),
+    "ossiml1": dict(pme_criterion="OSSIML1"),
+    "ossim_lorentzian": dict(pme_criterion="OSSIM", pme_penalty="Lorentzian"),
+}
+
+
+def case_options(cls, name):
+    base = dict(levels=4, pwc_ws=3, frames=3, batchSize=B, cropWidth=0, cropHeight=0,
+                dataset="synthetic", sizeAverage=True, optimize="pme",
+                compute_dtype="float32", LR=1e-3)
+    base.update(CASES[name])
+    return cls(**base).derive()
+
+
+def case_batch(name):
+    """The global batch: rank 0's half narrow, rank 1's wide and shifted."""
+    rng = np.random.default_rng(20 + len(name))
+    images = rng.standard_normal((B, H, W, 9)).astype(np.float32)
+    images[:B // 2] *= 0.3
+    images[B // 2:] = images[B // 2:] * 2.0 + 1.0
+    return {"images": images}
+
+
+@pytest.fixture(scope="module")
+def rank_results():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("B2F_DIST_TIMEOUT", "120")
+        cases = {n: case_options(Options, n).__dict__ for n in CASES}
+        batches = {n: case_batch(n) for n in CASES}
+        return launch.run_ranks(torch_ranks.one_step, 2, (cases, batches, SEED),
+                                rank0_here=False, timeout=TIMEOUT)
+
+
+def jax_global_step(name):
+    opt, jopt = case_options(Options, name), case_options(JaxOptions, name)
+    net = model_and_config(opt, generator=torch.Generator().manual_seed(SEED))[0]
+    tree = jax.tree_util.tree_map(jnp.asarray, to_flax_params(net))
+    batch = {k: jnp.asarray(v) for k, v in case_batch(name).items()}
+    model, crits = jax_model_and_config(jopt)[0], jax_build_criterions(jopt)
+
+    def loss_fn(params):
+        outputs = model.apply({"params": params}, batch["images"])
+        loss, comps = jax_multiscale_loss(outputs, batch, jopt, crits)
+        return loss, {"loss": loss, **comps}
+
+    (_, logs), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(tree)
+    return {k: float(v) for k, v in logs.items()}, jax.tree_util.tree_map(np.asarray, grads)
+
+
+def leaf(tree, name):
+    *mods, last = name.split(".")
+    node = functools.reduce(lambda d, m: d[m], mods + ["conv"], tree)
+    return node["kernel"].transpose(3, 2, 0, 1) if last == "weight" else node["bias"]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ssim_step_on_two_ranks_matches_jax_global_batch(rank_results, name):
+    want_logs, want_grads = jax_global_step(name)
+    got, other = rank_results[0][name], rank_results[1][name]
+    assert want_logs["pme"] > 0
+    assert set(got["logs"]) == set(want_logs)
+    for k, v in want_logs.items():
+        np.testing.assert_allclose(got["logs"][k], v, rtol=1e-4, atol=1e-7, err_msg=k)
+    assert got["logs"] == other["logs"]
+    assert len(got["grads"]) == len(jax.tree_util.tree_leaves(want_grads))
+    for pname, g in got["grads"].items():
+        want = leaf(want_grads, pname)
+        np.testing.assert_allclose(g, want, rtol=1e-3, atol=1e-5 * np.abs(want).max(),
+                                   err_msg=pname)
+        np.testing.assert_array_equal(g, other["grads"][pname], err_msg=pname)

@@ -131,13 +131,28 @@ def spatial_step(rank: int, world: int, cases: dict, batches: dict, seed: int,
     """For each case: the port's net of `seed` on a data x spatial mesh
     with `spatial` ranks a spatial group (rank = d * spatial + s), one
     train step of DDP on data slot d's slice of the global batch, whole
-    rows (the net computes its row band); the step's logs and every
-    parameter gradient the optimiser received."""
+    rows (the net computes its row band); the step's logs, every
+    parameter gradient the optimiser received, the channels of every
+    tensor the net gathered whole and (image rows, flow rows, channels,
+    y0) of every warp it made."""
     from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.models import pwc
     from back2future_tpu_torch.models.factory import model_and_config
     from back2future_tpu_torch.parallel import distributed
     from back2future_tpu_torch.train import create_train_state, make_train_step
 
+    seen = {"gathered": [], "warps": []}
+    gather, warp = pwc.gather_rows, pwc.warp_bilinear
+
+    def gather_rows(x, comm):
+        seen["gathered"].append(x.shape[-1])
+        return gather(x, comm)
+
+    def warp_bilinear(images, flow, **kw):
+        seen["warps"].append((images.shape[1], flow.shape[1], images.shape[-1], kw.get("y0", 0)))
+        return warp(images, flow, **kw)
+
+    pwc.gather_rows, pwc.warp_bilinear = gather_rows, warp_bilinear
     distributed.init_mesh_groups(spatial)
     try:
         d, n = distributed.data_index(), distributed.data_count()
@@ -160,9 +175,131 @@ def spatial_step(rank: int, world: int, cases: dict, batches: dict, seed: int,
                 update()
 
             state.optimizer.step = capture
+            for v in seen.values():
+                v.clear()
             state, logs = step(state, local)
             out[name] = {"logs": {k: float(v) for k, v in logs.items()}, "grads": grads,
-                         "plan": net._rows(batch["images"].shape[1]).plan}
+                         "plan": net._rows(batch["images"].shape[1]).plan,
+                         **{k: list(v) for k, v in seen.items()}}
+        return out
+    finally:
+        distributed.init_mesh_groups(1)
+        pwc.gather_rows, pwc.warp_bilinear = gather, warp
+
+
+# ------------------------------------------------- criteria on row bands
+
+LOSS_B, LOSS_H, LOSS_W = 4, 16, 24
+LOSS_CRITERIA = ("OBCC", "OBGCC", "MBCC", "SSIM", "SSIML1", "OSSIM", "OSSIML1", "smooth1",
+                 "smooth2", "KL", "occ_prior", "const_vel", "L2")
+# the criteria taken with sizeAverage on (the others sum)
+LOSS_SIZE_AVERAGED = ("OBCC", "MBCC", "SSIML1", "OSSIM", "smooth1", "KL", "const_vel", "L2")
+# the inputs that take a gradient, where a criterion reads them
+LOSS_GRAD_INPUTS = ("flow", "flow_past", "occ", "warped1", "warped2")
+
+
+def loss_inputs(seed: int = 0) -> dict:
+    """A global batch of criterion inputs (numpy, f32): flows of a few
+    pixels (some targets leave the image), a softmax occlusion map with
+    values below the KL's clamp, two warped frames and the target, the
+    ground truth and a mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (LOSS_B, LOSS_H, LOSS_W)
+
+    def normal(*tail, scale=1.0):
+        return (rng.standard_normal(shape + tail) * scale).astype(np.float32)
+
+    logits = normal(2, scale=3.0)
+    occ = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return {"flow": normal(2, scale=3.0), "flow_past": normal(2, scale=3.0),
+            "occ": occ.astype(np.float32), "warped1": normal(3), "warped2": normal(3),
+            "target": normal(3), "flow_gt": normal(2, scale=3.0),
+            "mask": (rng.random(shape) > 0.3).astype(np.float32)}
+
+
+def loss_criterion(name: str, reference_grads: bool):
+    """(fn(inputs, band) -> the criterion's value, the factor of its share
+    of the global value with `data` slots: 1/data for a mean over a fixed
+    per-sample size)."""
+    from back2future_tpu_torch import losses as L
+
+    sa, rg = name in LOSS_SIZE_AVERAGED, reference_grads
+    if name in ("OBCC", "OBGCC", "MBCC", "SSIM", "SSIML1", "OSSIM", "OSSIML1"):
+        cfg = L.PhotoConfig(frames=3, size_average=sa, past_flow=True, beta=0.8, gamma=1.2,
+                            penalty={"OBCC": "Quadratic", "MBCC": "Lorentzian"}.get(name, "L1"),
+                            alpha={"SSIML1": 0.85, "OSSIML1": 0.85, "OBGCC": 0.7}.get(name, 1.0),
+                            reference_grads=rg)
+        factory = {"OBCC": L.make_obcc, "OBGCC": L.make_obgcc, "MBCC": L.make_mbcc,
+                   "SSIM": L.make_mssim_l1, "SSIML1": L.make_mssim_l1,
+                   "OSSIM": L.make_ossim_l1, "OSSIML1": L.make_ossim_l1}[name]
+        crit = factory(cfg, 0.5)
+
+        def fn(t, band):
+            return crit(t["flow"], t["flow_past"], t["occ"], (t["warped1"], t["warped2"]),
+                        t["target"], band=band)
+    elif name in ("smooth1", "smooth2"):
+        cfg = L.SmoothConfig(penalty="L1" if name == "smooth1" else "Lorentzian",
+                             size_average=sa, second_order=name == "smooth2",
+                             reference_grads=rg)
+        crit = L.make_flow_smoothness(cfg)
+
+        def fn(t, band):
+            return crit(t["flow"], t["target"], band=band)
+    elif name == "KL":
+        crit = L.make_kl_smoothness(sa, rg)
+
+        def fn(t, band):
+            return crit(t["occ"], t["target"], band=band)
+    elif name == "occ_prior":
+        crit = L.make_occ_prior(sa, 1.0, rg)
+
+        def fn(t, band):
+            return crit(t["occ"], t["target"], band=band)
+    elif name == "const_vel":
+        crit = L.make_const_vel(sa, rg)
+
+        def fn(t, band):
+            return crit(t["flow"], t["flow_past"], band=band)
+    else:
+        crit = L.make_l2_criterion(sa, rg)
+
+        def fn(t, band):
+            return crit(t["flow"], t["flow_gt"], t["mask"], band=band)[0]
+    return fn, sa and name != "L2"
+
+
+def loss_band_grads(rank: int, world: int, spatials=(2, 4)) -> dict:
+    """For each spatial axis S of `spatials` (a data x spatial mesh of the
+    world), each criterion and `reference_grads`: this rank's share of
+    the criterion on its data slot's batch slice and its row band, and
+    the gradients of its band's inputs (None where it takes none)."""
+    from back2future_tpu_torch.parallel import distributed
+    from back2future_tpu_torch.parallel.spatial import Band
+
+    whole = loss_inputs()
+    out = {}
+    try:
+        for spatial in spatials:
+            distributed.init_mesh_groups(spatial)
+            comm = distributed.spatial_comm()
+            d, n = distributed.data_index(), distributed.data_count()
+            b, h = LOSS_B // n, LOSS_H // spatial
+            band = Band(comm, comm.index * h, LOSS_H)
+            for name in LOSS_CRITERIA:
+                for rg in (True, False):
+                    fn, averaged = loss_criterion(name, rg)
+                    t = {k: torch.from_numpy(v[d * b:(d + 1) * b, band.y0:band.y0 + h].copy())
+                         for k, v in whole.items()}
+                    for k in LOSS_GRAD_INPUTS:
+                        t[k].requires_grad_()
+                    value = fn(t, band) * (1.0 / n if averaged else 1.0)
+                    value.backward()
+                    out[spatial, name, rg] = {
+                        "value": float(value),
+                        "grads": {k: None if t[k].grad is None else t[k].grad.numpy()
+                                  for k in LOSS_GRAD_INPUTS}}
         return out
     finally:
         distributed.init_mesh_groups(1)
