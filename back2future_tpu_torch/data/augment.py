@@ -15,11 +15,15 @@ All randomness flows through an explicit `np.random.Generator` so samples
 are reproducible per worker seed (data.lua:32-37 seeds each donkey with
 manualSeed+idx).
 
-The port's copy of back2future_tpu/data/augment.py, on its NumPy paths
-only: `preprocess` is the NumPy branch of augment.py:136-140 (the JAX
-package's native photometric kernel is not copied), drawing the same rng
-stream in the same order. tests/test_torch_data.py holds every function
-bit for bit against the JAX package with its native library off.
+The port's copy of back2future_tpu/data/augment.py. `preprocess` runs
+the C++ photometric pipeline (`photo_pipeline_f32` of
+runtime/src/resample.cc) where the JAX package's does (float32 input,
+C % 3 == 0, at most 64 frame groups; not inside
+`resample.numpy_twins()`), drawing the same rng stream in the same
+order as its NumPy twin. tests/test_torch_data.py holds every function
+bit for bit against the JAX package on its NumPy paths, with the port on
+its twins; tests/test_torch_native_resample.py holds the C++ path
+against the JAX package's library.
 """
 
 from __future__ import annotations
@@ -58,7 +62,9 @@ def _luma_groups(img: np.ndarray) -> np.ndarray:
     return g[..., 0] * 0.299 + g[..., 1] * 0.587 + g[..., 2] * 0.114
 
 
-# reference jitter strengths (donkey.lua:161-166)
+# reference jitter strengths (donkey.lua:161-166), shared by the NumPy
+# ops below and preprocess()'s C++ path, which draws the same rng stream
+# with the same constants
 JITTER_VAR = 0.02
 PCA_ALPHASTD = 0.1
 
@@ -119,11 +125,41 @@ def preprocess(img: np.ndarray, rng: np.random.Generator,
                normalize: bool = True) -> np.ndarray:
     """Training photometric pipeline (donkey.lua:158-179): colour jitter
     (a permutation, then one normal per jitter op), PCA lighting (three
-    normals), then optional ImageNet normalisation."""
-    img = color_jitter(img, rng)
-    img = pca_lighting(img, rng)
-    if normalize:
-        img = color_normalize(img)
+    normals), then optional ImageNet normalisation.
+
+    On the C++ path the draws happen here in the NumPy path's order, so
+    the generator ends in the same state on both, and the kernel applies
+    the whole pipeline in place on a copy, GIL-free."""
+    from .resample import native_for
+
+    c = img.shape[-1]
+    # 64 = the kernel's fixed per-group accumulator capacity
+    lib = native_for(img.dtype) if c % 3 == 0 and c // 3 <= 64 else None
+    if lib is None:
+        img = color_jitter(img, rng)
+        img = pca_lighting(img, rng)
+        if normalize:
+            img = color_normalize(img)
+        return img
+
+    import ctypes
+
+    order = rng.permutation(3)
+    alphas = np.array([1.0 + rng.normal(0, JITTER_VAR) for _ in order], np.float64)
+    pca_alpha = rng.normal(0, PCA_ALPHASTD, size=3).astype(np.float32)
+    rgb = (PCA_EIGVEC * pca_alpha[None, :] * PCA_EIGVAL[None, :]).sum(axis=1)
+
+    # np.array copies: the kernel works in place, and the NumPy path
+    # never mutates its input
+    img = np.array(img, np.float32, order="C")
+    h, w, c = img.shape
+    fp = ctypes.POINTER(ctypes.c_float)
+    lib.photo_pipeline_f32(
+        img.ctypes.data_as(fp), h, w, c,
+        np.ascontiguousarray(order, np.int64).ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        alphas.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), 3,
+        np.ascontiguousarray(rgb, np.float32).ctypes.data_as(fp), 1,
+        IMAGENET_MEAN.ctypes.data_as(fp), IMAGENET_STD.ctypes.data_as(fp), int(normalize))
     return img
 
 

@@ -7,11 +7,12 @@ splatting followed by a 3x3 median filter. States: 0 = occluded backward
 The port's copy of back2future_tpu/io/occ.py. The reference iterates
 pixels column-major with last-writer-wins z-buffer updates; that traversal
 order is part of the observable behavior, so the splatting is inherently
-sequential. `get_occ` runs the exact-parity C++ loop
-(runtime/src/getocc.cc, built by runtime/host_build.py, which raises if
-the build fails: no fallback). `get_occ_reference` is the pure-Python
-oracle (minutes per frame, occ.py:1-12), kept as the semantic
-specification and held equal to `get_occ` in tests/test_torch_io.py.
+sequential. `get_occ` runs the exact-parity C++ loop, its median filter
+threaded over rows (runtime/src/getocc.cc, built by
+runtime/host_build.py, which raises if the build fails: no fallback).
+`get_occ_reference` is the pure-Python oracle (minutes per frame,
+occ.py:1-12), kept as the semantic specification and held equal to
+`get_occ` in tests/test_torch_io.py.
 """
 
 from __future__ import annotations
@@ -38,10 +39,12 @@ def _median_lower(vals: np.ndarray) -> float:
 
 
 def get_occ(depth: np.ndarray, flow: np.ndarray) -> np.ndarray:
-    """depth (H, W); flow (H, W, 2) [u, v] -> occlusion (H, W) in {0, .5, 1}."""
+    """depth (H, W); flow (H, W, 2) [u, v] -> occlusion (H, W) in {0, .5, 1}.
+    The median filter runs on `host_threads()` threads; the result does
+    not depend on the count."""
     import ctypes
 
-    from ..runtime.host_build import load_library
+    from ..runtime.host_build import host_threads, load_library
 
     depth = np.ascontiguousarray(depth, np.float64)
     flow = np.ascontiguousarray(flow, np.float64)
@@ -51,7 +54,8 @@ def get_occ(depth: np.ndarray, flow: np.ndarray) -> np.ndarray:
     dptr = ctypes.POINTER(ctypes.c_double)
     load_library("getocc").get_occ_f64(
         depth.ctypes.data_as(dptr), flow.ctypes.data_as(dptr),
-        occ.ctypes.data_as(dptr), ctypes.c_int64(h), ctypes.c_int64(w))
+        occ.ctypes.data_as(dptr), ctypes.c_int64(h), ctypes.c_int64(w),
+        ctypes.c_int64(host_threads()))
     return occ
 
 

@@ -9,12 +9,17 @@
 //
 // The splat phase is order-dependent (each collision marks exactly one
 // of {old occupant, new pixel} occluded, in traversal order), so it
-// stays sequential. runtime/host_build.py compiles this file without
-// OpenMP, so the median filter runs serially too.
+// stays sequential. The median filter, an OpenMP loop over rows in the
+// JAX package, splits its rows over std::thread as OpenMP's
+// schedule(static) does (runtime/host_build.py compiles without
+// OpenMP); each output row is one thread's, so the result does not
+// depend on the thread count.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+
+#include "parallel_rows.h"
 
 namespace {
 
@@ -38,9 +43,9 @@ inline double median_lower(double* vals, int n) {
 extern "C" {
 
 // depth: (h, w) float64; flow: (h, w, 2) float64 [u, v];
-// occ out: (h, w) float64 in {0, 0.5, 1}.
+// occ out: (h, w) float64 in {0, 0.5, 1}; `threads` runs the median filter.
 void get_occ_f64(const double* depth, const double* flow, double* occ,
-                 int64_t h, int64_t w) {
+                 int64_t h, int64_t w, int64_t threads) {
   const int64_t n = h * w;
   int64_t* fwd_pixel = new int64_t[n];
   int64_t* bwd_pixel = new int64_t[n];
@@ -88,19 +93,21 @@ void get_occ_f64(const double* depth, const double* flow, double* occ,
 
   // 3x3 lower-median filter, window clipped at borders
   // (flowExtensions.lua:230-237)
-  for (int64_t y = 0; y < h; ++y) {
-    const int64_t y0 = std::max<int64_t>(y - 1, 0);
-    const int64_t y1 = std::min<int64_t>(y + 1, h - 1);
-    for (int64_t x = 0; x < w; ++x) {
-      const int64_t x0 = std::max<int64_t>(x - 1, 0);
-      const int64_t x1 = std::min<int64_t>(x + 1, w - 1);
-      double win[9];
-      int m = 0;
-      for (int64_t yy = y0; yy <= y1; ++yy)
-        for (int64_t xx = x0; xx <= x1; ++xx) win[m++] = splat[yy * w + xx];
-      occ[y * w + x] = median_lower(win, m);
+  parallel_rows(h, threads, [=](int64_t ya, int64_t yb) {
+    for (int64_t y = ya; y < yb; ++y) {
+      const int64_t y0 = std::max<int64_t>(y - 1, 0);
+      const int64_t y1 = std::min<int64_t>(y + 1, h - 1);
+      for (int64_t x = 0; x < w; ++x) {
+        const int64_t x0 = std::max<int64_t>(x - 1, 0);
+        const int64_t x1 = std::min<int64_t>(x + 1, w - 1);
+        double win[9];
+        int m = 0;
+        for (int64_t yy = y0; yy <= y1; ++yy)
+          for (int64_t xx = x0; xx <= x1; ++xx) win[m++] = splat[yy * w + xx];
+        occ[y * w + x] = median_lower(win, m);
+      }
     }
-  }
+  });
 
   delete[] fwd_pixel;
   delete[] bwd_pixel;

@@ -13,7 +13,10 @@ Phases, one line each (any failure raises and exits non-zero):
      the loads and shuffles (W-dflow) of their SASS, and for the warp
      gather's bf16 kernels (csrc/warp_fwd_tiled.cu: the rows kernel of
      C = 3, the lanes kernel at C = 32, 64, 96, 128) with the loads,
-     stores and shuffles of their SASS
+     stores and shuffles of their SASS; and g++ of the three host helpers
+     (runtime/src/resample.cc, getocc.cc, pngfilter.cc by
+     runtime/host_build.py) on this host: flags, seconds, the row loops'
+     thread count (host_threads())
   3. kernels against their plain torch twins, in bf16 and f32, with the
      max abs error, the tolerance, CUDA-event medians of the kernel, the
      twin and (where one PyTorch call computes the same function) that
@@ -44,7 +47,14 @@ Phases, one line each (any failure raises and exits non-zero):
      compute_flow_video on seeded requests; shapes, finite values, launch
      counts (10 cost volumes and 8 feature warps per serving forward, no
      backward kernel), a plain_ops() rerun of one batch for comparison,
-     wall-clock triplets/s
+     wall-clock triplets/s; then the host side on the C++ paths
+     (runtime/src/resample.cc, getocc.cc): compute_flow_batch split into
+     pre-processing (stack, colour normalisation, resize), copies,
+     forward and post-processing, host clock, on the C++ path and inside
+     numpy_twins(); each C++ function on the batch's own frames against
+     its NumPy twin (1e-5; nearest, rotation and occlusion exact), ms of
+     both, the row-threaded ones at 1 thread and at host_threads() with
+     the same bits, get_occ on a crop against its Python oracle
   5. serving path, stem on (B2F_STEM_PALLAS=1 for this phase only): the
      same B=16 batch, exactly 1 K5 + 1 K6 + 10 + 8 launches, flow and
      occlusion against the stem-off results; device forward ms stem off /
@@ -238,6 +248,11 @@ Phases, one line each (any failure raises and exits non-zero):
      result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 It imports nothing of JAX and never runs on the CPU.
+
+    python3 chip_smoke.py --host
+
+runs, after phase 1 and the build, only phase 4 (with its host checks)
+and prints the result line.
 
     python3 chip_smoke.py --spynet
 
@@ -660,6 +675,35 @@ def phase_build() -> None:
     for line in report.splitlines():
         if "spill" in line or "Used" in line or "Compiling entry" in line:
             log("build", "ptxas " + line.strip()[:200])
+
+
+HOST_LIBS = ("resample", "getocc", "pngfilter")
+# C++ resampler (f32 weights) vs its NumPy twin (f64 weights), as
+# tests/test_torch_data.py's IMAGE_TOL; nearest gathers, rotations and
+# the occlusion are exact
+HOST_TOL = 1e-5
+
+
+def phase_host_build() -> None:
+    """Phase 2's host helpers: g++ of runtime/src/{resample,getocc,
+    pngfilter}.cc on this host (runtime/host_build.py), their flags and
+    build seconds, and the thread count the row loops take."""
+    from back2future_tpu_torch.runtime import host_build
+
+    sig = host_build.cpu_signature().splitlines()
+    cpu = "; ".join([sig[0]] + [line for line in sig if line.startswith(("model name",
+                                                                         "CPU part"))])
+    log("build", f"host helpers: {host_build.CXX} {' '.join(host_build.CXX_FLAGS)}; {cpu}; "
+                 f"host_threads() {host_build.host_threads()} (OMP_NUM_THREADS="
+                 f"{os.environ.get('OMP_NUM_THREADS')!r}, {len(os.sched_getaffinity(0))} CPUs "
+                 f"in the affinity mask)")
+    for name in HOST_LIBS:
+        cached = host_build.library_path(name).exists()
+        t0 = time.perf_counter()
+        so = host_build.build(name)
+        host_build.load_library(name)
+        log("build", f"{so.name} {'cached' if cached else 'built'} in "
+                     f"{time.perf_counter() - t0:.2f} s")
 
 
 def mma_build_report(label: str, info: dict, function: str, ops=("HMMA", "LDGSTS", "LDSM"),
@@ -1253,7 +1297,171 @@ def phase_main_path(card: str) -> dict:
         fwd_ms = cuda_ms(lambda: est.net(x, with_warped=False), 5)
     log("main", f"serving forward on the device, B={B} {H}x{W} bf16: {fwd_ms:.2f} ms "
                 f"(CUDA events, median of 5) on {card}")
+    phase_host_paths(card, est, batch)
     return dict(launches=launches, est=est, batch=batch, results=res, x=x)
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host-clock ms of `reps` calls of `fn`, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def serving_split(est, batch, calls: int = 3) -> dict:
+    """compute_flow_batch's parts on `batch`, host clock, medians of calls
+    2..`calls`: pre-processing (its stack and concatenation, colour
+    normalisation and resize apart), the copy to the card, the forward
+    (ending in a synchronize), the copy back, post-processing."""
+    from back2future_tpu_torch.api import _numpy, _postprocess_results
+    from back2future_tpu_torch.data.augment import color_normalize
+    from back2future_tpu_torch.data.resample import resize
+
+    keys = ("stack", "normalize", "resize", "pre", "h2d", "forward", "d2h", "post", "total")
+    parts = {k: [] for k in keys}
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        imgs = np.concatenate([np.asarray(s, np.float32) for s in batch], axis=-1)
+        t.append(time.perf_counter())
+        imgs = color_normalize(imgs)
+        t.append(time.perf_counter())
+        imgs = np.stack([resize(im, H, W, "bilinear") for im in imgs])
+        t.append(time.perf_counter())
+        x = torch.from_numpy(imgs).to(est.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        with torch.inference_mode():
+            g = est.net(x, with_warped=False)[0]
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        flow, occ = _numpy(g["flow"]), _numpy(g["occ"])
+        t.append(time.perf_counter())
+        _postprocess_results(flow, occ, B, H_IN, W_IN)
+        t.append(time.perf_counter())
+        ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+        for k, v in zip(("stack", "normalize", "resize", "h2d", "forward", "d2h", "post"), ms):
+            parts[k].append(v)
+        parts["pre"].append(sum(ms[:3]))
+        parts["total"].append(sum(ms))
+    return {k: statistics.median(v[1:]) for k, v in parts.items()}, flow
+
+
+@contextlib.contextmanager
+def omp_threads(n: int):
+    """OMP_NUM_THREADS, which host_threads() reads, set to `n` inside the
+    block and restored after."""
+    before = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = str(n)
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = before
+
+
+def at_threads(n: int, fn):
+    """fn() with the host helpers' row loops at `n` threads."""
+    with omp_threads(n):
+        return fn()
+
+
+def phase_host_paths(card: str, est, batch: list) -> None:
+    """Phase 4's host checks: the split of compute_flow_batch on the C++
+    path and on the NumPy twins (`numpy_twins()`), then each C++ function
+    of runtime/src/resample.cc and getocc.cc on the B=16 batch's own
+    frames against its twin (HOST_TOL; nearest, rotation and occlusion
+    exact), the row-threaded ones at 1 thread and at `host_threads()`
+    with the same bits. Any mismatch raises."""
+    from back2future_tpu_torch.data import augment, resample
+    from back2future_tpu_torch.io import occ as occ_mod
+    from back2future_tpu_torch.runtime.host_build import host_threads
+
+    threads = host_threads()
+    split, flow = serving_split(est, batch)
+    with resample.numpy_twins():
+        twin_split, _ = serving_split(est, batch)
+    for label, s in (("C++", split), ("NumPy twins", twin_split)):
+        log("host", f"compute_flow_batch B={B} split, {label}: total {s['total']:.2f} ms = pre "
+                    f"{s['pre']:.2f} (stack and concatenate {s['stack']:.2f}, color_normalize "
+                    f"{s['normalize']:.2f}, resize {s['resize']:.2f}) + copy in "
+                    f"{s['h2d']:.2f} + forward {s['forward']:.2f} + copy out {s['d2h']:.2f} + "
+                    f"post {s['post']:.2f}; {B / s['total'] * 1e3:.2f} triplets/s (host clock, "
+                    f"median of calls 2-3) on {card}")
+
+    frames = [np.asarray(s[0], np.float32) for s in batch]
+    raw = np.concatenate(frames, axis=-1)                  # one triplet, 375x1242x9
+    stack = augment.color_normalize(raw)
+    occ_map = (stack[..., :1] > 0).astype(np.float32)
+    sc_h, sc_w = int(round(H_IN * 1.5)), int(round(W_IN * 1.5))   # a scale-1.5 crop window
+    oy, ox = sc_h // 4, sc_w // 4
+    cases = {   # name -> (the call, exact against the twin)
+        "resize_bilinear_f32": (lambda: resample.resize(stack, H, W, "bilinear"), False),
+        "resize_nearest_f32": (lambda: resample.resize(flow[0], H_IN, W_IN, "simple"), True),
+        "rotate_nearest_window_f32": (lambda: resample.rotate_nearest_window(
+            frames[0], 0.15, -4, 7, H_IN, W_IN, True, False), True),
+        "resize_bilinear_window_f32": (lambda: resample.resize_bilinear_window(
+            stack, H_IN, W_IN, sc_h, sc_w, oy, ox, TRAIN_H, TRAIN_W), False),
+        "resize_nearest_window_f32": (lambda: resample.resize_nearest_window(
+            occ_map, sc_h, sc_w, oy, ox, TRAIN_H, TRAIN_W, True, True), True),
+        "photo_pipeline_f32": (lambda: augment.preprocess(raw, np.random.default_rng(0)),
+                               False),
+    }
+    threaded = ("resize_bilinear_f32", "resize_nearest_f32")
+    for name, (call, exact) in cases.items():
+        with omp_threads(1):
+            got = call()
+            one_ms = wall_ms(call, 5)
+        with resample.numpy_twins():
+            want = call()
+            twin_ms = wall_ms(call, 3)
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        tol = 0.0 if exact else HOST_TOL
+        if name in threaded:
+            same = all(at_threads(t, call).tobytes() == got.tobytes()
+                       for t in (2, 3, 7, threads))
+            many_ms = at_threads(threads, lambda: wall_ms(call, 5))
+            times = (f"C++ {one_ms:.3f} ms at 1 thread, {many_ms:.3f} ms at {threads} (bits "
+                     f"equal at 1, 2, 3, 7 and {threads} threads: {same})")
+        else:
+            same, times = True, f"C++ {one_ms:.3f} ms (serial)"
+        log("host", f"{name} {tuple(got.shape)}: {times}; twin {twin_ms:.3f} ms; max_abs_err "
+                    f"{err:.3e} (tol {tol}) on {card}")
+        if err > tol or not same or got.dtype != want.dtype:
+            raise AssertionError(f"host: {name} disagrees with its twin or across threads")
+    r1, r2 = np.random.default_rng(0), np.random.default_rng(0)
+    augment.preprocess(raw, r1)
+    with resample.numpy_twins():
+        augment.preprocess(raw, r2)
+    if r1.bit_generator.state != r2.bit_generator.state:
+        raise AssertionError("host: preprocess left the generator in another state than its twin")
+
+    # get_occ: the median filter's threads, and the Python oracle on a crop
+    depth = 1.0 + stack[..., 0].astype(np.float64)
+    gflow = resample.resize(flow[0], H_IN, W_IN, "simple").astype(np.float64) * 4
+    def occ_call():
+        return occ_mod.get_occ(depth, gflow)
+
+    one = at_threads(1, occ_call)
+    same = all(np.array_equal(at_threads(t, occ_call), one) for t in (2, 3, 7, threads))
+    one_ms = at_threads(1, lambda: wall_ms(occ_call, 5))
+    many_ms = at_threads(threads, lambda: wall_ms(occ_call, 5))
+    crop = np.s_[H_IN // 4:H_IN // 4 + 48, W_IN // 4:W_IN // 4 + 96]
+    t0 = time.perf_counter()
+    oracle = occ_mod.get_occ_reference(depth[crop], gflow[crop])
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    exact = np.array_equal(occ_mod.get_occ(depth[crop], gflow[crop]), oracle)
+    log("host", f"get_occ_f64 ({H_IN}, {W_IN}): C++ {one_ms:.3f} ms at 1 thread, {many_ms:.3f} "
+                f"ms at {threads}; bits equal at 1, 2, 3, 7 and {threads} threads: {same}; a "
+                f"48x96 crop equal to the Python oracle ({oracle_ms:.1f} ms): {exact} on {card}")
+    if not (same and exact):
+        raise AssertionError("host: get_occ disagrees across threads or with its oracle")
 
 
 def check_results(results, n):
@@ -2564,6 +2772,7 @@ def phase_data(card: str, dev, random_step_ms: float, probe: bool = True) -> dic
     from back2future_tpu_torch.data import roaming
     from back2future_tpu_torch.data.loader import _cuda_live
     from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.runtime.host_build import host_threads
     from back2future_tpu_torch.train import create_train_state, make_train_step
 
     phase_t0 = time.perf_counter()
@@ -2586,7 +2795,9 @@ def phase_data(card: str, dev, random_step_ms: float, probe: bool = True) -> dic
                     f"3 frames, in {gen_s:.2f} s ({gen_s / DATA_SCENES * 1e3:.1f} ms a scene), "
                     f"{size} bytes on disk; split {len(train_idx)} train / {len(val_idx)} val; "
                     f"host cores {os.cpu_count()}, {workers} loader workers, start method "
-                    f"{method}; on {card}")
+                    f"{method}, each worker's host C++ row loops at host_threads() = "
+                    f"{host_threads()} threads (the full-plane resizes; the windowed and "
+                    f"photometric functions of augment 1 are serial); on {card}")
         for tag, words, cfg_kw, loader_kw in DATA_CONFIGS:
             cfg = SampleConfig(frames=3, ground_truth=True, fine_height=TRAIN_H,
                                fine_width=TRAIN_W, load_height=TRAIN_H, load_width=TRAIN_W,
@@ -4788,6 +4999,7 @@ def main() -> None:
 
     dev = torch.device("cuda")
     phase_build()
+    phase_host_build()
     if "--pipe-variants" in sys.argv[1:]:
         phase_pipe_variants(card)
         return
@@ -4825,6 +5037,11 @@ def main() -> None:
         with stem(False):
             spatial = phase_spatial(card, dev)
         print(json.dumps({"kernels": spatial_kernel_entries(spatial)}), flush=True)
+        print_result()
+        return
+    if "--host" in sys.argv[1:]:
+        with stem(False):
+            phase_main_path(card)
         print_result()
         return
     if "--spynet" in sys.argv[1:]:

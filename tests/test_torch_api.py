@@ -172,8 +172,8 @@ def test_port_imports_no_jax():
     checkpoints, utilities, CLIs (the .t7 converter, the parity harness,
     the tool counterparts and the serving CLIs too), learning demo, every criterion, the
     .t7 reader, SPyNet, data pipeline and flow I/O included, runs a tiny
-    CPU forward of each model family and the host C++ occlusion, without
-    loading the JAX package, jax, flax, optax or msgpack."""
+    CPU forward of each model family, the host C++ occlusion and a C++
+    resize, without loading the JAX package, jax, flax, optax or msgpack."""
     code = (
         "import sys, numpy as np\n"
         "import back2future_tpu_torch\n"
@@ -194,6 +194,9 @@ def test_port_imports_no_jax():
         "from back2future_tpu_torch.data import roaming\n"
         "from back2future_tpu_torch.runtime import host_build\n"
         "assert io.get_occ(np.ones((4, 5)), np.zeros((4, 5, 2))).shape == (4, 5)\n"
+        "from back2future_tpu_torch.data import resample\n"
+        "x = np.random.default_rng(0).random((37, 50, 9), dtype=np.float32)\n"
+        "assert resample.resize(x, 64, 128).shape == (64, 128, 9) and resample._LIB is not None\n"
         "est = api.init(None, device='cpu', dtype='float32')\n"
         "ims = [np.random.default_rng(k).random((64, 128, 3), dtype=np.float32)"
         " for k in range(3)]\n"

@@ -1,16 +1,20 @@
 """The port's host data pipeline (back2future_tpu_torch.data) against the
 JAX package's back2future_tpu.data, on seeded numpy inputs at 64x128.
 
-The JAX package resizes, rotates and jitters with its C++ library where
-that builds (f32 weights); the port keeps only the NumPy paths (f64
-weights and maps). So the parity tests switch the JAX library off
-(`jax_numpy`: `resample._native = (None,)`) and hold the port bit for bit
-against that path: manifests, augmentation, samples, batches in sync and
-thread modes, and the generator's files. One test holds the port against
-the default native path within IMAGE_TOL / FLOW_TOL. The port's process
-mode, under fork and under spawn, is held against its own sync mode (a
-JAX loader in this process may choose spawn, so the two packages meet in
-sync and thread modes only).
+Both packages resize, rotate and jitter float32 data with their C++
+libraries (f32 weights) and keep NumPy paths (f64 weights and maps) for
+other dtypes; the port's NumPy paths are the twins of its C++ functions
+(data/resample.py `numpy_twins`). The parity tests here put both
+packages on their NumPy paths (`jax_numpy`: the JAX package's
+`resample._native = (None,)`, the port's B2F_HOST_TWINS=1) and hold the
+port bit for bit against the JAX package there: manifests, augmentation,
+samples, batches in sync and thread modes, and the generator's files.
+One test holds the port's twins against the JAX package's default C++
+path within IMAGE_TOL / FLOW_TOL; tests/test_torch_native_resample.py
+holds the two C++ paths bit for bit. The port's process mode, under
+fork and under spawn, is held against its own sync mode (a JAX loader in
+this process may choose spawn, so the two packages meet in sync and
+thread modes only).
 """
 
 import dataclasses
@@ -39,7 +43,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W = 64, 128
-# port (NumPy, f64 weights) against the JAX package's native f32 path: the
+# port (NumPy twins, f64 weights) against the JAX package's native f32 path: the
 # weights differ in their last bits (max seen 1.1e-6 on images, 1.8e-7 on
 # flow at 64x128), nearest gathers and occlusion not at all
 IMAGE_TOL = 1e-5      # normalised images, mask
@@ -48,8 +52,9 @@ FLOW_TOL = 1e-6       # flow / flownet_factor
 
 @pytest.fixture
 def jax_numpy(monkeypatch):
-    """The JAX package on its NumPy paths (no C++ resampler or jitter)."""
+    """Both packages on their NumPy paths (no C++ resampler or jitter)."""
     monkeypatch.setattr(jax_resample, "_native", (None,))
+    monkeypatch.setenv(resample.TWINS_ENV, "1")
 
 
 def generate(root, *extra):
@@ -325,9 +330,11 @@ def test_test_sample_bitwise_as_jax_numpy_path(roam, jax_numpy, name):
 
 @pytest.mark.parametrize("fast", [True, False])
 def test_train_sample_near_jax_native_path(roam, monkeypatch, fast):
-    """Against the JAX package's default C++ path (f32 weights, where it
-    builds): within IMAGE_TOL / FLOW_TOL; masks and occlusion exact."""
+    """The port's NumPy twins against the JAX package's default C++ path
+    (f32 weights, where it builds): within IMAGE_TOL / FLOW_TOL; masks and
+    occlusion exact."""
     monkeypatch.setenv("B2F_FAST_AUGMENT", "1" if fast else "0")
+    monkeypatch.setenv(resample.TWINS_ENV, "1")
     _, cfg, jcfg = sample_configs("augment_fast")
     specs, jspecs = specs_of(manifest, roam), specs_of(jax_manifest, roam)
     for i in range(3):

@@ -17,6 +17,7 @@ from back2future_tpu.io import png16 as jax_png16
 from back2future_tpu.io import transforms as jax_transforms
 from back2future_tpu.io import viz as jax_viz
 from back2future_tpu_torch import io as port_io
+from back2future_tpu_torch.data.resample import TWINS_ENV
 from back2future_tpu_torch.io import flow_io, occ, png16, transforms, viz
 from back2future_tpu_torch.runtime import host_build
 
@@ -271,6 +272,7 @@ def test_scale_flow_matches_jax_numpy_path(monkeypatch, order, scale):
     import back2future_tpu.data.resample as jax_resample
 
     monkeypatch.setattr(jax_resample, "_native", (None,))
+    monkeypatch.setenv(TWINS_ENV, "1")
     flow = _flow(9, 16, 24)
     np.testing.assert_array_equal(transforms.scale_flow(flow, scale, order),
                                   jax_transforms.scale_flow(flow, scale, order))
@@ -280,8 +282,9 @@ def test_scale_flow_matches_jax_numpy_path(monkeypatch, order, scale):
 
 def test_host_build_flags_and_cache():
     assert "-fopenmp" not in host_build.CXX_FLAGS
-    assert set(host_build.CXX_FLAGS) == {"-O3", "-shared", "-fPIC", "-std=c++17"}
-    for name in ("getocc", "pngfilter"):
+    assert set(host_build.CXX_FLAGS) == {"-O3", "-march=native", "-shared", "-fPIC",
+                                         "-std=c++17", "-pthread"}
+    for name in ("getocc", "pngfilter", "resample"):
         so = host_build.build(name)
         assert so.exists() and so.parent == host_build.BUILD_DIR
         assert host_build.build(name) == so == host_build.library_path(name)

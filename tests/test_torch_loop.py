@@ -50,6 +50,7 @@ from back2future_tpu.train import checkpoint as jax_checkpoint
 from back2future_tpu.train.loop import run as jax_run
 from back2future_tpu.train.state import create_train_state as jax_create_train_state
 from back2future_tpu_torch.config import Options
+from back2future_tpu_torch.data.resample import TWINS_ENV
 from back2future_tpu_torch.io import flax_msgpack
 from back2future_tpu_torch.models import PWCNet, pwc_config_from_options, to_flax_params
 from back2future_tpu_torch.train.checkpoint import load_or_convert
@@ -225,8 +226,9 @@ def jax_runs(toy_tree):
     return kw, Path(opt_a.save)
 
 
-def test_run_matches_jax_run(toy_tree, jax_runs):
+def test_run_matches_jax_run(toy_tree, jax_runs, monkeypatch):
     kw, jax_save = jax_runs
+    monkeypatch.setenv(TWINS_ENV, "1")   # the port's loader on the NumPy paths too
     opt = toy_options(toy_tree, expName="port", nEpochs=1, **kw)
     run(opt)
     for log in ("train.log", "test.log"):
@@ -241,8 +243,9 @@ def test_run_matches_jax_run(toy_tree, jax_runs):
     assert_params_close(got, want, steps=2)
 
 
-def test_cont_resumes_jax_optimizer_state(toy_tree, jax_runs):
+def test_cont_resumes_jax_optimizer_state(toy_tree, jax_runs, monkeypatch):
     kw, jax_save = jax_runs
+    monkeypatch.setenv(TWINS_ENV, "1")
     opt = toy_options(toy_tree, expName="port_cont", nEpochs=1, **kw)
     for name in ("model_1.msgpack", "optimState_1.msgpack", "options.json"):
         shutil.copy(jax_save / name, Path(opt.save) / name)
@@ -295,6 +298,7 @@ def test_training_cli_writes_a_run(toy_tree):
 
 def test_eval_cli_matches_tools_eval(toy_tree, jax_runs, monkeypatch, capsys):
     _, jax_save = jax_runs
+    monkeypatch.setenv(TWINS_ENV, "1")   # the CLI subprocess inherits it
     args = ["--checkpoint", str(jax_save), "--dataset", "toy",
             "--datasets_dir", str(toy_tree / "datasets"), "--data_root", str(toy_tree),
             "--batchSize", "2", "--cropHeight", "32", "--cropWidth", "64", "--split", "all",

@@ -45,6 +45,7 @@ from back2future_tpu.train.loop import run as jax_run
 from back2future_tpu.train.state import create_train_state as jax_create_train_state
 from back2future_tpu_torch import api
 from back2future_tpu_torch.config import Options
+from back2future_tpu_torch.data.resample import TWINS_ENV
 from back2future_tpu_torch.parallel.launch import free_port
 from back2future_tpu_torch.models import PWCNet, pwc_config_from_options, to_flax_params
 from back2future_tpu_torch.train.loop import run
@@ -89,6 +90,7 @@ def toy(tmp_path_factory):
 def test_two_rank_run_matches_jax_single_host(toy, capfd, monkeypatch):
     root, retrain, jax_save = toy
     monkeypatch.setenv("B2F_DIST_TIMEOUT", "120")
+    monkeypatch.setenv(TWINS_ENV, "1")   # both ranks' loaders on the NumPy paths, as JAX's
     opt = toy_options(root, expName="ranks", retrain=retrain, nGPU=2)
     state = run(opt)
     assert not torch.distributed.is_initialized()   # run() tore its group down

@@ -63,6 +63,7 @@ from back2future_tpu.train.step import make_train_step as jax_make_train_step
 from back2future_tpu_torch import api
 from back2future_tpu_torch import eval as port_eval
 from back2future_tpu_torch.config import Options
+from back2future_tpu_torch.data.resample import TWINS_ENV
 from back2future_tpu_torch.losses import build_criterions
 from back2future_tpu_torch.models import SPyNet, SPyNetConfig, spynet_config_from_options
 from back2future_tpu_torch.models import pwc as rows_module   # the row layout's ops
@@ -381,6 +382,7 @@ def test_eval_cli_matches_tools_eval(jax_written, toy_tree, monkeypatch, capsys)
     args = ["--checkpoint", str(d), "--dataset", "toy", "--datasets_dir",
             str(toy_tree / "datasets"), "--data_root", str(toy_tree), "--batchSize", "2",
             "--cropHeight", "32", "--cropWidth", "64", "--split", "all", "--limit", "3", "--cpu"]
+    monkeypatch.setenv(TWINS_ENV, "1")
     port_eval.main(args)
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     monkeypatch.setenv("B2F_COMPILE_CACHE", "0")

@@ -13,6 +13,12 @@ tests/test_torch_parallel.py's tolerances (logs rtol 1e-4, atol 1e-7;
 gradients rtol 1e-3 with atol 1e-5 * max|g| per leaf); both ranks hold
 the same logs and gradients bit for bit. A normalisation by each rank's
 own range fails it.
+
+The net of seed 8 is held against JAX. The net of seed 7, at which one
+element of `occ_decoder_3.c0.weight` once missed JAX at 1.06x the atol,
+is held at the same tolerances against the port's own single-process
+step on the global batch: a DDP fault fails it, float noise between the
+two packages cannot.
 """
 
 import functools
@@ -42,6 +48,7 @@ torch.set_num_threads(1)
 
 B, H, W = 4, 32, 64
 SEED = 8
+SELF_SEED = 7   # against the port's single-process step
 TIMEOUT = 300
 CASES = {
     "ssiml1": dict(pme_criterion="SSIML1"),
@@ -73,7 +80,8 @@ def rank_results():
         mp.setenv("B2F_DIST_TIMEOUT", "120")
         cases = {n: case_options(Options, n).__dict__ for n in CASES}
         batches = {n: case_batch(n) for n in CASES}
-        return launch.run_ranks(torch_ranks.one_step, 2, (cases, batches, SEED),
+        return launch.run_ranks(torch_ranks.one_step_seeds, 2,
+                                (cases, batches, (SEED, SELF_SEED)),
                                 rank0_here=False, timeout=TIMEOUT)
 
 
@@ -102,7 +110,7 @@ def leaf(tree, name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_ssim_step_on_two_ranks_matches_jax_global_batch(rank_results, name):
     want_logs, want_grads = jax_global_step(name)
-    got, other = rank_results[0][name], rank_results[1][name]
+    got, other = rank_results[0][SEED][name], rank_results[1][SEED][name]
     assert want_logs["pme"] > 0
     assert set(got["logs"]) == set(want_logs)
     for k, v in want_logs.items():
@@ -113,4 +121,21 @@ def test_ssim_step_on_two_ranks_matches_jax_global_batch(rank_results, name):
         want = leaf(want_grads, pname)
         np.testing.assert_allclose(g, want, rtol=1e-3, atol=1e-5 * np.abs(want).max(),
                                    err_msg=pname)
+        np.testing.assert_array_equal(g, other["grads"][pname], err_msg=pname)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ssim_step_on_two_ranks_matches_single_process_seed7(rank_results, name):
+    want = torch_ranks.one_step(0, 1, {name: case_options(Options, name).__dict__},
+                                {name: case_batch(name)}, SELF_SEED)[name]
+    got, other = rank_results[0][SELF_SEED][name], rank_results[1][SELF_SEED][name]
+    assert want["logs"]["pme"] > 0
+    assert set(got["logs"]) == set(want["logs"])
+    for k, v in want["logs"].items():
+        np.testing.assert_allclose(got["logs"][k], v, rtol=1e-4, atol=1e-7, err_msg=k)
+    assert got["logs"] == other["logs"]
+    assert set(got["grads"]) == set(want["grads"])
+    for pname, g in got["grads"].items():
+        w = want["grads"][pname]
+        np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-5 * np.abs(w).max(), err_msg=pname)
         np.testing.assert_array_equal(g, other["grads"][pname], err_msg=pname)

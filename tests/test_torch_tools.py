@@ -49,6 +49,7 @@ from back2future_tpu_torch import (api, demo, export_serving, flow_viz_demo, mak
                                    overfit_probe, serve_bench)
 from back2future_tpu_torch.config import Options
 from back2future_tpu_torch.data import roaming
+from back2future_tpu_torch.data.resample import TWINS_ENV
 from back2future_tpu_torch.io import load_flo
 from back2future_tpu_torch.io.png16 import write_png
 from back2future_tpu_torch.models import PWCNet, pwc_config_from_options, to_flax_params
@@ -138,6 +139,7 @@ def roaming_set(tmp_path_factory):
 def test_flow_viz_demo_panels_match_the_tools(roaming_set, tmp_path, capsys, monkeypatch):
     monkeypatch.setenv("B2F_COMPILE_CACHE", "0")
     monkeypatch.setattr(jax_resample, "_native", (None,))
+    monkeypatch.setenv(TWINS_ENV, "1")
     args = ["--checkpoint", str(roaming_set / "ckpt"), "--data", str(roaming_set / "set"),
             "--n", "2", "--cpu"]
     lines = {}
@@ -160,6 +162,7 @@ def test_flow_viz_demo_panels_match_the_tools(roaming_set, tmp_path, capsys, mon
 def test_overfit_probe_first_step_matches_the_tool(roaming_set, tmp_path, capsys, monkeypatch):
     monkeypatch.setenv("B2F_COMPILE_CACHE", "0")
     monkeypatch.setattr(jax_resample, "_native", (None,))
+    monkeypatch.setenv(TWINS_ENV, "1")
     tiny = ["--cropWidth", "64", "--cropHeight", "32", "--levels", "4", "--pwc_ws", "3",
             "--compute_dtype", "float32", "--cache", str(tmp_path / "cache")]
     for module in (jax_config, port_config):

@@ -77,6 +77,12 @@ def one_step(rank: int, world: int, cases: dict, batches: dict, seed: int,
     return out
 
 
+def one_step_seeds(rank: int, world: int, cases: dict, batches: dict, seeds) -> dict:
+    """`one_step` for each seed of `seeds`, by seed: one spawn of the
+    ranks for several nets."""
+    return {seed: one_step(rank, world, cases, batches, seed) for seed in seeds}
+
+
 def spatial_group_checks(rank: int, world: int) -> dict:
     """A 2 x 2 data x spatial mesh of ranks (parallel/distributed.py
     `init_mesh_groups`): its slots, loss shares and reductions, and the
