@@ -44,10 +44,37 @@
 // faster even for a window that fits. So a launch lets its blocks take
 // the window route only where its grid holds 1.5 blocks an SM or more
 // (on an H100, the train step's levels 3-4 but not 5-6, which is where
-// each route was measured to be the faster on the same inputs). Where C is not a multiple of 4 (never on the model's path)
-// the adds are scalar, and where g is not aligned for 4-element packs its
-// loads are. The order of the f32 sums varies from run to run (atomics),
-// so the result is not bitwise deterministic: f32 rounding only.
+// each route was measured to be the faster on the same inputs). Where C is
+// not a multiple of 4 the adds are scalar, and where g is not aligned for
+// 4-element packs its loads are. The order of the f32 sums varies from run
+// to run (atomics), so the result is not bitwise deterministic: f32
+// rounding only.
+//
+// K4 at C = 3 has a kernel of its own. The image warps (SPyNet's pme step runs
+// 12 a step, 8x320x640 down to 8x10x20) are C = 3, where the quad tiles leave 7
+// of each 8 lanes without a channel, read g an element at a time and flush up
+// to 12 scalar atomics a pixel: on an H100, 0.51 ms a step, behind
+// aten.grid_sampler_2d_backward (0.38). Here a block owns an 8 x 32 tile, one
+// thread a pixel, which reads its flow as a pair and its 3 channels of g as a
+// pair and an element (load_pixel3), and the block takes the bounding box of
+// its corners. Where the box holds at most WINDOW3 pixels (and the launch
+// allows it) every add goes into a channel-major f32 window in shared memory
+// with an f32 shared atomic (a compare-and-swap loop on Hopper:
+// ATOMS.CAST.SPIN; 12 a pixel at most, none that adds 0; with C = 3 that is
+// cheap: K4's counting sort in its place was 7-13% slower in turns); the window
+// is then flushed into a zeroed f32 accumulator of exactly 3 channels a pixel:
+// each window row is a run of pixels, and each group of 4 pixels (48 bytes,
+// 16-byte aligned) that a run touches is 3 16-byte reductions, about (covered
+// window / tile) x 3/4 a tile pixel instead of 4 corners x 3 channels.
+// Elsewhere each pixel adds its four corners directly, an 8-byte pair and an
+// element each. A 4-channel accumulator (one 16-byte reduction a window pixel,
+// the pad dropped in the cast) made the kernel 0.006 ms a step faster, but its
+// zero-fill and cast move a third more bytes and its cast is a strided copy:
+// 0.205 against 0.183 ms a step in all (in turns on an H100 on the pme step's
+// own inputs, the quad tiles 0.510; PERF.md section 6 has both measurements).
+// The window route's barriers cost more than its fewer reductions save only on
+// the smallest grids: a launch allows it where its grid holds half a block an
+// SM or more.
 //
 // W-dflow replaces the XLA flow-gradient formula of back2future_tpu/ops/
 // warp.py `_warp_bwd`. It is bound by device memory (about a FLOP a
@@ -301,6 +328,167 @@ warp_bilinear_dimages_tiled_kernel(const T* __restrict__ flow, const T* __restri
   }
 }
 
+// K4 at C = 3: a block owns a TH3 x TW3 tile, one thread a pixel, and the
+// window route sums into at most WINDOW3 window pixels. The f32
+// accumulator holds exactly the 3 channels a pixel, so that the zero-fill
+// and the cast move no pad; a window flushes whole 16-byte groups of 4
+// pixels.
+constexpr int TH3 = 8, TW3 = 32;
+constexpr int NT3 = TH3 * TW3;
+constexpr int WINDOW3 = 2 * NT3;
+
+// adds v (3 channels) at pixel q of the f32 accumulator, where v is not
+// all 0: an 8-byte pair and an element, the pair first at an even pixel
+// (its address 8-byte aligned), last at an odd one
+__device__ __forceinline__ void add_pixel3(float* acc, size_t q, float v0, float v1, float v2) {
+  if (v0 == 0.f && v1 == 0.f && v2 == 0.f) return;
+  float* dst = acc + q * 3;
+  if (q % 2 == 0) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v0, v1));
+    atomicAdd(dst + 2, v2);
+  } else {
+    atomicAdd(dst, v0);
+    atomicAdd(reinterpret_cast<float2*>(dst + 1), make_float2(v1, v2));
+  }
+}
+
+// the window route's flush of its sums (win_s, channel-major; window
+// pixel r * ww + col is image pixel (ylo + r, xlo + col), accumulator
+// pixel src0 + (ylo + r) * W + xlo + col) by the block's threads: each
+// window row is a run of ww accumulator pixels q0 .. q0 + ww - 1, and each
+// group of 4 pixels 4k .. 4k + 3 that a run touches (12 floats, 16-byte
+// aligned) is flushed as 3 16-byte reductions, 0 for a pixel outside the
+// run, none for 4 floats that are all 0; a group that reaches past the
+// accumulator's npix pixels, pixel by pixel. Groups are items
+// r * per_row + k, thread item % NT3.
+__device__ __forceinline__ void flush_window3(float* acc, const float* win_s, size_t src0,
+                                              int ylo, int xlo, int ww, int wpix, int W,
+                                              size_t npix, int t) {
+  const int per_row = (ww + 6) / 4;   // groups a run of ww pixels touches, at most
+  const int items = wpix / ww * per_row;
+  for (int item = t; item < items; item += NT3) {
+    const int r = item / per_row;
+    const size_t q0 = src0 + static_cast<size_t>(ylo + r) * W + xlo;
+    const size_t gq = (q0 / 4 + (item - r * per_row)) * 4;
+    if (gq >= q0 + ww) continue;
+    float v[12];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = static_cast<int>(static_cast<long long>(gq + i) - static_cast<long long>(q0));
+      const bool in = col >= 0 && col < ww;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[3 * i + c] = in ? win_s[c * WINDOW3 + r * ww + col] : 0.f;
+    }
+    if (gq + 4 <= npix) {
+      float4* dst = reinterpret_cast<float4*>(acc + 3 * gq);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float4 f = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+        if (f.x != 0.f || f.y != 0.f || f.z != 0.f || f.w != 0.f) atomicAdd(dst + j, f);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (gq + i < npix) add_pixel3(acc, gq + i, v[3 * i], v[3 * i + 1], v[3 * i + 2]);
+    }
+  }
+}
+
+// K4 at C = 3: grid (tiles across W, tiles across H, B). Thread t takes
+// pixel (t / TW3, t % TW3) of its block's tile: its flow as a pair, its g
+// as a pair and an element (load_pixel3), its four corners and weights.
+// window: a block whose corners' bounding box holds at most WINDOW3 pixels
+// takes the window route (else, and where window is 0, the direct route).
+// d_img: (B, Hs, W, 3) f32, npix = B * Hs * W. flow_pairs: flow is
+// pair-aligned. routes (for comparing the routes only, else null): every
+// block adds one to routes[1], and one that takes the window route one to
+// routes[0].
+template <typename T>
+__global__ void __launch_bounds__(NT3)
+warp_bilinear_dimages_pixels_kernel(const T* __restrict__ flow, const T* __restrict__ g,
+                                    float* __restrict__ d_img, int H, int W, int Hs, int y0,
+                                    size_t npix, int window, int flow_pairs,
+                                    int* __restrict__ routes) {
+  __shared__ float win_s[3 * WINDOW3];   // window sums, channel-major
+  __shared__ int4 box_s[NT3 / 32];
+
+  const int t = threadIdx.x;
+  const int y = blockIdx.y * TH3 + t / TW3, x = blockIdx.x * TW3 + t % TW3;
+  const size_t src0 = static_cast<size_t>(blockIdx.z) * Hs * W;
+  const bool live = y < H && x < W;
+  float gv[3] = {0.f, 0.f, 0.f};
+  Corners k{};
+  int4 box = make_int4(INT_MAX, -1, INT_MAX, -1);
+  if (live) {
+    const size_t p = (static_cast<size_t>(blockIdx.z) * H + y) * W + x;
+    b2f::load_pixel3(g + 3 * p, gv);
+    const float2 f = b2f::flow_at(flow, p, flow_pairs);
+    k = b2f::corners_at(f.x, f.y, x, y0 + y, Hs, W);
+    box = make_int4(k.y0, k.y1, k.x0, k.x1);
+  }
+  // the four corners' weights; 0 where a corner is outside the image (and
+  // for a thread past the image's edge)
+  const float w[4] = {live ? k.wx * k.wy : 0.f, k.x1_in ? (1.f - k.wx) * k.wy : 0.f,
+                      k.y1_in ? k.wx * (1.f - k.wy) : 0.f,
+                      k.x1_in && k.y1_in ? (1.f - k.wx) * (1.f - k.wy) : 0.f};
+
+  int wpix = INT_MAX, ww = 1;
+  if (window) {
+    for (int i = t; i < 3 * WINDOW3; i += NT3) win_s[i] = 0.f;
+    box.x = __reduce_min_sync(0xffffffffu, box.x);
+    box.y = __reduce_max_sync(0xffffffffu, box.y);
+    box.z = __reduce_min_sync(0xffffffffu, box.z);
+    box.w = __reduce_max_sync(0xffffffffu, box.w);
+    if (t % 32 == 0) box_s[t / 32] = box;
+    __syncthreads();
+    box = box_s[0];
+#pragma unroll
+    for (int i = 1; i < NT3 / 32; ++i) {
+      const int4 o = box_s[i];
+      box = make_int4(min(box.x, o.x), max(box.y, o.y), min(box.z, o.z), max(box.w, o.w));
+    }
+    ww = box.w - box.z + 1;
+    wpix = (box.y - box.x + 1) * ww;
+  }
+
+  if (wpix > WINDOW3) {
+    // direct route: each pixel's four corners, 3 channels each
+    if (live) {
+      const size_t q = src0 + static_cast<size_t>(k.y0) * W + k.x0;
+      add_pixel3(d_img, q, w[0] * gv[0], w[0] * gv[1], w[0] * gv[2]);
+      if (k.x1_in) add_pixel3(d_img, q + 1, w[1] * gv[0], w[1] * gv[1], w[1] * gv[2]);
+      if (k.y1_in) add_pixel3(d_img, q + W, w[2] * gv[0], w[2] * gv[1], w[2] * gv[2]);
+      if (k.x1_in && k.y1_in)
+        add_pixel3(d_img, q + W + 1, w[3] * gv[0], w[3] * gv[1], w[3] * gv[2]);
+    }
+    if (routes != nullptr && t == 0) atomicAdd(&routes[1], 1);
+    return;
+  }
+
+  // window route: window pixel (r, col) is image pixel (ylo + r, xlo + col);
+  // every add into the window with an f32 shared atomic, none that adds 0
+  const int ylo = box.x, xlo = box.z;
+  const int at[4] = {(k.y0 - ylo) * ww + k.x0 - xlo, (k.y0 - ylo) * ww + k.x0 - xlo + 1,
+                     (k.y0 - ylo + 1) * ww + k.x0 - xlo, (k.y0 - ylo + 1) * ww + k.x0 - xlo + 1};
+  const bool in[4] = {live, k.x1_in, k.y1_in, k.x1_in && k.y1_in};
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v[3] = {w[j] * gv[0], w[j] * gv[1], w[j] * gv[2]};
+      if (in[j] && (v[0] != 0.f || v[1] != 0.f || v[2] != 0.f)) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) atomicAdd(&win_s[c * WINDOW3 + at[j]], v[c]);
+      }
+    }
+  }
+  __syncthreads();
+  flush_window3(d_img, win_s, src0, ylo, xlo, ww, wpix, W, npix, t);
+  if (routes != nullptr && t == 0) {
+    atomicAdd(&routes[0], 1);
+    atomicAdd(&routes[1], 1);
+  }
+}
+
 // W-dflow's plan: threads per block of both kernels
 constexpr int NT_FLOW = 128;
 
@@ -428,16 +616,35 @@ warp_bilinear_dflow_lanes_kernel(const T* __restrict__ img, const T* __restrict_
 
 // K4's routes, as a launch allows them: by its grid (the path's), or
 // for comparing the routes only, direct on every block, or the window
-// wherever the box fits
-enum Route { kRouteByGrid = 0, kRouteDirect = 1, kRouteWindow = 2 };
+// wherever the box fits; each by the kernel of its C (the pixel kernel
+// at C = 3, the quad tiles elsewhere). kRouteQuads: the quad tiles by
+// their grid at any C, as the path took them at C = 3 before the pixel
+// kernel
+enum Route { kRouteByGrid = 0, kRouteDirect = 1, kRouteWindow = 2, kRouteQuads = 3 };
 
-// the window route pays where the grid holds 1.5 blocks an SM or more
-bool window_pays(long long blocks) {
+// SMs of the current device (0 where it cannot be read)
+int sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return false;
-  return 2 * blocks >= 3LL * sms;
+    return 0;
+  return sms;
+}
+
+// the window route pays where the grid holds 1.5 blocks an SM or more
+bool window_pays(long long blocks) {
+  const int sms = sm_count();
+  return sms > 0 && 2 * blocks >= 3LL * sms;
+}
+
+// and at C = 3, where the grid holds half a block an SM or more: the
+// direct route adds 2 reductions a corner into the exact accumulator, so
+// the window pays on smaller grids than the quad tiles' (on an H100, from
+// the 8x40x80 image warps of SPyNet's pme step up; measured per level on
+// the step's own inputs, `chip_smoke.py --k4-c3`)
+bool pixels_window_pays(long long blocks) {
+  const int sms = sm_count();
+  return sms > 0 && 2 * blocks >= sms;
 }
 
 template <typename T, bool COUNT>
@@ -462,20 +669,49 @@ cudaError_t launch_dimages(const void* flow, const void* g, float* d_img, int B,
   return cudaGetLastError();
 }
 
-template <bool COUNT>
+// K4 at C = 3 into a 16-byte aligned accumulator. window: 1 the window
+// route wherever the box fits, 0 direct on every block, -1 as
+// pixels_window_pays allows it
+template <typename T>
+cudaError_t launch_pixels(const void* flow, const void* g, float* d_img, int B, int H, int W,
+                          int Hs, int y0, int window, int* routes, cudaStream_t stream) {
+  const int tiles_y = (H + TH3 - 1) / TH3;
+  if (B > 65535 || tiles_y > 65535 || reinterpret_cast<uintptr_t>(d_img) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const dim3 grid((W + TW3 - 1) / TW3, tiles_y, B);
+  if (window < 0) window = pixels_window_pays(static_cast<long long>(grid.x) * grid.y * B);
+  const int flow_pairs = reinterpret_cast<uintptr_t>(flow) % (2 * sizeof(T)) == 0;
+  warp_bilinear_dimages_pixels_kernel<T><<<grid, NT3, 0, stream>>>(
+      static_cast<const T*>(flow), static_cast<const T*>(g), d_img, H, W, Hs, y0,
+      static_cast<size_t>(B) * Hs * W, window, flow_pairs, routes);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_route(const void* flow, const void* g, float* out, int B, int H, int W, int C,
+                         int Hs, int y0, int route, int* routes, cudaStream_t s) {
+  if (C == 3 && route != kRouteQuads) {
+    const int window = route == kRouteByGrid ? -1 : route == kRouteWindow;
+    return launch_pixels<T>(flow, g, out, B, H, W, Hs, y0, window, routes, s);
+  }
+  const int quads = route == kRouteQuads ? kRouteByGrid : route;
+  return routes != nullptr
+             ? launch_dimages<T, true>(flow, g, out, B, H, W, C, Hs, y0, quads, routes, s)
+             : launch_dimages<T, false>(flow, g, out, B, H, W, C, Hs, y0, quads, routes, s);
+}
+
 int dimages(const void* flow, const void* g, void* d_img, int dtype, int B, int H, int W, int C,
             int Hs, int y0, int route, int* routes, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Hs <= 0 || y0 < 0 || y0 + H > Hs ||
-      route < 0 || route > kRouteWindow)
+      route < kRouteByGrid || route > kRouteQuads)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(d_img);
   switch (dtype) {
     case b2f::kFloat32:
-      return launch_dimages<float, COUNT>(flow, g, out, B, H, W, C, Hs, y0, route, routes, s);
+      return launch_route<float>(flow, g, out, B, H, W, C, Hs, y0, route, routes, s);
     case b2f::kBFloat16:
-      return launch_dimages<__nv_bfloat16, COUNT>(flow, g, out, B, H, W, C, Hs, y0, route,
-                                                  routes, s);
+      return launch_route<__nv_bfloat16>(flow, g, out, B, H, W, C, Hs, y0, route, routes, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -539,6 +775,7 @@ const void* kernel_of(int kernel) {
     case 2:
       return reinterpret_cast<const void*>(
           warp_bilinear_dflow_lanes_kernel<T, 16 / sizeof(T), 4>);
+    case 4: return reinterpret_cast<const void*>(warp_bilinear_dimages_pixels_kernel<T>);
     default: return nullptr;
   }
 }
@@ -547,25 +784,24 @@ const void* kernel_of(int kernel) {
 
 // K4. flow: (B, H, W, 2) and g: (B, H, W, C), contiguous and of `dtype`
 // (b2f::DType); d_img: (B, H_src, W, C) f32, zeroed by the caller, to which
-// the image gradient is ADDED. The row window as in b2f_warp_bilinear_fwd:
-// output row y is source row y0 + y (y0 = 0, H = H_src: the whole image).
-// Launches on `stream`, returns cudaGetLastError().
+// the image gradient is ADDED; at C = 3 16-byte aligned. The row window as in
+// b2f_warp_bilinear_fwd: output row y is source row y0 + y (y0 = 0, H =
+// H_src: the whole image). Launches on `stream`, returns
+// cudaGetLastError().
 extern "C" int b2f_warp_bilinear_dimages(const void* flow, const void* g, void* d_img,
                                          int dtype, int B, int H, int W, int C, int H_src,
                                          int y0, void* stream) {
-  return dimages<false>(flow, g, d_img, dtype, B, H, W, C, H_src, y0, kRouteByGrid, nullptr,
-                        stream);
+  return dimages(flow, g, d_img, dtype, B, H, W, C, H_src, y0, kRouteByGrid, nullptr, stream);
 }
 
-// The same kernel for comparing its routes. route: 0 as the path allows
-// them (by the grid), 1 direct on every block, 2 the window wherever the
-// box fits; routes: 2 device ints zeroed by the caller, to which the
-// blocks that took the window route and all blocks are added.
+// The same for comparing K4's routes (Route); routes: null, or 2 device
+// ints zeroed by the caller, to which the blocks that took the window
+// route and all blocks are added.
 extern "C" int b2f_warp_bilinear_dimages_routes(const void* flow, const void* g, void* d_img,
-                                                int dtype, int B, int H, int W, int C, int route,
-                                                void* routes, void* stream) {
-  return dimages<true>(flow, g, d_img, dtype, B, H, W, C, H, 0, route,
-                       static_cast<int*>(routes), stream);
+                                                int dtype, int B, int H, int W, int C, int H_src,
+                                                int y0, int route, void* routes, void* stream) {
+  return dimages(flow, g, d_img, dtype, B, H, W, C, H_src, y0, route, static_cast<int*>(routes),
+                 stream);
 }
 
 // W-dflow. img: (B, H_src, W, C), flow: (B, H, W, 2), g: (B, H, W, C),
@@ -594,9 +830,10 @@ extern "C" int b2f_warp_bilinear_dflow(const void* img, const void* flow, const 
 // What the compiler and the runtime made of the kernels, in f32 (dtype
 // 0) or bf16 (1): kernel 0 K4 with 4-channel packs and the window route,
 // 1 W-dflow's C = 3 rows, 2 W-dflow's lane groups of 4 with 16-byte
-// packs, 3 K4 with 4-channel packs, direct on every block. Registers and
-// local memory (bytes, spills) per thread, static shared memory per block
-// (bytes), resident blocks per SM. Launches nothing.
+// packs, 3 K4 with 4-channel packs, direct on every block, 4 K4's C = 3
+// pixel kernel. Registers and local memory (bytes, spills) per thread,
+// static shared memory per block (bytes), resident blocks per SM.
+// Launches nothing.
 extern "C" int b2f_warp_bwd_tiled_info(int kernel, int dtype, int* regs, int* local_bytes,
                                        int* smem, int* blocks_per_sm) {
   const void* fn = dtype == b2f::kBFloat16 ? kernel_of<__nv_bfloat16>(kernel)
@@ -608,6 +845,6 @@ extern "C" int b2f_warp_bwd_tiled_info(int kernel, int dtype, int* regs, int* lo
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *smem = static_cast<int>(attr.sharedSizeBytes);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
-                                                       kernel % 3 == 0 ? NT : NT_FLOW, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, kernel == 1 || kernel == 2 ? NT_FLOW : kernel == 4 ? NT3 : NT, 0);
 }

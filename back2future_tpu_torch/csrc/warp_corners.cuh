@@ -83,6 +83,19 @@ __device__ __forceinline__ void load_span3(const T* p, float (&v)[6]) {
   v[3] = v[4] = v[5] = 0.f;
 }
 
+// the 3 elements at p (a pixel at C = 3): a pair and an element, the pair
+// first where p is aligned for it, else last
+template <typename T>
+__device__ __forceinline__ void load_pixel3(const T* p, float (&v)[3]) {
+  if (reinterpret_cast<uintptr_t>(p) % (2 * sizeof(T)) == 0) {
+    const float2 a = ld2(p);
+    v[0] = a.x; v[1] = a.y; v[2] = ld1(p + 2);
+  } else {
+    const float2 a = ld2(p + 1);
+    v[0] = ld1(p); v[1] = a.x; v[2] = a.y;
+  }
+}
+
 // the flow gradient of one pixel from its four corner dot products (the
 // +1 corners outside the image give 0): the reference formula at the
 // clamped coordinate, or with reference_grads == 0 the autodiff gradient,

@@ -8,7 +8,7 @@ torch twin on CPU tensors, a fake implementation for tracing
 `plain_ops()` routes CUDA tensors through the twins, to compare the two
 on the card. `stem_unit_cuda` launches one stem kernel alone, by ctypes
 and not as an op; so do the comparison-only `*_cuda_cores`, `*_thread`,
-`warp_dimages_routes` and `*_info`.
+`warp_dimages_route(s)` and `*_info`.
 """
 
 from .cost_volume import (
@@ -34,7 +34,8 @@ from .stem import (
 from .warp import (
     warp_bilinear, warp_bilinear_backward_reference,
     warp_bilinear_backward_thread, warp_bilinear_fwd_thread, warp_bilinear_reference,
-    warp_dflow_reference, warp_dimages_reference, warp_dimages_routes, warp_bwd_tiled_info,
+    warp_dflow_reference, warp_dimages_reference, warp_dimages_route, warp_dimages_routes,
+    warp_bwd_tiled_info,
     warp_fwd_tiled_info,
 )
 
@@ -47,6 +48,7 @@ __all__ = [
     "warp_bilinear_backward_thread",
     "warp_bilinear_fwd_thread",
     "warp_fwd_tiled_info",
+    "warp_dimages_route",
     "warp_dimages_routes",
     "warp_bwd_tiled_info",
     "cost_volume",

@@ -39,20 +39,25 @@ both walk the pixels over a persistent grid), its CPU implementation the
 plain twin `warp_bilinear_reference`, and its fake the output's shape.
 Its Autograd kernel (`register_function`, ops/route.py) calls two ops
 of csrc/warp_bwd_tiled.cu: `b2f::warp_dimages`, the image gradient K4
-(tiles whose adds are summed per window pixel in shared memory, or added
-directly, by block where the launch's grid holds 1.5 blocks an SM or
-more, else added directly; into a zeroed f32 buffer, cast once; called
-only when the images need a gradient), and `b2f::warp_dflow`, the flow
-gradient W-dflow (a thread per pixel at C = 3, lane groups otherwise;
-`reference_grads` an argument); their CPU implementations are the twins
-`warp_dimages_reference` and `warp_dflow_reference`.
+(called only when the images need a gradient), and `b2f::warp_dflow`,
+the flow gradient W-dflow (a thread per pixel at C = 3, lane groups
+otherwise; `reference_grads` an argument); their CPU implementations are
+the twins `warp_dimages_reference` and `warp_dflow_reference`. K4 adds
+into a zeroed f32 accumulator, cast once to g's dtype. At every C but 3
+it runs tiles of 4-channel quads whose adds are summed per window pixel
+in shared memory, or added directly, by block where the launch's grid
+holds 1.5 blocks an SM or more, else added directly. At C = 3 (the image
+warps) it runs a kernel of its own, a thread per pixel, that sums its
+tile's adds per window pixel with f32 shared atomics and flushes them in
+16-byte reductions of 4 pixels into an accumulator of exactly 3 channels.
 `warp_bilinear_fwd_thread` and `warp_bilinear_backward_thread` keep the
 first design's kernels (csrc/warp_fwd.cu, csrc/warp_bwd.cu) callable for
 comparison on the card, `warp_fwd_tiled_info` and `warp_bwd_tiled_info`
-report what the build made of the new ones, and
-`warp_dimages_routes` runs K4 with its routes chosen by the caller and a
-count of its window-route blocks; these call the library by ctypes, not
-as ops.
+report what the build made of the new ones, and `warp_dimages_route`
+and `warp_dimages_routes` run K4 by a route the caller chooses
+(K4_ROUTES: the quad tiles at C = 3 among them), the second with a count
+of its window-route blocks; these call the library by ctypes, not as
+ops.
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ _DIMAGES = Kernel("b2f_warp_bilinear_dimages", [ctypes.c_void_p] * 3 + [ctypes.c
 # K4 with (route, route counts) before the stream; and the first design's
 # K4: for comparison only, nothing on any path
 _DIMAGES_ROUTES = Kernel("b2f_warp_bilinear_dimages_routes",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
 _DIMAGES_THREAD = Kernel("b2f_warp_bilinear_dimages_thread", _DIMAGES_ARGS)
 _DFLOW_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # (img, flow, g, d_flow, dtype, B, H, W, C, H_src, y0, reference_grads, stream)
@@ -245,15 +250,15 @@ def _check_backward(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor) -
 
 
 def _launch_dimages(kernel: Kernel, flow: torch.Tensor, g: torch.Tensor,
-                    *window: int) -> torch.Tensor:
+                    *args: int) -> torch.Tensor:
     """`kernel` into a zeroed f32 image gradient, cast once to g's dtype;
-    K4's `window` is (H_src, y0), the first design's is empty (H_src is
-    g's rows)."""
+    K4's `args` are (H_src, y0[, route, routes]), the first design's are
+    empty (H_src is g's rows)."""
     b, h, w, c = g.shape
-    acc = torch.zeros((b, window[0] if window else h, w, c), dtype=torch.float32,
+    acc = torch.zeros((b, args[0] if args else h, w, c), dtype=torch.float32,
                       device=g.device)
     with torch.cuda.device(g.device):
-        kernel(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, h, w, c, *window,
+        kernel(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, h, w, c, *args,
                stream_ptr(g.device))
     return acc.to(g.dtype)
 
@@ -287,41 +292,60 @@ def warp_bilinear_backward_thread(images: torch.Tensor, flow: torch.Tensor, g: t
     return d_images, d_flow
 
 
-# K4's routes as `warp_dimages_routes` allows them: as the path does (the
-# window route for a block whose box fits, where the grid holds 1.5
-# blocks an SM or more), direct on every block, or the window route
-# wherever the box fits
-K4_ROUTES = ("grid", "direct", "window")
+# K4's routes (csrc/warp_bwd_tiled.cu Route), each by the kernel of its C
+# (the pixel kernel at C = 3, the quad tiles elsewhere): "grid" the
+# path's; for comparing them only, direct on every block, or the window
+# wherever the box fits; and "quads", the quad tiles by their grid at any
+# C, as the path took them at C = 3 before the pixel kernel
+K4_ROUTES = ("grid", "direct", "window", "quads")
 
 
-def warp_dimages_routes(flow: torch.Tensor, g: torch.Tensor, route: str = "grid"
-                        ) -> Tuple[torch.Tensor, int, int]:
-    """K4 on CUDA tensors with its routes allowed by `route` (K4_ROUTES),
-    for comparing them: (the f32 image gradient, the blocks that took the
-    window route, all blocks)."""
-    b, h, w, c = g.shape
-    check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), g.dtype)
+def _check_dimages(flow: torch.Tensor, g: torch.Tensor) -> None:
+    b, h, w, _ = g.shape
     check_kernel_input("warp_bilinear grad", g, g.shape, g.dtype)
-    acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), g.dtype)
+
+
+def warp_dimages_route(flow: torch.Tensor, g: torch.Tensor, route: str, h_src: int = -1,
+                       y0: int = 0) -> torch.Tensor:
+    """K4 on CUDA tensors by the caller's `route` (K4_ROUTES), through the
+    path's wrapper (zero-fill, kernel, one cast): the image gradient in g's
+    dtype, of images of `h_src` rows (-1: g's) for the window at `y0`. For
+    timing the routes against each other; nothing is synchronised."""
+    _check_dimages(flow, g)
+    h = g.shape[1] if h_src < 0 else h_src
+    return _launch_dimages(_DIMAGES_ROUTES, flow, g, h, y0, K4_ROUTES.index(route), None)
+
+
+def warp_dimages_routes(flow: torch.Tensor, g: torch.Tensor, route: str = "grid",
+                        h_src: int = -1, y0: int = 0) -> Tuple[torch.Tensor, int, int]:
+    """K4 on CUDA tensors by `route` (K4_ROUTES), counting its blocks:
+    (the f32 image gradient of images of `h_src` rows (-1: g's) for the
+    window at `y0`, the blocks that took the window route, all blocks)."""
+    _check_dimages(flow, g)
+    b, h, w, c = g.shape
+    h = h if h_src < 0 else h_src
+    acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=g.device)
     routes = torch.zeros(2, dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):
-        _DIMAGES_ROUTES(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, h, w, c,
-                        K4_ROUTES.index(route), ptr(routes), stream_ptr(g.device))
+        _DIMAGES_ROUTES(ptr(flow), ptr(g), ptr(acc), DTYPE_CODES[g.dtype], b, g.shape[1], w, c,
+                        h, y0, K4_ROUTES.index(route), ptr(routes), stream_ptr(g.device))
     window, blocks = routes.tolist()
     return acc, window, blocks
 
 
 # the kernels that `warp_bwd_tiled_info` reports (csrc/warp_bwd_tiled.cu)
-TILED_KERNELS = ("dimages", "dflow_rows", "dflow_lanes", "dimages_direct")
+TILED_KERNELS = ("dimages", "dflow_rows", "dflow_lanes", "dimages_direct", "dimages_c3")
 
 
 def warp_bwd_tiled_info(kernel: str = "dimages", dtype: torch.dtype = torch.bfloat16) -> dict:
     """What the build and the runtime made of a kernel of
     csrc/warp_bwd_tiled.cu: K4 with 4-channel packs and the window route
-    ("dimages") or direct on every block ("dimages_direct"), W-dflow at
-    C = 3 ("dflow_rows") or in lane groups of 4 with 16-byte packs
-    ("dflow_lanes"). Registers and local memory per thread, static shared
-    memory per block, resident blocks per SM."""
+    ("dimages") or direct on every block ("dimages_direct"), K4's C = 3
+    pixel kernel ("dimages_c3"), W-dflow at C = 3 ("dflow_rows") or in
+    lane groups of 4 with 16-byte packs ("dflow_lanes"). Registers and
+    local memory per thread, static shared memory per block, resident
+    blocks per SM."""
     return _info("b2f_warp_bwd_tiled_info", TILED_KERNELS.index(kernel), dtype)
 
 
@@ -334,10 +358,8 @@ def _fwd_kernel(images: torch.Tensor, flow: torch.Tensor, reference_grads: bool,
 def _dimages_kernel(flow: torch.Tensor, g: torch.Tensor, h_src: int = -1,
                     y0: int = 0) -> torch.Tensor:
     """K4 on CUDA tensors: `b2f::warp_dimages`'s CUDA implementation."""
-    b, h, w, _ = g.shape
-    check_kernel_input("warp_bilinear grad", g, g.shape, g.dtype)
-    check_kernel_input("warp_bilinear flow", flow, (b, h, w, 2), g.dtype)
-    return _launch_dimages(_DIMAGES, flow, g, h if h_src < 0 else h_src, y0)
+    _check_dimages(flow, g)
+    return _launch_dimages(_DIMAGES, flow, g, g.shape[1] if h_src < 0 else h_src, y0)
 
 
 def _dflow_kernel(images: torch.Tensor, flow: torch.Tensor, g: torch.Tensor,

@@ -9,8 +9,9 @@ Phases, one line each (any failure raises and exits non-zero):
      K1, K2 and K3 (win 9), K5 and K6: registers, spills, shared memory,
      resident blocks per SM, and the HMMA / LDGSTS / LDSM instructions of
      their SASS (cuobjdump); the same for the warp gradients' bf16
-     kernels with the global reductions and shared-memory atomics (K4) or
-     the loads and shuffles (W-dflow) of their SASS, and for the warp
+     kernels with the global reductions and shared-memory atomics (K4
+     and its C = 3 pixel kernel) or the loads and shuffles (W-dflow) of
+     their SASS, and for the warp
      gather's bf16 kernels (csrc/warp_fwd_tiled.cu: the rows kernel of
      C = 3, the lanes kernel at C = 32, 64, 96, 128) with the loads,
      stores and shuffles of their SASS; and g++ of the three host helpers
@@ -146,7 +147,11 @@ Phases, one line each (any failure raises and exits non-zero):
      K4 and W-dflow on the first step's own 26 warp inputs against their
      twins, with profiler device ms per step beside the twins', the
      library calls' (F.grid_sample, aten.grid_sampler_2d_backward) and
-     the bound; the f32 pme step with the kernels against plain_ops();
+     the bound; K4 on its 12 inputs by its C = 3 route and by the quad
+     tiles the path took before it, each within 1e-5 of the largest value
+     of the twin's and of the other's f32 sums, then in turns in one
+     profiler window, per level and per step, the kernel, its zero-fill
+     and its cast apart; the f32 pme step with the kernels against plain_ops();
      one bf16 epe step on seeded ground truth (12 / 0 / 12) and its f32
      step against plain_ops(); then train.loop.run() with netType spynet
      on a 12-scene 320x640 RoamingImages set (1 epoch of 2 steps, the
@@ -216,7 +221,8 @@ Phases, one line each (any failure raises and exits non-zero):
      bound, and the bytes each feature-warp gather moves per rank; (a')
      the same at SPyNet's C = 3 bands (B=8 320x640, resolution levels
      1-6, SPyNet's levels 7-2: bands of 160 down to 5 rows), per rank
-     step 4 gathers, 2 K4 and 4 W-dflow a level; (b)
+     step 4 gathers, 2 K4 and 4 W-dflow a level, and K4 on band 1 by its
+     C = 3 route and by the quad tiles in turns, as in phase 10; (b)
      the flagship served at B=16 on data x spatial meshes of (1, 2) and
      (2, 2) slots of cuda:0 (threads) against the single-device
      estimator (phase 13 (d)'s tolerance; K1 10 and the gather 8 a slot;
@@ -359,6 +365,15 @@ flows, and the hard step's own K4 inputs; per call and per step, the
 blocks that take the window route and the kernel's device ms as the path
 chooses, with every block direct, and with the window wherever a
 block's box fits.
+
+    python3 chip_smoke.py --k4-c3
+
+runs, after phases 1-2, only K4's C = 3 routes against each other on the
+SPyNet pme step's own 12 K4 inputs (bf16, B=8 320x640 down to 10x20):
+the path's, the quad tiles', and the pixel kernel direct on every block
+and with the window wherever a box fits; each against the twin and the
+quad tiles, then in turns, per level and per step, the kernel, its
+zero-fill and its cast, beside aten.grid_sampler_2d_backward.
 """
 
 from __future__ import annotations
@@ -791,6 +806,10 @@ def phase_mma_builds() -> None:
                      warp_bwd_tiled_info("dimages_direct"),
                      "warp_bilinear_dimages_tiled_kernelI13__nv_bfloat16Li4ELb0ELb0E", ops=(),
                      prefixes=("RED", "ATOM"), required=("RED",))
+    mma_build_report("K4 bf16, C = 3 (warp_bilinear_dimages_pixels_kernel<bf16>)",
+                     warp_bwd_tiled_info("dimages_c3"),
+                     "warp_bilinear_dimages_pixels_kernelI13__nv_bfloat16E", ops=(),
+                     prefixes=("RED", "ATOM", "LDG"), required=("RED", "ATOMS"))
     mma_build_report("W-dflow bf16, C = 3 (warp_bilinear_dflow_rows_kernel<bf16>)",
                      warp_bwd_tiled_info("dflow_rows"),
                      "warp_bilinear_dflow_rows_kernelI13__nv_bfloat16E", ops=(),
@@ -1729,7 +1748,7 @@ def recording_k4_inputs(into: list):
 
 
 def k4_routes_ms(flow, g) -> dict:
-    """K4 on one input with each of its route settings (K4_ROUTES: as the
+    """K4 on one input with each of its route settings (K4_ROUTES[:3]: as the
     path allows them by the grid, direct on every block, the window
     wherever the box fits): per setting (window-route blocks, all blocks,
     ms). The three results agree within 1e-5 of the largest value (f32
@@ -1739,15 +1758,16 @@ def k4_routes_ms(flow, g) -> dict:
     from back2future_tpu_torch import ops
     from back2future_tpu_torch.ops.warp import K4_ROUTES
 
+    routes = K4_ROUTES[:3]
     res, got = {}, {}
-    for route in K4_ROUTES:
+    for route in routes:
         got[route], n_window, blocks = ops.warp_dimages_routes(flow, g, route)
         res[route] = (n_window, blocks, [])
     scale = max(got["direct"].abs().max().item(), 1e-30)
-    for route in K4_ROUTES:
+    for route in routes:
         if (got[route] - got["direct"]).abs().max().item() > 1e-5 * scale:
             raise AssertionError(f"K4's routes disagree: {route} against direct")
-    for route in K4_ROUTES + K4_ROUTES[::-1]:
+    for route in routes + routes[::-1]:
         t = device_ms(lambda: ops.warp_dimages_routes(flow, g, route), 20)
         res[route][2].append(sum(v for n, v in t.items() if "dimages_tiled" in n))
     return {r: (n, b, statistics.median(ms)) for r, (n, b, ms) in res.items()}
@@ -3265,6 +3285,180 @@ def phase_pipe_variants(card: str) -> None:
                       f"on {card}")
 
 
+# ------------------------------------------------------------------ K4 at C = 3
+
+# K4's routes at C = 3 timed against each other on the same inputs
+# (ops.K4_ROUTES): the path's (the pixel kernel) and the quad tiles as the
+# path took them before it, in the default run; with --k4-c3 also the
+# pixel kernel direct on every block and with the window wherever the box
+# fits
+K4_C3_ROUTES = ("grid", "quads")
+K4_C3_ALL = ("grid", "quads", "direct", "window")
+# two routes' f32 image gradients: sums in another order (atomics)
+K4_ROUTE_TOL = 1e-5                    # of the largest value
+K4_TURNS_PAD = 32                      # kernels before a turns window's calls
+
+
+def k4_route_turns(cases: list, routes: tuple, reps: int = 10, attempts: int = 3) -> list:
+    """K4 by each of `routes` on each of `cases` ((flow, g, h_src, y0))
+    through the path's wrapper (`ops.warp_dimages_route`: a zero-fill,
+    the kernel, one cast), in turns: `reps` / 2 profiler windows, each
+    case by every route in order and then each in reverse order in each
+    window. Returns per case a dict of route -> (kernel, zero-fill, cast)
+    device ms a call, means over `reps`. A window's device work is split
+    into calls in time order: a call starts with its zero-fill, then its
+    kernel (a name with "dimages") and its cast. A window that misses a
+    launch is logged and taken again at once, every other one tracing the
+    host's activity too (as `device_ms`; late in a long run the profiler
+    has left out some of a window's kernels); after `attempts` such
+    windows, each route is timed in a window of its own instead, in turns
+    (routes in order, then reversed), its device work split by kernel
+    name, and the log says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from back2future_tpu_torch import ops
+
+    order = [(i, r) for rep in range(2) for i in range(len(cases))
+             for r in (routes if rep == 0 else routes[::-1])]
+    family = {r: "dimages_tiled" if r == "quads" else "dimages_pixels" for r in routes}
+    pad = torch.empty(1 << 20, device="cuda")
+
+    def run(calls):
+        for i, r in calls:
+            flow, g, h_src, y0 = cases[i]
+            ops.warp_dimages_route(flow, g, r, h_src, y0)
+
+    def part(name: str) -> str:
+        return "fill" if "Fill" in name or "emset" in name else \
+            "kernel" if "dimages" in name else "cast"
+
+    def window(attempt: int):
+        """One window of `order`: its calls' (kernel, fill, cast) ms, or
+        None where it does not hold every call in order."""
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if attempt % 2 else [])
+        with profile(activities=activities) as prof:
+            # pads the window: late in the default run the profiler has
+            # left out a window's first 18 kernels, elsewhere its last one
+            for _ in range(K4_TURNS_PAD):
+                pad.neg_()
+            run(order)
+            pad.neg_()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and not e.is_user_annotation and "neg" not in e.name),
+                        key=lambda e: e.time_range.start)
+        calls = []
+        for e in events:
+            if part(e.name) == "fill":
+                calls.append({"fill": 0.0, "kernel": 0.0, "cast": 0.0, "names": []})
+            elif not calls:
+                break
+            calls[-1][part(e.name)] += e.time_range.elapsed_us() / 1e3
+            calls[-1]["names"].append(e.name)
+        if len(calls) == len(order) and all(
+                sum(family[r] in n for n in c["names"]) == 1 for c, (_, r) in zip(calls, order)):
+            return calls
+        log("profiler", f"window {attempt + 1} of K4's routes held {len(calls)} of "
+                        f"{len(order)} calls in order ({len(events)} device events, the first "
+                        f"{[e.name[:40] for e in events[:3]]}); taking it again")
+        return None
+
+    run(order)
+    torch.cuda.synchronize()
+    out = [{r: [0.0, 0.0, 0.0] for r in routes} for _ in cases]
+    for _ in range(reps // 2):
+        calls = next((c for c in map(window, range(attempts)) if c is not None), None)
+        if calls is None:
+            break
+        for c, (i, r) in zip(calls, order):
+            for j, key in enumerate(("kernel", "fill", "cast")):
+                out[i][r][j] += c[key] / (2 * (reps // 2))
+    else:
+        return out
+    log("profiler", f"no window of K4's routes held every call in order in {attempts}; each "
+                    f"route in a window of its own instead, in turns")
+    out = [{r: [0.0, 0.0, 0.0] for r in routes} for _ in cases]
+    for i, (flow, g, h_src, y0) in enumerate(cases):
+        for r in routes + routes[::-1]:
+            by_name = device_ms(lambda: ops.warp_dimages_route(flow, g, r, h_src, y0), reps)
+            for name, ms in by_name.items():
+                out[i][r][("kernel", "fill", "cast").index(part(name))] += ms / 2
+    return out
+
+
+def k4_c3_routes(card: str, where: str, cases: list, per: int, routes: tuple = K4_C3_ROUTES,
+                 library_ms=None, twin_ms=None) -> dict:
+    """K4 at C = 3 by `routes` on `cases` ((flow, g, h_src, y0), all
+    bf16, C = 3; `per` launches of each a unit, a step): each route's f32
+    image gradient within KERNEL_TOL[f32] of the largest value of the
+    twin's (both sum in f32) and within K4_ROUTE_TOL of the quad tiles'
+    (`ops.warp_dimages_routes`,
+    which also counts the blocks that took the window route); then the
+    routes in turns (`k4_route_turns`), per level and per unit: the
+    kernel, its zero-fill and cast, and their sum, beside `library_ms`
+    and `twin_ms` (the library call's and the twin's ms a unit, where
+    given), and the seconds all this took. Returns per route (kernel,
+    zero-fill, cast, sum) ms a unit."""
+    from back2future_tpu_torch import ops
+
+    began = time.time()
+    tol = KERNEL_TOL[torch.float32]
+    windowed = {r: [0, 0] for r in routes}
+    worst = {r: 0.0 for r in routes}
+    for flow, g, h_src, y0 in cases:
+        twin = ops.warp_dimages_reference(flow, g.float(), h_src, y0)
+        scale = max(1.0, twin.abs().max().item())
+        got = {}
+        for r in dict.fromkeys(routes + ("quads",)):
+            got[r], n_window, blocks = ops.warp_dimages_routes(flow, g, r, h_src, y0)
+            err = (got[r] - twin).abs().max().item()
+            if r in windowed:
+                windowed[r][0] += per * n_window
+                windowed[r][1] += per * blocks
+                worst[r] = max(worst[r], err)
+            if err > tol * scale:
+                raise AssertionError(f"K4 route {r} on {tuple(g.shape)} y0 {y0}: {err:.3e} off "
+                                     f"the twin (tol {tol * scale:.3e})")
+        ref = got["quads"]
+        big = max(ref.abs().max().item(), 1e-30)
+        for r in routes:
+            if (got[r] - ref).abs().max().item() > K4_ROUTE_TOL * big:
+                raise AssertionError(f"K4 route {r} on {tuple(g.shape)} y0 {y0}: off the quad "
+                                     f"tiles' by more than {K4_ROUTE_TOL} of the largest value")
+    times = k4_route_turns(cases, routes)
+    levels = {}
+    for (flow, g, _, _), t in zip(cases, times):
+        key = "x".join(map(str, g.shape))
+        for r in routes:
+            acc = levels.setdefault(key, {}).setdefault(r, [0.0, 0.0, 0.0])
+            for j in range(3):
+                acc[j] += per * t[r][j]
+
+    def words(ms: dict) -> str:
+        return "; ".join(f"{r} {sum(v):.4f} (kernel {v[0]:.4f}, zero-fill {v[1]:.4f}, cast "
+                         f"{v[2]:.4f})" for r, v in ms.items())
+
+    for key, ms in levels.items():
+        log("k4c3", f"{where}, level {key} (bf16, {per} launches a unit per input), ms a unit "
+                    f"(profiler, in turns): {words(ms)}")
+    total = {r: [sum(levels[k][r][j] for k in levels) for j in range(3)] for r in routes}
+    lib = ""
+    if library_ms is not None:
+        below = "below" if sum(total[routes[0]]) < library_ms else "NOT below"
+        lib = (f", aten.grid_sampler_2d_backward {library_ms:.4f} (the {routes[0]} route with "
+               f"its zero-fill and cast {below} it)")
+    if twin_ms is not None:
+        lib += f", the twin {twin_ms:.4f}"
+    log("k4c3", f"{where}, per unit ({len(cases)} inputs x {per}), ms (profiler, in turns): "
+                f"{words(total)}{lib}; window-route blocks " + ", ".join(
+                    f"{r} {n} of {b}" for r, (n, b) in windowed.items())
+                + "; max_abs_err vs the twin " + ", ".join(
+                    f"{r} {e:.3e}" for r, e in worst.items())
+                + f"; {time.time() - began:.1f} s; on {card}")
+    return {r: (*v, sum(v)) for r, v in total.items()}
+
+
 # ------------------------------------------------------------------ SPyNet
 
 def spynet_kernels(card: str, calls: list, dev) -> dict:
@@ -3344,7 +3538,46 @@ def spynet_kernels(card: str, calls: list, dev) -> dict:
                           f"{n[:40]} {v:.4f}" for n, v in sorted(by_name.items(),
                                                                  key=lambda kv: -kv[1]))
                       + f"); on {card}")
+    # K4 by its C = 3 route and by the quad tiles, in turns
+    k4 = [(calls[i][1], grads[i], -1, 0) for i in which["warp_bilinear_dimages"]]
+    s = summary["warp_bilinear_dimages"]
+    summary["k4_routes"] = k4_c3_routes(card, "spynet pme step's own K4 inputs", k4, 1,
+                                        library_ms=s["library_ms"], twin_ms=s["plain_ms"])
     return summary
+
+
+def spynet_pme_inputs(dev) -> list:
+    """The 26 warp inputs (images, flow, whether the images need a
+    gradient) of the first bf16 SPyNet pme step (B=8 320x640, seed-0
+    weights) on phase 10's batch, as `spynet_kernels` takes them."""
+    from back2future_tpu_torch.losses import build_criterions
+    from back2future_tpu_torch.train import create_train_state, make_train_step
+
+    opt = train_options("bfloat16", soft=False, netType="spynet")
+    net = spynet_network(opt, dev)
+    step = make_train_step(net, opt, build_criterions(opt))
+    calls = []
+    with recording_gather_inputs(calls):
+        train_steps("spynet pme", step, create_train_state(net, opt), train_batch(dev), 1,
+                    SPY_PME_PER_STEP)
+    return calls
+
+
+def phase_k4_c3(card: str, dev) -> None:
+    """K4's C = 3 routes against each other (K4_C3_ALL) on the SPyNet
+    pme step's own 12 K4 inputs, per level and per step (`k4_c3_routes`),
+    beside aten.grid_sampler_2d_backward's input gradient."""
+    calls = spynet_pme_inputs(dev)
+    rng = np.random.default_rng(6)
+    grads = [torch.from_numpy(rng.standard_normal(img.shape).astype(np.float32)).to(dev, img.dtype)
+             for img, _, _ in calls]
+    k4 = [(img, flow, g) for (img, flow, need), g in zip(calls, grads) if need]
+    grids = [grid_of(flow) for _, flow, _ in k4]
+    lib = device_total_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(
+        nchw(g), nchw(img), grid, 0, 1, True, [True, False]) for (img, _, g), grid in zip(k4, grids)],
+        10)
+    k4_c3_routes(card, "spynet pme step's own K4 inputs", [(flow, g, -1, 0) for _, flow, g in k4],
+                 1, K4_C3_ALL, lib)
 
 
 def spynet_network(opt, dev):
@@ -3421,7 +3654,6 @@ def phase_spynet(card: str, dev) -> dict:
     opt = train_options("bfloat16", soft=False, netType="spynet")
     batch = train_batch(dev)
     net = spynet_network(opt, dev)
-    init = {k: v.clone() for k, v in net.state_dict().items()}
     step = make_train_step(net, opt, build_criterions(opt))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3443,10 +3675,7 @@ def phase_spynet(card: str, dev) -> dict:
                   f"{TRAIN_B / step_ms * 1e3:.2f} triplets/s trained, peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
     # the warp kernels on the first step's own inputs
-    calls = []
-    net.load_state_dict(init)
-    with recording_gather_inputs(calls):
-        train_steps("spynet pme", step, create_train_state(net, opt), batch, 1, SPY_PME_PER_STEP)
+    calls = spynet_pme_inputs(dev)
     if len(calls) != SPY_PME_PER_STEP["b2f_warp_bilinear_fwd"] or sum(
             c[2] for c in calls) != SPY_PME_PER_STEP["b2f_warp_bilinear_dimages"]:
         raise AssertionError(f"spynet: recorded {len(calls)} warps, "
@@ -4607,6 +4836,14 @@ def phase_spatial_kernels(card: str, dev) -> dict:
                            f"{ms:.4f} ms, twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
                            f"{entry['bound_ms']:.4f} ms (bytes {bytes_s * 1e3:.4f}, operations "
                            f"{ops_s * 1e3:.4f}); max_abs_err {entry['err']:.3e}; on {card}")
+        if path == "spynet":
+            # K4 by its C = 3 route and by the quad tiles, in turns
+            summary[path, "k4_routes"] = k4_c3_routes(
+                card, "(a') spynet pme rank step, band 1", [
+                    (c["flow"], c["g"], c["h_src"], c["y0"]) for c in timed],
+                per_level["warp_bilinear_dimages"],
+                library_ms=summary[path, "warp_bilinear_dimages"]["library_ms"],
+                twin_ms=summary[path, "warp_bilinear_dimages"]["plain_ms"])
         # the bytes each gather of a warp's source moves per rank (the
         # feature warps'; SPyNet's output warps'): the other slots' bands
         # of the whole level, received (gloo: through host memory)
@@ -5071,6 +5308,9 @@ def main() -> None:
     if "--k4-routes" in sys.argv[1:]:
         with stem(False):
             phase_k4_routes(card, dev)
+        return
+    if "--k4-c3" in sys.argv[1:]:
+        phase_k4_c3(card, dev)
         return
     summary = phase_kernels(dev)
     with stem(False):

@@ -640,6 +640,130 @@ def test_warp_dimages_route_by_grid(cuda, level):
     close_to_scale(got, want.float(), torch.bfloat16)
 
 
+# K4 at C = 3, the pixel kernel: SPyNet's pme step's image warps (levels
+# 7-2 of 320x640; B=2 at the full size, 8 elsewhere)
+SPY_LEVELS = [(2 if j == 0 else 8, 320 >> j, 640 >> j) for j in range(6)]
+
+
+def shifted_rand(shape, seed, device, dtype, offset):
+    """`rand` of `shape`, `offset` elements into a buffer of its own (1:
+    the pixels' first elements at the other parity, g's pairs unaligned
+    where they were aligned)."""
+    buf = rand((int(np.prod(shape)) + offset,), seed, device, dtype)
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("kind", ["random", "smooth", "outliers"])
+@pytest.mark.parametrize("level", range(6))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_dimages_c3_matches_twin(cuda, dtype, level, kind, offset):
+    """The op at C = 3 (the pixel kernel, one launch) against the twin at
+    SPyNet's six level shapes, with g aligned and at an odd element
+    offset."""
+    b, h, w = SPY_LEVELS[level]
+    g = shifted_rand((b, h, w, 3), 80 + level, cuda, dtype, offset)
+    flow = warp_flow(kind, (b, h, w), 81 + level, cuda, dtype)
+    reset_launches()
+    got = torch.ops.b2f.warp_dimages(flow, g)
+    assert KERNELS["b2f_warp_bilinear_dimages"].launches == 1
+    assert got.shape == g.shape and got.dtype == dtype and got.is_contiguous()
+    close_to_scale(got, ops.warp_dimages_reference(flow, g), dtype)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "random8", "outliers"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_dimages_c3_row_windows(cuda, dtype, kind):
+    """The pixel kernel's row window: bands of 60 rows (y0 = 0, 60, 120)
+    of a 180-row image, each against the twin with the same window, and
+    summed against the whole image's gradient; by every C = 3 route."""
+    h, w = 180, 200
+    flow = warp_flow(kind, (2, h, w), 82, cuda, dtype)
+    g = rand((2, h, w, 3), 83, cuda, dtype)
+    whole = ops.warp_dimages_reference(flow, g.float())
+    for route in ("grid", "direct", "window", "quads"):
+        total = torch.zeros_like(whole)
+        for y0 in (0, 60, 120):
+            fl, gb = flow[:, y0:y0 + 60].contiguous(), g[:, y0:y0 + 60].contiguous()
+            got, _, _ = ops.warp_dimages_routes(fl, gb, route, h, y0)
+            assert got.shape == (2, h, w, 3)
+            close_to_scale(got, ops.warp_dimages_reference(fl, gb.float(), h, y0),
+                           torch.float32)
+            if route == "grid":
+                close_to_scale(torch.ops.b2f.warp_dimages(fl, gb, h, y0),
+                               ops.warp_dimages_reference(fl, gb, h, y0), dtype)
+            total += got
+        close_to_scale(total, whole, torch.float32)
+
+
+@pytest.mark.parametrize("kind", WARP_FLOWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_dimages_c3_routes_agree(cuda, dtype, kind):
+    """Every C = 3 route against the quad tiles on the same input, f32
+    sums in another order: 1e-5 of the largest value; and through the
+    path's wrapper in g's dtype."""
+    shape = (8, 80, 160)
+    g = rand(shape + (3,), 84, cuda, dtype)
+    flow = warp_flow(kind, shape, 85, cuda, dtype)
+    old, _, _ = ops.warp_dimages_routes(flow, g, "quads")
+    for route in ("grid", "direct", "window"):
+        got, _, _ = ops.warp_dimages_routes(flow, g, route)
+        torch.testing.assert_close(got, old, rtol=1e-5, atol=1e-5 * old.abs().max().item())
+        out = ops.warp_dimages_route(flow, g, route)
+        assert out.dtype == dtype and out.shape == g.shape and out.is_contiguous()
+        close_to_scale(out, old, dtype)
+
+
+@pytest.mark.parametrize("kind", ["zero", "smooth", "far"])
+@pytest.mark.parametrize("shape", [(1, 7, 13), (2, 9, 35), (1, 3, 2)])
+def test_warp_dimages_c3_odd_sizes(cuda, shape, kind):
+    """Pixel counts and rows that are not multiples of 4, by every route
+    of the pixel kernel, in f32: far flows pile every add on the last
+    pixel, whose group of 4 in the window's flush reaches past the
+    accumulator's end."""
+    flow = warp_flow("random8" if kind == "far" else kind, shape, 90, cuda, torch.float32)
+    if kind == "far":
+        flow = flow + torch.tensor([3.0 * shape[2], 3.0 * shape[1]], device=cuda)
+    g = rand(shape + (3,), 91, cuda)
+    want = ops.warp_dimages_reference(flow, g)
+    for route in ("grid", "direct", "window"):
+        got, n_window, blocks = ops.warp_dimages_routes(flow, g, route)
+        assert n_window == (blocks if route == "window" else 0)
+        close_to_scale(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("level", range(6))
+def test_warp_dimages_c3_route_counts(cuda, level):
+    """The routes' block counts at C = 3 on smooth flows: the pixel kernel
+    has a block a 8x32 tile of each image; the path lets them take the
+    window route where its grid holds half a block an SM or more, and
+    then every block does (their boxes fit); direct on every block none,
+    the window wherever it fits all; the quad tiles, 16x16, as before."""
+    b, h, w = SPY_LEVELS[level]
+    g = rand((b, h, w, 3), 86, cuda, torch.bfloat16)
+    flow = warp_flow("smooth", (b, h, w), 87, cuda, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    blocks = b * -(-h // 8) * -(-w // 32)
+    _, n_path, n = ops.warp_dimages_routes(flow, g)
+    assert n == blocks and n_path == (blocks if 2 * blocks >= sms else 0)
+    assert ops.warp_dimages_routes(flow, g, "direct")[1:] == (0, blocks)
+    assert ops.warp_dimages_routes(flow, g, "window")[1:] == (blocks, blocks)
+    _, _, n_quads = ops.warp_dimages_routes(flow, g, "quads")
+    assert n_quads == b * -(-h // 16) * -(-w // 16)
+
+
+@pytest.mark.parametrize("c", [4, 32])
+def test_warp_dimages_quads_route_is_the_path_off_c3(cuda, c):
+    """Off C = 3 the "quads" route is the path's: the quad tiles by their
+    grid, the same blocks and the same sums up to their order."""
+    g = rand((2, 48, 64, c), 88, cuda)
+    flow = warp_flow("smooth", (2, 48, 64), 89, cuda, torch.float32)
+    got, n_window, blocks = ops.warp_dimages_routes(flow, g, "quads")
+    want, n_path, n = ops.warp_dimages_routes(flow, g)
+    assert (n_window, blocks) == (n_path, n) == (n_path, 2 * 3 * 4 * -(-c // 32))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("c", [3, 32])
 def test_warp_backward_thread_kernels_match_twin(cuda, dtype, c):
@@ -656,17 +780,23 @@ def test_warp_backward_thread_kernels_match_twin(cuda, dtype, c):
         close_to_scale(a, b, dtype)
 
 
-@pytest.mark.parametrize("kernel", ["dimages", "dflow_rows", "dflow_lanes", "dimages_direct"])
+@pytest.mark.parametrize("kernel", ["dimages", "dflow_rows", "dflow_lanes", "dimages_direct",
+                                    "dimages_c3"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_warp_bwd_tiled_kernel_info(cuda, dtype, kernel):
     info = ops.warp_bwd_tiled_info(kernel, dtype)
     assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0, info
     # K4 in bf16, the model's dtype, keeps 4 blocks on an SM (f32's packs
-    # take twice the registers); W-dflow's lane groups hold 5 packs a lane
+    # take twice the registers); W-dflow's lane groups hold 5 packs a lane;
+    # K4's C = 3 kernel, a pixel a thread, keeps 6 blocks of 256 threads on
+    # an SM (40 registers), its window 6 KB of shared memory
     k4 = 4 if dtype == torch.bfloat16 else 2
-    want = {"dimages": k4, "dimages_direct": k4, "dflow_rows": 4, "dflow_lanes": 3}
+    want = {"dimages": k4, "dimages_direct": k4, "dflow_rows": 4, "dflow_lanes": 3,
+            "dimages_c3": 6}
     assert info["blocks_per_sm"] >= want[kernel], info
     assert (info["smem_bytes"] > 0) == (kernel != "dflow_lanes"), info
+    if kernel == "dimages_c3":
+        assert info["smem_bytes"] <= 7 << 10, info
 
 
 def test_warp_image_grad_kernel_only_where_needed(cuda):

@@ -23,6 +23,23 @@ shows here. K4, the image gradient:
   where no add lands or the sum is all 0;
 - direct route: each (pixel, quad) adding its 4 corners straight into the
   image gradient.
+K4 at C = 3, its own pixel kernel:
+- a block owns a TH3 x TW3 tile, thread t pixel (t / TW3, t % TW3); its g
+  read as a pair and an element (the pair first where the pixel's first
+  element is pair-aligned, else last), its flow as a pair;
+- the launch allows the window route where its grid holds half a block
+  an SM or more; then a block whose box holds at most WINDOW3 pixels sums
+  every add that is not 0 into a channel-major f32 window (shared
+  atomics); else each pixel adds its 4 corners directly;
+- the direct route's adds of a pixel's 3 values, none where all are 0,
+  into the f32 accumulator of 3 channels a pixel: an 8-byte-aligned pair
+  and an element; the window's flush: each window row a run of pixels,
+  each group of 4 pixels that a run touches as 3 16-byte-aligned
+  reductions (none for 4 floats that are all 0), pixel by pixel where
+  the group reaches past the accumulator's end; then one pass that
+  casts;
+- the row window: a flow and g of rows y0 .. y0 + h - 1 of images of
+  H_src rows.
 W-dflow, the flow gradient:
 - C = 3: one thread per pixel; a block's g staged as 3 * NT_FLOW
   contiguous elements; each corner pair (tl, tr) or (bl, br) read as one
@@ -69,6 +86,10 @@ def close(got, want):
 
 NT_FLOW = 128        # W-dflow's threads per block
 CONSTANTS.update(NT_FLOW=NT_FLOW)
+TH3, TW3 = 8, 32     # K4's C = 3 tile, a thread a pixel
+NT3 = TH3 * TW3
+WINDOW3 = 2 * NT3
+CONSTANTS.update(TH3=TH3, TW3=TW3)
 
 # 28 x 80 leaves partial tiles and holds more than WINDOW_PIX pixels, so
 # that flows can spread past the window
@@ -291,8 +312,14 @@ def test_plan_constants_are_the_kernels():
     for name, value in CONSTANTS.items():
         assert re.search(rf"constexpr int [^;]*\b{name} = {value}[,;]", src), name
     for line in ("constexpr int QS = CS / 4;", "constexpr int PIX = NT / QS;",
-                 "constexpr int WINDOW_PIX = 2 * TP;", "return 2 * blocks >= 3LL * sms;"):
+                 "constexpr int WINDOW_PIX = 2 * TP;", "constexpr int NT3 = TH3 * TW3;",
+                 "constexpr int WINDOW3 = 2 * NT3;"):
         assert line in src, line
+    # the window rules of the quad tiles and of the C = 3 kernel
+    for rule, line in (("window_pays", "return sms > 0 && 2 * blocks >= 3LL * sms;"),
+                       ("pixels_window_pays", "return sms > 0 && 2 * blocks >= sms;")):
+        body = re.search(rf"bool {rule}\(long long blocks\) \{{(.*?)\n\}}", src, re.S)
+        assert body and line in body.group(1), rule
 
 
 def test_k4_lanes_cover_the_tile_once():
@@ -376,3 +403,238 @@ def test_k4_window_allowed_at_the_train_levels():
              for lv, c in zip(range(3, 7), (32, 64, 96, 128))]
     assert grids == [400, 240, 144, 64]
     assert [k4_window_allowed(n, 132) for n in grids] == [True, True, False, False]
+
+
+# ------------------------------------------------------------ K4 at C = 3
+
+def pixel3_loads(first: int):
+    """load_pixel3's loads of a pixel whose first element is at element
+    `first` of an aligned buffer: (element, count) each, the pair first
+    where `first` is even."""
+    return [(first, 2), (first + 2, 1)] if first % 2 == 0 else [(first, 1), (first + 1, 2)]
+
+
+def pixel3_adds(q: int):
+    """add_pixel3's reductions at pixel q of the 3-channel accumulator:
+    (float index, count) each."""
+    return [(3 * q, 2), (3 * q + 2, 1)] if q % 2 == 0 else [(3 * q, 1), (3 * q + 1, 2)]
+
+
+def c3_blocks(b: int, h: int, w: int) -> int:
+    return b * -(-h // TH3) * -(-w // TW3)
+
+
+def c3_window_allowed(blocks: int, sms: int) -> bool:
+    """The C = 3 launch's rule: the window route where the grid holds half
+    a block an SM or more."""
+    return 2 * blocks >= sms
+
+
+def k4_c3_model(flow: torch.Tensor, g: torch.Tensor, h_src: int = -1, y0: int = 0,
+                sms: int = 1, window=None):
+    """K4's C = 3 kernel, block by block and thread by thread, on a card
+    of `sms` SMs; `window` None as the launch allows it (by the grid),
+    True wherever the box fits, False direct on every block: (the image
+    gradient in g's dtype, the f32 accumulator, the route of each
+    block)."""
+    b, h, w, c = g.shape
+    assert c == 3
+    hs = h if h_src < 0 else h_src
+    if window is None:
+        window = c3_window_allowed(c3_blocks(b, h, w), sms)
+    (x0, y0c, x1, y1), (wx, wy), (x1_in, y1_in), _ = _corners(flow, hs, w, y0)
+    flat_g = g.reshape(-1)
+    acc = torch.zeros(b * hs * w * 3)
+    routes = []
+
+    npix = b * hs * w
+
+    def flush(q: int, v: torch.Tensor) -> None:
+        if not bool((v != 0).any()):
+            return
+        for at, n in pixel3_adds(q):
+            assert at % n == 0   # 8-byte aligned
+            acc[at:at + n] += v[at - 3 * q:at - 3 * q + n]
+
+    def flush_window(sums: torch.Tensor, src0: int, ylo: int, xlo: int, ww: int,
+                     wpix: int) -> None:
+        """flush_window3: thread t takes items t, t + NT3, ..."""
+        covered = []
+        per_row = (ww + 6) // 4
+        for t in range(NT3):
+            for item in range(t, wpix // ww * per_row, NT3):
+                r = item // per_row
+                q0 = src0 + (ylo + r) * w + xlo
+                gq = (q0 // 4 + item - r * per_row) * 4
+                if gq >= q0 + ww:
+                    continue
+                v = torch.zeros(12)
+                for i in range(4):
+                    if 0 <= gq + i - q0 < ww:
+                        v[3 * i:3 * i + 3] = sums[r * ww + gq + i - q0]
+                        covered.append(r * ww + gq + i - q0)
+                if gq + 4 <= npix:
+                    for j in range(3):
+                        if bool((v[4 * j:4 * j + 4] != 0).any()):
+                            assert (3 * gq + 4 * j) % 4 == 0   # 16-byte aligned
+                            acc[3 * gq + 4 * j:3 * gq + 4 * j + 4] += v[4 * j:4 * j + 4]
+                else:
+                    for i in range(4):
+                        if gq + i < npix:
+                            flush(gq + i, v[3 * i:3 * i + 3])
+        assert sorted(covered) == list(range(wpix)), "each window pixel flushed once"
+
+    for bi in range(b):
+        for ty0 in range(0, h, TH3):
+            for tx0 in range(0, w, TW3):
+                ts = torch.arange(NT3)
+                ys, xs = ty0 + ts // TW3, tx0 + ts % TW3
+                live = (ys < h) & (xs < w)
+                ys, xs = ys[live], xs[live]
+                # each thread's g by its loads; its corners and weights
+                p = (bi * h + ys) * w + xs
+                gv = torch.stack([torch.cat([flat_g[e:e + n] for e, n in pixel3_loads(3 * int(q))])
+                                  for q in p])
+                assert torch.equal(gv, g[bi, ys, xs])
+                cx0, cy0, cx1, cy1 = (v[bi, ys, xs] for v in (x0, y0c, x1, y1))
+                twx, twy = wx[bi, ys, xs], wy[bi, ys, xs]
+                tx1, ty1 = x1_in[bi, ys, xs], y1_in[bi, ys, xs]
+                ins = [torch.ones_like(tx1), tx1, ty1, tx1 & ty1]
+                weights = [twx * twy, (1 - twx) * twy, twx * (1 - twy), (1 - twx) * (1 - twy)]
+                weights = [torch.where(i, wt, 0.0) for i, wt in zip(ins, weights)]
+                cy = [cy0, cy0, cy0 + 1, cy0 + 1]
+                cx = [cx0, cx0 + 1, cx0, cx0 + 1]
+                ylo, yhi, xlo, xhi = cy0.min(), cy1.max(), cx0.min(), cx1.max()
+                ww = int(xhi - xlo + 1)
+                wpix = int(yhi - ylo + 1) * ww
+                src0 = bi * hs * w
+                if not window or wpix > WINDOW3:
+                    routes.append("direct")
+                    for j in range(4):
+                        for i in ins[j].nonzero().flatten().tolist():
+                            flush(src0 + int(cy[j][i]) * w + int(cx[j][i]), weights[j][i] * gv[i])
+                    continue
+                routes.append("window")
+                at = [(cy[j] - ylo) * ww + cx[j] - xlo for j in range(4)]
+                # f32 shared atomics into a channel-major window, none that
+                # adds 0
+                win = torch.zeros(3, WINDOW3)
+                for j in range(4):
+                    v = weights[j][:, None] * gv
+                    keep = ins[j] & (v != 0).any(1)
+                    win.index_add_(1, at[j][keep], v[keep].T)
+                sums = win[:, :wpix].T
+                flush_window(sums, src0, int(ylo), int(xlo), ww, wpix)
+    acc = acc.view(b, hs, w, 3)
+    return acc.to(g.dtype), acc, routes
+
+
+# the routes of the C = 3 kernel: the window wherever the box fits, or
+# direct on every block
+C3_ROUTES = {"window": True, "direct": False}
+
+
+def test_c3_window_fits_the_shared_memory():
+    """The window's f32 sums, 3 channels of WINDOW3 pixels, fit the 7 KB
+    that the kernel's build report allows (`test_warp_bwd_tiled_kernel_info`)."""
+    assert WINDOW3 == 2 * NT3 and 3 * WINDOW3 * 4 <= 7 << 10
+
+
+@pytest.mark.parametrize("first", range(6))
+def test_c3_pixel_loads_cover_the_pixel_once(first):
+    loads = pixel3_loads(first)
+    assert sorted(e for at, n in loads for e in range(at, at + n)) == [first, first + 1, first + 2]
+    assert all(at % 2 == 0 for at, n in loads if n == 2), "pairs aligned"
+
+
+@pytest.mark.parametrize("q", range(6))
+def test_c3_pixel_adds_cover_the_channels_once(q):
+    adds = pixel3_adds(q)
+    assert sorted(e for at, n in adds for e in range(at, at + n)) == list(range(3 * q, 3 * q + 3))
+    assert all(at % n == 0 for at, n in adds), "8- or 4-byte aligned"
+
+
+@pytest.mark.parametrize("route", C3_ROUTES)
+@pytest.mark.parametrize("kind", FLOWS)
+def test_k4_c3_plan_matches_twin_and_jax(jax_grads, kind, route):
+    img, flow, g = inputs(3, kind)
+    got, acc, routes = k4_c3_model(torch.from_numpy(flow), torch.from_numpy(g),
+                                   window=C3_ROUTES[route])
+    twin, _ = ops.warp_bilinear_backward_reference(*map(torch.from_numpy, (img, flow, g)))
+    close(got.numpy(), twin.numpy())
+    close(got.numpy(), jax_grads[(3, kind)][0])
+    assert len(routes) == c3_blocks(B, H, W)
+    want = {"zero": {"window"}, "smooth": {"window"}, "far": {"window"},
+            "random": {"direct"}, "outliers": {"window", "direct"}}[kind]
+    assert set(routes) == (want if route == "window" else {"direct"}), routes
+
+
+@pytest.mark.parametrize("kind", ["smooth", "random", "outliers"])
+def test_k4_c3_plan_direct_and_by_grid(jax_grads, kind):
+    """Direct on every block, and by the grid on an H100's 132 SMs (24
+    blocks, fewer than half a block an SM: direct): the same image
+    gradient."""
+    img, flow, g = inputs(3, kind)
+    flow, g = torch.from_numpy(flow), torch.from_numpy(g)
+    direct, _, routes = k4_c3_model(flow, g, window=False)
+    assert set(routes) == {"direct"}
+    by_grid, _, routes = k4_c3_model(flow, g, sms=132)
+    assert set(routes) == {"direct"} and torch.equal(by_grid, direct)
+    close(direct.numpy(), jax_grads[(3, kind)][0])
+
+
+@pytest.mark.parametrize("route", C3_ROUTES)
+@pytest.mark.parametrize("kind", ["smooth", "random", "outliers"])
+def test_k4_c3_plan_row_window(kind, route):
+    """Bands of 10, 9 and 9 rows of the 28-row images (y0 = 0, 10, 19)
+    against the twin with the same window, and summed against the whole
+    image's gradient."""
+    img, flow, g = map(torch.from_numpy, inputs(3, kind))
+    whole = ops.warp_dimages_reference(flow, g)
+    total = torch.zeros_like(whole)
+    for y0, y1 in ((0, 10), (10, 19), (19, H)):
+        fl, gb = flow[:, y0:y1].contiguous(), g[:, y0:y1].contiguous()
+        got, _, _ = k4_c3_model(fl, gb, H, y0, window=C3_ROUTES[route])
+        assert got.shape == (B, H, W, 3)
+        close(got.numpy(), ops.warp_dimages_reference(fl, gb, H, y0).numpy())
+        total += got
+    close(total.numpy(), whole.numpy())
+
+
+@pytest.mark.parametrize("route", C3_ROUTES)
+@pytest.mark.parametrize("kind", ["zero", "smooth", "far"])
+@pytest.mark.parametrize("shape", [(1, 7, 13), (2, 9, 35), (1, 3, 2)])
+def test_k4_c3_plan_odd_sizes(shape, kind, route):
+    """Images whose pixel count is not a multiple of 4, and rows that are
+    not: far flows pile every add on the last pixel, whose group of 4
+    reaches past the accumulator's end."""
+    rng = np.random.default_rng(sum(shape))
+    flow = torch.from_numpy(rng.standard_normal(shape + (2,)).astype(np.float32))
+    flow = {"zero": flow * 0, "smooth": flow * 0.5,
+            "far": flow + torch.tensor([3.0 * shape[2], 3.0 * shape[1]])}[kind]
+    g = torch.from_numpy(rng.standard_normal(shape + (3,)).astype(np.float32))
+    got, _, routes = k4_c3_model(flow, g, window=C3_ROUTES[route])
+    assert set(routes) == {route}
+    close(got.numpy(), ops.warp_dimages_reference(flow, g).numpy())
+
+
+def test_k4_c3_plan_bf16_cast():
+    """bf16 g: the accumulator sums in f32 and the one pass rounds it to
+    bf16 once, as the twin does."""
+    _, flow, g = inputs(3, "smooth")
+    flow, g = torch.from_numpy(flow).bfloat16(), torch.from_numpy(g).bfloat16()
+    got, acc, _ = k4_c3_model(flow, g, window=True)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, acc[..., :3].bfloat16())
+    twin = ops.warp_dimages_reference(flow, g)
+    np.testing.assert_allclose(got.float().numpy(), twin.float().numpy(), rtol=1e-2,
+                               atol=1e-2 * twin.float().abs().max().item())
+
+
+def test_k4_c3_window_allowed_at_the_spynet_levels():
+    """SPyNet's pme step (B=8, 320x640 down to 10x20) on an H100's 132
+    SMs: 6400, 1600, 400, 120, 48 and 16 blocks; the window route allowed
+    at the four finest levels, where it was measured to be the faster,
+    not at 20x40 and 10x20."""
+    grids = [c3_blocks(8, 320 >> j, 640 >> j) for j in range(6)]
+    assert grids == [6400, 1600, 400, 120, 48, 16]
+    assert [c3_window_allowed(n, 132) for n in grids] == [True, True, True, True, False, False]
