@@ -30,7 +30,9 @@ Layering, from the entry point down to the device:
               checkpoints (torch files; the JAX package's msgpack pairs
               read too), the train and eval steps, metrics, multi-scale
               loss, optimiser chain, TrainState
-  utils     — SymbolLogger / TeeLogger, StepTimer, maybe_profile
+  utils     — SymbolLogger / TeeLogger, StepTimer, maybe_profile, span
+              (the layer boundaries on the profiler's clock: the train step's
+              phases, the nets' pyramid, decode and levels) and its table
   data, io  — the host data pipeline and flow files
   losses    — the criteria of the hard and soft recipes, reference
               gradients as autograd Functions

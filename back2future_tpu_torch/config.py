@@ -10,9 +10,12 @@ picks the device of `train.loop.run`: "", "gpu" or "cuda" mean the card
 (`cuda:{GPU-1}`), "cpu" asks for the CPU; `nGPU` the ranks `run`
 starts, and `mesh_shape`/`mesh_axes` the JAX mesh's layout of them: a
 `data` axis, and optionally a `spatial` one that shards image rows
-(train/loop.py). `trace_dir` is read only by `utils.maybe_profile`, and
-`use_pallas` means nothing to the port and is kept only so option sets
-round-trip.
+(train/loop.py). `trace_dir`, where given, has `run` trace steps 2-4 of
+its first epoch (one step of warm-up, then three: `train.loop.TRACED_STEPS`)
+on rank 0 with `utils.maybe_profile` and write them, the step's and the
+net's spans included (`utils.span`), to `<trace_dir>/trace.json` (a
+Chrome trace: chrome://tracing, Perfetto). `use_pallas` means nothing to
+the port and is kept only so option sets round-trip.
 `parse_args` is the training CLI's front end (back2future_tpu/config.py:234).
 """
 
@@ -112,7 +115,7 @@ class Options:
     platform: str = ""               # "", "gpu", "cuda": the card; "cpu"
     datasets_dir: str = "datasets"   # manifest directory (donkey.lua:78)
     data_root: str = ""              # replaces [PATH] in manifests (README.md:76-80)
-    trace_dir: str = ""              # torch.profiler trace directory (maybe_profile)
+    trace_dir: str = ""              # trace of the first epoch's steps 2-4 (train/loop.py)
     compute_dtype: str = "bfloat16"  # conv/matmul compute dtype
     param_dtype: str = "float32"
     mesh_shape: Tuple[int, ...] = ()   # () -> every rank on one 'data' axis

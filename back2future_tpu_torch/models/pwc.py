@@ -30,6 +30,13 @@ on bands) a sharded level's outputs stay its band, its group holding
 the band's `Band` under "band" (None for a whole level), and its image
 warps warp the whole image pyramid by the band's flow through the row
 window, with no gather (the input frames take no gradient).
+
+The forward and `from_pyramids` run as spans (utils.timing.span, a
+profiler range only while a profiler runs): `model.pyramid` (the cast,
+the frame stacking and the feature pyramid, the fused stem included),
+then `model.decode` (`_decode`), inside which each coarse-to-fine level
+l is `model.level{l}`, l the `RowLayout`'s numbering (1 = full
+resolution), as SPyNet names its levels.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from ..ops import (
 from ..ops.pyramid import upsample_bilinear2x_rows
 from ..ops.stem import fused_stem, stem_eligible, stem_enabled
 from ..parallel.spatial import Band, Comm, gather_rows, halo_rows, level_plan, shard_rows
+from ..utils.timing import span
 from .layers import ConvUnit, Decoder
 
 # d = 16 (models/pwc.lua:29); feature dims per level (models/pwc.lua:89)
@@ -292,18 +300,20 @@ class PWCNet(nn.Module):
         if x.shape[-1] != 3 * cfg.frames:
             raise ValueError(f"expected {3 * cfg.frames} input channels, "
                              f"got {x.shape[-1]}")
-        x = x.to(cfg.dtype)
-        f_i, l_i = self._frame_range()
-        # the weights are shared across frames, so ONE conv chain runs
-        # over the frame-stacked batch and is split afterwards
-        f_range = list(range(f_i, l_i + 1))
-        stacked = torch.cat([x[..., 3 * (f - 1):3 * f] for f in f_range], dim=0)
-        rows = self._rows(x.shape[1])
-        css = self._features(stacked, rows)
-        n = x.shape[0]
-        cs = {f: {l: feat[k * n:(k + 1) * n] for l, feat in css.items()}
-              for k, f in enumerate(f_range)}
-        return self._decode(x, cs, with_warped, rows, bands)
+        with span("model.pyramid"):
+            x = x.to(cfg.dtype)
+            f_i, l_i = self._frame_range()
+            # the weights are shared across frames, so ONE conv chain runs
+            # over the frame-stacked batch and is split afterwards
+            f_range = list(range(f_i, l_i + 1))
+            stacked = torch.cat([x[..., 3 * (f - 1):3 * f] for f in f_range], dim=0)
+            rows = self._rows(x.shape[1])
+            css = self._features(stacked, rows)
+            n = x.shape[0]
+            cs = {f: {l: feat[k * n:(k + 1) * n] for l, feat in css.items()}
+                  for k, f in enumerate(f_range)}
+        with span("model.decode"):
+            return self._decode(x, cs, with_warped, rows, bands)
 
     def pyramid(self, frame: torch.Tensor) -> Dict[int, torch.Tensor]:
         """Siamese feature pyramid of ONE frame: (B, H, W, 3) -> {level:
@@ -329,9 +339,12 @@ class PWCNet(nn.Module):
         if missing:
             raise ValueError(f"from_pyramids: missing pyramids for frames "
                              f"{missing} (need {f_i}..{l_i})")
-        cs = {f: {l: feat.to(cfg.dtype) for l, feat in d.items()}
-              for f, d in cs.items()}
-        return self._decode(x.to(cfg.dtype), cs, with_warped, self._rows(x.shape[1]), False)
+        with span("model.pyramid"):
+            x = x.to(cfg.dtype)
+            cs = {f: {l: feat.to(cfg.dtype) for l, feat in d.items()}
+                  for f, d in cs.items()}
+        with span("model.decode"):
+            return self._decode(x, cs, with_warped, self._rows(x.shape[1]), False)
 
     def _decode(self, x: torch.Tensor, cs: Dict[int, Dict[int, torch.Tensor]],
                 with_warped: bool, rows: RowLayout, bands: bool) -> List[Dict[str, Any]]:
@@ -364,120 +377,121 @@ class PWCNet(nn.Module):
         place = (lambda t, res: t) if bands else rows.whole
 
         for l in range(levels, l_st - 1, -1):
-            comm = rows.comm(l)
-            # cost-volume inputs: raw features at the coarsest level, warped
-            # features below (models/pwc.lua:238-244)
-            inp = cs if l == levels else ws
-            future = [inp[f][l] for f in range(ref + 1, l_i + 1)]
-            cv_fwd = cost_volume_multi(cs[ref][l], future, cfg.win, fwd=True, comm=comm)
-            if multi:
-                past = [inp[f][l] for f in range(ref - 1, 0, -1)]
-                cv_bwd = cost_volume_multi(cs[ref][l], past, cfg.win, fwd=False, comm=comm)
-                cvs_occ = torch.cat([cv_fwd, cv_bwd], dim=-1)
-                cvs_flow = cv_fwd + cv_bwd if cfg.sum_cvs else cvs_occ
-            else:
-                cvs_flow = cvs_occ = cv_fwd
+            with span(f"model.level{l}"):
+                comm = rows.comm(l)
+                # cost-volume inputs: raw features at the coarsest level, warped
+                # features below (models/pwc.lua:238-244)
+                inp = cs if l == levels else ws
+                future = [inp[f][l] for f in range(ref + 1, l_i + 1)]
+                cv_fwd = cost_volume_multi(cs[ref][l], future, cfg.win, fwd=True, comm=comm)
+                if multi:
+                    past = [inp[f][l] for f in range(ref - 1, 0, -1)]
+                    cv_bwd = cost_volume_multi(cs[ref][l], past, cfg.win, fwd=False, comm=comm)
+                    cvs_occ = torch.cat([cv_fwd, cv_bwd], dim=-1)
+                    cvs_flow = cv_fwd + cv_bwd if cfg.sum_cvs else cvs_occ
+                else:
+                    cvs_flow = cvs_occ = cv_fwd
 
-            # occlusion decoder (models/pwc.lua:286-321)
-            if F > 2:
-                occ_in = [cvs_occ, cs[ref][l]]
-                if cfg.two_frame == 1:
-                    occ_in.append(cs[ref + 1][l])
-                if l != levels:
-                    occ_in.append(ufs[l + 1])
-                    if cfg.occ_input == 1:
-                        occ_in.append(uoccs[l + 1])
-                occs[l] = spatial_softmax(
-                    getattr(self, f"occ_decoder_{l}")(torch.cat(occ_in, dim=-1), comm))
-                if cfg.skip > 0 or cfg.occ_input == 1:
-                    uoccs[l] = rows.up_nearest(occs[l], l)
-                if cfg.skip > 0:
-                    so = uoccs[l]
-                    for k in range(2, l_st):
-                        so = rows.up_nearest(so, l + 1 - k)
-                    skip_occs[l] = so
+                # occlusion decoder (models/pwc.lua:286-321)
+                if F > 2:
+                    occ_in = [cvs_occ, cs[ref][l]]
+                    if cfg.two_frame == 1:
+                        occ_in.append(cs[ref + 1][l])
+                    if l != levels:
+                        occ_in.append(ufs[l + 1])
+                        if cfg.occ_input == 1:
+                            occ_in.append(uoccs[l + 1])
+                    occs[l] = spatial_softmax(
+                        getattr(self, f"occ_decoder_{l}")(torch.cat(occ_in, dim=-1), comm))
+                    if cfg.skip > 0 or cfg.occ_input == 1:
+                        uoccs[l] = rows.up_nearest(occs[l], l)
+                    if cfg.skip > 0:
+                        so = uoccs[l]
+                        for k in range(2, l_st):
+                            so = rows.up_nearest(so, l + 1 - k)
+                        skip_occs[l] = so
 
-            # flow decoder(s) (models/pwc.lua:324-352)
-            flow_dec = getattr(self, f"flow_decoder_{l}")
-            past_dec = getattr(self, f"past_decoder_{l}") if cfg.past_flow else None
-            if l == levels:
-                fs[l] = flow_dec(cvs_flow, comm)
-                if cfg.past_flow:
-                    bfs[l] = past_dec(cvs_flow, comm)
-            else:
-                d = flow_dec(torch.cat([cvs_flow, cs[ref][l], ufs[l + 1]], dim=-1), comm)
-                fs[l] = d + ufs[l + 1] if cfg.residual == 1 else d
-                if cfg.past_flow:
-                    db = past_dec(torch.cat([cvs_flow, cs[ref][l], ubfs[l + 1]], dim=-1), comm)
-                    bfs[l] = db + ubfs[l + 1] if cfg.residual == 1 else db
-
-            # upsample flow chains (models/pwc.lua:354-390)
-            if cfg.skip > 0 or l > l_st:
-                ufs[l] = rows.up_bilinear(fs[l], l)
-                if cfg.past_flow:
-                    ubfs[l] = rows.up_bilinear(bfs[l], l)
-                if cfg.rescale_flow == 1:
-                    ufs[l] = ufs[l] * 2.0
+                # flow decoder(s) (models/pwc.lua:324-352)
+                flow_dec = getattr(self, f"flow_decoder_{l}")
+                past_dec = getattr(self, f"past_decoder_{l}") if cfg.past_flow else None
+                if l == levels:
+                    fs[l] = flow_dec(cvs_flow, comm)
                     if cfg.past_flow:
-                        ubfs[l] = ubfs[l] * 2.0
-                if cfg.skip > 0:
-                    su = ufs[l]
-                    sub = ubfs[l] if cfg.past_flow else None
-                    for k in range(2, l_st):
-                        su = rows.up_bilinear(su, l + 1 - k)
-                        if cfg.rescale_flow == 1:
-                            su = su * 2.0
-                        if sub is not None:
-                            sub = rows.up_bilinear(sub, l + 1 - k)
+                        bfs[l] = past_dec(cvs_flow, comm)
+                else:
+                    d = flow_dec(torch.cat([cvs_flow, cs[ref][l], ufs[l + 1]], dim=-1), comm)
+                    fs[l] = d + ufs[l + 1] if cfg.residual == 1 else d
+                    if cfg.past_flow:
+                        db = past_dec(torch.cat([cvs_flow, cs[ref][l], ubfs[l + 1]], dim=-1), comm)
+                        bfs[l] = db + ubfs[l + 1] if cfg.residual == 1 else db
+
+                # upsample flow chains (models/pwc.lua:354-390)
+                if cfg.skip > 0 or l > l_st:
+                    ufs[l] = rows.up_bilinear(fs[l], l)
+                    if cfg.past_flow:
+                        ubfs[l] = rows.up_bilinear(bfs[l], l)
+                    if cfg.rescale_flow == 1:
+                        ufs[l] = ufs[l] * 2.0
+                        if cfg.past_flow:
+                            ubfs[l] = ubfs[l] * 2.0
+                    if cfg.skip > 0:
+                        su = ufs[l]
+                        sub = ubfs[l] if cfg.past_flow else None
+                        for k in range(2, l_st):
+                            su = rows.up_bilinear(su, l + 1 - k)
                             if cfg.rescale_flow == 1:
-                                sub = sub * 2.0
-                    skip_ufs[l] = su
-                    if cfg.past_flow:
-                        skip_ubfs[l] = sub
+                                su = su * 2.0
+                            if sub is not None:
+                                sub = rows.up_bilinear(sub, l + 1 - k)
+                                if cfg.rescale_flow == 1:
+                                    sub = sub * 2.0
+                        skip_ufs[l] = su
+                        if cfg.past_flow:
+                            skip_ubfs[l] = sub
 
-            # this level's outputs at resolution level l - l_st + 1
-            # (models/pwc.lua:458-489)
-            res = l - l_st + 1
-            if cfg.skip == 0:
-                flow, flow_past = fs[l], (bfs[l] if cfg.past_flow else None)
-            else:
-                flow, flow_past = skip_ufs[l], (skip_ubfs[l] if cfg.past_flow else None)
-            occ = (skip_occs[l] if cfg.skip > 0 else occs[l]) if F > 2 else None
-            outs[l] = {"flow": place(flow, res),
-                       "flow_past": None if flow_past is None else place(flow_past, res),
-                       "occ": None if occ is None else place(occ, res)}
-            if bands:
-                outs[l]["band"] = rows.band_of(res)
+                # this level's outputs at resolution level l - l_st + 1
+                # (models/pwc.lua:458-489)
+                res = l - l_st + 1
+                if cfg.skip == 0:
+                    flow, flow_past = fs[l], (bfs[l] if cfg.past_flow else None)
+                else:
+                    flow, flow_past = skip_ufs[l], (skip_ubfs[l] if cfg.past_flow else None)
+                occ = (skip_occs[l] if cfg.skip > 0 else occs[l]) if F > 2 else None
+                outs[l] = {"flow": place(flow, res),
+                           "flow_past": None if flow_past is None else place(flow_past, res),
+                           "occ": None if occ is None else place(occ, res)}
+                if bands:
+                    outs[l]["band"] = rows.band_of(res)
 
-            # warps (models/pwc.lua:392-448)
-            for f in range(1, F + 1):
-                if f == ref:
-                    continue
-                # feature warp for the next (finer) level's cost volumes
-                if l > l_st and f_i <= f <= l_i:
+                # warps (models/pwc.lua:392-448)
+                for f in range(1, F + 1):
+                    if f == ref:
+                        continue
+                    # feature warp for the next (finer) level's cost volumes
+                    if l > l_st and f_i <= f <= l_i:
+                        if cfg.rescale_flow == 1:
+                            m = factor * (f - ref)
+                        else:
+                            m = factor * (f - ref) / (2.0 ** (l - 2))
+                        ws[f][l - 1] = rows.warp(cs[f][l - 1], ufs[l] * m, l - 1,
+                                                 cfg.reference_grads)
+
+                    if not with_warped:
+                        continue
+                    # image warp at this level's output resolution: the whole
+                    # image pyramid by the outputs' rows
+                    base = outs[l]["flow_past" if (cfg.past_flow and f < ref) else "flow"]
+                    # the past multiplier stays negative even with a separate
+                    # past decoder, so hard-model weights transfer
+                    # (models/pwc.lua:438-444)
                     if cfg.rescale_flow == 1:
                         m = factor * (f - ref)
                     else:
-                        m = factor * (f - ref) / (2.0 ** (l - 2))
-                    ws[f][l - 1] = rows.warp(cs[f][l - 1], ufs[l] * m, l - 1,
-                                             cfg.reference_grads)
-
-                if not with_warped:
-                    continue
-                # image warp at this level's output resolution: the whole
-                # image pyramid by the outputs' rows
-                base = outs[l]["flow_past" if (cfg.past_flow and f < ref) else "flow"]
-                # the past multiplier stays negative even with a separate
-                # past decoder, so hard-model weights transfer
-                # (models/pwc.lua:438-444)
-                if cfg.rescale_flow == 1:
-                    m = factor * (f - ref)
-                else:
-                    m = factor * (f - ref) / (2.0 ** (l - l_st))
-                src = ds[f][l - l_st]
-                iws[f][l] = (rows.warp_whole(src, base * m, res, cfg.reference_grads) if bands
-                             else warp_bilinear(src, base * m,
-                                                reference_grads=cfg.reference_grads))
+                        m = factor * (f - ref) / (2.0 ** (l - l_st))
+                    src = ds[f][l - l_st]
+                    iws[f][l] = (rows.warp_whole(src, base * m, res, cfg.reference_grads) if bands
+                                 else warp_bilinear(src, base * m,
+                                                    reference_grads=cfg.reference_grads))
 
         # output groups, FINEST first (models/pwc.lua:458-489)
         return [{**outs[l],

@@ -35,6 +35,12 @@ window (`warp_bilinear(..., y0=)`), and the output warps, whose sources
 are warped frames with a gradient, gather them first. The outputs come
 whole, or with `bands=True` as their bands with the group's "band"
 (models/pwc.py).
+
+The forward runs as spans (utils.timing.span, a profiler range only
+while a profiler runs): `model.pyramid` (the cast and the input
+pyramid), then `model.decode` (`_decode`), inside which each level is
+`model.level{r}`, r its resolution level (1 = full resolution), as
+models/pwc.py names its levels.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch.nn.functional as F
 
 from ..ops import avg_pool2, spatial_softmax
 from ..parallel.spatial import Comm
+from ..utils.timing import span
 from .layers import Conv
 from .pwc import DTYPES, RowLayout
 
@@ -149,11 +156,29 @@ class SPyNet(nn.Module):
         """x: (B, H, W, 3*frames) frame stack, H and W divisible by
         2**(levels-1). `bands`: module docstring."""
         cfg = self.cfg
+        levels = cfg.levels
+        if x.shape[-1] != 3 * cfg.frames:
+            raise ValueError(f"expected {3 * cfg.frames} input channels, got {x.shape[-1]}")
+        with span("model.pyramid"):
+            x = x.to(cfg.dtype)
+            rows = self._rows(x.shape[1])
+            # input pyramid, level l in 1..levels (1 = coarsest;
+            # models/spynet.lua:85-90), whole
+            downs = {levels: x}
+            for l in range(levels - 1, 0, -1):
+                downs[l] = avg_pool2(downs[l + 1])
+        with span("model.decode"):
+            return self._decode(downs, rows, with_warped, bands)
+
+    def _decode(self, downs: Dict[int, torch.Tensor], rows: RowLayout, with_warped: bool,
+                bands: bool) -> List[Dict[str, Any]]:
+        """Coarse to fine over the input pyramid `downs`: each level's
+        input warps, trunk, heads and output warps, then the output
+        groups, finest first."""
+        cfg = self.cfg
         F_, ref, levels = cfg.frames, cfg.ref, cfg.levels
         factor = cfg.flownet_factor
         rg = cfg.reference_grads
-        if x.shape[-1] != 3 * F_:
-            raise ValueError(f"expected {3 * F_} input channels, got {x.shape[-1]}")
 
         def frame_slice(t, f):
             return t[..., 3 * (f - 1): 3 * f]
@@ -163,82 +188,75 @@ class SPyNet(nn.Module):
                 return factor * (f - ref)
             return factor * (f - ref) / (2.0 ** exponent)
 
-        x = x.to(cfg.dtype)
-        rows = self._rows(x.shape[1])
-        # input pyramid, level l in 1..levels (1 = coarsest;
-        # models/spynet.lua:85-90), whole
-        downs = {levels: x}
-        for l in range(levels - 1, 0, -1):
-            downs[l] = avg_pool2(downs[l + 1])
-
         out_levels: Dict[int, Dict[str, Any]] = {}
         prev_flow = prev_occ = None
         for l in range(1, levels + 1):
-            lvl = levels - l  # the reference's `lvl` exponent
             r = levels + 1 - l   # the resolution level of the row layout
-            comm = rows.comm(r)
-            # the level's frames: the reference frame as it is, the others
-            # warped by the upsampled coarser flow (models/spynet.lua:92-111)
-            if l == 1:
-                ups_flow = None
-                level_in = rows.band(downs[l], r)
-            else:
-                ups_flow = rows.up_bilinear(prev_flow, r + 1)
-                if cfg.rescale_flow == 1:
-                    ups_flow = ups_flow * 2.0
-                frames_in = {}
+            with span(f"model.level{r}"):
+                lvl = levels - l  # the reference's `lvl` exponent
+                comm = rows.comm(r)
+                # the level's frames: the reference frame as it is, the others
+                # warped by the upsampled coarser flow (models/spynet.lua:92-111)
+                if l == 1:
+                    ups_flow = None
+                    level_in = rows.band(downs[l], r)
+                else:
+                    ups_flow = rows.up_bilinear(prev_flow, r + 1)
+                    if cfg.rescale_flow == 1:
+                        ups_flow = ups_flow * 2.0
+                    frames_in = {}
+                    for f in range(1, F_ + 1):
+                        frame = frame_slice(downs[l], f)
+                        frames_in[f] = (rows.band(frame, r) if f == ref else
+                                        rows.warp_whole(frame.contiguous(),
+                                                        ups_flow * multiplier(f, lvl), r, rg))
+                    parts = [frames_in[f] for f in range(1, F_ + 1)]
+                    if cfg.flow_input == 1:
+                        parts.append(ups_flow)
+                    if F_ > 2 and cfg.occ_input == 1:
+                        parts.append(rows.up_nearest(prev_occ, r + 1))
+                    level_in = torch.cat(parts, dim=-1)
+
+                trunk = getattr(self, f"trunk_{l}")(level_in, comm)
+                flow = getattr(self, f"flow_head_{l}")(trunk, comm)
+                # residual add inside the level (models/spynet.lua:33-35)
+                if ups_flow is not None and cfg.residual == 1:
+                    flow = flow + ups_flow
+
+                occ = None
+                if F_ > 2:
+                    occ = spatial_softmax(getattr(self, f"occ_head_{l}")(trunk, comm))
+
+                # per-level output warps re-warp the level INPUT frames, which
+                # for f != ref are already-warped frames (models/spynet.lua:37-57)
+                warped = []
                 for f in range(1, F_ + 1):
-                    frame = frame_slice(downs[l], f)
-                    frames_in[f] = (rows.band(frame, r) if f == ref else
-                                    rows.warp_whole(frame.contiguous(),
-                                                    ups_flow * multiplier(f, lvl), r, rg))
-                parts = [frames_in[f] for f in range(1, F_ + 1)]
-                if cfg.flow_input == 1:
-                    parts.append(ups_flow)
-                if F_ > 2 and cfg.occ_input == 1:
-                    parts.append(rows.up_nearest(prev_occ, r + 1))
-                level_in = torch.cat(parts, dim=-1)
+                    if f == ref or not with_warped:
+                        continue
+                    m = flow * multiplier(f, lvl)
+                    warped.append(rows.warp_whole(frame_slice(downs[l], f).contiguous(), m, r, rg)
+                                  if l == 1 else rows.warp(frames_in[f], m, r, rg))
 
-            trunk = getattr(self, f"trunk_{l}")(level_in, comm)
-            flow = getattr(self, f"flow_head_{l}")(trunk, comm)
-            # residual add inside the level (models/spynet.lua:33-35)
-            if ups_flow is not None and cfg.residual == 1:
-                flow = flow + ups_flow
+                out_flow = flow
+                # second residual add on the OUTPUT flow only
+                # (models/spynet.lua:144-147)
+                if ups_flow is not None and cfg.residual == 1:
+                    out_flow = out_flow + ups_flow
 
-            occ = None
-            if F_ > 2:
-                occ = spatial_softmax(getattr(self, f"occ_head_{l}")(trunk, comm))
-
-            # per-level output warps re-warp the level INPUT frames, which
-            # for f != ref are already-warped frames (models/spynet.lua:37-57)
-            warped = []
-            for f in range(1, F_ + 1):
-                if f == ref or not with_warped:
-                    continue
-                m = flow * multiplier(f, lvl)
-                warped.append(rows.warp_whole(frame_slice(downs[l], f).contiguous(), m, r, rg)
-                              if l == 1 else rows.warp(frames_in[f], m, r, rg))
-
-            out_flow = flow
-            # second residual add on the OUTPUT flow only
-            # (models/spynet.lua:144-147)
-            if ups_flow is not None and cfg.residual == 1:
-                out_flow = out_flow + ups_flow
-
-            place = (lambda t: t) if bands else (lambda t: rows.whole(t, r))
-            out_levels[l] = {
-                "flow": place(out_flow),
-                "flow_past": None,
-                "occ": None if occ is None else place(occ),
-                "warped": [place(w) for w in warped],
-                "flow_scale": cfg.flow_scales[levels - l],
-            }
-            if bands:
-                out_levels[l]["band"] = rows.band_of(r)
-            # the next level upsamples out_level[l-1][1] — the OUTPUT flow,
-            # i.e. the doubled flow when residual=1 (models/spynet.lua:99,146)
-            prev_flow = out_flow
-            prev_occ = occ
+                place = (lambda t: t) if bands else (lambda t: rows.whole(t, r))
+                out_levels[l] = {
+                    "flow": place(out_flow),
+                    "flow_past": None,
+                    "occ": None if occ is None else place(occ),
+                    "warped": [place(w) for w in warped],
+                    "flow_scale": cfg.flow_scales[levels - l],
+                }
+                if bands:
+                    out_levels[l]["band"] = rows.band_of(r)
+                # the next level upsamples out_level[l-1][1] — the OUTPUT flow,
+                # i.e. the doubled flow when residual=1 (models/spynet.lua:99,146)
+                prev_flow = out_flow
+                prev_occ = occ
 
         # finest first
         return [out_levels[l] for l in range(levels, 0, -1)]

@@ -52,6 +52,7 @@ step waits for the device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import time
 from pathlib import Path
@@ -66,7 +67,7 @@ from ..data import (FlowDataset, PrefetchLoader, SampleConfig, device_prefetch,
 from ..losses import build_criterions
 from ..models.factory import model_and_config
 from ..parallel import distributed
-from ..utils import StepTimer, SymbolLogger
+from ..utils import StepTimer, SymbolLogger, maybe_profile
 from .checkpoint import load_or_convert, load_train_checkpoint, save_checkpoint
 from .optim import lr_for_epoch
 from .state import TrainState, create_train_state
@@ -75,6 +76,9 @@ from .step import make_eval_step, make_train_step
 # steps whose logs may be in flight before the oldest is read, at least
 # (back2future_tpu/train/loop.py:206: max(2, prefetch_depth, 16))
 DRAIN_DEPTH = 16
+# the steps of a run's first epoch that `trace_dir` traces: three, after
+# one of warm-up
+TRACED_STEPS = range(1, 4)
 
 
 def build_model(opt: Options):
@@ -201,9 +205,12 @@ def _read(pending) -> Dict[str, float]:
 
 
 def train_epoch(epoch: int, state: TrainState, step, loader, opt, logger: SymbolLogger,
-                device, verbose: bool = True) -> Tuple[TrainState, Dict[str, float]]:
+                device, verbose: bool = True, trace_dir: Optional[str] = None
+                ) -> Tuple[TrainState, Dict[str, float]]:
     """One training epoch (train.lua:108-186). `verbose`: print the
-    console lines (rank 0 does)."""
+    console lines (rank 0 does). With `trace_dir`, the steps of
+    `TRACED_STEPS` run under `utils.maybe_profile`, which writes their
+    trace, the step's spans included, to `<trace_dir>/trace.json`."""
     state = state.with_epoch(epoch, opt)
     # pin the sample stream to the global epoch (1-based loop -> 0-based
     # stream) so resumed runs draw epoch N's data, not epoch 1's again
@@ -232,14 +239,20 @@ def train_epoch(epoch: int, state: TrainState, step, loader, opt, logger: Symbol
 
     drain_depth = max(opt.prefetch_depth, DRAIN_DEPTH)
     pending_q = collections.deque()
-    for i, batch in enumerate(device_prefetch(iter(loader), device, depth=opt.prefetch_depth)):
-        timer.data_loaded()
-        state, logs = step(state, batch)
-        pending_q.append((i, _to_host(logs), timer.data_time))
-        if len(pending_q) > drain_depth:
-            drain(pending_q.popleft())
-        if opt.debug == 1:
-            _debug_dump(opt.save, epoch, i, state.model, batch, opt.frames)
+    with contextlib.ExitStack() as tracing:
+        batches = device_prefetch(iter(loader), device, depth=opt.prefetch_depth)
+        for i, batch in enumerate(batches):
+            if trace_dir and i == TRACED_STEPS.start:
+                tracing.enter_context(maybe_profile(trace_dir))
+            timer.data_loaded()
+            state, logs = step(state, batch)
+            pending_q.append((i, _to_host(logs), timer.data_time))
+            if len(pending_q) > drain_depth:
+                drain(pending_q.popleft())
+            if opt.debug == 1:
+                _debug_dump(opt.save, epoch, i, state.model, batch, opt.frames)
+            if i == TRACED_STEPS.stop - 1:
+                tracing.close()
     while pending_q:
         drain(pending_q.popleft())
 
@@ -454,8 +467,9 @@ def _train(opt: Options, max_epochs: Optional[int], local_rank: int, rank: int) 
     last = opt.nEpochs if max_epochs is None else min(opt.nEpochs, epoch0 + max_epochs - 1)
     distributed.sync_hosts()
     for epoch in range(epoch0, last + 1):
+        trace_dir = opt.trace_dir if epoch == epoch0 and is_main else None
         state, _ = train_epoch(epoch, state, step, train_loader, opt, train_log, device,
-                               verbose=is_main)
+                               verbose=is_main, trace_dir=trace_dir)
         if val_loader is not None:
             eval_epoch(epoch, eval_step, val_loader, opt, test_log, device, verbose=is_main)
         if epoch % opt.epochStore == 0 and is_main:

@@ -20,6 +20,14 @@ occlusion ones only when the model has an occlusion head: `frames > 2
 and not no_occ`). Nothing in either step reads a device value on the
 host: the logs are 0-d device tensors.
 
+A train step runs as five spans (utils.timing.span; they open a
+profiler range only while a profiler runs), in order and unnested:
+`step.decode`, `step.forward`, `step.loss` (the loss and its logs),
+`step.backward` (the gradients' reset, which sets them to None and
+launches nothing, and `backward`) and `step.optimizer` (the regime LR
+and the update). The gradients stay on the parameters after a step. The
+eval step opens none.
+
 Inside a process group (parallel/distributed.py; of one rank too) the
 train step runs the net through DistributedDataParallel, whose
 gradient hook sums the ranks' gradients of their loss shares
@@ -48,6 +56,7 @@ import torch.utils.checkpoint
 
 from ..data.wire import decode_batch
 from ..parallel.distributed import all_reduce_sum, data_parallel, in_group, sum_gradients_hook
+from ..utils.timing import span
 from .metrics import full_res_metrics
 from .multiscale import multiscale_loss
 from .optim import lr_for_epoch
@@ -126,15 +135,20 @@ def make_train_step(model: torch.nn.Module, opt, crits) -> Callable:
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        batch = decode_batch(batch)
         optimizer = state.optimizer
-        optimizer.set_lr(lr_for_epoch(state.epoch, opt.LR))
-        optimizer.zero_grad()
-        outputs = forward(batch["images"], with_warped)
-        loss, comps = multiscale_loss(outputs, batch, opt, crits)
-        logs = _logs(loss, comps, outputs, batch, opt)
-        loss.backward()
-        optimizer.step()
+        with span("step.decode"):
+            batch = decode_batch(batch)
+        with span("step.forward"):
+            outputs = forward(batch["images"], with_warped)
+        with span("step.loss"):
+            loss, comps = multiscale_loss(outputs, batch, opt, crits)
+            logs = _logs(loss, comps, outputs, batch, opt)
+        with span("step.backward"):
+            optimizer.zero_grad()
+            loss.backward()
+        with span("step.optimizer"):
+            optimizer.set_lr(lr_for_epoch(state.epoch, opt.LR))
+            optimizer.step()
         return dataclasses.replace(state, step=state.step + 1), logs
 
     step.forward = forward   # the module the step runs: DDP inside a group

@@ -180,7 +180,7 @@ def test_port_imports_no_jax():
         "from back2future_tpu_torch import api, data, io, losses, ops, models, runtime, train\n"
         "from back2future_tpu_torch import eval, learn_demo, main, utils\n"
         "from back2future_tpu_torch import (convert_t7, demo, export_serving, flow_viz_demo,"
-        " make_manifests, op_overhead, overfit_probe, parity, serve_bench)\n"
+        " make_manifests, overfit_probe, parity, serve_bench)\n"
         "from back2future_tpu_torch.io import t7\n"
         "from back2future_tpu_torch.models import convert, factory, spynet\n"
         "import torch\n"

@@ -239,17 +239,3 @@ def test_serve_bench_prints_a_line_per_path(roaming_set, capsys, monkeypatch):
     for r in records:
         assert all(isinstance(r[k], float) and r[k] >= 0 for k in keys), r
         assert r["device"] == "cpu" and r["iters"] == 1
-
-
-def test_op_overhead_times_every_way(capsys):
-    """`op_overhead --cpu` times the four registrations, forward and
-    forward + backward, and can run twice in one process."""
-    from back2future_tpu_torch import op_overhead
-
-    for _ in range(2):
-        medians = op_overhead.main(["--cpu", "--turns", "2", "--calls", "3"])
-    ways = ("function", "op", "op_setup", "generated")
-    assert sorted(medians) == sorted(f"{w} {m}" for w in ways
-                                     for m in ("forward", "forward+backward"))
-    assert all(v > 0 for v in medians.values()), medians
-    assert capsys.readouterr().out.count("µs a call") == 16
